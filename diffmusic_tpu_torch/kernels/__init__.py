@@ -1,0 +1,25 @@
+"""Hand-written Hopper kernels: the counterparts of `diffmusic_tpu/pallas`.
+
+Each module holds a kernel's wrapper, its plain PyTorch version and its launch
+counter; the CUDA sources are in `csrc/` and `build.py` compiles them at first
+use on a machine with `nvcc`. Ported so far: the four kernels of the MusicLDM
+DPS main path.
+"""
+
+from . import conv1d, transformer_block, upsampler
+
+_COUNTERS = (conv1d.LAUNCHES, upsampler.LAUNCHES, transformer_block.LAUNCHES)
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel since the last `reset_launch_counts()`."""
+    out = {}
+    for counter in _COUNTERS:
+        out.update(counter)
+    return out
+
+
+def reset_launch_counts() -> None:
+    for counter in _COUNTERS:
+        for name in counter:
+            counter[name] = 0

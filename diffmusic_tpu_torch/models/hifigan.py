@@ -1,0 +1,110 @@
+"""HiFi-GAN vocoder, SpeechT5HifiGan-compatible (port of
+`diffmusic_tpu/models/hifigan.py`).
+
+Activations are (B, T, C), the kernels' layout, and every convolution weight
+is kept in the kernels' math layout (k, Cin, Cout), so no per-call transposes
+stand between the weights and the kernels. Routing follows the JAX package on
+a TPU:
+  - a resblock iteration (convs1_i, convs2_i) runs as ONE `conv1d_fused_pair`
+    launch where `pair_ok` holds (128-aligned channels, pair weights <= 9 MB in
+    the activation dtype: in bf16 every ch512 pair but k=11, and all ch256 and
+    ch128 pairs);
+  - the other resblock convs with 128-aligned channels run `conv1d_fused`;
+  - upsamplers with `phase_ct_ok` channels (1024->512, 512->256, 256->128)
+    run `phase_convtranspose`;
+  - the 64- and 32-channel stages, conv_pre and conv_post are plain
+    F.conv1d / F.conv_transpose1d (the plain versions beside the kernels).
+"""
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..kernels.conv1d import conv1d_fused, conv1d_fused_pair, conv1d_plain, pair_ok
+from ..kernels.upsampler import (convtranspose_plain, output_length,
+                                 phase_convtranspose, phase_ct_ok)
+from .configs import HiFiGANConfig
+
+
+class Conv1dParams(nn.Module):
+    """A conv1d's parameters in math layout: weight (k, Cin, Cout), bias (Cout,).
+
+    `fan_in` is the flax initializer's fan-in for this kernel (k * Cin, but
+    k * Cout for the ConvTranspose upsamplers, whose flax kernels are laid out
+    (k, Cout, Cin))."""
+
+    def __init__(self, k: int, cin: int, cout: int, fan_in: Optional[int] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(k, cin, cout))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.fan_in = fan_in if fan_in is not None else k * cin
+
+
+class ResidualBlock(nn.Module):
+    """HifiGanResidualBlock: (lrelu -> dilated conv -> lrelu -> conv) + skip, xN."""
+
+    def __init__(self, channels: int, kernel_size: int, dilations, slope: float):
+        super().__init__()
+        self.channels, self.kernel_size = channels, kernel_size
+        self.dilations, self.slope = tuple(dilations), slope
+        for i in range(len(self.dilations)):
+            setattr(self, f"convs1_{i}", Conv1dParams(kernel_size, channels, channels))
+            setattr(self, f"convs2_{i}", Conv1dParams(kernel_size, channels, channels))
+
+    def forward(self, x):
+        c, k, s = self.channels, self.kernel_size, self.slope
+        for i, d in enumerate(self.dilations):
+            c1, c2 = getattr(self, f"convs1_{i}"), getattr(self, f"convs2_{i}")
+            if pair_ok(k, c, c, x.dtype):
+                x = conv1d_fused_pair(x, c1.weight, c1.bias, c2.weight, c2.bias, d, s)
+            elif c % 128 == 0:
+                h = conv1d_fused(x, c1.weight, c1.bias, None, d, s)
+                x = conv1d_fused(h, c2.weight, c2.bias, x, 1, s)
+            else:
+                h = conv1d_plain(x, c1.weight, c1.bias, d, s)
+                x = conv1d_plain(h, c2.weight, c2.bias, 1, s, residual=x)
+        return x
+
+
+class SpeechT5HifiGan(nn.Module):
+    def __init__(self, cfg: HiFiGANConfig):
+        super().__init__()
+        if cfg.normalize_before:
+            raise ValueError("normalize_before=True is not ported yet")
+        self.cfg = cfg
+        uic = cfg.upsample_initial_channel
+        self.conv_pre = Conv1dParams(7, cfg.model_in_dim, uic)
+        for i, (rate, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+            ch = uic // 2 ** (i + 1)
+            setattr(self, f"upsampler_{i}", Conv1dParams(k, uic // 2 ** i, ch,
+                                                         fan_in=k * ch))
+            for j, (rk, dil) in enumerate(zip(cfg.resblock_kernel_sizes,
+                                              cfg.resblock_dilation_sizes)):
+                setattr(self, f"resblocks_{i * len(cfg.resblock_kernel_sizes) + j}",
+                        ResidualBlock(ch, rk, dil, cfg.leaky_relu_slope))
+        self.conv_post = Conv1dParams(7, uic // 2 ** len(cfg.upsample_rates), 1)
+
+    def forward(self, spectrogram: torch.Tensor) -> torch.Tensor:
+        """(B, T, model_in_dim) log-mel -> (B, T * hop_length) waveform."""
+        cfg = self.cfg
+        slope = cfg.leaky_relu_slope
+        nk = len(cfg.resblock_kernel_sizes)
+        x = conv1d_plain(spectrogram, self.conv_pre.weight, self.conv_pre.bias)
+        for i, (rate, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+            up = getattr(self, f"upsampler_{i}")
+            cin, cout = up.weight.shape[1:]
+            if phase_ct_ok(cin, cout):
+                x = phase_convtranspose(x, up.weight, up.bias, rate, k,
+                                        output_length(x.shape[1], rate, k), slope)
+            else:
+                x = convtranspose_plain(F.leaky_relu(x, slope),
+                                        up.weight, up.bias, rate, k)
+            res = None
+            for j in range(nk):
+                out = getattr(self, f"resblocks_{i * nk + j}")(x)
+                res = out if res is None else res + out
+            x = res / nk
+        x = conv1d_plain(x, self.conv_post.weight, self.conv_post.bias, slope=slope)
+        return torch.tanh(x)[..., 0]

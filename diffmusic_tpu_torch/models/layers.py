@@ -1,0 +1,231 @@
+"""Building blocks of the MusicLDM UNet and VAE decoder (port of
+`diffmusic_tpu/models/layers.py`).
+
+NCHW at module boundaries (PyTorch idiom); the transformer blocks run on
+(B, H*W, C) tokens in the same row-major (h, w) order as the JAX package's
+NHWC reshape. Module attribute names follow the flax parameter tree, so
+`models/convert.py::from_flax` only renames `kernel`/`scale` and transposes.
+GroupNorm and Conv2d are plain PyTorch, as the JAX default routing is plain
+XLA; the transformer blocks with T >= 512 and inner == C route to the fused
+kernel (`kernels/transformer_block.py`) by the JAX package's `fusable` rule.
+"""
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..kernels.transformer_block import fused_transformer_block
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
+                       downscale_freq_shift: float = 0.0,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal timestep embedding (diffusers Timesteps semantics), fp32."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32,
+                                                    device=timesteps.device)
+    freqs = torch.exp(exponent / (half - downscale_freq_shift))
+    args = timesteps.float()[:, None] * freqs[None, :]
+    sin, cos = torch.sin(args), torch.cos(args)
+    emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over NCHW with fp32 statistics (var = E[x^2] - mu^2, as the
+    JAX package computes it) and an optional fused SiLU; output in x.dtype."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float, use_silu: bool = False):
+        super().__init__()
+        self.num_groups, self.eps, self.use_silu = num_groups, eps, use_silu
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        b, c = x.shape[:2]
+        xg = x.float().reshape(b, self.num_groups, -1)
+        mu = xg.mean(-1, keepdim=True)
+        var = xg.square().mean(-1, keepdim=True) - mu * mu
+        y = ((xg - mu) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        y = y * self.weight.float().reshape(shape) + self.bias.float().reshape(shape)
+        if self.use_silu:
+            y = F.silu(y)
+        return y.to(x.dtype)
+
+
+def conv3x3(cin: int, cout: int) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, padding=1)
+
+
+class Dense(nn.Module):
+    """flax `Dense`: weight in math layout (in, out), y = x @ weight + bias.
+
+    The fused transformer block's kernel takes its weights in this layout, so
+    they reach it without a transpose or a copy."""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(in_dim, out_dim))
+        self.bias = nn.Parameter(torch.zeros(out_dim)) if bias else None
+
+    def forward(self, x):
+        # one fused matmul + bias, as nn.Linear; the transposed view is not copied
+        return F.linear(x, self.weight.t(), self.bias)
+
+
+class TimestepEmbedding(nn.Module):
+    """linear -> silu -> linear projection of the sinusoidal embedding."""
+
+    def __init__(self, in_dim: int, dim: int):
+        super().__init__()
+        self.linear_1 = Dense(in_dim, dim)
+        self.linear_2 = Dense(dim, dim)
+
+    def forward(self, t_emb):
+        return self.linear_2(F.silu(self.linear_1(t_emb)))
+
+
+class ResnetBlock2D(nn.Module):
+    """GroupNorm/SiLU/Conv x2 with a time-embedding shift and skip connection."""
+
+    def __init__(self, in_channels: int, out_channels: int, groups: int = 32,
+                 eps: float = 1e-5, temb_dim: Optional[int] = None):
+        super().__init__()
+        self.norm1 = GroupNorm(groups, in_channels, eps, use_silu=True)
+        self.conv1 = conv3x3(in_channels, out_channels)
+        self.time_emb_proj = Dense(temb_dim, out_channels) if temb_dim else None
+        self.norm2 = GroupNorm(groups, out_channels, eps, use_silu=True)
+        self.conv2 = conv3x3(out_channels, out_channels)
+        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x, temb=None):
+        h = self.conv1(self.norm1(x))
+        if self.time_emb_proj is not None and temb is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(self.norm2(h))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class Attention(nn.Module):
+    """Multi-head attention: bias-free q/k/v projections, biased output
+    projection, softmax in fp32 over (B, T, C) tokens."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int):
+        super().__init__()
+        inner = heads * head_dim
+        self.heads, self.head_dim = heads, head_dim
+        self.to_q = Dense(dim, inner, bias=False)
+        self.to_k = Dense(dim, inner, bias=False)
+        self.to_v = Dense(dim, inner, bias=False)
+        self.to_out = Dense(inner, dim)
+
+    def forward(self, x):
+        b, t, _ = x.shape
+        split = lambda a: a.reshape(b, t, self.heads, self.head_dim).transpose(1, 2)
+        q, k, v = split(self.to_q(x)), split(self.to_k(x)), split(self.to_v(x))
+        s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(self.head_dim)
+        o = (s.softmax(-1).to(v.dtype) @ v).transpose(1, 2).reshape(b, t, -1)
+        return self.to_out(o)
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward (diffusers FeedForward default), exact GELU."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.proj_in = Dense(dim, dim * mult * 2)
+        self.proj_out = Dense(dim * mult, dim)
+
+    def forward(self, x):
+        h, gate = self.proj_in(x).chunk(2, dim=-1)
+        return self.proj_out(h * F.gelu(gate))
+
+
+class BasicTransformerBlock(nn.Module):
+    """Self-attention + GEGLU FF, pre-LayerNorm (eps 1e-6). Long sequences
+    (T >= 512 with inner == C) run as one fused kernel launch."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int):
+        super().__init__()
+        self.heads, self.head_dim = heads, head_dim
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn1 = Attention(dim, heads, head_dim)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-6)
+        self.ff = FeedForward(dim)
+
+    def fused_params(self) -> dict:
+        """The block's parameters by the kernel's names."""
+        a, ff = self.attn1, self.ff
+        return dict(ln1_scale=self.norm1.weight, ln1_bias=self.norm1.bias,
+                    wq=a.to_q.weight, wk=a.to_k.weight, wv=a.to_v.weight,
+                    wo=a.to_out.weight, bo=a.to_out.bias,
+                    ln3_scale=self.norm3.weight, ln3_bias=self.norm3.bias,
+                    wi=ff.proj_in.weight, bi=ff.proj_in.bias,
+                    wo2=ff.proj_out.weight, bo2=ff.proj_out.bias)
+
+    def forward(self, x):
+        if x.shape[1] >= 512 and self.heads * self.head_dim == x.shape[-1]:
+            return fused_transformer_block(x, self.fused_params(), self.heads,
+                                           self.head_dim)
+        x = x + self.attn1(self.norm1(x))
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer2DModel(nn.Module):
+    """GroupNorm -> proj_in -> transformer block over (H*W) tokens ->
+    proj_out, with a residual around the whole stack."""
+
+    def __init__(self, channels: int, heads: int, head_dim: int, groups: int = 32):
+        super().__init__()
+        inner = heads * head_dim
+        self.norm = GroupNorm(groups, channels, 1e-6)
+        self.proj_in = Dense(channels, inner)
+        self.block_0 = BasicTransformerBlock(inner, heads, head_dim)
+        self.proj_out = Dense(inner, channels)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        y = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        y = self.block_0(self.proj_in(y))
+        y = self.proj_out(y).reshape(b, h, w, c).permute(0, 3, 1, 2)
+        return y + x
+
+
+class Downsample2D(nn.Module):
+    """diffusers pads (0, 1, 0, 1), then a stride-2 3x3 conv with no padding."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+def _nearest_index(size: int, target: int, device) -> torch.Tensor:
+    """torch F.interpolate(mode="nearest") source rows: i -> floor(i*size/target)."""
+    return (torch.arange(target, device=device) * size) // target
+
+
+class Upsample2D(nn.Module):
+    """Nearest upsampling to `out_hw` (default 2x), then a 3x3 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = conv3x3(channels, channels)
+
+    def forward(self, x, out_hw: Optional[Tuple[int, int]] = None):
+        h, w = x.shape[2:]
+        th, tw = out_hw if out_hw is not None else (2 * h, 2 * w)
+        x = x.index_select(2, _nearest_index(h, th, x.device))
+        x = x.index_select(3, _nearest_index(w, tw, x.device))
+        return self.conv(x)

@@ -1,0 +1,153 @@
+"""Conditional 2-D UNet of MusicLDM (port of `diffmusic_tpu/models/unet.py`).
+
+Only the MusicLDM path: self-attention transformer blocks and the CLAP
+embedding entering as a class label (simple projection, concatenated with the
+time embedding). Cross-attention (AudioLDM2) is still to be ported. NCHW at
+the API boundary.
+"""
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from .configs import UNetConfig
+from .layers import (Dense, Downsample2D, GroupNorm, ResnetBlock2D, TimestepEmbedding,
+                     Transformer2DModel, Upsample2D, conv3x3, timestep_embedding)
+
+
+class DownBlock(nn.Module):
+    def __init__(self, cfg: UNetConfig, in_ch: int, out_ch: int, temb_dim: int,
+                 attention: bool, add_downsample: bool):
+        super().__init__()
+        self.layers = cfg.layers_per_block
+        for i in range(self.layers):
+            setattr(self, f"resnet_{i}", ResnetBlock2D(
+                in_ch if i == 0 else out_ch, out_ch, cfg.norm_num_groups,
+                temb_dim=temb_dim))
+            if attention:
+                setattr(self, f"attn_{i}", Transformer2DModel(
+                    out_ch, out_ch // cfg.attention_head_dim, cfg.attention_head_dim,
+                    cfg.norm_num_groups))
+        self.attention = attention
+        self.downsample = Downsample2D(out_ch) if add_downsample else None
+
+    def forward(self, x, temb):
+        skips = []
+        for i in range(self.layers):
+            x = getattr(self, f"resnet_{i}")(x, temb)
+            if self.attention:
+                x = getattr(self, f"attn_{i}")(x)
+            skips.append(x)
+        if self.downsample is not None:
+            x = self.downsample(x)
+            skips.append(x)
+        return x, skips
+
+
+class UpBlock(nn.Module):
+    def __init__(self, cfg: UNetConfig, in_ch: int, skip_chs, out_ch: int,
+                 temb_dim: int, attention: bool, add_upsample: bool):
+        super().__init__()
+        self.layers = len(skip_chs)
+        for i, skip_ch in enumerate(skip_chs):
+            setattr(self, f"resnet_{i}", ResnetBlock2D(
+                (in_ch if i == 0 else out_ch) + skip_ch, out_ch, cfg.norm_num_groups,
+                temb_dim=temb_dim))
+            if attention:
+                setattr(self, f"attn_{i}", Transformer2DModel(
+                    out_ch, out_ch // cfg.attention_head_dim, cfg.attention_head_dim,
+                    cfg.norm_num_groups))
+        self.attention = attention
+        self.upsample = Upsample2D(out_ch) if add_upsample else None
+
+    def forward(self, x, skips, temb):
+        for i in range(self.layers):
+            x = torch.cat([x, skips.pop()], dim=1)
+            x = getattr(self, f"resnet_{i}")(x, temb)
+            if self.attention:
+                x = getattr(self, f"attn_{i}")(x)
+        if self.upsample is not None:
+            # match the next skip's size (odd sizes ceil-divide on the way down)
+            x = self.upsample(x, tuple(skips[-1].shape[2:]) if skips else None)
+        return x
+
+
+class MidBlock(nn.Module):
+    def __init__(self, cfg: UNetConfig, ch: int, temb_dim: int):
+        super().__init__()
+        g = cfg.norm_num_groups
+        self.resnet_0 = ResnetBlock2D(ch, ch, g, temb_dim=temb_dim)
+        self.attn = Transformer2DModel(ch, ch // cfg.attention_head_dim,
+                                       cfg.attention_head_dim, g)
+        self.resnet_1 = ResnetBlock2D(ch, ch, g, temb_dim=temb_dim)
+
+    def forward(self, x, temb):
+        return self.resnet_1(self.attn(self.resnet_0(x, temb)), temb)
+
+
+class UNet2DConditionModel(nn.Module):
+    """NCHW in/out; `class_labels` (B, 512) is the CLAP conditioning."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        if cfg.cross_attention_dims:
+            raise ValueError("cross-attention UNets (AudioLDM2) are not ported yet")
+        if cfg.class_embed_type not in (None, "simple_projection"):
+            raise ValueError(f"class_embed_type {cfg.class_embed_type!r} is not ported")
+        self.cfg = cfg
+        boc = cfg.block_out_channels
+        ted = cfg.time_embed_dim
+        self.time_embedding = TimestepEmbedding(boc[0], ted)
+        temb_dim = ted
+        self.class_embedding = None
+        if cfg.class_embed_type == "simple_projection":
+            self.class_embedding = Dense(cfg.projection_class_embeddings_input_dim, ted)
+            if cfg.class_embeddings_concat:
+                temb_dim = 2 * ted
+        self.conv_in = conv3x3(cfg.in_channels, boc[0])
+
+        skip_chs = [boc[0]]
+        ch = boc[0]
+        for i, out_ch in enumerate(boc):
+            last = i == len(boc) - 1
+            setattr(self, f"down_{i}", DownBlock(cfg, ch, out_ch, temb_dim,
+                                                 cfg.has_attention[i], not last))
+            skip_chs += [out_ch] * (cfg.layers_per_block + (0 if last else 1))
+            ch = out_ch
+        self.mid = MidBlock(cfg, ch, temb_dim)
+        for i, out_ch in enumerate(reversed(boc)):
+            rev_i = len(boc) - 1 - i
+            n = cfg.layers_per_block + 1
+            mine, skip_chs = skip_chs[-n:][::-1], skip_chs[:-n]
+            setattr(self, f"up_{i}", UpBlock(cfg, ch, mine, out_ch, temb_dim,
+                                             cfg.has_attention[rev_i],
+                                             i != len(boc) - 1))
+            ch = out_ch
+        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch, 1e-5, use_silu=True)
+        self.conv_out = conv3x3(ch, cfg.out_channels)
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                class_labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.cfg
+        x = sample
+        if timesteps.ndim == 0:
+            timesteps = timesteps.expand(x.shape[0])
+        t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0])
+        emb = self.time_embedding(t_emb.to(x.dtype))
+        if self.class_embedding is not None:
+            if class_labels is None:
+                raise ValueError("this UNet is class-conditioned: pass class_labels")
+            class_emb = self.class_embedding(class_labels.to(x.dtype))
+            emb = (torch.cat([emb, class_emb], dim=-1) if cfg.class_embeddings_concat
+                   else emb + class_emb)
+
+        x = self.conv_in(x)
+        skips = [x]
+        for i in range(len(cfg.block_out_channels)):
+            x, s = getattr(self, f"down_{i}")(x, emb)
+            skips.extend(s)
+        x = self.mid(x, emb)
+        for i in range(len(cfg.block_out_channels)):
+            x = getattr(self, f"up_{i}")(x, skips, emb)
+        return self.conv_out(self.conv_norm_out(x))

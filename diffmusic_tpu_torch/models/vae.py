@@ -1,0 +1,71 @@
+"""AutoencoderKL decoder (port of `diffmusic_tpu/models/vae.py`).
+
+Only the decode path, which every guided step differentiates; the encoder is
+still to be ported. The mid-block attention (T = 4000 tokens x 512 channels,
+one head, at 10 s) is plain PyTorch, as the JAX package routes it to plain XLA.
+"""
+
+import torch
+import torch.nn as nn
+
+from .configs import VAEConfig
+from .layers import Attention, GroupNorm, ResnetBlock2D, Upsample2D, conv3x3
+
+
+class VAEAttentionBlock(nn.Module):
+    def __init__(self, channels: int, groups: int = 32):
+        super().__init__()
+        self.group_norm = GroupNorm(groups, channels, 1e-6)
+        self.attention = Attention(channels, heads=1, head_dim=channels)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        y = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        y = self.attention(y)
+        return x + y.reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        g = cfg.norm_num_groups
+        boc = cfg.block_out_channels
+        ch = boc[-1]
+        self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
+        self.conv_in = conv3x3(cfg.latent_channels, ch)
+        self.mid_resnet_0 = ResnetBlock2D(ch, ch, g)
+        self.mid_attn = VAEAttentionBlock(ch, g)
+        self.mid_resnet_1 = ResnetBlock2D(ch, ch, g)
+        for i, out_ch in enumerate(reversed(boc)):
+            for j in range(cfg.layers_per_block + 1):
+                setattr(self, f"up_{i}_resnet_{j}", ResnetBlock2D(ch, out_ch, g))
+                ch = out_ch
+            if i != len(boc) - 1:
+                setattr(self, f"up_{i}_upsample", Upsample2D(ch))
+        self.conv_norm_out = GroupNorm(g, ch, 1e-6, use_silu=True)
+        self.conv_out = conv3x3(ch, cfg.out_channels)
+
+    def forward(self, z):
+        cfg = self.cfg
+        x = self.conv_in(self.post_quant_conv(z))
+        x = self.mid_resnet_1(self.mid_attn(self.mid_resnet_0(x)))
+        for i in range(len(cfg.block_out_channels)):
+            for j in range(cfg.layers_per_block + 1):
+                x = getattr(self, f"up_{i}_resnet_{j}")(x)
+            if i != len(cfg.block_out_channels) - 1:
+                x = getattr(self, f"up_{i}_upsample")(x)
+        return self.conv_out(self.conv_norm_out(x))
+
+
+class AutoencoderKL(nn.Module):
+    """NCHW at the API boundary, like the torch reference."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.decoder = Decoder(cfg)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """(B, latent, h, w) -> (B, C, H, W) mel."""
+        return self.decoder(z)

@@ -1,0 +1,7 @@
+"""DDIM schedule and guided step functions (port of `diffmusic_tpu/samplers`)."""
+
+from .schedule import DiffusionSchedule
+from .steps import SamplerConfig, ddim_step, dps_step, make_step_fn
+
+__all__ = ["DiffusionSchedule", "SamplerConfig", "ddim_step", "dps_step",
+           "make_step_fn"]

@@ -6,19 +6,28 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device: a CUDA device must be present; prints its nvidia-smi name and
      power limit;
   2. build: compiles the kernels from `diffmusic_tpu_torch/kernels/csrc` with
-     nvcc (sm_90a) and prints the seconds taken;
+     nvcc (sm_90a), one process per source, and prints the seconds taken;
   3. kernels: each kernel's wrapper against its plain PyTorch version, on the
-     card, at every shape the 10-s MusicLDM slice gives it (bf16), plus a small
-     fp32 case with TF32 off; forward and, for the vocoder kernels, the input
-     gradient; median times of kernel and plain version from CUDA events;
-  4. reference: a small fp32 model through the whole DPS pipeline on the card
-     (kernels) and on the CPU (plain versions), which must agree;
+     card, at every shape the 10-s MusicLDM and AudioLDM2 slices give it
+     (bf16), plus a small fp32 case with TF32 off; forward and, for the
+     vocoder kernels, the input gradient; median times of kernel and plain
+     version from CUDA events;
+  4. reference: small fp32 MusicLDM and AudioLDM2 models (the latter from a
+     text prompt, under classifier-free guidance, on both UNet routes)
+     through the whole DPS pipeline on the card (kernels) and on the CPU
+     (plain versions), which must agree;
   5. slice: full-width MusicLDM with seeded random bf16 weights, 20 DPS
      steps inpainting a 10-s clip (box mask at 4-6 s) through
      `MusicLDMPipeline.__call__`, with the launch counts of every kernel;
   6. breakdown: each stage of one guided step timed alone at the slice's
      shapes; with --profile also a torch.profiler table of two guided steps
-     and the device busy share, written to --out.
+     and the device busy share, written to --out;
+  7. audioldm2: full-width AudioLDM2 (cvssp/audioldm2-music widths) with
+     seeded random bf16 weights, the empty prompt through the whole text
+     stack (CLAP, T5, projection, GPT-2), the same 20 DPS steps through
+     `AudioLDM2Pipeline.__call__`, once on each UNet route: `fuse_cross` off
+     (flash attention, the JAX default) and on (the dual-cross block); then
+     its per-stage breakdown.
 Then the card's nvidia-smi name and power limit, a JSON line with one entry
 per kernel, and last {"ok": true, "device": {...}}. No JAX is imported.
 """
@@ -39,6 +48,7 @@ import torch
 # bf16 tolerances, as a fraction of max |plain|: one bf16 rounding of an
 # intermediate (h, q, attention output) moves a product by ~2^-8 relative
 TOL_CONV_BF16 = 2e-2
+TOL_FLASH_BF16 = 2e-2
 TOL_BLOCK_BF16 = 3e-2
 # fp32: the kernels accumulate in another order than cuDNN/cuBLAS
 TOL_FP32 = 1e-4
@@ -50,17 +60,25 @@ REPLACES = {
     "conv1d_fused_pair": "diffmusic_tpu/pallas/conv1d_kernel.py:661",
     "conv1d_fused": "diffmusic_tpu/pallas/conv1d_kernel.py:183",
     "phase_convtranspose": "diffmusic_tpu/pallas/upsampler_kernel.py:231",
+    "flash_attention": "diffmusic_tpu/pallas/attention_kernel.py:74",
+    # the dual-cross mode of the same function
+    "fused_transformer_block_cross": "diffmusic_tpu/pallas/transformer_kernel.py:291",
 }
 SOURCES = {
     "fused_transformer_block": "diffmusic_tpu_torch/kernels/csrc/transformer_block.cu",
     "conv1d_fused_pair": "diffmusic_tpu_torch/kernels/csrc/conv1d.cu",
     "conv1d_fused": "diffmusic_tpu_torch/kernels/csrc/conv1d.cu",
     "phase_convtranspose": "diffmusic_tpu_torch/kernels/csrc/upsampler.cu",
+    "flash_attention": "diffmusic_tpu_torch/kernels/csrc/flash_attention.cu",
+    "fused_transformer_block_cross": "diffmusic_tpu_torch/kernels/csrc/transformer_block.cu",
 }
-# launches per guided step of the 10-s slice (UNet levels 0/1: 2 down + 3 up
-# blocks each; vocoder: 24 pairs, the 6 ch512 k=11 convs, upsamplers 0-2)
-PER_STEP = {"fused_transformer_block": 10, "conv1d_fused_pair": 24,
-            "conv1d_fused": 6, "phase_convtranspose": 3}
+# launches per guided step of the 10-s slices (UNet levels 0/1: 2 down + 3 up
+# blocks each; vocoder: 24 pairs, the 6 ch512 k=11 convs, upsamplers 0-2).
+# MusicLDM's blocks are self-attention only; AudioLDM2's are dual-cross, and
+# take flash attention or, with fuse_cross, the dual-cross block.
+VOCODER_PER_STEP = {"conv1d_fused_pair": 24, "conv1d_fused": 6, "phase_convtranspose": 3}
+BLOCK_KERNELS = ("fused_transformer_block", "flash_attention",
+                 "fused_transformer_block_cross")
 
 
 def log(msg: str) -> None:
@@ -200,7 +218,10 @@ def check_upsampler(cin, cout, k, s, t_in, dtype, gen, tol):
     return fwd[0], ms, plain_ms
 
 
-def check_block(t, c, dtype, gen, tol):
+def check_block(t, c, dtype, gen, tol, cross=False):
+    """The fused block at (1, t, c), 8-dim heads; with `cross`, in the
+    dual-cross mode with AudioLDM2's two streams: 8 GPT-2 states of 768,
+    unmasked, and 12 T5 tokens of 1024 whose last 7 are masked."""
     from diffmusic_tpu_torch.kernels import transformer_block as TB
     dev = "cuda"
     heads = c // 8
@@ -214,20 +235,54 @@ def check_block(t, c, dtype, gen, tol):
              wi=randn((c, 8 * c), gen, dev, dtype, sc), bi=randn((8 * c,), gen, dev, dtype, 0.1),
              wo2=randn((4 * c, c), gen, dev, dtype, 1.0 / math.sqrt(4 * c)),
              bo2=randn((c,), gen, dev, dtype, 0.1))
+    contexts, biases = (), ()
+    if cross:
+        for i, cd in enumerate((768, 1024)):
+            p.update({f"ln2{i}_scale": 1 + randn((c,), gen, dev, dtype, 0.1),
+                      f"ln2{i}_bias": randn((c,), gen, dev, dtype, 0.1),
+                      f"cwq{i}": randn((c, c), gen, dev, dtype, sc),
+                      f"cwk{i}": randn((cd, c), gen, dev, dtype, 1.0 / math.sqrt(cd)),
+                      f"cwv{i}": randn((cd, c), gen, dev, dtype, 1.0 / math.sqrt(cd)),
+                      f"cwo{i}": randn((c, c), gen, dev, dtype, sc),
+                      f"cbo{i}": randn((c,), gen, dev, dtype, 0.1)})
+        contexts = (randn((1, 8, 768), gen, dev, dtype), randn((1, 12, 1024), gen, dev, dtype))
+        mask = torch.arange(12, device=dev) < 5
+        biases = (torch.zeros(1, 1, 8, device=dev),
+                  torch.where(mask, 0.0, -1e9)[None, None])
+    kern = lambda: TB.fused_transformer_block(x, p, heads, 8, contexts, biases)
+    plain = lambda: TB.transformer_block_plain(x, p, heads, 8, contexts, biases)
     with torch.no_grad():
-        out = TB.fused_transformer_block(x, p, heads, 8)
-        ref = TB.transformer_block_plain(x, p, heads, 8)
+        out, ref = kern(), plain()
         torch.cuda.synchronize()
         err = rel_err(out, ref)
-        ms = time_ms(lambda: TB.fused_transformer_block(x, p, heads, 8)) \
-            if dtype == torch.bfloat16 else float("nan")
-        plain_ms = time_ms(lambda: TB.transformer_block_plain(x, p, heads, 8)) \
-            if dtype == torch.bfloat16 else float("nan")
-    log(f"  fused_transformer_block  (1, {t}, {c}) heads {heads} {str(dtype)[6:]}: "
+        bf = dtype == torch.bfloat16
+        ms = time_ms(kern) if bf else float("nan")
+        plain_ms = time_ms(plain) if bf else float("nan")
+    name = "fused_transformer_block_cross" if cross else "fused_transformer_block"
+    log(f"  {name:24s} (1, {t}, {c}) heads {heads} {str(dtype)[6:]}: "
         f"max|err| {err[0]:.3e} rel {err[1]:.2e} (tol {tol:.0e}); "
         f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
     if err[1] > tol:
-        raise AssertionError("fused_transformer_block disagrees with its plain version")
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err[0], ms, plain_ms
+
+
+def check_flash(t, heads, dtype, gen, tol):
+    """Flash attention over (1, t, heads, 8) q, k, v of unit variance."""
+    from diffmusic_tpu_torch.kernels import attention as A
+    q, k, v = (randn((1, t, heads, 8), gen, "cuda", dtype) for _ in range(3))
+    with torch.no_grad():
+        out, ref = A.flash_attention(q, k, v), A.attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        bf = dtype == torch.bfloat16
+        ms = time_ms(lambda: A.flash_attention(q, k, v)) if bf else float("nan")
+        plain_ms = time_ms(lambda: A.attention_plain(q, k, v)) if bf else float("nan")
+    log(f"  flash_attention          (1, {t}, {heads}, 8) {str(dtype)[6:]}: "
+        f"max|err| {err[0]:.3e} rel {err[1]:.2e} (tol {tol:.0e}); "
+        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
+    if err[1] > tol:
+        raise AssertionError("flash_attention disagrees with its plain version")
     return err[0], ms, plain_ms
 
 
@@ -249,6 +304,9 @@ def phase_kernels(gen) -> dict:
     log("kernels vs plain versions, slice shapes, bf16:")
     for t, c in ((4000, 128), (1000, 256)):
         add("fused_transformer_block", check_block(t, c, bf, gen, TOL_BLOCK_BF16), 5)
+        add("fused_transformer_block_cross",
+            check_block(t, c, bf, gen, TOL_BLOCK_BF16, cross=True), 5)
+        add("flash_attention", check_flash(t, c // 8, bf, gen, TOL_FLASH_BF16), 5)
     for name, shape, k, d, res in conv_cases(bf):
         add(name, check_conv(name, shape, k, d, res, bf, gen, TOL_CONV_BF16))
     for cin, cout, k, s, t_in in ((1024, 512, 16, 5, 1000), (512, 256, 16, 4, 5001),
@@ -258,6 +316,8 @@ def phase_kernels(gen) -> dict:
     log("kernels vs plain versions, small fp32 cases (TF32 off):")
     f32 = torch.float32
     add("fused_transformer_block", check_block(600, 128, f32, gen, TOL_FP32))
+    add("fused_transformer_block_cross", check_block(600, 128, f32, gen, TOL_FP32, cross=True))
+    add("flash_attention", check_flash(600, 16, f32, gen, TOL_FP32))
     add("conv1d_fused_pair", check_conv("conv1d_fused_pair", (2, 300, 128), 7, 3, False,
                                         f32, gen, TOL_FP32))
     add("conv1d_fused", check_conv("conv1d_fused", (2, 300, 128), 11, 5, True, f32, gen,
@@ -274,18 +334,62 @@ def harmonic_stack(owl: int, sr: int) -> np.ndarray:
     return (gt * (0.6 + 0.4 * np.sin(2 * np.pi * 2.0 * tt)))[None].astype(np.float32)
 
 
-def build_pipe(unet_cfg, vae_cfg, voc_cfg, audio_s, device, weight_dtype):
+def inpainting(audio_s: float, device):
+    """The slices' operator (box mask over 40-60 % of the clip) and its
+    measurement of the harmonic stack."""
     from diffmusic_tpu_torch.inverse_problem import MusicInpaintingOperator
-    from diffmusic_tpu_torch.pipelines import MusicLDMPipeline
     op = MusicInpaintingOperator(audio_length_in_s=audio_s, sample_rate=16000,
                                  mask_type="box", start_inpainting_s=audio_s * 0.4,
                                  end_inpainting_s=audio_s * 0.6)
+    owl = int(audio_s * 16000)
+    return op, op.forward(torch.as_tensor(harmonic_stack(owl, 16000), device=device))
+
+
+def build_pipe(unet_cfg, vae_cfg, voc_cfg, audio_s, device, weight_dtype):
+    from diffmusic_tpu_torch.pipelines import MusicLDMPipeline
+    op, measurement = inpainting(audio_s, device)
     pipe = MusicLDMPipeline.random(unet_cfg, vae_cfg, voc_cfg, seed=0, device=device,
                                    weight_dtype=weight_dtype, scheduler_name="dps",
                                    operator=op)
-    owl = int(audio_s * 16000)
-    measurement = op.forward(torch.as_tensor(harmonic_stack(owl, 16000), device=device))
     return pipe, measurement
+
+
+def build_audioldm2(unet_cfg, vae_cfg, voc_cfg, audio_s, device, weight_dtype, fuse_cross,
+                    **text_cfgs):
+    from diffmusic_tpu_torch.pipelines import AudioLDM2Pipeline
+    op, measurement = inpainting(audio_s, device)
+    pipe = AudioLDM2Pipeline.random(unet_cfg, vae_cfg, voc_cfg, seed=0, device=device,
+                                    weight_dtype=weight_dtype, fuse_cross=fuse_cross,
+                                    scheduler_name="dps", operator=op, **text_cfgs)
+    return pipe, measurement
+
+
+def audioldm2_unet_config(**widths):
+    """cvssp/audioldm2-music's UNet as the repo configures it
+    (tools/check_audioldm2_step.py): two cross streams, no class embedding."""
+    from diffmusic_tpu_torch.models.configs import UNetConfig
+    kw = dict(cross_attention_dims=(768, 1024), class_embed_type=None,
+              projection_class_embeddings_input_dim=None, class_embeddings_concat=False)
+    kw.update(widths)
+    return UNetConfig(**kw)
+
+
+def expected_launches(blocks: str) -> dict:
+    """Launches of every kernel over a slice's STEPS guided steps and its
+    final decode, where `blocks` is the kernel its 10 transformer blocks per
+    step take."""
+    want = {n: 0 for n in BLOCK_KERNELS}
+    want[blocks] = 10 * STEPS
+    # the vocoder kernels run once more in the final decode
+    want.update({n: k * (STEPS + 1) for n, k in VOCODER_PER_STEP.items()})
+    return want
+
+
+def check_launches(label: str, counts: dict, want: dict) -> None:
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{label}: {name} launched {counts[name]} times, "
+                                 f"expected {n}")
 
 
 # Final-latent tolerances of the reference phase, as ||card - cpu|| / ||cpu||.
@@ -297,56 +401,102 @@ def build_pipe(unet_cfg, vae_cfg, voc_cfg, audio_s, device, weight_dtype):
 # gradient path (VAE decoder, vocoder kernels and their backwards).
 REF_LATENT_TOL = {"mel_spectrogram": 2e-2, "wav_form": 1e-4}
 REF_LOSS_TOL = 1e-4
+REF_AUDIO_S = 0.64   # latent (1, 8, 32, 32): level-0 T = 1024 -> the block kernels
+
+
+def reference_configs():
+    """The small fp32 reference models: UNet (128, 128), VAE (32, 64), and
+    HiFi-GAN at full width with resblock kernels (3, 7), whose ch512 k=7
+    pairs (14.7 MB in fp32) exceed pair_ok's 9 MB and take conv1d_fused, as
+    the bf16 k=11 ones do in the slice."""
+    from diffmusic_tpu_torch.models.configs import HiFiGANConfig, VAEConfig
+    unet = dict(block_out_channels=(128, 128), layers_per_block=1, norm_num_groups=32,
+                has_attention=(True, False))
+    vae_cfg = VAEConfig(block_out_channels=(32, 64), layers_per_block=1, norm_num_groups=16)
+    voc_cfg = HiFiGANConfig(resblock_kernel_sizes=(3, 7),
+                            resblock_dilation_sizes=((1, 3), (1, 3)))
+    return unet, vae_cfg, voc_cfg
+
+
+def compare_reference(label, out, lat_tol, card_kernels) -> None:
+    """Card run against CPU run: losses, final latents, and launches (every
+    kernel of `card_kernels` on the card, none on the CPU)."""
+    (lat_g, loss_g, counts_g), (lat_c, loss_c, counts_c) = out["cuda"], out["cpu"]
+    lat_err = float(np.linalg.norm(lat_g - lat_c) / np.linalg.norm(lat_c))
+    loss_err = float(np.abs(loss_g - loss_c).max() / np.abs(loss_c).max())
+    log(f"reference ({label}): losses card {loss_g.tolist()} vs cpu {loss_c.tolist()} "
+        f"(rel {loss_err:.2e}, tol {REF_LOSS_TOL:.0e}); final latents norm-rel "
+        f"{lat_err:.2e} (tol {lat_tol:.0e}); card launches {counts_g}")
+    if not all(counts_g[n] > 0 for n in card_kernels) or any(counts_c.values()):
+        raise AssertionError(f"reference ({label}): the card run must launch "
+                             f"{card_kernels}, the CPU run none")
+    if loss_err > REF_LOSS_TOL or lat_err > lat_tol:
+        raise AssertionError("the card's pipeline disagrees with the CPU reference")
 
 
 def phase_reference():
-    """A small fp32 model through the whole DPS pipeline on the card (every
-    kernel routed) and on the CPU (plain versions), with the slice's dB-mel
-    loss and with the waveform loss: losses and final latents must agree."""
+    """A small fp32 MusicLDM through the whole DPS pipeline on the card (every
+    MusicLDM kernel routed) and on the CPU (plain versions), with the slice's
+    dB-mel loss and with the waveform loss: losses and final latents must
+    agree."""
     from diffmusic_tpu_torch import kernels
-    from diffmusic_tpu_torch.models.configs import HiFiGANConfig, UNetConfig, VAEConfig
-    unet_cfg = UNetConfig(block_out_channels=(128, 128), layers_per_block=1,
-                          norm_num_groups=32, has_attention=(True, False))
-    vae_cfg = VAEConfig(block_out_channels=(32, 64), layers_per_block=1,
-                        norm_num_groups=16)
-    # in fp32 the ch512 k=7 pairs (14.7 MB) exceed pair_ok's 9 MB and take
-    # conv1d_fused, as the bf16 k=11 ones do in the slice
-    voc_cfg = HiFiGANConfig(resblock_kernel_sizes=(3, 7),
-                            resblock_dilation_sizes=((1, 3), (1, 3)))
-    audio_s = 0.64          # latent (1, 8, 32, 32): level-0 T = 1024 -> fused block
-    pipes = {dev: build_pipe(unet_cfg, vae_cfg, voc_cfg, audio_s, dev, torch.float32)
-             for dev in ("cuda", "cpu")}
+    from diffmusic_tpu_torch.models.configs import UNetConfig
+    unet, vae_cfg, voc_cfg = reference_configs()
+    pipes = {dev: build_pipe(UNetConfig(**unet), vae_cfg, voc_cfg, REF_AUDIO_S, dev,
+                             torch.float32) for dev in ("cuda", "cpu")}
     lat = torch.randn((1, 8, 32, 32), generator=torch.Generator().manual_seed(5))
     for space, lat_tol in REF_LATENT_TOL.items():
         out = {}
         for dev, (pipe, meas) in pipes.items():
             kernels.reset_launch_counts()
-            res, losses = pipe(audio_length_in_s=audio_s, num_inference_steps=2, eta=0.0,
+            res, losses = pipe(audio_length_in_s=REF_AUDIO_S, num_inference_steps=2, eta=0.0,
                                prompt_embeds=torch.zeros(2, 512), measurement=meas,
                                ip_guidance_rate=2.0, latents=lat, output_type="latent",
                                return_losses=True, supervised_space=space)
             out[dev] = (res.audios, losses, kernels.launch_counts())
-        (lat_g, loss_g, counts_g), (lat_c, loss_c, counts_c) = out["cuda"], out["cpu"]
-        lat_err = float(np.linalg.norm(lat_g - lat_c) / np.linalg.norm(lat_c))
-        loss_err = float(np.abs(loss_g - loss_c).max() / np.abs(loss_c).max())
-        log(f"reference (fp32, small model, 2 DPS steps, {space} loss): losses card "
-            f"{loss_g.tolist()} vs cpu {loss_c.tolist()} (rel {loss_err:.2e}, tol "
-            f"{REF_LOSS_TOL:.0e}); final latents norm-rel {lat_err:.2e} (tol {lat_tol:.0e}); "
-            f"card launches {counts_g}")
-        if not all(v > 0 for v in counts_g.values()) or any(counts_c.values()):
-            raise AssertionError("the card run must launch every kernel, the CPU run none")
-        if loss_err > REF_LOSS_TOL or lat_err > lat_tol:
-            raise AssertionError("the card's pipeline disagrees with the CPU reference")
+        compare_reference(f"MusicLDM, fp32, small model, 2 DPS steps, {space} loss", out,
+                          lat_tol, ("fused_transformer_block",) + tuple(VOCODER_PER_STEP))
 
 
-def phase_slice() -> dict:
+def phase_reference_audioldm2():
+    """A small fp32 AudioLDM2 (tiny text stack, the reference's UNet with two
+    32-wide cross streams) from a text prompt under classifier-free guidance
+    (the UNet batch doubles), 2 DPS steps with the waveform loss, on the card
+    and on the CPU, once per UNet route."""
     from diffmusic_tpu_torch import kernels
-    from diffmusic_tpu_torch.models.configs import HiFiGANConfig, UNetConfig, VAEConfig
-    t0 = time.time()
-    pipe, meas = build_pipe(UNetConfig(), VAEConfig(), HiFiGANConfig(), 10.0, "cuda",
-                            torch.bfloat16)
-    log(f"slice: full-width MusicLDM, seeded random bf16 weights, built in "
-        f"{time.time() - t0:.1f} s")
+    from diffmusic_tpu_torch.models.configs import (ProjectionConfig, tiny_clap_text_config,
+                                                    tiny_gpt2_config, tiny_t5_config)
+    unet, vae_cfg, voc_cfg = reference_configs()
+    txt, t5, gpt2 = tiny_clap_text_config(), tiny_t5_config(), tiny_gpt2_config()
+    text = dict(text_cfg=txt, t5_cfg=t5, gpt2_cfg=gpt2,
+                proj_cfg=ProjectionConfig(txt.projection_dim, t5.d_model, gpt2.n_embd))
+    unet_cfg = audioldm2_unet_config(cross_attention_dims=(gpt2.n_embd, t5.d_model), **unet)
+    lat = torch.randn((1, 8, 32, 32), generator=torch.Generator().manual_seed(6))
+    for fuse_cross, route in ((False, "flash_attention"), (True, "fused_transformer_block_cross")):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            pipe, meas = build_audioldm2(unet_cfg, vae_cfg, voc_cfg, REF_AUDIO_S, dev,
+                                         torch.float32, fuse_cross, **text)
+            kernels.reset_launch_counts()
+            res, losses = pipe(prompt="solo piano", audio_length_in_s=REF_AUDIO_S,
+                               num_inference_steps=2, guidance_scale=3.5, eta=0.0,
+                               measurement=meas, ip_guidance_rate=2.0, latents=lat,
+                               output_type="latent", return_losses=True,
+                               supervised_space="wav_form")
+            out[dev] = (res.audios, losses, kernels.launch_counts())
+        compare_reference(f"AudioLDM2, fp32, small model, prompt 'solo piano', CFG 3.5, "
+                          f"fuse_cross {fuse_cross}, 2 DPS steps, wav_form loss", out,
+                          REF_LATENT_TOL["wav_form"], (route,) + tuple(VOCODER_PER_STEP))
+        if out["cuda"][2][{"flash_attention": "fused_transformer_block_cross",
+                           "fused_transformer_block_cross": "flash_attention"}[route]]:
+            raise AssertionError(f"fuse_cross {fuse_cross} launched the other route")
+
+
+def drive(label: str, pipe, meas, want: dict, **call_kw) -> dict:
+    """One 10-s slice run through the pipeline's __call__: STEPS DPS steps,
+    eta 0, rate 2.0, seeded latents (1, 8, 250, 16); the launch counts are set
+    to 0 just before and read just after, and must equal `want`."""
+    from diffmusic_tpu_torch import kernels
     lat = torch.randn((1, 8, 250, 16), generator=torch.Generator().manual_seed(0))
     stamps = []
 
@@ -359,42 +509,87 @@ def phase_slice() -> dict:
     kernels.reset_launch_counts()
     start = time.perf_counter()
     out, losses = pipe(audio_length_in_s=10.0, num_inference_steps=STEPS, eta=0.0,
-                       prompt_embeds=torch.zeros(2, 512), measurement=meas,
-                       ip_guidance_rate=2.0, latents=lat, return_losses=True,
-                       callback=on_step)
+                       measurement=meas, ip_guidance_rate=2.0, latents=lat,
+                       return_losses=True, callback=on_step, **call_kw)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     step_ms = [1e3 * (b - a) for a, b in zip([start] + stamps[:-1], stamps)]
     peak = torch.cuda.max_memory_allocated()
     audio = out.audios
     q1, med, q3 = statistics.quantiles(step_ms[1:], n=4)
-    log(f"slice: DPS {STEPS} steps, eta 0, rate 2.0, latents (1, 8, 250, 16); "
+    log(f"{label}: DPS {STEPS} steps, eta 0, rate 2.0, latents (1, 8, 250, 16); "
         f"loss first {losses[0]:.4f} last {losses[-1]:.4f}; "
         f"ms/guided step after the first: median {med:.2f}, quartiles {q1:.2f}/{q3:.2f} "
         f"(first {step_ms[0]:.1f}); peak memory {peak / 2**30:.2f} GiB; "
         f"audio {audio.shape}")
-    log(f"slice: launches {counts}")
+    log(f"{label}: launches {counts}")
     if not np.isfinite(losses).all() or not np.isfinite(audio).all():
-        raise AssertionError("the slice produced non-finite losses or audio")
+        raise AssertionError(f"{label} produced non-finite losses or audio")
     if audio.shape != (1, 160000):
         raise AssertionError(f"audio shape {audio.shape}, expected (1, 160000)")
-    for name, per_step in PER_STEP.items():
-        # the vocoder kernels run once more in the final decode
-        want = per_step * (STEPS + (name != "fused_transformer_block"))
-        if counts[name] != want:
-            raise AssertionError(f"{name}: {counts[name]} launches, expected {want}")
+    check_launches(label, counts, want)
+    return counts
+
+
+def phase_slice():
+    from diffmusic_tpu_torch.models.configs import HiFiGANConfig, UNetConfig, VAEConfig
+    t0 = time.time()
+    pipe, meas = build_pipe(UNetConfig(), VAEConfig(), HiFiGANConfig(), 10.0, "cuda",
+                            torch.bfloat16)
+    log(f"slice: full-width MusicLDM, seeded random bf16 weights, built in "
+        f"{time.time() - t0:.1f} s")
+    counts = drive("slice", pipe, meas, expected_launches("fused_transformer_block"),
+                   prompt_embeds=torch.zeros(2, 512))
     return counts, pipe, meas
 
 
-def phase_breakdown(pipe, meas, lat_shape, profile_dir=None) -> None:
+def phase_audioldm2(profile_dir=None) -> dict:
+    """Full-width AudioLDM2 from the empty prompt, both UNet routes; returns
+    the launch counts of each route's run."""
+    import dataclasses
+
+    from diffmusic_tpu_torch.models.configs import HiFiGANConfig, VAEConfig
+    from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
+    t0 = time.time()
+    unet_cfg = audioldm2_unet_config()
+    pipe, meas = build_audioldm2(unet_cfg, VAEConfig(), HiFiGANConfig(), 10.0, "cuda",
+                                 torch.bfloat16, False)
+    log(f"audioldm2: full-width AudioLDM2 (UNet cross dims (768, 1024), CLAP text, "
+        f"flan-t5-large encoder, GPT-2, projection), seeded random bf16 weights, built in "
+        f"{time.time() - t0:.1f} s")
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embeds = pipe.encode_prompt("", None, True)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    log(f"audioldm2: text stack (CLAP, T5, projection, 8 GPT-2 steps; prompt and negative "
+        f"prompt '') {secs[0]:.3f} s first, {secs[1]:.3f} s again; streams "
+        f"{[tuple(a.shape) for a in embeds]}")
+    counts = {False: drive("audioldm2 fuse_cross=False", pipe, meas,
+                           expected_launches("flash_attention"), prompt="")}
+    with pipe.device:
+        fused = UNet2DConditionModel(unet_cfg, fuse_cross=True)
+    fused.to(torch.bfloat16).load_state_dict(pipe.unet.state_dict())
+    fused_pipe = dataclasses.replace(pipe, unet=fused)
+    counts[True] = drive("audioldm2 fuse_cross=True", fused_pipe, meas,
+                         expected_launches("fused_transformer_block_cross"), prompt="")
+    del fused_pipe, fused
+    phase_breakdown(pipe, meas, (1, 8, 250, 16), embeds, "audioldm2", profile_dir)
+    return counts
+
+
+def phase_breakdown(pipe, meas, lat_shape, embeds, label, profile_dir=None) -> None:
     """Where one guided step's time goes at the slice's shapes: each stage of
     the step alone (median ms from CUDA events), then optionally a
-    torch.profiler table of two guided steps, written to `profile_dir`."""
+    torch.profiler table of two guided steps, written to `profile_dir`.
+    `embeds` is the CFG-stacked conditioning of the empty prompt."""
     from diffmusic_tpu_torch.pipelines.musicldm import per_clip_loss
     dev = pipe.device
     gen = torch.Generator().manual_seed(1)
     x = randn(lat_shape, gen, dev, torch.float32)
-    embeds = torch.zeros(1, 512, device=dev)
+    cond = pipe._map_embeds(lambda a: pipe._on_device(a)[a.shape[0] // 2:], embeds)
     owl = meas.shape[-1]
     target = pipe.operator.transform(meas)
     with torch.no_grad():
@@ -405,7 +600,7 @@ def phase_breakdown(pipe, meas, lat_shape, profile_dir=None) -> None:
 
     def unet():
         with torch.no_grad():
-            pipe._eps(embeds, x, 501, 1.0)
+            pipe._eps(cond, x, 501, 1.0)
 
     def vae():
         xx = x.clone().requires_grad_(True)
@@ -424,7 +619,7 @@ def phase_breakdown(pipe, meas, lat_shape, profile_dir=None) -> None:
              "vocoder fwd+bwd": vocoder, "mel loss head fwd+bwd": loss_head}
     # one call per timing: a stage's latency inside the step, host dispatch included
     times = {name: time_ms(fn, reps=5, inner=1, warmup=1) for name, fn in parts.items()}
-    log("breakdown of one guided step (median ms, CUDA events): " +
+    log(f"{label} breakdown of one guided step (median ms, CUDA events): " +
         "; ".join(f"{k} {v:.2f}" for k, v in times.items()) +
         f"; sum {sum(times.values()):.2f}")
     if profile_dir is None:
@@ -434,7 +629,7 @@ def phase_breakdown(pipe, meas, lat_shape, profile_dir=None) -> None:
     profile_dir.mkdir(parents=True, exist_ok=True)
     lat = randn(lat_shape, gen, dev, torch.float32)
     kw = dict(audio_length_in_s=owl / 16000, num_inference_steps=2, eta=0.0,
-              prompt_embeds=torch.zeros(2, 512), measurement=meas, ip_guidance_rate=2.0,
+              prompt_embeds=embeds, measurement=meas, ip_guidance_rate=2.0,
               latents=lat, output_type="latent")
     pipe(**kw)
     torch.cuda.synchronize()
@@ -452,11 +647,11 @@ def phase_breakdown(pipe, meas, lat_shape, profile_dir=None) -> None:
     dev_us = sum(e.self_device_time_total for e in events
                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
     table = events.table(sort_by="self_cuda_time_total", row_limit=40)
-    (profile_dir / "profile.txt").write_text(table)
-    log(f"profile of 2 guided steps: kernel time {dev_us / 1e3:.1f} ms; wall "
+    path = profile_dir / f"profile_{label}.txt"
+    path.write_text(table)
+    log(f"{label} profile of 2 guided steps: kernel time {dev_us / 1e3:.1f} ms; wall "
         f"{1e3 * wall:.1f} ms untraced, {1e3 * traced:.1f} ms traced; device busy share "
-        f"{dev_us / 1e6 / wall:.3f} of the untraced wall; table in "
-        f"{profile_dir / 'profile.txt'}")
+        f"{dev_us / 1e6 / wall:.3f} of the untraced wall; table in {path}")
     for line in table.splitlines()[:18]:
         log(f"  {line}")
 
@@ -497,11 +692,19 @@ def main() -> int:
             args.out.mkdir(parents=True, exist_ok=True)
             shutil.copy(build_log, args.out / "build.log")
 
+    profile_dir = args.out if args.profile else None
     gen = torch.Generator().manual_seed(0)
     stats = phase_kernels(gen)
     phase_reference()
+    phase_reference_audioldm2()
     counts, pipe, meas = phase_slice()
-    phase_breakdown(pipe, meas, (1, 8, 250, 16), args.out if args.profile else None)
+    phase_breakdown(pipe, meas, (1, 8, 250, 16), torch.zeros(2, 512), "slice", profile_dir)
+    del pipe
+    a2 = phase_audioldm2(profile_dir)
+    # each kernel's launches from the path that runs it: MusicLDM for its four,
+    # AudioLDM2 with fuse_cross off for flash, on for the dual-cross block
+    counts["flash_attention"] = a2[False]["flash_attention"]
+    counts["fused_transformer_block_cross"] = a2[True]["fused_transformer_block_cross"]
 
     kernels_line = [{"name": n, "route": "cuda", "source": SOURCES[n],
                      "replaces": REPLACES[n], "launches": counts[n],

@@ -3,12 +3,14 @@
 Each module holds a kernel's wrapper, its plain PyTorch version and its launch
 counter; the CUDA sources are in `csrc/` and `build.py` compiles them at first
 use on a machine with `nvcc`. Ported so far: the four kernels of the MusicLDM
-DPS main path.
+DPS main path, and the flash attention and the dual-cross mode of the
+transformer block on the AudioLDM2 path.
 """
 
-from . import conv1d, transformer_block, upsampler
+from . import attention, conv1d, transformer_block, upsampler
 
-_COUNTERS = (conv1d.LAUNCHES, upsampler.LAUNCHES, transformer_block.LAUNCHES)
+_COUNTERS = (conv1d.LAUNCHES, upsampler.LAUNCHES, transformer_block.LAUNCHES,
+             attention.LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All `csrc/*.cu` files are compiled by `nvcc` for `sm_90a` into one shared
-library with a plain C interface, loaded with `ctypes`. The build happens at
+Each `csrc/*.cu` file is compiled by its own `nvcc` for `sm_90a`, all at once,
+and the objects are linked into one shared library with a plain C interface,
+loaded with `ctypes`. The build happens at
 first use, into `_build/<hash>/` beside this file (git-ignored); the hash
 covers the sources and the flags, so an edited source rebuilds and an
 unchanged one is loaded as it is. Nothing here runs at import time, and the
@@ -23,8 +24,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                     "-lineinfo")
 LIB_NAME = "libdiffmusic_kernels.so"
 
 _P, _I, _F, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
@@ -36,8 +38,10 @@ SIGNATURES = {
     "dm_conv1d_pair_smem": ([_I, _I, _I, _I], _S),
     "dm_phase_convtranspose": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "dm_phase_convtranspose_smem": ([_I, _I, _I], _S),
-    "dm_transformer_block": ([_I, _P, _P, _I, _I, _I, _F, _P], _I),
+    "dm_transformer_block": ([_I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "dm_transformer_block_smem": ([_I, _I], _S),
+    "dm_flash_attention": ([_I, _P, _P, _P, _P, _I, _I, _I, _F, _P], _I),
+    "dm_flash_attention_smem": ([_I, _I], _S),
 }
 
 # bytes of dynamic shared memory one block may use on the H100 (227 KB)
@@ -75,18 +79,27 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    nvcc = _nvcc()
+    t0 = time.time()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj, log = out_dir / (src.stem + ".o"), out_dir / (src.stem + ".log")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        with open(log, "w") as f:
+            jobs.append((cmd, obj, log, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
+    failed = [(cmd, log) for cmd, _, log, proc in jobs if proc.wait() != 0]
     with tempfile.NamedTemporaryFile(dir=out_dir, suffix=".so", delete=False) as tmp:
         tmp_path = tmp.name
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp_path, *cu]
-    t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        f"$ {' '.join(cmd)}\n# {time.time() - t0:.1f} s, rc {proc.returncode}\n"
-        f"{proc.stdout}\n{proc.stderr}")
-    if proc.returncode != 0:
+    link = [nvcc, *ARCH, "-shared", "-o", tmp_path, *(str(obj) for _, obj, _, _ in jobs)]
+    proc = subprocess.run(link, capture_output=True, text=True) if not failed else None
+    report = "".join(f"$ {' '.join(cmd)}\n{log.read_text()}\n" for cmd, _, log, _ in jobs)
+    if proc is not None:
+        report += f"$ {' '.join(link)}\n{proc.stdout}{proc.stderr}\n"
+    rc = 1 if failed else proc.returncode
+    (out_dir / "build.log").write_text(f"# {time.time() - t0:.1f} s, rc {rc}\n{report}")
+    if rc != 0:
         os.unlink(tmp_path)
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"nvcc failed (rc {rc}):\n{report[-4000:]}")
     os.replace(tmp_path, lib)   # atomic: a concurrent loader sees all or nothing
     return lib
 
@@ -121,7 +134,8 @@ def stream_ptr(device) -> int:
 
 
 def check_tensors(name: str, *tensors) -> None:
-    """The kernels take contiguous tensors of one dtype on one CUDA device."""
+    """The kernels take contiguous tensors of one dtype on one CUDA device,
+    16-byte aligned (they load rows 16 bytes at a time)."""
     first = tensors[0]
     for t in tensors:
         if t.device != first.device or t.device.type != "cuda":
@@ -130,6 +144,8 @@ def check_tensors(name: str, *tensors) -> None:
             raise TypeError(f"{name}: mixed dtypes {t.dtype} and {first.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must start 16-byte aligned")
     if first.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: kernels take bfloat16 or float32, not {first.dtype}")
 

@@ -12,8 +12,14 @@
 // The accumulator tile is read from / written to fp32 shared memory, where the
 // kernels apply their epilogues. wgmma, TMA and persistent scheduling are not
 // used yet.
+//
+// `HeadAttention` is the attention core at head_dim 8 that the flash kernel and
+// the transformer block share: an online softmax over key chunks staged in
+// shared memory, with QK^T and PV as scalar fp32 FMAs (8 is below the bf16 MMA
+// depth of 16, so an MMA would multiply zeros half the time).
 #pragma once
 
+#include <math_constants.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -164,6 +170,139 @@ template <int BM, int BN, int WM, int WN> struct TileAcc<float, BM, BN, WM, WN> 
     for (int i = 0; i < PER; ++i) {
       const int e = threadIdx.x + i * NT;
       c[i] = C[(size_t)(e / BN) * ldc + e % BN];
+    }
+  }
+};
+
+// Eight consecutive elements (16-byte aligned) to / from fp32 registers.
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float* out);
+template <>
+__device__ __forceinline__ void load8<float>(const float* p, float* out) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+template <>
+__device__ __forceinline__ void load8<bf16>(const bf16* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(e[i]);
+}
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const float* v);
+template <>
+__device__ __forceinline__ void store8<float>(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+template <>
+__device__ __forceinline__ void store8<bf16>(bf16* p, const float* v) {
+  uint4 raw;
+  bf16* e = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(v[i]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// Softmax attention at head_dim 8 of NP (query row, head) pairs per thread.
+// Pair p = threadIdx.x + i * blockDim.x is query row p / heads, head p % heads:
+// a warp's threads cover consecutive heads of one or two rows, so the key and
+// value row segment they read from shared memory is contiguous (a broadcast,
+// no bank conflicts). Logits are in log2 units (q pre-scaled by
+// log2(e) / sqrt(8)), so the softmax runs on exp2f. Every thread of the block
+// calls each method: `run` synchronises the block.
+template <typename T, int NP, int KT>
+struct HeadAttention {
+  static constexpr int HD = 8;
+  float q[NP][HD], o[NP][HD], m[NP], l[NP];
+  int heads, npairs;
+
+  // q of (row r, head h) at src[r * ld + h * 8] times scale_log2e; rows at or
+  // past rows_valid read as zero.
+  __device__ __forceinline__ void begin(const T* src, size_t ld, int nheads, int rows,
+                                        int rows_valid, float scale_log2e) {
+    heads = nheads;
+    npairs = rows * nheads;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int p = threadIdx.x + i * blockDim.x;
+      m[i] = -CUDART_INF_F;
+      l[i] = 0.f;
+#pragma unroll
+      for (int d = 0; d < HD; ++d) o[i][d] = q[i][d] = 0.f;
+      if (p < npairs && p / heads < rows_valid) {
+        load8<T>(src + (size_t)(p / heads) * ld + (p % heads) * HD, q[i]);
+#pragma unroll
+        for (int d = 0; d < HD; ++d) q[i][d] *= scale_log2e;
+      }
+    }
+  }
+
+  // Attend over keys [0, Tk) of kg / vg (row stride C), staged KT rows at a
+  // time in ks / vs (row stride ldk, 16-byte aligned). bias, if not null,
+  // holds one additive logit bias per key in natural-log units (the mask's
+  // 0 / -1e9), staged in bs (KT floats). Keys past Tk are masked here.
+  __device__ __forceinline__ void run(const T* kg, const T* vg, int C, int Tk,
+                                      const float* bias, T* ks, T* vs, int ldk, float* bs) {
+    for (int kt0 = 0; kt0 < Tk; kt0 += KT) {
+      const int nk = min(KT, Tk - kt0);
+      __syncthreads();
+      load_rows(ks, ldk, kg, C, kt0, KT, Tk, 0, C, false, 0.f);
+      load_rows(vs, ldk, vg, C, kt0, KT, Tk, 0, C, false, 0.f);
+      if (bias != nullptr)
+        for (int j = threadIdx.x; j < KT; j += blockDim.x)
+          bs[j] = j < nk ? bias[kt0 + j] * 1.4426950408889634f : 0.f;
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const int p = threadIdx.x + i * blockDim.x;
+        if (p >= npairs) continue;
+        const int hoff = (p % heads) * HD;
+        float s[KT];
+        float mc = m[i];
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          float kv[HD];
+          load8<T>(ks + (size_t)j * ldk + hoff, kv);
+          float acc = bias != nullptr ? bs[j] : 0.f;
+#pragma unroll
+          for (int d = 0; d < HD; ++d) acc = fmaf(q[i][d], kv[d], acc);
+          s[j] = j < nk ? acc : -CUDART_INF_F;
+          mc = fmaxf(mc, s[j]);
+        }
+        const float corr = exp2f(m[i] - mc);   // 0 on the first chunk (m = -inf)
+        l[i] *= corr;
+#pragma unroll
+        for (int d = 0; d < HD; ++d) o[i][d] *= corr;
+        m[i] = mc;
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          const float pj = exp2f(s[j] - mc);
+          float vv[HD];
+          load8<T>(vs + (size_t)j * ldk + hoff, vv);
+          l[i] += pj;
+#pragma unroll
+          for (int d = 0; d < HD; ++d) o[i][d] = fmaf(pj, vv[d], o[i][d]);
+        }
+      }
+    }
+  }
+
+  // The normalised output of (row r, head h) to dst[r * ld + h * 8], rounded
+  // to T; rows at or past rows_valid are not written.
+  __device__ __forceinline__ void end(T* dst, size_t ld, int rows_valid) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int p = threadIdx.x + i * blockDim.x;
+      if (p >= npairs || p / heads >= rows_valid) continue;
+      const float inv = 1.f / l[i];
+      float r[HD];
+#pragma unroll
+      for (int d = 0; d < HD; ++d) r[d] = o[i][d] * inv;
+      store8<T>(dst + (size_t)(p / heads) * ld + (p % heads) * HD, r);
     }
   }
 };

@@ -1,25 +1,27 @@
-// Fused self-attention BasicTransformerBlock on Hopper.
+// Fused BasicTransformerBlock on Hopper: self-attention, up to two
+// cross-attention streams (AudioLDM2's dual conditioning), GEGLU FF.
 //
 // Replaces diffmusic_tpu/pallas/transformer_kernel.py::fused_transformer_block
-// (self-attention mode). One thread block per (batch, 32-row query tile):
+// (self-attention and dual-cross modes). One thread block per (batch, 32-row
+// query tile):
 //   LN1 -> Q projection -> per-head online softmax over all T keys
-//   -> output projection + residual -> LN3 -> GEGLU FF (exact erf GELU),
-//   chunked over the 4C hidden width -> + residual.
-// K and V are projected outside from LN1(x) with torch.matmul, as the JAX
-// wrapper does; every other intermediate stays in shared memory and the
-// (T, T) logits never exist in device memory.
+//   -> output projection + residual
+//   -> per cross stream i: LN2_i -> Q_i projection -> online softmax over the
+//      stream's Tk_i keys with the mask's additive bias -> output projection
+//      + bias + residual
+//   -> LN3 -> GEGLU FF (exact erf GELU), chunked over the 4C hidden width
+//   -> + residual.
+// The self K/V and each stream's K/V are projected outside with torch.matmul,
+// as the JAX wrapper does; every other intermediate stays in shared memory and
+// the (T, T) logits never exist in device memory.
 //
-// Bound: at MusicLDM's head_dim 8 the attention is ~T*T*heads*(2*8+2) scalar
+// Bound: at head_dim 8 the self-attention is ~T*T*heads*(2*8+2) scalar
 // operations per call -- far below the bf16 MMA depth of 16, so QK^T and PV
-// are scalar fp32 FMAs here (no padding to 16: half of every MMA would
-// multiply zeros). Each thread owns (row, head) pairs; a warp's 32 threads
-// cover consecutive heads of one or two rows, so the K/V chunk it reads from
-// shared memory is one contiguous row segment (broadcast, no bank conflicts).
-// The projections and the FF are (32, C) @ (C, N) products on the tensor
-// cores (common.cuh TileAcc); their weights (up to 256 x 2048 bf16 for the FF)
-// do not fit in shared memory and stream through L2 in 32-row tiles.
-#include <math_constants.h>
-
+// are scalar fp32 FMAs (common.cuh HeadAttention, shared with the flash
+// kernel). The projections and the FF are (32, C) @ (C, N) products on the
+// tensor cores (common.cuh TileAcc); their weights (up to 256 x 2048 bf16 for
+// the FF, 256 x 256 for each stream's wq_i and wo_i) do not fit in shared
+// memory beside the activations and stream through L2 in 32-row tiles.
 #include "common.cuh"
 
 namespace {
@@ -28,12 +30,29 @@ using dm::bf16;
 constexpr int QB = 32;         // query rows per block
 constexpr int BN = 64, BK = 32, HC = 64, KT = 32;
 constexpr int THREADS = 256;   // 8 warps
-constexpr int HD = 8;          // head_dim
 constexpr int MAXP = 4;        // (row, head) pairs per thread: heads <= 32
+constexpr int MAX_CROSS = 2;
 
 struct Layout {
   int ldr, lda, ldb, ldc, ldg, ldk;
-  size_t res, abuf, qbuf, bt, st_a, st_g, gbuf, kv, total;
+  size_t res, abuf, qbuf, bt, st_a, st_g, gbuf, kv, bs, total;
+};
+
+// The cross-attention streams: projected keys and values (B, Tk, C), the
+// additive logit bias (B, Tk) fp32 in natural-log units, and the stream's
+// LN2 scale/bias, wq (C, C), wo (C, C), bo (C).
+template <typename T>
+struct Cross {
+  const T* k[MAX_CROSS];
+  const T* v[MAX_CROSS];
+  const float* bias[MAX_CROSS];
+  const T* ln_s[MAX_CROSS];
+  const T* ln_b[MAX_CROSS];
+  const T* wq[MAX_CROSS];
+  const T* wo[MAX_CROSS];
+  const T* bo[MAX_CROSS];
+  int tk[MAX_CROSS];
+  int n;
 };
 
 template <typename T>
@@ -54,6 +73,7 @@ __host__ __device__ Layout layout(int C) {
   L.st_g = o; o += dm::align128((size_t)QB * L.ldc * sizeof(float));
   L.gbuf = o; o += dm::align128((size_t)QB * L.ldg * sizeof(T));
   L.kv = o;   o += dm::align128((size_t)2 * KT * L.ldk * sizeof(T));
+  L.bs = o;   o += dm::align128((size_t)KT * sizeof(float));
   L.total = o;
   return L;
 }
@@ -93,21 +113,42 @@ __device__ void layer_norm(const float* src, int lds, T* dst, int ldd, const T* 
   }
 }
 
+// res += softmax-attention(q = A @ wq over the keys kg / vg) @ wo + bo, where A
+// (QB x C, smem) holds the layer-normed rows; q is rounded to T like the keys
+// it meets, and the attention output to T for the product with wo.
 template <typename T>
-__device__ __forceinline__ void load8(const T* p, float* out);
-template <>
-__device__ __forceinline__ void load8<float>(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-template <>
-__device__ __forceinline__ void load8<bf16>(const bf16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(e[i]);
+__device__ __forceinline__ void attention_residual(T* abuf, T* qbuf, float* res, const T* wq, const T* wo,
+                                   const T* bo, const T* kg, const T* vg, int Tk,
+                                   const float* bias, int heads, int C, float scale_log2e,
+                                   const Layout& L, T* bt, float* st_a, T* ks, T* vs,
+                                   float* bs) {
+  for (int n0 = 0; n0 < C; n0 += BN) {
+    dm::TileAcc<T, QB, BN, 2, 4> acc;
+    acc.zero();
+    project<T>(acc, abuf, L.lda, wq, C, C, n0, bt, L.ldb);
+    acc.store(st_a, L.ldc);
+    __syncthreads();
+    for (int e = threadIdx.x; e < QB * BN; e += THREADS)
+      qbuf[(size_t)(e / BN) * L.lda + n0 + e % BN] = dm::from_f<T>(st_a[(e / BN) * L.ldc + e % BN]);
+  }
+  __syncthreads();
+  {
+    dm::HeadAttention<T, MAXP, KT> att;
+    att.begin(qbuf, L.lda, heads, QB, QB, scale_log2e);
+    att.run(kg, vg, C, Tk, bias, ks, vs, L.ldk, bs);
+    att.end(abuf, L.lda, QB);
+  }
+  for (int n0 = 0; n0 < C; n0 += BN) {
+    dm::TileAcc<T, QB, BN, 2, 4> acc;
+    acc.zero();
+    project<T>(acc, abuf, L.lda, wo, C, C, n0, bt, L.ldb);
+    acc.store(st_a, L.ldc);
+    __syncthreads();
+    for (int e = threadIdx.x; e < QB * BN; e += THREADS) {
+      const int r = e / BN, c = e % BN;
+      res[(size_t)r * L.ldr + n0 + c] += st_a[r * L.ldc + c] + dm::to_f(bo[n0 + c]);
+    }
+  }
 }
 
 template <typename T>
@@ -119,7 +160,8 @@ transformer_block_kernel(const T* __restrict__ x, const T* __restrict__ kx,
                          const T* __restrict__ ln3_s, const T* __restrict__ ln3_b,
                          const T* __restrict__ wi, const T* __restrict__ bi,
                          const T* __restrict__ wo2, const T* __restrict__ bo2,
-                         T* __restrict__ out, int Tlen, int C, float scale_log2e) {
+                         const Cross<T> cross, T* __restrict__ out, int Tlen, int C,
+                         float scale_log2e) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = layout<T>(C);
   float* res = reinterpret_cast<float*>(smem + L.res);
@@ -131,9 +173,10 @@ transformer_block_kernel(const T* __restrict__ x, const T* __restrict__ kx,
   T* gbuf = reinterpret_cast<T*>(smem + L.gbuf);
   T* ks = reinterpret_cast<T*>(smem + L.kv);
   T* vs = ks + (size_t)KT * L.ldk;
+  float* bs = reinterpret_cast<float*>(smem + L.bs);
 
   const int t0 = blockIdx.x * QB, b = blockIdx.y;
-  const int heads = C / HD, C4 = 4 * C;
+  const int heads = C / 8, C4 = 4 * C;
   const size_t base = (size_t)b * Tlen * C;
 
   // x tile -> fp32 residual stream (rows past T are zero and never stored)
@@ -144,95 +187,18 @@ transformer_block_kernel(const T* __restrict__ x, const T* __restrict__ kx,
   __syncthreads();
   layer_norm<T>(res, L.ldr, abuf, L.lda, ln1_s, ln1_b, C);
 
-  // q = LN1(x) @ wq, rounded to T like the keys it meets
-  for (int n0 = 0; n0 < C; n0 += BN) {
-    dm::TileAcc<T, QB, BN, 2, 4> acc;
-    acc.zero();
-    project<T>(acc, abuf, L.lda, wq, C, C, n0, bt, L.ldb);
-    acc.store(st_a, L.ldc);
+  // self-attention: q = LN1(x) @ wq, attention over all T keys, @ wo + bo
+  attention_residual<T>(abuf, qbuf, res, wq, wo, bo, kx + base, vx + base, Tlen, nullptr,
+                        heads, C, scale_log2e, L, bt, st_a, ks, vs, bs);
+  // cross streams, in order: res += attn(LN2_i(res) @ wq_i, K_i, V_i) @ wo_i + bo_i
+  for (int i = 0; i < cross.n; ++i) {
     __syncthreads();
-    for (int e = threadIdx.x; e < QB * BN; e += THREADS)
-      qbuf[(size_t)(e / BN) * L.lda + n0 + e % BN] = dm::from_f<T>(st_a[(e / BN) * L.ldc + e % BN]);
-  }
-
-  // attention: thread owns pairs p = tid + i*THREADS, row = p / heads, head = p % heads
-  const int npairs = QB * heads;
-  float q[MAXP][HD], o[MAXP][HD], m[MAXP], l[MAXP];
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < MAXP; ++i) {
-    const int p = threadIdx.x + i * THREADS;
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      o[i][d] = 0.f;
-      q[i][d] = p < npairs
-          ? dm::to_f(qbuf[(size_t)(p / heads) * L.lda + (p % heads) * HD + d]) * scale_log2e
-          : 0.f;
-    }
-  }
-  for (int kt0 = 0; kt0 < Tlen; kt0 += KT) {
-    const int nk = min(KT, Tlen - kt0);
-    __syncthreads();
-    dm::load_rows(ks, L.ldk, kx + base, C, kt0, KT, Tlen, 0, C, false, 0.f);
-    dm::load_rows(vs, L.ldk, vx + base, C, kt0, KT, Tlen, 0, C, false, 0.f);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < MAXP; ++i) {
-      const int p = threadIdx.x + i * THREADS;
-      if (p >= npairs) continue;
-      const int hoff = (p % heads) * HD;
-      float s[KT];
-      float mc = m[i];
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        float kv[HD];
-        load8<T>(ks + (size_t)j * L.ldk + hoff, kv);
-        float acc = 0.f;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) acc = fmaf(q[i][d], kv[d], acc);
-        s[j] = j < nk ? acc : -CUDART_INF_F;
-        mc = fmaxf(mc, s[j]);
-      }
-      const float corr = exp2f(m[i] - mc);   // 0 on the first chunk (m = -inf)
-      l[i] *= corr;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) o[i][d] *= corr;
-      m[i] = mc;
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        const float pj = exp2f(s[j] - mc);
-        float vv[HD];
-        load8<T>(vs + (size_t)j * L.ldk + hoff, vv);
-        l[i] += pj;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) o[i][d] = fmaf(pj, vv[d], o[i][d]);
-      }
-    }
-  }
-  // attention output (concatenated heads) -> abuf, rounded to T for the dot
-#pragma unroll
-  for (int i = 0; i < MAXP; ++i) {
-    const int p = threadIdx.x + i * THREADS;
-    if (p >= npairs) continue;
-    const float inv = 1.f / l[i];
-#pragma unroll
-    for (int d = 0; d < HD; ++d)
-      abuf[(size_t)(p / heads) * L.lda + (p % heads) * HD + d] = dm::from_f<T>(o[i][d] * inv);
-  }
-
-  // res1 = x + attn @ wo + bo
-  for (int n0 = 0; n0 < C; n0 += BN) {
-    dm::TileAcc<T, QB, BN, 2, 4> acc;
-    acc.zero();
-    project<T>(acc, abuf, L.lda, wo, C, C, n0, bt, L.ldb);
-    acc.store(st_a, L.ldc);
-    __syncthreads();
-    for (int e = threadIdx.x; e < QB * BN; e += THREADS) {
-      const int r = e / BN, c = e % BN;
-      res[(size_t)r * L.ldr + n0 + c] += st_a[r * L.ldc + c] + dm::to_f(bo[n0 + c]);
-    }
+    layer_norm<T>(res, L.ldr, abuf, L.lda, cross.ln_s[i], cross.ln_b[i], C);
+    const size_t cbase = (size_t)b * cross.tk[i];
+    attention_residual<T>(abuf, qbuf, res, cross.wq[i], cross.wo[i], cross.bo[i],
+                          cross.k[i] + cbase * C, cross.v[i] + cbase * C, cross.tk[i],
+                          cross.bias[i] + cbase, heads, C, scale_log2e, L, bt, st_a, ks,
+                          vs, bs);
   }
   __syncthreads();
   layer_norm<T>(res, L.ldr, abuf, L.lda, ln3_s, ln3_b, C);
@@ -273,25 +239,44 @@ transformer_block_kernel(const T* __restrict__ x, const T* __restrict__ kx,
 }
 
 template <typename T>
-int run(const void* const* a, void* out, int B, int Tlen, int C, float scale_log2e,
-        cudaStream_t s) {
+int run(const void* const* a, void* out, int B, int Tlen, int C, int n_cross, const int* tk,
+        float scale_log2e, cudaStream_t s) {
+  Cross<T> cross = {};
+  cross.n = n_cross;
+  for (int i = 0; i < n_cross; ++i) {
+    const void* const* c = a + 14 + 8 * i;
+    cross.k[i] = (const T*)c[0];
+    cross.v[i] = (const T*)c[1];
+    cross.bias[i] = (const float*)c[2];
+    cross.ln_s[i] = (const T*)c[3];
+    cross.ln_b[i] = (const T*)c[4];
+    cross.wq[i] = (const T*)c[5];
+    cross.wo[i] = (const T*)c[6];
+    cross.bo[i] = (const T*)c[7];
+    cross.tk[i] = tk[i];
+  }
   dim3 grid((Tlen + QB - 1) / QB, B);
   return dm::launch(transformer_block_kernel<T>, grid, dim3(THREADS), layout<T>(C).total, s,
                     (const T*)a[0], (const T*)a[1], (const T*)a[2], (const T*)a[3],
                     (const T*)a[4], (const T*)a[5], (const T*)a[6], (const T*)a[7],
                     (const T*)a[8], (const T*)a[9], (const T*)a[10], (const T*)a[11],
-                    (const T*)a[12], (const T*)a[13], (T*)out, Tlen, C, scale_log2e);
+                    (const T*)a[12], (const T*)a[13], cross, (T*)out, Tlen, C, scale_log2e);
 }
 
 }  // namespace
 
 // args: x, k, v, ln1_scale, ln1_bias, wq, wo, bo, ln3_scale, ln3_bias, wi, bi,
-// wo2, bo2 (14 device pointers). dtype: 0 = float32, 1 = bfloat16.
+// wo2, bo2 (14 device pointers), then per cross stream i < n_cross (at most 2):
+// k_i, v_i, bias_i (fp32), ln2_scale_i, ln2_bias_i, wq_i, wo_i, bo_i, whose
+// keys number tk0 and tk1. dtype: 0 = float32, 1 = bfloat16.
 extern "C" int dm_transformer_block(int dtype, const void* const* args, void* out, int B,
-                                    int Tlen, int C, float scale_log2e, void* stream) {
+                                    int Tlen, int C, int n_cross, int tk0, int tk1,
+                                    float scale_log2e, void* stream) {
+  if (n_cross < 0 || n_cross > MAX_CROSS) return (int)cudaErrorInvalidValue;
+  const int tk[MAX_CROSS] = {tk0, tk1};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1) return run<bf16>(args, out, B, Tlen, C, scale_log2e, s);
-  return run<float>(args, out, B, Tlen, C, scale_log2e, s);
+  if (dtype == 1) return run<bf16>(args, out, B, Tlen, C, n_cross, tk, scale_log2e, s);
+  return run<float>(args, out, B, Tlen, C, n_cross, tk, scale_log2e, s);
 }
 
 extern "C" size_t dm_transformer_block_smem(int dtype, int C) {

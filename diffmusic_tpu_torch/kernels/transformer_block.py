@@ -1,8 +1,10 @@
-"""Fused self-attention transformer block: `fused_transformer_block`.
+"""Fused transformer block: `fused_transformer_block`.
 
 Replaces `diffmusic_tpu/pallas/transformer_kernel.py::fused_transformer_block`
-(self-attention mode) with the CUDA kernel of `csrc/transformer_block.cu`:
-LN1 -> MHSA -> +res -> LN3 -> GEGLU FF -> +res per 32-row query tile.
+(self-attention mode, and the dual-cross mode of AudioLDM2) with the CUDA
+kernel of `csrc/transformer_block.cu`, per 32-row query tile:
+LN1 -> MHSA -> +res -> [per cross stream i: LN2_i -> q_i -> attention over the
+stream's keys -> out-projection -> +res] -> LN3 -> GEGLU FF -> +res.
 
 Bound on the H100: at head_dim 8 the attention is scalar work (below the
 bf16 MMA depth of 16), T^2 * heads * 18 operations per call; the projections
@@ -11,13 +13,25 @@ with an online softmax over 32-key chunks, so the (T, T) logits never reach
 device memory, and the projections and the FF as WMMA tiles, streaming the
 FF weights through L2.
 
+The cross streams add a few keys each (AudioLDM2: 8 GPT-2 states, the T5
+sequence's tokens), so per stream they cost two (32, C) @ (C, C) tensor-core
+products per tile, whose weights stream through L2 like the FF's, and a
+(32 x heads) x Tk scalar softmax; the win is keeping LN2_i, q_i, the stream's
+output and the residual in shared memory.
+
 x: (B, T, C); p: the block's parameters in the JAX math layout (dense kernels
 (in, out)): ln1_scale/ln1_bias, wq/wk/wv/wo/bo, ln3_scale/ln3_bias, wi/bi,
-wo2/bo2. K and V are projected outside the kernel with `torch.matmul`, as the
-JAX wrapper does. On a CPU tensor the wrapper runs the plain PyTorch version;
-on a CUDA tensor it launches the kernel or raises. The backward recomputes
-through the plain version (`_ftb_bwd`); guided DPS sampling never calls it,
-because the UNet runs under no-grad.
+wo2/bo2, and per cross stream i: ln2{i}_scale/ln2{i}_bias, cwq{i}/cwk{i}/
+cwv{i}/cwo{i}/cbo{i}. contexts: per stream (B, Tk_i, ctx_dim_i);
+cross_biases: per stream (B, 1, Tk_i) fp32 additive logit bias (0 / -1e9 from
+the attention mask; zeros when unmasked). The self K/V and the cross K/V are
+projected outside the kernel with `torch.matmul`, as the JAX wrapper does; the
+kernel masks the keys past each stream's Tk itself, so they are not padded.
+
+On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA tensor
+it launches the kernel or raises. The backward recomputes through the plain
+version and returns the gradients of x and of the contexts (`_ftb_bwd`);
+guided DPS sampling never calls it, because the UNet runs under no-grad.
 """
 
 import ctypes
@@ -26,14 +40,23 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .attention import attention_plain
 from .device import use_plain
 
 # launches of the kernel since the last reset (see kernels.launch_counts)
-LAUNCHES = {"fused_transformer_block": 0}
+# (the dual-cross mode counts apart from the self-attention mode)
+LAUNCHES = {"fused_transformer_block": 0, "fused_transformer_block_cross": 0}
 
 PARAM_ORDER = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo", "bo",
                "ln3_scale", "ln3_bias", "wi", "bi", "wo2", "bo2")
+CROSS_ORDER = ("ln2{}_scale", "ln2{}_bias", "cwq{}", "cwk{}", "cwv{}", "cwo{}", "cbo{}")
+MAX_CROSS = 2
 _LOG2E = 1.4426950408889634
+
+
+def param_names(n_cross: int) -> tuple:
+    """The block's parameter names with `n_cross` cross streams."""
+    return PARAM_ORDER + tuple(n.format(i) for i in range(n_cross) for n in CROSS_ORDER)
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-6):
@@ -44,75 +67,110 @@ def layer_norm(x, scale, bias, eps: float = 1e-6):
     return (xf - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
 
 
-def transformer_block_plain(x, p, heads: int, head_dim: int):
-    """The JAX `_reference_block` (self-attention mode) in plain PyTorch."""
+def transformer_block_plain(x, p, heads: int, head_dim: int, contexts=(), cross_biases=()):
+    """The JAX `_reference_block` in plain PyTorch."""
     b, t, c = x.shape
-    scale = 1.0 / math.sqrt(head_dim)
+
+    def attend(q, k, v, bias=None):   # (B, T, C) rows split into heads
+        split = lambda a: a.reshape(b, a.shape[1], heads, head_dim)
+        return attention_plain(split(q), split(k), split(v), bias).reshape(b, t, c)
+
     h1 = layer_norm(x, p["ln1_scale"], p["ln1_bias"]).to(x.dtype)
-    q, k, v = h1 @ p["wq"], h1 @ p["wk"], h1 @ p["wv"]
-    qh, kh, vh = (a.reshape(b, t, heads, head_dim).float() for a in (q, k, v))
-    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
-    o = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), vh)
-    o = o.reshape(b, t, c).to(x.dtype)
+    o = attend(h1 @ p["wq"], h1 @ p["wk"], h1 @ p["wv"])
     res1 = x + (o @ p["wo"] + p["bo"]).to(x.dtype)
+    for i, ctx in enumerate(contexts):
+        hc = layer_norm(res1, p[f"ln2{i}_scale"], p[f"ln2{i}_bias"]).to(x.dtype)
+        ckv = ctx.to(x.dtype)
+        oc = attend(hc @ p[f"cwq{i}"], ckv @ p[f"cwk{i}"], ckv @ p[f"cwv{i}"],
+                    cross_biases[i][:, None])
+        res1 = res1 + (oc @ p[f"cwo{i}"] + p[f"cbo{i}"]).to(x.dtype)
     h2 = layer_norm(res1, p["ln3_scale"], p["ln3_bias"]).to(x.dtype)
     a, g = (h2 @ p["wi"] + p["bi"]).chunk(2, dim=-1)
     return res1 + ((a * F.gelu(g)) @ p["wo2"] + p["bo2"]).to(x.dtype)
 
 
-def _launch(x, p, heads: int, head_dim: int):
+def _launch(x, p, heads: int, head_dim: int, contexts, cross_biases):
     from . import build
     bsz, t, c = x.shape
-    if head_dim != 8 or heads * head_dim != c or c % 64 or heads > 32:
+    n = len(contexts)
+    name = "fused_transformer_block_cross" if n else "fused_transformer_block"
+    if head_dim != 8 or heads * head_dim != c or c % 64 or heads > 32 or n > MAX_CROSS:
         raise ValueError(f"fused_transformer_block: the kernel takes head_dim 8, "
-                         f"C = heads * 8, C % 64 == 0 and heads <= 32 "
-                         f"(got C {c}, heads {heads}, head_dim {head_dim})")
+                         f"C = heads * 8, C % 64 == 0, heads <= 32 and at most "
+                         f"{MAX_CROSS} cross streams (got C {c}, heads {heads}, "
+                         f"head_dim {head_dim}, {n} streams)")
     expect = {"wq": (c, c), "wk": (c, c), "wv": (c, c), "wo": (c, c),
               "wi": (c, 8 * c), "bi": (8 * c,), "wo2": (4 * c, c)}
-    for n in PARAM_ORDER:
-        if tuple(p[n].shape) != expect.get(n, (c,)):
-            raise ValueError(f"fused_transformer_block: {n} has shape {tuple(p[n].shape)}")
-    build.check_tensors("fused_transformer_block", x, *(p[n] for n in PARAM_ORDER))
+    for i, ctx in enumerate(contexts):
+        cd = ctx.shape[-1]
+        expect.update({f"cwq{i}": (c, c), f"cwk{i}": (cd, c), f"cwv{i}": (cd, c),
+                       f"cwo{i}": (c, c)})
+        if ctx.shape[0] != bsz or tuple(cross_biases[i].shape) != (bsz, 1, ctx.shape[1]):
+            raise ValueError(f"fused_transformer_block: stream {i} has context "
+                             f"{tuple(ctx.shape)} and bias {tuple(cross_biases[i].shape)}")
+    names = param_names(n)
+    for k in names:
+        if tuple(p[k].shape) != expect.get(k, (c,)):
+            raise ValueError(f"fused_transformer_block: {k} has shape {tuple(p[k].shape)}")
+    build.check_tensors(name, x, *contexts, *(p[k] for k in names))
     h1 = layer_norm(x, p["ln1_scale"], p["ln1_bias"]).to(x.dtype)
-    k = (h1 @ p["wk"]).contiguous()
-    v = (h1 @ p["wv"]).contiguous()
+    operands = [x, (h1 @ p["wk"]).contiguous(), (h1 @ p["wv"]).contiguous(),
+                p["ln1_scale"], p["ln1_bias"], p["wq"], p["wo"], p["bo"],
+                p["ln3_scale"], p["ln3_bias"], p["wi"], p["bi"], p["wo2"], p["bo2"]]
+    tks = [0] * MAX_CROSS
+    for i, ctx in enumerate(contexts):
+        bias = cross_biases[i].float().contiguous()
+        build.check_tensors(name, bias)
+        operands += [(ctx @ p[f"cwk{i}"]).contiguous(), (ctx @ p[f"cwv{i}"]).contiguous(),
+                     bias, p[f"ln2{i}_scale"], p[f"ln2{i}_bias"], p[f"cwq{i}"],
+                     p[f"cwo{i}"], p[f"cbo{i}"]]
+        tks[i] = ctx.shape[1]
     lib = build.library()
     code = build.dtype_code(x.dtype)
-    build.check_smem("fused_transformer_block", lib.dm_transformer_block_smem(code, c))
-    operands = [x, k, v, p["ln1_scale"], p["ln1_bias"], p["wq"], p["wo"], p["bo"],
-                p["ln3_scale"], p["ln3_bias"], p["wi"], p["bi"], p["wo2"], p["bo2"]]
+    build.check_smem(name, lib.dm_transformer_block_smem(code, c))
     ptrs = (ctypes.c_void_p * len(operands))(*[o.data_ptr() for o in operands])
     out = torch.empty_like(x)
     rc = lib.dm_transformer_block(code, ctypes.cast(ptrs, ctypes.c_void_p),
-                                  out.data_ptr(), bsz, t, c,
+                                  out.data_ptr(), bsz, t, c, n, *tks,
                                   _LOG2E / math.sqrt(head_dim),
                                   build.stream_ptr(x.device))
-    build.check(rc, "fused_transformer_block")
-    LAUNCHES["fused_transformer_block"] += 1
+    build.check(rc, name)
+    LAUNCHES[name] += 1
     return out
 
 
 class _FusedBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, heads, head_dim, *params):
-        ctx.save_for_backward(x, *params)
-        ctx.heads, ctx.head_dim = heads, head_dim
-        p = dict(zip(PARAM_ORDER, params))
+    def forward(ctx, x, heads, head_dim, n_cross, *tensors):
+        ctx.save_for_backward(x, *tensors)
+        ctx.heads, ctx.head_dim, ctx.n_cross = heads, head_dim, n_cross
+        contexts, biases = tensors[:n_cross], tensors[n_cross:2 * n_cross]
+        p = dict(zip(param_names(n_cross), tensors[2 * n_cross:]))
         if use_plain(x, "fused_transformer_block"):
-            return transformer_block_plain(x, p, heads, head_dim)
-        return _launch(x, p, heads, head_dim)
+            return transformer_block_plain(x, p, heads, head_dim, contexts, biases)
+        return _launch(x, p, heads, head_dim, contexts, biases)
 
     @staticmethod
     def backward(ctx, g):
-        x, *params = ctx.saved_tensors
+        x, *tensors = ctx.saved_tensors
+        n = ctx.n_cross
         with torch.enable_grad():
             xd = x.detach().requires_grad_(True)
-            out = transformer_block_plain(xd, dict(zip(PARAM_ORDER, params)),
-                                          ctx.heads, ctx.head_dim)
-            (dx,) = torch.autograd.grad(out, xd, g.to(out.dtype))
-        return (dx, None, None) + (None,) * len(params)
+            contexts = [c.detach().requires_grad_(True) for c in tensors[:n]]
+            out = transformer_block_plain(
+                xd, dict(zip(param_names(n), tensors[2 * n:])), ctx.heads, ctx.head_dim,
+                contexts, tensors[n:2 * n])
+            grads = torch.autograd.grad(out, [xd, *contexts], g.to(out.dtype))
+        # the biases encode the (non-differentiable) attention mask; the
+        # weights are frozen
+        return (grads[0], None, None, None, *grads[1:]) + (None,) * (len(tensors) - n)
 
 
-def fused_transformer_block(x, p, heads: int, head_dim: int):
-    """One self-attention BasicTransformerBlock over x (B, T, C)."""
-    return _FusedBlock.apply(x, heads, head_dim, *(p[n] for n in PARAM_ORDER))
+def fused_transformer_block(x, p, heads: int, head_dim: int, contexts=(), cross_biases=()):
+    """One BasicTransformerBlock over x (B, T, C): self-attention, then the
+    given cross-attention streams, then the GEGLU FF."""
+    n = len(contexts)
+    if len(cross_biases) != n:
+        raise ValueError("fused_transformer_block: one bias per context")
+    return _FusedBlock.apply(x, heads, head_dim, n, *contexts, *cross_biases,
+                             *(p[k] for k in param_names(n)))

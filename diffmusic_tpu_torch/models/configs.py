@@ -1,4 +1,4 @@
-"""Model configs of the MusicLDM slice.
+"""Model configs of the MusicLDM and AudioLDM2 slices.
 
 Field for field the dataclasses of `diffmusic_tpu/models/configs.py`, copied so
 that this package never imports the JAX package; a JAX config converts with
@@ -66,3 +66,72 @@ class HiFiGANConfig:
         for r in self.upsample_rates:
             out *= r
         return out
+
+
+@dataclass(frozen=True)
+class ClapTextConfig:
+    """CLAP text tower (RoBERTa encoder) + 2-layer MLP projection head."""
+    vocab_size: int = 50265
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 514
+    type_vocab_size: int = 1
+    layer_norm_eps: float = 1e-12
+    pad_token_id: int = 1
+    projection_dim: int = 512
+    projection_hidden_act: str = "relu"
+
+
+def tiny_clap_text_config() -> ClapTextConfig:
+    return ClapTextConfig(vocab_size=256, hidden_size=32, num_hidden_layers=2,
+                          num_attention_heads=4, intermediate_size=64,
+                          max_position_embeddings=64, projection_dim=32)
+
+
+@dataclass(frozen=True)
+class T5Config:
+    vocab_size: int = 32128
+    d_model: int = 1024
+    d_kv: int = 64
+    d_ff: int = 2816
+    num_layers: int = 24
+    num_heads: int = 16
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+    is_gated_act: bool = True  # flan-t5 uses gated-gelu
+
+
+def tiny_t5_config() -> T5Config:
+    return T5Config(vocab_size=256, d_model=32, d_kv=8, d_ff=64, num_layers=2,
+                    num_heads=4)
+
+
+@dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    layer_norm_epsilon: float = 1e-5
+
+
+def tiny_gpt2_config() -> GPT2Config:
+    return GPT2Config(vocab_size=256, n_positions=64, n_embd=32, n_layer=2,
+                      n_head=4)
+
+
+@dataclass(frozen=True)
+class ProjectionConfig:
+    """AudioLDM2ProjectionModel: per-stream linear + learned SOS/EOS embeds."""
+    text_encoder_dim: int = 512       # CLAP pooled
+    text_encoder_1_dim: int = 1024    # T5
+    langauge_model_dim: int = 768     # GPT-2 (sic: diffusers spells it this way)
+
+
+def tiny_projection_config() -> ProjectionConfig:
+    return ProjectionConfig(text_encoder_dim=16, text_encoder_1_dim=32,
+                            langauge_model_dim=32)

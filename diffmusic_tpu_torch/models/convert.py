@@ -1,28 +1,38 @@
 """Weight carry from the JAX package, and flax-style random init.
 
 `from_flax(params, cfg)` turns a flax parameter tree of the JAX package's
-UNet, VAE or HiFi-GAN (arrays of any kind numpy can read) into the matching
-port module's `state_dict`. The port's module and parameter names follow the
-flax tree, so only the leaf names and the layouts change:
-  - norm `scale` -> `weight`;
+UNet, VAE, HiFi-GAN, CLAP text tower, T5 encoder, AudioLDM2 projection model
+or GPT-2 (arrays of any kind numpy can read) into the matching port module's
+`state_dict`. The port's module and parameter names follow the flax tree, so
+only the leaf names and the layouts change:
+  - norm `scale` -> `weight`; Embed `embedding` (num, dim) -> `weight`;
   - Dense `kernel` (in, out) stays (in, out): the port's `Dense` keeps it so;
   - Conv `kernel` (kh, kw, in, out) -> Conv2d `weight` (out, in, kh, kw);
   - HiFi-GAN conv kernels stay in their (k, in, out) math layout, except the
     ConvTranspose upsamplers, whose (k, out, in) kernels swap to (k, in, out).
+  - leaves of other names (T5's RMSNorm `weight`, the projection model's
+    SOS/EOS embeds) keep their names.
 The VAE encoder's leaves are skipped: only the decoder is ported.
 
 `init_flax_style(model, seed)` draws random weights the way flax initialises
-them (lecun-normal kernels, zero biases, unit norm scales), so bf16 activations
-of a random full-width model behave as in the JAX package's benchmark.
+them (lecun-normal kernels, zero biases, unit norm scales, embeddings normal
+with variance 1/dim, SOS/EOS embeds normal with std 0.02), so bf16
+activations of a random full-width model behave as in the JAX package.
 """
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from .configs import HiFiGANConfig, UNetConfig, VAEConfig
+from .configs import (ClapTextConfig, GPT2Config, HiFiGANConfig, ProjectionConfig,
+                      T5Config, UNetConfig, VAEConfig)
 from .hifigan import Conv1dParams
 from .layers import Dense, GroupNorm
+from .projection import AudioLDM2ProjectionModel
+from .t5 import RMSNorm
+
+CONFIGS = (UNetConfig, VAEConfig, HiFiGANConfig, ClapTextConfig, T5Config, ProjectionConfig,
+           GPT2Config)
 
 
 def _flatten(tree, prefix=()):
@@ -39,10 +49,10 @@ def _leaf(path, arr, hifigan: bool):
     key = ".".join(mods)
     if name == "bias":
         return key + ".bias", arr
-    if name == "scale":
+    if name in ("scale", "embedding"):
         return key + ".weight", arr
     if name != "kernel":
-        raise KeyError(f"unexpected flax leaf {'/'.join(path)}")
+        return ".".join(path), arr
     if hifigan:
         return key + ".weight", arr.swapaxes(1, 2) if mods[-1].startswith("upsampler_") else arr
     if arr.ndim == 2:
@@ -57,7 +67,7 @@ def from_flax(params, cfg) -> dict:
     variables (`{"params": ...}` or the bare tree)."""
     tree = params.get("params", params)
     hifigan = isinstance(cfg, HiFiGANConfig)
-    if not isinstance(cfg, (UNetConfig, VAEConfig, HiFiGANConfig)):
+    if not isinstance(cfg, CONFIGS):
         raise TypeError(f"no port model for config {type(cfg).__name__}")
     out = {}
     for path, arr in _flatten(tree):
@@ -94,4 +104,14 @@ def init_flax_style(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(mod, (GroupNorm, nn.LayerNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, RMSNorm):
+            mod.weight.fill_(1.0)
+        elif isinstance(mod, nn.Embedding):
+            # flax Embed: variance_scaling(1, fan_in, normal) over the feature axis
+            mod.weight.copy_(torch.randn(mod.weight.shape, generator=g)
+                             / mod.weight.shape[1] ** 0.5)
+        elif isinstance(mod, AudioLDM2ProjectionModel):
+            for name in ("sos_embed", "eos_embed", "sos_embed_1", "eos_embed_1"):
+                p = getattr(mod, name)
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
     return model

@@ -1,13 +1,17 @@
-"""Building blocks of the MusicLDM UNet and VAE decoder (port of
-`diffmusic_tpu/models/layers.py`).
+"""Building blocks of the MusicLDM and AudioLDM2 UNets and the VAE decoder
+(port of `diffmusic_tpu/models/layers.py`).
 
 NCHW at module boundaries (PyTorch idiom); the transformer blocks run on
 (B, H*W, C) tokens in the same row-major (h, w) order as the JAX package's
 NHWC reshape. Module attribute names follow the flax parameter tree, so
 `models/convert.py::from_flax` only renames `kernel`/`scale` and transposes.
 GroupNorm and Conv2d are plain PyTorch, as the JAX default routing is plain
-XLA; the transformer blocks with T >= 512 and inner == C route to the fused
-kernel (`kernels/transformer_block.py`) by the JAX package's `fusable` rule.
+XLA. The transformer blocks take the JAX package's routes:
+  - self-attention only, T >= 512 and inner == C: the fused block kernel;
+  - dual-cross (AudioLDM2), T >= 512, inner == C and `fuse_cross` on: the
+    fused block kernel's dual-cross mode;
+  - otherwise plain, where `attn1` with T == Tk >= 512 and no mask takes the
+    flash attention kernel (`kernels/attention.py`).
 """
 
 import math
@@ -17,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..kernels.attention import flash_attention
 from ..kernels.transformer_block import fused_transformer_block
 
 
@@ -115,26 +120,52 @@ class ResnetBlock2D(nn.Module):
         return x + h
 
 
-class Attention(nn.Module):
-    """Multi-head attention: bias-free q/k/v projections, biased output
-    projection, softmax in fp32 over (B, T, C) tokens."""
+def dot_product_attention(q, k, v, bias=None):
+    """softmax(q k^T / sqrt(D) + bias) v over (B, T, H, D) tensors
+    (`jax.nn.dot_product_attention` layout): fp32 logits and softmax, the
+    probabilities rounded to v's dtype for the product."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    if bias is not None:
+        s = s + bias
+    return torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1).to(v.dtype), v)
 
-    def __init__(self, dim: int, heads: int, head_dim: int):
+
+def mask_bias(mask: torch.Tensor) -> torch.Tensor:
+    """(B, Tk) key mask -> (B, 1, 1, Tk) fp32 additive logit bias, 0 / -1e9."""
+    return torch.where(mask.bool()[:, None, None, :], 0.0, -1e9)
+
+
+class Attention(nn.Module):
+    """Multi-head attention: bias-free q/k/v projections (k/v from a context
+    of `context_dim` features for cross-attention), biased output projection,
+    softmax in fp32 over (B, T, C) tokens.
+
+    kernel "auto" routes long unmasked self-attention (T == Tk >= 512) to the
+    flash kernel, as the JAX package does; "plain" keeps it plain PyTorch (the
+    VAE mid-block, which the JAX package pins to plain XLA)."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int,
+                 context_dim: Optional[int] = None, kernel: str = "auto"):
         super().__init__()
         inner = heads * head_dim
-        self.heads, self.head_dim = heads, head_dim
+        self.heads, self.head_dim, self.kernel = heads, head_dim, kernel
         self.to_q = Dense(dim, inner, bias=False)
-        self.to_k = Dense(dim, inner, bias=False)
-        self.to_v = Dense(dim, inner, bias=False)
+        self.to_k = Dense(context_dim or dim, inner, bias=False)
+        self.to_v = Dense(context_dim or dim, inner, bias=False)
         self.to_out = Dense(inner, dim)
 
-    def forward(self, x):
-        b, t, _ = x.shape
-        split = lambda a: a.reshape(b, t, self.heads, self.head_dim).transpose(1, 2)
-        q, k, v = split(self.to_q(x)), split(self.to_k(x)), split(self.to_v(x))
-        s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(self.head_dim)
-        o = (s.softmax(-1).to(v.dtype) @ v).transpose(1, 2).reshape(b, t, -1)
-        return self.to_out(o)
+    def forward(self, x, context=None, mask=None):
+        context = x if context is None else context
+        b, tq, _ = x.shape
+        tk = context.shape[1]
+        q = self.to_q(x).reshape(b, tq, self.heads, self.head_dim)
+        k = self.to_k(context).reshape(b, tk, self.heads, self.head_dim)
+        v = self.to_v(context).reshape(b, tk, self.heads, self.head_dim)
+        if self.kernel == "auto" and mask is None and tq == tk and tq >= 512:
+            o = flash_attention(q, k, v)
+        else:
+            o = dot_product_attention(q, k, v, None if mask is None else mask_bias(mask))
+        return self.to_out(o.reshape(b, tq, -1))
 
 
 class FeedForward(nn.Module):
@@ -151,32 +182,60 @@ class FeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """Self-attention + GEGLU FF, pre-LayerNorm (eps 1e-6). Long sequences
-    (T >= 512 with inner == C) run as one fused kernel launch."""
+    """Self-attention [+ one cross-attention stream per entry of `cross_dims`,
+    the context's feature width] + GEGLU FF, pre-LayerNorm (eps 1e-6).
 
-    def __init__(self, dim: int, heads: int, head_dim: int):
+    AudioLDM2 has two streams: GPT-2 generated states, then the T5 sequence.
+    Long sequences (T >= 512 with inner == C) run as one fused kernel launch
+    when the block is self-attention only, or when `fuse_cross` is on (the
+    JAX package's `DIFFMUSIC_TPU_FUSED_CROSS`, off by default there too)."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int,
+                 cross_dims: Tuple[int, ...] = (), fuse_cross: bool = False):
         super().__init__()
         self.heads, self.head_dim = heads, head_dim
+        self.cross_dims, self.fuse_cross = tuple(cross_dims), fuse_cross
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn1 = Attention(dim, heads, head_dim)
+        for i, cdim in enumerate(self.cross_dims):
+            setattr(self, f"norm2_{i}", nn.LayerNorm(dim, eps=1e-6))
+            setattr(self, f"attn2_{i}", Attention(dim, heads, head_dim, context_dim=cdim))
         self.norm3 = nn.LayerNorm(dim, eps=1e-6)
         self.ff = FeedForward(dim)
 
     def fused_params(self) -> dict:
         """The block's parameters by the kernel's names."""
         a, ff = self.attn1, self.ff
-        return dict(ln1_scale=self.norm1.weight, ln1_bias=self.norm1.bias,
-                    wq=a.to_q.weight, wk=a.to_k.weight, wv=a.to_v.weight,
-                    wo=a.to_out.weight, bo=a.to_out.bias,
-                    ln3_scale=self.norm3.weight, ln3_bias=self.norm3.bias,
-                    wi=ff.proj_in.weight, bi=ff.proj_in.bias,
-                    wo2=ff.proj_out.weight, bo2=ff.proj_out.bias)
+        p = dict(ln1_scale=self.norm1.weight, ln1_bias=self.norm1.bias,
+                 wq=a.to_q.weight, wk=a.to_k.weight, wv=a.to_v.weight,
+                 wo=a.to_out.weight, bo=a.to_out.bias,
+                 ln3_scale=self.norm3.weight, ln3_bias=self.norm3.bias,
+                 wi=ff.proj_in.weight, bi=ff.proj_in.bias,
+                 wo2=ff.proj_out.weight, bo2=ff.proj_out.bias)
+        for i in range(len(self.cross_dims)):
+            n, c = getattr(self, f"norm2_{i}"), getattr(self, f"attn2_{i}")
+            p.update({f"ln2{i}_scale": n.weight, f"ln2{i}_bias": n.bias,
+                      f"cwq{i}": c.to_q.weight, f"cwk{i}": c.to_k.weight,
+                      f"cwv{i}": c.to_v.weight, f"cwo{i}": c.to_out.weight,
+                      f"cbo{i}": c.to_out.bias})
+        return p
 
-    def forward(self, x):
-        if x.shape[1] >= 512 and self.heads * self.head_dim == x.shape[-1]:
+    def forward(self, x, contexts=(), context_masks=()):
+        masks = [context_masks[i] if i < len(context_masks) else None
+                 for i in range(len(self.cross_dims))]
+        fusable = x.shape[1] >= 512 and self.heads * self.head_dim == x.shape[-1]
+        fuse_cross = (self.cross_dims and fusable and self.fuse_cross
+                      and len(contexts) == len(self.cross_dims))
+        if (not self.cross_dims and fusable) or fuse_cross:
+            biases = tuple(
+                torch.zeros(x.shape[0], 1, ctx.shape[1], device=x.device) if m is None
+                else mask_bias(m)[:, 0] for ctx, m in zip(contexts, masks))
             return fused_transformer_block(x, self.fused_params(), self.heads,
-                                           self.head_dim)
+                                           self.head_dim, tuple(contexts), biases)
         x = x + self.attn1(self.norm1(x))
+        for i, m in enumerate(masks):
+            h = getattr(self, f"norm2_{i}")(x)
+            x = x + getattr(self, f"attn2_{i}")(h, contexts[i], m)
         return x + self.ff(self.norm3(x))
 
 
@@ -184,18 +243,19 @@ class Transformer2DModel(nn.Module):
     """GroupNorm -> proj_in -> transformer block over (H*W) tokens ->
     proj_out, with a residual around the whole stack."""
 
-    def __init__(self, channels: int, heads: int, head_dim: int, groups: int = 32):
+    def __init__(self, channels: int, heads: int, head_dim: int, groups: int = 32,
+                 cross_dims: Tuple[int, ...] = (), fuse_cross: bool = False):
         super().__init__()
         inner = heads * head_dim
         self.norm = GroupNorm(groups, channels, 1e-6)
         self.proj_in = Dense(channels, inner)
-        self.block_0 = BasicTransformerBlock(inner, heads, head_dim)
+        self.block_0 = BasicTransformerBlock(inner, heads, head_dim, cross_dims, fuse_cross)
         self.proj_out = Dense(inner, channels)
 
-    def forward(self, x):
+    def forward(self, x, contexts=(), context_masks=()):
         b, c, h, w = x.shape
         y = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
-        y = self.block_0(self.proj_in(y))
+        y = self.block_0(self.proj_in(y), contexts, context_masks)
         y = self.proj_out(y).reshape(b, h, w, c).permute(0, 3, 1, 2)
         return y + x
 

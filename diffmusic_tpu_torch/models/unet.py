@@ -1,9 +1,11 @@
-"""Conditional 2-D UNet of MusicLDM (port of `diffmusic_tpu/models/unet.py`).
-
-Only the MusicLDM path: self-attention transformer blocks and the CLAP
-embedding entering as a class label (simple projection, concatenated with the
-time embedding). Cross-attention (AudioLDM2) is still to be ported. NCHW at
-the API boundary.
+"""Conditional 2-D UNet (port of `diffmusic_tpu/models/unet.py`), NCHW at the
+API boundary. Both model families:
+  - MusicLDM: self-attention transformer blocks; the CLAP embedding enters as
+    a class label (simple projection, concatenated with the time embedding);
+  - AudioLDM2: no class embedding; every transformer block has two
+    cross-attention streams, the GPT-2 generated states and the T5 sequence
+    (with its attention mask). `fuse_cross` routes the long dual-cross blocks
+    to the fused block kernel (the JAX package's DIFFMUSIC_TPU_FUSED_CROSS).
 """
 
 from typing import Optional
@@ -16,9 +18,14 @@ from .layers import (Dense, Downsample2D, GroupNorm, ResnetBlock2D, TimestepEmbe
                      Transformer2DModel, Upsample2D, conv3x3, timestep_embedding)
 
 
+def _transformer(cfg: UNetConfig, ch: int, fuse_cross: bool) -> Transformer2DModel:
+    return Transformer2DModel(ch, ch // cfg.attention_head_dim, cfg.attention_head_dim,
+                              cfg.norm_num_groups, cfg.cross_attention_dims, fuse_cross)
+
+
 class DownBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, in_ch: int, out_ch: int, temb_dim: int,
-                 attention: bool, add_downsample: bool):
+                 attention: bool, add_downsample: bool, fuse_cross: bool):
         super().__init__()
         self.layers = cfg.layers_per_block
         for i in range(self.layers):
@@ -26,18 +33,16 @@ class DownBlock(nn.Module):
                 in_ch if i == 0 else out_ch, out_ch, cfg.norm_num_groups,
                 temb_dim=temb_dim))
             if attention:
-                setattr(self, f"attn_{i}", Transformer2DModel(
-                    out_ch, out_ch // cfg.attention_head_dim, cfg.attention_head_dim,
-                    cfg.norm_num_groups))
+                setattr(self, f"attn_{i}", _transformer(cfg, out_ch, fuse_cross))
         self.attention = attention
         self.downsample = Downsample2D(out_ch) if add_downsample else None
 
-    def forward(self, x, temb):
+    def forward(self, x, temb, contexts, context_masks):
         skips = []
         for i in range(self.layers):
             x = getattr(self, f"resnet_{i}")(x, temb)
             if self.attention:
-                x = getattr(self, f"attn_{i}")(x)
+                x = getattr(self, f"attn_{i}")(x, contexts, context_masks)
             skips.append(x)
         if self.downsample is not None:
             x = self.downsample(x)
@@ -47,7 +52,7 @@ class DownBlock(nn.Module):
 
 class UpBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, in_ch: int, skip_chs, out_ch: int,
-                 temb_dim: int, attention: bool, add_upsample: bool):
+                 temb_dim: int, attention: bool, add_upsample: bool, fuse_cross: bool):
         super().__init__()
         self.layers = len(skip_chs)
         for i, skip_ch in enumerate(skip_chs):
@@ -55,18 +60,16 @@ class UpBlock(nn.Module):
                 (in_ch if i == 0 else out_ch) + skip_ch, out_ch, cfg.norm_num_groups,
                 temb_dim=temb_dim))
             if attention:
-                setattr(self, f"attn_{i}", Transformer2DModel(
-                    out_ch, out_ch // cfg.attention_head_dim, cfg.attention_head_dim,
-                    cfg.norm_num_groups))
+                setattr(self, f"attn_{i}", _transformer(cfg, out_ch, fuse_cross))
         self.attention = attention
         self.upsample = Upsample2D(out_ch) if add_upsample else None
 
-    def forward(self, x, skips, temb):
+    def forward(self, x, skips, temb, contexts, context_masks):
         for i in range(self.layers):
             x = torch.cat([x, skips.pop()], dim=1)
             x = getattr(self, f"resnet_{i}")(x, temb)
             if self.attention:
-                x = getattr(self, f"attn_{i}")(x)
+                x = getattr(self, f"attn_{i}")(x, contexts, context_masks)
         if self.upsample is not None:
             # match the next skip's size (odd sizes ceil-divide on the way down)
             x = self.upsample(x, tuple(skips[-1].shape[2:]) if skips else None)
@@ -74,25 +77,28 @@ class UpBlock(nn.Module):
 
 
 class MidBlock(nn.Module):
-    def __init__(self, cfg: UNetConfig, ch: int, temb_dim: int):
+    def __init__(self, cfg: UNetConfig, ch: int, temb_dim: int, fuse_cross: bool):
         super().__init__()
         g = cfg.norm_num_groups
         self.resnet_0 = ResnetBlock2D(ch, ch, g, temb_dim=temb_dim)
-        self.attn = Transformer2DModel(ch, ch // cfg.attention_head_dim,
-                                       cfg.attention_head_dim, g)
+        self.attn = _transformer(cfg, ch, fuse_cross)
         self.resnet_1 = ResnetBlock2D(ch, ch, g, temb_dim=temb_dim)
 
-    def forward(self, x, temb):
-        return self.resnet_1(self.attn(self.resnet_0(x, temb)), temb)
+    def forward(self, x, temb, contexts, context_masks):
+        x = self.attn(self.resnet_0(x, temb), contexts, context_masks)
+        return self.resnet_1(x, temb)
 
 
 class UNet2DConditionModel(nn.Module):
-    """NCHW in/out; `class_labels` (B, 512) is the CLAP conditioning."""
+    """NCHW in/out. MusicLDM: `class_labels` (B, 512) is the CLAP
+    conditioning. AudioLDM2: `encoder_hidden_states` (B, 8, 768) are the GPT-2
+    generated states, `encoder_hidden_states_1` (B, L, 1024) the T5 sequence,
+    `encoder_attention_mask_1` (B, L) its mask."""
 
-    def __init__(self, cfg: UNetConfig):
+    def __init__(self, cfg: UNetConfig, fuse_cross: bool = False):
         super().__init__()
-        if cfg.cross_attention_dims:
-            raise ValueError("cross-attention UNets (AudioLDM2) are not ported yet")
+        if len(cfg.cross_attention_dims) > 2:
+            raise ValueError("the UNet takes at most two cross-attention streams")
         if cfg.class_embed_type not in (None, "simple_projection"):
             raise ValueError(f"class_embed_type {cfg.class_embed_type!r} is not ported")
         self.cfg = cfg
@@ -112,22 +118,26 @@ class UNet2DConditionModel(nn.Module):
         for i, out_ch in enumerate(boc):
             last = i == len(boc) - 1
             setattr(self, f"down_{i}", DownBlock(cfg, ch, out_ch, temb_dim,
-                                                 cfg.has_attention[i], not last))
+                                                 cfg.has_attention[i], not last, fuse_cross))
             skip_chs += [out_ch] * (cfg.layers_per_block + (0 if last else 1))
             ch = out_ch
-        self.mid = MidBlock(cfg, ch, temb_dim)
+        self.mid = MidBlock(cfg, ch, temb_dim, fuse_cross)
         for i, out_ch in enumerate(reversed(boc)):
             rev_i = len(boc) - 1 - i
             n = cfg.layers_per_block + 1
             mine, skip_chs = skip_chs[-n:][::-1], skip_chs[:-n]
             setattr(self, f"up_{i}", UpBlock(cfg, ch, mine, out_ch, temb_dim,
                                              cfg.has_attention[rev_i],
-                                             i != len(boc) - 1))
+                                             i != len(boc) - 1, fuse_cross))
             ch = out_ch
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch, 1e-5, use_silu=True)
         self.conv_out = conv3x3(ch, cfg.out_channels)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: Optional[torch.Tensor] = None,
+                encoder_hidden_states_1: Optional[torch.Tensor] = None,
+                encoder_attention_mask: Optional[torch.Tensor] = None,
+                encoder_attention_mask_1: Optional[torch.Tensor] = None,
                 class_labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         x = sample
@@ -142,12 +152,15 @@ class UNet2DConditionModel(nn.Module):
             emb = (torch.cat([emb, class_emb], dim=-1) if cfg.class_embeddings_concat
                    else emb + class_emb)
 
+        ctx = (encoder_hidden_states, encoder_hidden_states_1)[:len(cfg.cross_attention_dims)]
+        masks = (encoder_attention_mask, encoder_attention_mask_1)
+
         x = self.conv_in(x)
         skips = [x]
         for i in range(len(cfg.block_out_channels)):
-            x, s = getattr(self, f"down_{i}")(x, emb)
+            x, s = getattr(self, f"down_{i}")(x, emb, ctx, masks)
             skips.extend(s)
-        x = self.mid(x, emb)
+        x = self.mid(x, emb, ctx, masks)
         for i in range(len(cfg.block_out_channels)):
-            x = getattr(self, f"up_{i}")(x, skips, emb)
+            x = getattr(self, f"up_{i}")(x, skips, emb, ctx, masks)
         return self.conv_out(self.conv_norm_out(x))

@@ -2,7 +2,8 @@
 
 Only the decode path, which every guided step differentiates; the encoder is
 still to be ported. The mid-block attention (T = 4000 tokens x 512 channels,
-one head, at 10 s) is plain PyTorch, as the JAX package routes it to plain XLA.
+one head, at 10 s) is plain PyTorch (`kernel="plain"`), as the JAX package
+routes it to plain XLA.
 """
 
 import torch
@@ -16,7 +17,7 @@ class VAEAttentionBlock(nn.Module):
     def __init__(self, channels: int, groups: int = 32):
         super().__init__()
         self.group_norm = GroupNorm(groups, channels, 1e-6)
-        self.attention = Attention(channels, heads=1, head_dim=channels)
+        self.attention = Attention(channels, heads=1, head_dim=channels, kernel="plain")
 
     def forward(self, x):
         b, c, h, w = x.shape

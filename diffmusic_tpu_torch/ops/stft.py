@@ -30,17 +30,9 @@ def _dft_basis(n_fft: int, dtype=np.float32):
 
 
 @functools.lru_cache(maxsize=16)
-def _windowed_basis(n_fft: int, win_length: int, use_hann: bool,
-                    device: torch.device, dtype: torch.dtype):
-    """(cos, sin) bases with the (centre-padded) window folded into the rows."""
+def _basis(n_fft: int, device: torch.device, dtype: torch.dtype):
+    """(cos, sin) DFT bases as tensors, cached per device and dtype."""
     cos_b, sin_b = _dft_basis(n_fft)
-    if use_hann:
-        w = hann_window(win_length).numpy()
-        if win_length < n_fft:
-            lpad = (n_fft - win_length) // 2
-            w = np.pad(w, (lpad, n_fft - win_length - lpad))
-        cos_b = cos_b * w[:, None]
-        sin_b = sin_b * w[:, None]
     return (torch.as_tensor(cos_b, dtype=dtype, device=device),
             torch.as_tensor(sin_b, dtype=dtype, device=device))
 
@@ -63,11 +55,18 @@ def spectrogram(x: torch.Tensor, n_fft: int = 1024, hop_length: int = 160,
     """|STFT|^power (torchaudio.transforms.Spectrogram semantics).
 
     Returns (..., n_freqs, num_frames)."""
-    frames = frame_signal(x, n_fft, hop_length, center)
     if win_length > n_fft:
         raise ValueError("win_length must not exceed n_fft")
-    cos_b, sin_b = _windowed_basis(n_fft, win_length, use_hann, frames.device,
-                                   frames.dtype)
+    frames = frame_signal(x, n_fft, hop_length, center)
+    if use_hann:
+        # window the frames, then the plain basis: the JAX package's order, so
+        # that both round alike
+        w = hann_window(win_length, frames.dtype, frames.device)
+        if win_length < n_fft:
+            lpad = (n_fft - win_length) // 2
+            w = F.pad(w, (lpad, n_fft - win_length - lpad))
+        frames = frames * w
+    cos_b, sin_b = _basis(n_fft, frames.device, frames.dtype)
     re = (frames @ cos_b).transpose(-1, -2)
     im = (frames @ sin_b).transpose(-1, -2)
     mag_sq = re * re + im * im

@@ -1,0 +1,147 @@
+"""AudioLDM2 pipeline for music inverse problems (port of
+`diffmusic_tpu/pipelines/audioldm2.py`).
+
+The prompt goes through two text encoders, CLAP (pooled) and T5 (sequence);
+the projection model maps both into GPT-2's width between learned SOS/EOS
+tokens, and GPT-2 generates 8 hidden states from them in embedding space.
+The UNet attends to the generated states and to the T5 sequence (two
+cross-attention streams); the guided denoise loop is MusicLDM's.
+
+Ported: text prompts through the whole text stack, `prompt_embeds`, the
+degenerate-CFG skip over the stream tuple. Still to be ported:
+`prompt_type="clap"` (CLAP audio features of the measurement through the
+HTSAT audio tower), the TTS variant (a VITS encoder of a transcription) and
+`score_waveforms`; each raises or is absent.
+"""
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..models.clap import ClapTextModelWithProjection
+from ..models.configs import (ClapTextConfig, GPT2Config, HiFiGANConfig, ProjectionConfig,
+                              T5Config, UNetConfig, VAEConfig)
+from ..models.gpt2 import GPT2Model, generate_hidden_states
+from ..models.hifigan import SpeechT5HifiGan
+from ..models.projection import AudioLDM2ProjectionModel
+from ..models.t5 import T5EncoderModel
+from ..models.unet import UNet2DConditionModel
+from ..models.vae import AutoencoderKL
+from .musicldm import MusicLDMPipeline, _dtype
+
+GENERATED_STATES = 8   # GPT-2 generation steps, as the JAX package's max_new_tokens
+
+
+def byte_tokenizer(texts, maxlen: int = 12):
+    """A vocabulary-free tokenizer for random-weight runs: <s> (0), the
+    prompt's UTF-8 bytes mapped into [2, 252), </s> (2), then padding (1).
+    Returns numpy (ids, attention_mask), (len(texts), maxlen) int32."""
+    ids = np.ones((len(texts), maxlen), np.int32)
+    mask = np.zeros((len(texts), maxlen), np.int32)
+    for i, t in enumerate(texts):
+        row = [0] + [2 + (c % 250) for c in t.encode("utf-8")[:maxlen - 2]] + [2]
+        ids[i, :len(row)] = row
+        mask[i, :len(row)] = 1
+    return ids, mask
+
+
+@dataclass
+class AudioLDM2Pipeline(MusicLDMPipeline):
+    """MusicLDM's geometry, loss and guided loop; AudioLDM2's prompt encoding
+    and UNet conditioning. `text_encoder` is the CLAP text tower."""
+    t5: Optional[T5EncoderModel] = None
+    gpt2: Optional[GPT2Model] = None
+    projection: Optional[AudioLDM2ProjectionModel] = None
+    t5_tokenizer: Optional[Callable] = None
+
+    def _models(self):
+        return super()._models() + [m for m in (self.t5, self.gpt2, self.projection)
+                                    if m is not None]
+
+    @classmethod
+    def random(cls, unet_cfg: UNetConfig, vae_cfg: VAEConfig, vocoder_cfg: HiFiGANConfig,
+               seed: int = 0, device="cpu", weight_dtype=torch.float32,
+               text_cfg: ClapTextConfig = ClapTextConfig(), t5_cfg: T5Config = T5Config(),
+               gpt2_cfg: GPT2Config = GPT2Config(),
+               proj_cfg: ProjectionConfig = ProjectionConfig(), fuse_cross: bool = False,
+               **kwargs):
+        """Seeded flax-style random weights for all seven models, cast to
+        `weight_dtype` on `device`, with the byte tokenizer for both text
+        encoders unless `tokenizer` / `t5_tokenizer` are given. `fuse_cross`
+        routes the UNet's long dual-cross blocks to the fused block kernel."""
+        models = cls._random_models(
+            [UNet2DConditionModel(unet_cfg, fuse_cross=fuse_cross), AutoencoderKL(vae_cfg),
+             SpeechT5HifiGan(vocoder_cfg), ClapTextModelWithProjection(text_cfg),
+             T5EncoderModel(t5_cfg), GPT2Model(gpt2_cfg), AudioLDM2ProjectionModel(proj_cfg)],
+            seed, device, weight_dtype)
+        kwargs.setdefault("tokenizer", byte_tokenizer)
+        kwargs.setdefault("t5_tokenizer", byte_tokenizer)
+        return cls(*models[:3], text_encoder=models[3], t5=models[4], gpt2=models[5],
+                   projection=models[6], **kwargs)
+
+    # ------------------------------------------------------------------ text
+    def _encode_one(self, text: str, prompt_type: Optional[str] = None):
+        """One prompt -> (generated GPT-2 states (1, 8, 768), T5 sequence
+        (1, L, 1024), T5 mask (1, L))."""
+        if prompt_type == "clap":
+            raise ValueError("prompt_type='clap' needs the CLAP audio tower (HTSAT), "
+                             "which is not ported yet: use a text prompt")
+        proj_dt = _dtype(self.projection)
+        clap = self._clap_text(text)[:, None].to(proj_dt)            # (1, 1, 512)
+        clap_mask = torch.ones(clap.shape[:2], dtype=torch.long, device=clap.device)
+        ids, t5_mask = self._tokens([text], self.t5_tokenizer)
+        t5_seq = self.t5(ids, t5_mask)
+        projected, proj_mask = self.projection(clap, t5_seq.to(proj_dt), clap_mask, t5_mask)
+        generated = generate_hidden_states(self.gpt2, projected.to(_dtype(self.gpt2)),
+                                           proj_mask, GENERATED_STATES)
+        return generated, t5_seq, t5_mask
+
+    def encode_prompt(self, prompt, negative_prompt=None, do_classifier_free_guidance=True,
+                      prompt_type: Optional[str] = None, transcription: str = ""):
+        """(generated, t5_seq, t5_mask), CFG-stacked [uncond; cond] with the T5
+        streams padded to a common length."""
+        if transcription:
+            raise ValueError("a transcription needs the AudioLDM2-TTS variant (a VITS "
+                             "text encoder), which is not ported yet")
+        if self.tokenizer is None or self.t5_tokenizer is None:
+            raise ValueError("no tokenizers configured: pass prompt_embeds instead of a "
+                             "text prompt")
+        cond = self._encode_one(prompt or "", prompt_type)
+        if not do_classifier_free_guidance:
+            return cond
+        uncond = self._encode_one(negative_prompt or "")
+        length = max(cond[1].shape[1], uncond[1].shape[1])
+
+        def pad(seq, mask):
+            d = length - seq.shape[1]
+            return F.pad(seq, (0, 0, 0, d)), F.pad(mask, (0, d))
+
+        (nseq, nmask), (seq, mask) = pad(*uncond[1:]), pad(*cond[1:])
+        return (torch.cat([uncond[0], cond[0]]), torch.cat([nseq, seq]),
+                torch.cat([nmask, mask]))
+
+    # --------------------------------------------------------------- denoise
+    def _apply_unet(self, prompt_embeds, x_in, t: int):
+        """Dual-stream conditioning: the GPT-2 generated states, then the T5
+        sequence with its mask."""
+        generated, t5_seq, t5_mask = prompt_embeds
+        dt = _dtype(self.unet)
+        ts = torch.full((x_in.shape[0],), t, device=x_in.device)
+        return self.unet(x_in.to(dt), ts, encoder_hidden_states=generated.to(dt),
+                         encoder_hidden_states_1=t5_seq.to(dt),
+                         encoder_attention_mask_1=t5_mask).to(x_in.dtype)
+
+    @torch.no_grad()
+    def __call__(self, prompt: Optional[str] = None, measurement=None,
+                 prompt_type: Optional[str] = None, guidance_scale: float = 3.5,
+                 negative_prompt: Optional[str] = None, prompt_embeds=None,
+                 transcription: str = "", **kwargs):
+        if prompt_embeds is None:
+            prompt_embeds = self.encode_prompt(prompt, negative_prompt, guidance_scale > 1.0,
+                                               prompt_type, transcription)
+        return super().__call__(prompt=prompt, measurement=measurement,
+                                guidance_scale=guidance_scale, negative_prompt=negative_prompt,
+                                prompt_embeds=prompt_embeds, **kwargs)

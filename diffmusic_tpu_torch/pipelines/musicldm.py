@@ -7,17 +7,19 @@ its gradient with respect to x_t, through the mel transform, HiFi-GAN and the
 VAE decoder. Weights are frozen (`requires_grad_(False)`): guidance
 differentiates activations only.
 
-Ported: the `ddim` and `dps` samplers with `prompt_embeds`, the degenerate-CFG
-skip and the NaN retry. Still to be ported: the CLAP text tower (a text prompt
-raises), the other samplers, DITTO and `optim_prompt`.
+Ported: the `ddim` and `dps` samplers, a text prompt through the CLAP text
+tower (`encode_prompt`, with a `tokenizer` callable returning numpy
+`(ids, mask)`) or `prompt_embeds`, the degenerate-CFG skip and the NaN retry.
+Still to be ported: the other samplers, DITTO and `optim_prompt`.
 """
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from ..inverse_problem.operator import BaseOperator, IdentityOperator
+from ..models.clap import ClapTextModelWithProjection
 from ..models.configs import HiFiGANConfig, UNetConfig, VAEConfig
 from ..models.convert import init_flax_style
 from ..models.hifigan import SpeechT5HifiGan
@@ -49,9 +51,11 @@ class MusicLDMPipeline:
     scheduler_name: str = "ddim"
     operator: BaseOperator = field(default_factory=IdentityOperator)
     dtype: torch.dtype = torch.float32   # latents and guidance algebra
+    text_encoder: Optional[ClapTextModelWithProjection] = None
+    tokenizer: Optional[Callable] = None   # texts -> numpy (ids, attention_mask)
 
     def __post_init__(self):
-        for m in (self.unet, self.vae, self.vocoder):
+        for m in self._models():
             m.requires_grad_(False)
             m.eval()
         self.unet_cfg = self.unet.cfg
@@ -59,21 +63,51 @@ class MusicLDMPipeline:
         self.vocoder_cfg = self.vocoder.cfg
         self.vae_scale_factor = self.vae_cfg.scale_factor
 
+    def _models(self):
+        return [m for m in (self.unet, self.vae, self.vocoder, self.text_encoder)
+                if m is not None]
+
     @property
     def device(self) -> torch.device:
         return next(self.unet.parameters()).device
+
+    @staticmethod
+    def _random_models(models, seed: int, device, weight_dtype):
+        """Seeded flax-style random weights, model i from seed + i, cast to
+        `weight_dtype` on `device`."""
+        return [init_flax_style(m, seed + i).to(device=device, dtype=weight_dtype)
+                for i, m in enumerate(models)]
 
     @classmethod
     def random(cls, unet_cfg: UNetConfig, vae_cfg: VAEConfig, vocoder_cfg: HiFiGANConfig,
                seed: int = 0, device="cpu", weight_dtype=torch.float32, **kwargs):
         """Seeded flax-style random weights (no checkpoint needed), cast to
         `weight_dtype` on `device`."""
-        models = []
-        for i, m in enumerate((UNet2DConditionModel(unet_cfg), AutoencoderKL(vae_cfg),
-                               SpeechT5HifiGan(vocoder_cfg))):
-            init_flax_style(m, seed + i)
-            models.append(m.to(device=device, dtype=weight_dtype))
-        return cls(*models, **kwargs)
+        return cls(*cls._random_models([UNet2DConditionModel(unet_cfg), AutoencoderKL(vae_cfg),
+                                        SpeechT5HifiGan(vocoder_cfg)],
+                                       seed, device, weight_dtype), **kwargs)
+
+    # ------------------------------------------------------------------ text
+    def _tokens(self, texts, tokenizer=None):
+        """numpy (ids, mask) from a tokenizer -> int64 tensors on the device."""
+        ids, mask = (tokenizer or self.tokenizer)(texts)
+        return (torch.as_tensor(ids, dtype=torch.long, device=self.device),
+                torch.as_tensor(mask, dtype=torch.long, device=self.device))
+
+    def _clap_text(self, text: str) -> torch.Tensor:
+        """Normalised CLAP text embeds of one prompt, (1, projection_dim)."""
+        emb = self.text_encoder(*self._tokens([text])).float()
+        return emb / emb.norm(dim=-1, keepdim=True)
+
+    def encode_prompt(self, prompt, negative_prompt=None, do_classifier_free_guidance=True):
+        """CLAP pooled text features, normalised, CFG-stacked [uncond; cond]."""
+        if self.tokenizer is None or self.text_encoder is None:
+            raise ValueError("no tokenizer and CLAP text tower configured: pass "
+                             "prompt_embeds instead of a text prompt")
+        emb = self._clap_text(prompt or "")
+        if not do_classifier_free_guidance:
+            return emb
+        return torch.cat([self._clap_text(negative_prompt or ""), emb], dim=0)
 
     # ----------------------------------------------------------------- audio
     def decode_mel(self, latents: torch.Tensor) -> torch.Tensor:
@@ -107,25 +141,44 @@ class MusicLDMPipeline:
         return loss_fn
 
     # --------------------------------------------------------------- denoise
-    def _eps(self, prompt_embeds, x, t: int, guidance_scale: float):
+    def _apply_unet(self, prompt_embeds, x_in, t: int):
+        """The UNet's conditioning signature; MusicLDM feeds the CLAP embeds as
+        class labels."""
         dt = _dtype(self.unet)
+        ts = torch.full((x_in.shape[0],), t, device=x_in.device)
+        return self.unet(x_in.to(dt), ts, class_labels=prompt_embeds.to(dt)).to(x_in.dtype)
+
+    def _eps(self, prompt_embeds, x, t: int, guidance_scale: float):
         if guidance_scale > 1.0:
-            x_in = torch.cat([x, x], dim=0)
-            ts = torch.full((x_in.shape[0],), t, device=x.device)
-            eps = self.unet(x_in.to(dt), ts, class_labels=prompt_embeds.to(dt)).to(x.dtype)
+            eps = self._apply_unet(prompt_embeds, torch.cat([x, x], dim=0), t)
             uncond, text = eps.chunk(2, dim=0)
             return uncond + guidance_scale * (text - uncond)
-        ts = torch.full((x.shape[0],), t, device=x.device)
-        return self.unet(x.to(dt), ts, class_labels=prompt_embeds.to(dt)).to(x.dtype)
+        return self._apply_unet(prompt_embeds, x, t)
 
     @staticmethod
-    def _cfg_is_degenerate(prompt_embeds: torch.Tensor) -> bool:
-        """True when the CFG-stacked [uncond; cond] halves are identical (an
-        empty prompt with an empty negative prompt): then the CFG combine is
-        the identity and one UNet row suffices -- exactly."""
-        n = prompt_embeds.shape[0]
-        return n > 0 and n % 2 == 0 and torch.equal(prompt_embeds[:n // 2],
-                                                    prompt_embeds[n // 2:])
+    def _cfg_is_degenerate(prompt_embeds) -> bool:
+        """True when the CFG-stacked [uncond; cond] halves are identical in
+        every stream (an empty prompt with an empty negative prompt): then the
+        CFG combine is the identity and one UNet row suffices -- exactly."""
+        def halves_equal(a):
+            n = a.shape[0]
+            return n > 0 and n % 2 == 0 and torch.equal(a[:n // 2], a[n // 2:])
+        if isinstance(prompt_embeds, tuple):
+            return all(halves_equal(a) for a in prompt_embeds)
+        return halves_equal(prompt_embeds)
+
+    def _on_device(self, a) -> torch.Tensor:
+        """A stream of embeds on the device; float streams in the pipeline's
+        dtype, masks as they are."""
+        a = torch.as_tensor(a, device=self.device)
+        return a.to(self.dtype) if a.is_floating_point() else a
+
+    @staticmethod
+    def _map_embeds(fn, prompt_embeds):
+        """fn over each stream of a tuple of embeds, or over the one tensor."""
+        if isinstance(prompt_embeds, tuple):
+            return tuple(fn(a) for a in prompt_embeds)
+        return fn(prompt_embeds)
 
     @torch.no_grad()
     def __call__(self,
@@ -133,6 +186,7 @@ class MusicLDMPipeline:
                  audio_length_in_s: Optional[float] = None,
                  num_inference_steps: int = 200,
                  guidance_scale: float = 2.0,
+                 negative_prompt: Optional[str] = None,
                  num_waveforms_per_prompt: int = 1,
                  eta: float = 0.0,
                  generator: Optional[torch.Generator] = None,
@@ -150,13 +204,12 @@ class MusicLDMPipeline:
             audio_length_in_s if audio_length_in_s is not None else 5.0,
             sr, self.vocoder_cfg.hop_length, self.vae_scale_factor)
 
-        if prompt_embeds is None:
-            raise ValueError("the CLAP text tower is not ported yet: pass prompt_embeds "
-                             f"instead of a text prompt (got prompt={prompt!r})")
-        prompt_embeds = torch.as_tensor(prompt_embeds, dtype=self.dtype, device=device)
         do_cfg = guidance_scale > 1.0
+        if prompt_embeds is None:
+            prompt_embeds = self.encode_prompt(prompt, negative_prompt, do_cfg)
+        prompt_embeds = self._map_embeds(self._on_device, prompt_embeds)
         if do_cfg and self._cfg_is_degenerate(prompt_embeds):
-            prompt_embeds = prompt_embeds[prompt_embeds.shape[0] // 2:]
+            prompt_embeds = self._map_embeds(lambda a: a[a.shape[0] // 2:], prompt_embeds)
             guidance_scale = 1.0
 
         if latents is None:
@@ -168,7 +221,8 @@ class MusicLDMPipeline:
         batch = latents.shape[0]
         if batch > 1:
             # [uncond*B, cond*B] under CFG, matching the cat([x, x]) in _eps
-            prompt_embeds = prompt_embeds.repeat_interleave(batch, dim=0)
+            prompt_embeds = self._map_embeds(lambda a: a.repeat_interleave(batch, dim=0),
+                                             prompt_embeds)
 
         cfg = SamplerConfig(name=self.scheduler_name, eta=eta,
                             ip_guidance_rate=ip_guidance_rate,

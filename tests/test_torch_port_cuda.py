@@ -8,8 +8,8 @@ that has none; `tests/conftest.py` imports jax, so run it there with
 
 TF32 is off for the fp32 cases. Tolerances, as a fraction of max |plain|:
 fp32 1e-4 (another summation order than cuDNN/cuBLAS); bf16 2e-2 for the
-convs and 3e-2 for the transformer block (one bf16 rounding of an
-intermediate moves a product by about 2^-8 relative).
+convs and the flash attention and 3e-2 for the transformer block (one bf16
+rounding of an intermediate moves a product by about 2^-8 relative).
 """
 
 import math
@@ -20,6 +20,7 @@ import torch
 
 from diffmusic_tpu_torch import kernels
 from diffmusic_tpu_torch.inverse_problem import MusicInpaintingOperator
+from diffmusic_tpu_torch.kernels import attention as tattn
 from diffmusic_tpu_torch.kernels import conv1d as tconv
 from diffmusic_tpu_torch.kernels import transformer_block as ttb
 from diffmusic_tpu_torch.kernels import upsampler as tup
@@ -27,6 +28,8 @@ from diffmusic_tpu_torch.models.configs import HiFiGANConfig, UNetConfig, VAECon
 from diffmusic_tpu_torch.pipelines import MusicLDMPipeline
 
 SLOPE = 0.1
+MUSICLDM_KERNELS = ("fused_transformer_block", "conv1d_fused_pair", "conv1d_fused",
+                    "phase_convtranspose")
 
 
 @pytest.fixture
@@ -74,15 +77,13 @@ def test_conv_kernels_on_card(cuda, gen, dtype, tol):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"conv1d_fused": 1, "conv1d_fused_pair": 1,
                                        "phase_convtranspose": 1,
-                                       "fused_transformer_block": 0}
+                                       "fused_transformer_block": 0,
+                                       "fused_transformer_block_cross": 0,
+                                       "flash_attention": 0}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-def test_transformer_block_kernel_on_card(cuda, gen, dtype, tol):
-    c = 128
+def block_params(gen, c, dtype, cross_dims=()):
     s = 1.0 / math.sqrt(c)
-    x = arr(gen, 2, 700, c, dtype=dtype)
     p = dict(ln1_scale=1 + arr(gen, c, scale=0.1, dtype=dtype),
              ln1_bias=arr(gen, c, scale=0.1, dtype=dtype),
              wq=arr(gen, c, c, scale=s, dtype=dtype), wk=arr(gen, c, c, scale=s, dtype=dtype),
@@ -94,8 +95,72 @@ def test_transformer_block_kernel_on_card(cuda, gen, dtype, tol):
              bi=arr(gen, 8 * c, scale=0.1, dtype=dtype),
              wo2=arr(gen, 4 * c, c, scale=0.5 * s, dtype=dtype),
              bo2=arr(gen, c, scale=0.1, dtype=dtype))
+    for i, cd in enumerate(cross_dims):
+        p.update({f"ln2{i}_scale": 1 + arr(gen, c, scale=0.1, dtype=dtype),
+                  f"ln2{i}_bias": arr(gen, c, scale=0.1, dtype=dtype),
+                  f"cwq{i}": arr(gen, c, c, scale=s, dtype=dtype),
+                  f"cwk{i}": arr(gen, cd, c, scale=1 / math.sqrt(cd), dtype=dtype),
+                  f"cwv{i}": arr(gen, cd, c, scale=1 / math.sqrt(cd), dtype=dtype),
+                  f"cwo{i}": arr(gen, c, c, scale=s, dtype=dtype),
+                  f"cbo{i}": arr(gen, c, scale=0.1, dtype=dtype)})
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_transformer_block_kernel_on_card(cuda, gen, dtype, tol):
+    c = 128
+    x = arr(gen, 2, 700, c, dtype=dtype)
+    p = block_params(gen, c, dtype)
     out = ttb.fused_transformer_block(x, p, c // 8, 8)
     assert rel(out, ttb.transformer_block_plain(x, p, c // 8, 8)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_dual_cross_block_kernel_on_card(cuda, gen, dtype, tol):
+    """Two streams: 8 unmasked keys of width 96, then 40 keys of width 64
+    whose second row masks its last 15 (two key chunks of the kernel)."""
+    c = 128
+    x = arr(gen, 2, 700, c, dtype=dtype)
+    p = block_params(gen, c, dtype, (96, 64))
+    ctx = (arr(gen, 2, 8, 96, dtype=dtype), arr(gen, 2, 40, 64, dtype=dtype))
+    mask = torch.ones(2, 40, device=cuda)
+    mask[1, 25:] = 0
+    biases = (torch.zeros(2, 1, 8, device=cuda), torch.where(mask > 0, 0.0, -1e9)[:, None])
+    kernels.reset_launch_counts()
+    out = ttb.fused_transformer_block(x, p, c // 8, 8, ctx, biases)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_transformer_block_cross"] == 1
+    assert kernels.launch_counts()["fused_transformer_block"] == 0
+    assert rel(out, ttb.transformer_block_plain(x, p, c // 8, 8, ctx, biases)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("t,heads", [(700, 16), (333, 4), (1000, 32)])
+def test_flash_attention_kernel_on_card(cuda, gen, dtype, tol, t, heads):
+    q, k, v = (arr(gen, 2, t, heads, 8, dtype=dtype) for _ in range(3))
+    kernels.reset_launch_counts()
+    out = tattn.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    assert rel(out, tattn.attention_plain(q, k, v)) <= tol
+
+
+@pytest.mark.cuda
+def test_new_wrappers_raise_for_head_dim_16(cuda, gen):
+    """The kernels take head_dim 8 only; a CUDA tensor of another head_dim
+    raises rather than falling back to the plain version."""
+    q = arr(gen, 1, 600, 4, 16)
+    with pytest.raises(ValueError, match="head_dim 8"):
+        tattn.flash_attention(q, q, q)
+    c = 64
+    p = block_params(gen, c, torch.float32, (32,))
+    x = arr(gen, 1, 600, c)
+    with pytest.raises(ValueError, match="head_dim 8"):
+        ttb.fused_transformer_block(x, p, c // 16, 16, (arr(gen, 1, 8, 32),),
+                                    (torch.zeros(1, 1, 8, device=cuda),))
 
 
 @pytest.mark.cuda
@@ -149,6 +214,6 @@ def test_pipeline_draws_from_a_cpu_generator_on_card(cuda):
                            return_losses=True, supervised_space="wav_form")
         out[dev.type] = res.audios, losses, kernels.launch_counts()
     (lat_g, loss_g, counts), (lat_c, loss_c, _) = out["cuda"], out["cpu"]
-    assert all(n > 0 for n in counts.values()), counts
+    assert all(counts[n] > 0 for n in MUSICLDM_KERNELS), counts
     assert np.isfinite(lat_g).all() and np.isfinite(loss_g).all()
     assert np.linalg.norm(lat_g - lat_c) / np.linalg.norm(lat_c) <= 1e-4

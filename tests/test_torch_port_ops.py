@@ -52,7 +52,27 @@ def test_spectrogram_matches_jax(rng, length, power):
     ref = jstft.spectrogram(jnp.asarray(x), 1024, 160, 1024, power=power)
     out = tstft.spectrogram(torch.from_numpy(x), 1024, 160, 1024, power=power)
     assert out.shape == ref.shape
-    assert rel(out, ref) <= 1e-5
+    # two fp32 matmul-DFTs: each bin is a 1024-term dot whose rounding the
+    # BLAS orders as it likes, up to ~1024 * 2^-24 = 6e-5 of its scale
+    err = rel(out, ref)
+    assert err <= 1e-4, f"port vs JAX: {err:.2e} of max"
+
+
+@pytest.mark.parametrize("length", [4000, 4321])
+@pytest.mark.parametrize("power", [1.0, 2.0])
+def test_spectrogram_matches_float64_oracle(rng, length, power):
+    """np.fft.rfft of reflect-padded, Hann-windowed frames in float64."""
+    x = wave(rng, length)
+    xp = np.pad(x.astype(np.float64), ((0, 0), (512, 512)), mode="reflect")
+    n_frames = 1 + length // 160
+    idx = np.arange(n_frames)[:, None] * 160 + np.arange(1024)[None, :]
+    hann = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(1024) / 1024)
+    mag = np.abs(np.fft.rfft(xp[:, idx] * hann, axis=-1)).swapaxes(-1, -2)
+    ref = mag ** power
+    out = tstft.spectrogram(torch.from_numpy(x), 1024, 160, 1024, power=power)
+    assert out.shape == ref.shape
+    err = rel(out, ref)
+    assert err <= 1e-5, f"port vs float64 oracle: {err:.2e} of max"
 
 
 def test_frame_signal_matches_jax(rng):
@@ -156,7 +176,10 @@ def test_port_imports_no_jax():
     """The port package and chip_smoke's imports leave jax and the JAX package
     out of sys.modules."""
     code = ("import sys, chip_smoke, diffmusic_tpu_torch.pipelines, "
-            "diffmusic_tpu_torch.kernels.build, diffmusic_tpu_torch.models.convert; "
+            "diffmusic_tpu_torch.pipelines.audioldm2, diffmusic_tpu_torch.kernels.build, "
+            "diffmusic_tpu_torch.kernels.attention, diffmusic_tpu_torch.models.convert, "
+            "diffmusic_tpu_torch.models.clap, diffmusic_tpu_torch.models.t5, "
+            "diffmusic_tpu_torch.models.gpt2, diffmusic_tpu_torch.models.projection; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'diffmusic_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -27,11 +27,13 @@ from diffmusic_tpu.pipelines.musicldm import MusicLDMPipeline as JPipeline
 from diffmusic_tpu_torch import kernels
 from diffmusic_tpu_torch.inverse_problem import MusicInpaintingOperator
 from diffmusic_tpu_torch.models import configs as tcfg
-from diffmusic_tpu_torch.models.convert import from_flax
+from diffmusic_tpu_torch.models.clap import ClapTextModelWithProjection
+from diffmusic_tpu_torch.models.convert import from_flax, init_flax_style
 from diffmusic_tpu_torch.models.hifigan import SpeechT5HifiGan
 from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
 from diffmusic_tpu_torch.models.vae import AutoencoderKL
 from diffmusic_tpu_torch.pipelines import MusicLDMPipeline
+from diffmusic_tpu_torch.pipelines.audioldm2 import byte_tokenizer
 
 AUDIO_S = 0.32
 UNET = jcfg.tiny_unet_config()
@@ -117,11 +119,13 @@ def test_dps_slice_matches_jax(rng, pipelines):
 
 
 def test_port_pipeline_outputs_audio_and_rejects_text_prompts(pipelines):
+    """Audio from prompt embeds; a text prompt raises without a tokenizer and
+    CLAP text tower, and runs with them."""
     _, tpipe = pipelines
     _, top = operators()
+    meas = top.forward(torch.zeros(1, int(AUDIO_S * 16000)))
     out, losses = tpipe(audio_length_in_s=AUDIO_S, num_inference_steps=2, eta=0.0,
-                        prompt_embeds=torch.zeros(2, 32),
-                        measurement=top.forward(torch.zeros(1, int(AUDIO_S * 16000))),
+                        prompt_embeds=torch.zeros(2, 32), measurement=meas,
                         generator=torch.Generator().manual_seed(0), return_losses=True)
     assert out.audios.shape == (1, int(AUDIO_S * 16000))
     assert np.isfinite(out.audios).all() and np.isfinite(losses).all()
@@ -130,3 +134,10 @@ def test_port_pipeline_outputs_audio_and_rejects_text_prompts(pipelines):
     with pytest.raises(ValueError, match="measurement"):
         tpipe(prompt_embeds=torch.zeros(1, 32), audio_length_in_s=AUDIO_S,
               num_inference_steps=1)
+    text = init_flax_style(ClapTextModelWithProjection(tcfg.tiny_clap_text_config()), seed=7)
+    texted = dataclasses.replace(tpipe, text_encoder=text, tokenizer=byte_tokenizer)
+    out, losses = texted(prompt="piano", audio_length_in_s=AUDIO_S, num_inference_steps=2,
+                         eta=0.0, measurement=meas, generator=torch.Generator().manual_seed(0),
+                         return_losses=True)
+    assert out.audios.shape == (1, int(AUDIO_S * 16000))
+    assert np.isfinite(out.audios).all() and np.isfinite(losses).all()

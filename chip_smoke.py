@@ -9,19 +9,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      nvcc (sm_90a), one process per source, and prints the seconds taken;
   3. kernels: each kernel's wrapper against its plain PyTorch version, on the
      card, at every shape the 10-s MusicLDM and AudioLDM2 slices give it
-     (bf16), plus a small fp32 case with TF32 off; forward and, for the
-     vocoder kernels, the input gradient; median times of kernel and plain
-     version from CUDA events;
+     (bf16; the guided step's route kernels at the geometries of its UNet,
+     VAE decoder and vocoder), plus small fp32 cases with TF32 off; forward
+     and, where the kernel has a backward, the input gradient; median times
+     of the kernel, its plain version and the one PyTorch call that computes
+     the same function where there is one, from CUDA events, beside the
+     bound the shapes give (bytes over device memory rate, operations over
+     peak rate);
   4. reference: small fp32 MusicLDM and AudioLDM2 models (the latter from a
-     text prompt, under classifier-free guidance, on both UNet routes)
-     through the whole DPS pipeline on the card (kernels) and on the CPU
-     (plain versions), which must agree;
+     text prompt, under classifier-free guidance, on both UNet routes), and
+     a small fp32 MusicLDM with the guided step's routes on (`gn_mode`
+     "stats", then "fused"; conv2d and mask kernels) through the whole DPS
+     pipeline on the card (kernels) and on the CPU (plain versions), which
+     must agree;
   5. slice: full-width MusicLDM with seeded random bf16 weights, 20 DPS
      steps inpainting a 10-s clip (box mask at 4-6 s) through
-     `MusicLDMPipeline.__call__`, with the launch counts of every kernel;
+     `MusicLDMPipeline.__call__`, with the launch counts of every kernel, on
+     the default route and with the routes on, in the order default, stats,
+     fused, fused, stats, default (one card, one host: the turns keep the
+     host's drift out of the comparison);
   6. breakdown: each stage of one guided step timed alone at the slice's
-     shapes; with --profile also a torch.profiler table of two guided steps
-     and the device busy share, written to --out;
+     shapes, for the default route and both route settings; with --profile
+     also a torch.profiler table of two guided steps and the device busy
+     share, written to --out;
   7. audioldm2: full-width AudioLDM2 (cvssp/audioldm2-music widths) with
      seeded random bf16 weights, the empty prompt through the whole text
      stack (CLAP, T5, projection, GPT-2), the same 20 DPS steps through
@@ -33,6 +43,8 @@ per kernel, and last {"ok": true, "device": {...}}. No JAX is imported.
 """
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import shutil
@@ -40,18 +52,29 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # bf16 tolerances, as a fraction of max |plain|: one bf16 rounding of an
 # intermediate (h, q, attention output) moves a product by ~2^-8 relative
 TOL_CONV_BF16 = 2e-2
 TOL_FLASH_BF16 = 2e-2
 TOL_BLOCK_BF16 = 3e-2
+# the route kernels round their output once where the plain versions may
+# round twice (the SiLU's input, the mask before the residual add)
+TOL_ROUTE_BF16 = 2e-2
 # fp32: the kernels accumulate in another order than cuDNN/cuBLAS
 TOL_FP32 = 1e-4
+
+# The H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W), from
+# which each kernel's bound is computed.
+BF16_FLOPS = 989e12   # tensor cores, bf16
+FP32_FLOPS = 67e12    # fp32 outside the tensor cores
+HBM_BYTES = 3.35e12   # device memory, bytes per second
 
 SLOPE = 0.1
 STEPS = 20   # DPS steps of the slice
@@ -63,6 +86,11 @@ REPLACES = {
     "flash_attention": "diffmusic_tpu/pallas/attention_kernel.py:74",
     # the dual-cross mode of the same function
     "fused_transformer_block_cross": "diffmusic_tpu/pallas/transformer_kernel.py:291",
+    "fused_group_norm": "diffmusic_tpu/pallas/groupnorm_kernel.py:123",
+    "channel_moments": "diffmusic_tpu/pallas/groupnorm_kernel.py:258",
+    "conv2d_same": "diffmusic_tpu/pallas/conv2d_kernel.py:168",
+    "leaky_mask": "diffmusic_tpu/pallas/mask_kernel.py:80",
+    "leaky_mask_add": "diffmusic_tpu/pallas/mask_kernel.py:89",
 }
 SOURCES = {
     "fused_transformer_block": "diffmusic_tpu_torch/kernels/csrc/transformer_block.cu",
@@ -71,6 +99,11 @@ SOURCES = {
     "phase_convtranspose": "diffmusic_tpu_torch/kernels/csrc/upsampler.cu",
     "flash_attention": "diffmusic_tpu_torch/kernels/csrc/flash_attention.cu",
     "fused_transformer_block_cross": "diffmusic_tpu_torch/kernels/csrc/transformer_block.cu",
+    "fused_group_norm": "diffmusic_tpu_torch/kernels/csrc/group_norm.cu",
+    "channel_moments": "diffmusic_tpu_torch/kernels/csrc/group_norm.cu",
+    "conv2d_same": "diffmusic_tpu_torch/kernels/csrc/conv2d.cu",
+    "leaky_mask": "diffmusic_tpu_torch/kernels/csrc/leaky_mask.cu",
+    "leaky_mask_add": "diffmusic_tpu_torch/kernels/csrc/leaky_mask.cu",
 }
 # launches per guided step of the 10-s slices (UNet levels 0/1: 2 down + 3 up
 # blocks each; vocoder: 24 pairs, the 6 ch512 k=11 convs, upsamplers 0-2).
@@ -79,6 +112,27 @@ SOURCES = {
 VOCODER_PER_STEP = {"conv1d_fused_pair": 24, "conv1d_fused": 6, "phase_convtranspose": 3}
 BLOCK_KERNELS = ("fused_transformer_block", "flash_attention",
                  "fused_transformer_block_cross")
+# The guided step's routes (`gn_mode`, `conv2d_kernel`, `mask_kernel`):
+# launches per forward of the full-width UNet and VAE decoder at latents
+# (1, 8, 250, 16), for each `gn_mode`. Of the UNet's 61 GroupNorms, the two
+# of 1280 channels (up_0) miss the moments rule (C <= 1024) and the one of
+# 384 channels at (250, 16) misses the fused rule (H*W*C <= 2**20); of its 3x3
+# convs, the 22 at levels 0-1 meet the conv2d rule. All 24 VAE GroupNorms
+# meet the moments rule and none the fused one; 24 of its 26 3x3 convs
+# (not conv_in, conv_out) meet the conv2d rule.
+# (tests/test_torch_port_routes.py derives these from the models on the CPU.)
+ROUTE_LAUNCHES = {
+    "unet": {"stats": {"channel_moments": 59, "conv2d_same": 22},
+             "fused": {"fused_group_norm": 60, "conv2d_same": 22}},
+    "vae": {"stats": {"channel_moments": 24, "conv2d_same": 24},
+            "fused": {"fused_group_norm": 0, "conv2d_same": 24}},
+}
+# mask launches per guided step (the vocoder backward): stages 0-2 meet
+# mask_ok; each of the 24 pairs masks dh and dx, each of the 6 single convs x
+MASKS_PER_STEP = {"leaky_mask": 30, "leaky_mask_add": 24}
+ROUTE_KERNELS = ("fused_group_norm", "channel_moments", "conv2d_same", "leaky_mask",
+                 "leaky_mask_add")
+LATENTS = (1, 8, 250, 16)   # the 10-s slice's latents
 
 
 def log(msg: str) -> None:
@@ -104,8 +158,8 @@ def time_ms(fn, reps: int = 5, inner: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def randn(shape, gen, device, dtype, scale=1.0):
-    return (torch.randn(shape, generator=gen) * scale).to(device=device, dtype=dtype)
+def randn(shape, gen, device, dtype, scale=1.0, shift=0.0):
+    return (torch.randn(shape, generator=gen) * scale + shift).to(device=device, dtype=dtype)
 
 
 def rel_err(out, ref) -> tuple:
@@ -136,12 +190,27 @@ def compare_with_grad(kern, plain, x, g):
             grad_err(res["kernel"][1], res["plain"][1]))
 
 
-def timings(kern, plain, x, dtype):
-    """Forward ms of kernel and plain version (bf16 slice shapes only)."""
+def timings(kern, plain, x, dtype, library=None):
+    """Forward ms of the kernel, its plain version and, if given, the one
+    library call (bf16 slice shapes only)."""
     if dtype != torch.bfloat16:
-        return float("nan"), float("nan")
+        return float("nan"), float("nan"), None
     with torch.no_grad():
-        return time_ms(lambda: kern(x)), time_ms(lambda: plain(x))
+        return (time_ms(lambda: kern(x)), time_ms(lambda: plain(x)),
+                None if library is None else time_ms(lambda: library(x)))
+
+
+def bound(nbytes: float, ops: float, peak: float = BF16_FLOPS) -> tuple:
+    """(bytes ms, operations ms): the least times the card needs to move
+    `nbytes` through device memory and to do `ops` operations at `peak`; the
+    kernel's bound is the larger."""
+    return 1e3 * nbytes / HBM_BYTES, 1e3 * ops / peak
+
+
+def result(err, times, bnd) -> dict:
+    ms, plain_ms, library_ms = times
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound": bnd}
 
 
 def describe(fwd, bwd, tol) -> str:
@@ -149,16 +218,23 @@ def describe(fwd, bwd, tol) -> str:
             f"rel {bwd[1]:.2e} norm-rel {bwd[2]:.2e} (tol {tol:.0e})")
 
 
+def describe_times(r) -> str:
+    lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f}"
+    by = "operations" if r["bound"][1] > r["bound"][0] else "bytes"
+    return (f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f}{lib}; bound "
+            f"{max(r['bound']):.4g} ms ({by})")
+
+
 # ----------------------------------------------------------------- kernels
 def conv_cases(dtype):
     """(name, x shape, k, dilation, residual) for every resblock conv call of
     the 10-s slice."""
+    from diffmusic_tpu_torch.kernels.conv1d import pair_ok
     cases = []
     stages = [(5001, 512), (20004, 256), (40008, 128)]
     for t, c in stages:
         for k in (3, 7, 11):
             for d in (1, 3, 5):
-                from diffmusic_tpu_torch.kernels.conv1d import pair_ok
                 if pair_ok(k, c, c, dtype):
                     cases.append(("conv1d_fused_pair", (1, t, c), k, d, False))
                 else:
@@ -178,27 +254,35 @@ def check_conv(name, shape, k, d, residual, dtype, gen, tol):
     b2 = randn((c,), gen, dev, dtype, 0.1)
     r = randn(shape, gen, dev, dtype) if residual else None
     g = randn(shape, gen, dev, dtype)
+    size, rows = x.element_size(), shape[0] * shape[1]
     if name == "conv1d_fused_pair":
         kern = lambda xx: K.conv1d_fused_pair(xx, w1, b1, w2, b2, d, SLOPE)
         plain = lambda xx: K.pair_plain(xx, w1, b1, w2, b2, d, SLOPE)[0]
+        # x in; y and the saved h out; both kernels
+        bnd = bound(size * (3 * rows * c + 2 * k * c * c + 2 * c), 4 * rows * k * c * c)
     else:
         kern = lambda xx: K.conv1d_fused(xx, w1, b1, r, d, SLOPE)
         plain = lambda xx: K.conv1d_plain(xx, w1, b1, d, SLOPE, r)
+        bnd = bound(size * ((3 if residual else 2) * rows * c + k * c * c + c),
+                    2 * rows * k * c * c)
     fwd, bwd = compare_with_grad(kern, plain, x, g)
     if name == "conv1d_fused_pair":   # the h the kernel saves for the backward
         with torch.no_grad():
             h_err = rel_err(K._launch_pair(x, w1, b1, w2, b2, d, SLOPE)[1],
                             K.pair_plain(x, w1, b1, w2, b2, d, SLOPE)[1])
         fwd = max(fwd, h_err, key=lambda e: e[1])
-    ms, plain_ms = timings(kern, plain, x, dtype)
+    res = result(fwd[0], timings(kern, plain, x, dtype), bnd)
     log(f"  {name:24s} x{shape} k{k} d{d}{' +res' if residual else ''} {str(dtype)[6:]}: "
-        f"{describe(fwd, bwd, tol)}; {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+        f"{describe(fwd, bwd, tol)}; {describe_times(res)}")
     if fwd[1] > tol or bwd[2] > tol:
         raise AssertionError(f"{name} disagrees with its plain version")
-    return fwd[0], ms, plain_ms
+    return res
 
 
 def check_upsampler(cin, cout, k, s, t_in, dtype, gen, tol):
+    """The upsampler with its leaky ReLU against the plain version (forward,
+    gradient); times of the kernel alone (the wrapper applies the leaky ReLU
+    outside it), on the leaky input, beside F.conv_transpose1d."""
     from diffmusic_tpu_torch.kernels import upsampler as U
     dev = "cuda"
     x = randn((1, t_in, cin), gen, dev, dtype)
@@ -207,15 +291,21 @@ def check_upsampler(cin, cout, k, s, t_in, dtype, gen, tol):
     t_out = U.output_length(t_in, s, k)
     g = randn((1, t_out, cout), gen, dev, dtype)
     kern = lambda xx: U.phase_convtranspose(xx, w, b, s, k, t_out, SLOPE)
-    plain = lambda xx: U.convtranspose_plain(torch.nn.functional.leaky_relu(xx, SLOPE),
-                                             w, b, s, k)
+    plain = lambda xx: U.convtranspose_plain(F.leaky_relu(xx, SLOPE), w, b, s, k)
     fwd, bwd = compare_with_grad(kern, plain, x, g)
-    ms, plain_ms = timings(kern, plain, x, dtype)
+    library = lambda xx: F.conv_transpose1d(xx.transpose(1, 2), w.permute(1, 2, 0), b,
+                                            stride=s, padding=(k - s) // 2)
+    times = timings(lambda xx: U.phase_convtranspose(xx, w, b, s, k, t_out),
+                    lambda xx: U.convtranspose_plain(xx, w, b, s, k),
+                    F.leaky_relu(x, SLOPE), dtype, library)
+    size = x.element_size()
+    res = result(fwd[0], times, bound(size * (t_in * cin + t_out * cout + k * cin * cout + cout),
+                                      2 * t_in * k * cin * cout))
     log(f"  phase_convtranspose      {t_in}->{t_out} {cin}->{cout} k{k} s{s} "
-        f"{str(dtype)[6:]}: {describe(fwd, bwd, tol)}; {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+        f"{str(dtype)[6:]}: {describe(fwd, bwd, tol)}; {describe_times(res)}")
     if fwd[1] > tol or bwd[2] > tol:
         raise AssertionError("phase_convtranspose disagrees with its plain version")
-    return fwd[0], ms, plain_ms
+    return res
 
 
 def check_block(t, c, dtype, gen, tol, cross=False):
@@ -227,14 +317,19 @@ def check_block(t, c, dtype, gen, tol, cross=False):
     heads = c // 8
     x = randn((1, t, c), gen, dev, dtype)
     sc = 1.0 / math.sqrt(c)
-    p = dict(ln1_scale=1 + randn((c,), gen, dev, dtype, 0.1), ln1_bias=randn((c,), gen, dev, dtype, 0.1),
+    p = dict(ln1_scale=1 + randn((c,), gen, dev, dtype, 0.1),
+             ln1_bias=randn((c,), gen, dev, dtype, 0.1),
              wq=randn((c, c), gen, dev, dtype, sc), wk=randn((c, c), gen, dev, dtype, sc),
              wv=randn((c, c), gen, dev, dtype, sc), wo=randn((c, c), gen, dev, dtype, sc),
              bo=randn((c,), gen, dev, dtype, 0.1),
-             ln3_scale=1 + randn((c,), gen, dev, dtype, 0.1), ln3_bias=randn((c,), gen, dev, dtype, 0.1),
+             ln3_scale=1 + randn((c,), gen, dev, dtype, 0.1),
+             ln3_bias=randn((c,), gen, dev, dtype, 0.1),
              wi=randn((c, 8 * c), gen, dev, dtype, sc), bi=randn((8 * c,), gen, dev, dtype, 0.1),
              wo2=randn((4 * c, c), gen, dev, dtype, 1.0 / math.sqrt(4 * c)),
              bo2=randn((c,), gen, dev, dtype, 0.1))
+    # projections and GEGLU FF (32 T C^2) and attention (4 T^2 C); x in, out,
+    # the 16 C^2 weights
+    ops, nbytes = 32 * t * c * c + 4 * t * t * c, 2 * (2 * t * c + 16 * c * c)
     contexts, biases = (), ()
     if cross:
         for i, cd in enumerate((768, 1024)):
@@ -249,56 +344,249 @@ def check_block(t, c, dtype, gen, tol, cross=False):
         mask = torch.arange(12, device=dev) < 5
         biases = (torch.zeros(1, 1, 8, device=dev),
                   torch.where(mask, 0.0, -1e9)[None, None])
+        for tk, cd in ((8, 768), (12, 1024)):   # q, o; k, v of the context; attention
+            ops += 4 * t * c * c + 4 * tk * cd * c + 4 * t * tk * c
+            nbytes += 2 * (2 * c * c + 2 * cd * c + tk * cd) + 4 * tk
     kern = lambda: TB.fused_transformer_block(x, p, heads, 8, contexts, biases)
     plain = lambda: TB.transformer_block_plain(x, p, heads, 8, contexts, biases)
     with torch.no_grad():
         out, ref = kern(), plain()
         torch.cuda.synchronize()
         err = rel_err(out, ref)
-        bf = dtype == torch.bfloat16
-        ms = time_ms(kern) if bf else float("nan")
-        plain_ms = time_ms(plain) if bf else float("nan")
+    res = result(err[0], timings(lambda _: kern(), lambda _: plain(), None, dtype),
+                 bound(nbytes, ops))
     name = "fused_transformer_block_cross" if cross else "fused_transformer_block"
     log(f"  {name:24s} (1, {t}, {c}) heads {heads} {str(dtype)[6:]}: "
-        f"max|err| {err[0]:.3e} rel {err[1]:.2e} (tol {tol:.0e}); "
-        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
+        f"max|err| {err[0]:.3e} rel {err[1]:.2e} (tol {tol:.0e}); {describe_times(res)}")
     if err[1] > tol:
         raise AssertionError(f"{name} disagrees with its plain version")
-    return err[0], ms, plain_ms
+    return res
 
 
 def check_flash(t, heads, dtype, gen, tol):
-    """Flash attention over (1, t, heads, 8) q, k, v of unit variance."""
+    """Flash attention over (1, t, heads, 8) q, k, v of unit variance, beside
+    F.scaled_dot_product_attention on the same tensors (as (B, H, T, 8) views)."""
     from diffmusic_tpu_torch.kernels import attention as A
     q, k, v = (randn((1, t, heads, 8), gen, "cuda", dtype) for _ in range(3))
     with torch.no_grad():
         out, ref = A.flash_attention(q, k, v), A.attention_plain(q, k, v)
         torch.cuda.synchronize()
         err = rel_err(out, ref)
-        bf = dtype == torch.bfloat16
-        ms = time_ms(lambda: A.flash_attention(q, k, v)) if bf else float("nan")
-        plain_ms = time_ms(lambda: A.attention_plain(q, k, v)) if bf else float("nan")
+    sdpa = lambda _: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                    v.transpose(1, 2))
+    times = timings(lambda _: A.flash_attention(q, k, v), lambda _: A.attention_plain(q, k, v),
+                    None, dtype, sdpa)
+    res = result(err[0], times, bound(2 * 4 * t * heads * 8, 4 * t * t * heads * 8))
     log(f"  flash_attention          (1, {t}, {heads}, 8) {str(dtype)[6:]}: "
-        f"max|err| {err[0]:.3e} rel {err[1]:.2e} (tol {tol:.0e}); "
-        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
+        f"max|err| {err[0]:.3e} rel {err[1]:.2e} (tol {tol:.0e}); {describe_times(res)}")
     if err[1] > tol:
         raise AssertionError("flash_attention disagrees with its plain version")
-    return err[0], ms, plain_ms
+    return res
+
+
+# ------------------------------------------------------ the guided step's routes
+@contextlib.contextmanager
+def blocks_pass_through():
+    """The long transformer blocks return x unchanged (their kernel runs on
+    the card only), for shape-only forwards on the meta device."""
+    from diffmusic_tpu_torch.models import layers
+    fn = layers.fused_transformer_block
+    layers.fused_transformer_block = lambda x, *a, **k: x
+    try:
+        yield
+    finally:
+        layers.fused_transformer_block = fn
+
+
+def slice_geometries() -> dict:
+    """Per model ("unet", "vae"): the (shape, eps, use_silu) of every
+    GroupNorm input and the (x shape, weight shape) of every 3x3 'same' conv
+    of one full-width forward at the slice's latents, from a forward on the
+    meta device (shapes only: nothing is allocated or computed)."""
+    from diffmusic_tpu_torch.models import layers
+    from diffmusic_tpu_torch.models.configs import UNetConfig, VAEConfig
+    from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
+    from diffmusic_tpu_torch.models.vae import AutoencoderKL
+    with torch.device("meta"):
+        models = {"unet": UNet2DConditionModel(UNetConfig()), "vae": AutoencoderKL(VAEConfig())}
+    seen = {name: {"gn": [], "conv": []} for name in models}
+    for name, model in models.items():
+        for m in model.modules():
+            if isinstance(m, layers.GroupNorm):
+                m.register_forward_pre_hook(lambda mod, a, _s=seen[name]: _s["gn"].append(
+                    (tuple(a[0].shape), mod.eps, mod.use_silu)))
+            elif isinstance(m, layers.Conv2dSame):
+                m.register_forward_pre_hook(lambda mod, a, _s=seen[name]: _s["conv"].append(
+                    (tuple(a[0].shape), tuple(mod.weight.shape))))
+    lat = torch.empty(LATENTS, device="meta")
+    with torch.no_grad(), blocks_pass_through():
+        models["unet"](lat, torch.empty(1, device="meta"),
+                       class_labels=torch.empty(1, 512, device="meta"))
+        models["vae"].decode(lat)
+    return seen
+
+
+def mask_geometries() -> list:
+    """((1, T, C), leaky_mask launches, leaky_mask_add launches) per guided
+    step for each vocoder stage of the 10-s slice: where `mask_ok` holds,
+    each pair masks dh and dx and each single conv its input; elsewhere 0."""
+    from diffmusic_tpu_torch.kernels.conv1d import pair_ok
+    from diffmusic_tpu_torch.kernels.mask import mask_ok
+    from diffmusic_tpu_torch.kernels.upsampler import output_length
+    from diffmusic_tpu_torch.models.configs import HiFiGANConfig
+    cfg = HiFiGANConfig()
+    t, out = LATENTS[2] * 4, []    # mel frames
+    for i, (rate, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+        t, ch = output_length(t, rate, k), cfg.upsample_initial_channel // 2 ** (i + 1)
+        n_mask = n_add = 0
+        if mask_ok(torch.empty(1, t, ch, device="meta")):
+            for rk, dils in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+                pair = pair_ok(rk, ch, ch, torch.bfloat16)
+                n_mask += len(dils) * (1 if pair else 2)
+                n_add += len(dils) * pair
+        out.append(((1, t, ch), n_mask, n_add))
+    return out
+
+
+def route_calls() -> dict:
+    """Per route kernel: Counter of its calls per guided step at the slice
+    (UNet forward + VAE decode + vocoder backward), keyed by geometry."""
+    from diffmusic_tpu_torch.kernels.conv2d import conv2d_ok
+    from diffmusic_tpu_torch.kernels.group_norm import fused_gn_ok, moments_ok
+    calls = {n: Counter() for n in ROUTE_KERNELS}
+    for name, seen in slice_geometries().items():
+        for shape, eps, silu in seen["gn"]:
+            x = torch.empty(shape, device="meta")
+            if fused_gn_ok(x):
+                calls["fused_group_norm"][(shape, eps, silu)] += 1
+            if moments_ok(x.reshape(shape[0], shape[1], -1)):
+                calls["channel_moments"][(shape, eps, silu)] += 1
+        for xs, ws in seen["conv"]:
+            if conv2d_ok(torch.empty(xs, device="meta"), torch.empty(ws, device="meta")):
+                calls["conv2d_same"][(xs, ws)] += 1
+    for shape, n_mask, n_add in mask_geometries():
+        if n_mask:
+            calls["leaky_mask"][shape] += n_mask
+        if n_add:
+            calls["leaky_mask_add"][shape] += n_add
+    return calls
+
+
+def check_group_norm(name, shape, eps, silu, dtype, gen, tol):
+    """fused_group_norm (with its recompute backward) or channel_moments
+    (with its VJP; and the whole stats GroupNorm around it) on an NCHW x of
+    `shape`, groups 32, against the plain versions; times beside
+    F.group_norm (which has no SiLU) for the fused kernel, none for the
+    moments."""
+    from diffmusic_tpu_torch.kernels import group_norm as GN
+    dev = "cuda"
+    b, c, h, w = shape
+    n, size = b * c * h * w, torch.empty((), dtype=dtype).element_size()
+    x = randn(shape, gen, dev, dtype, 2.0, 0.3)
+    wt = randn((c,), gen, dev, dtype, 0.2, 1.0)
+    bt = randn((c,), gen, dev, dtype, 0.1)
+    if name == "fused_group_norm":
+        kern = lambda xx: GN.fused_group_norm(xx, wt, bt, 32, eps, silu)
+        plain = lambda xx: GN.group_norm_plain(xx, wt, bt, 32, eps, silu)
+        library = lambda xx: F.group_norm(xx, 32, wt, bt, eps)
+        g = randn(shape, gen, dev, dtype)
+        bnd = bound(size * (2 * n + 2 * c), (10 + 4 * silu) * n, FP32_FLOPS)
+    else:
+        kern = lambda xx: GN.channel_moments(xx.reshape(b, c, h * w))
+        plain = lambda xx: GN.moments_plain(xx.reshape(b, c, h * w))
+        library = None
+        g = randn((b, 2, c), gen, dev, torch.float32)
+        bnd = bound(size * n + 4 * 2 * b * c, 3 * n, FP32_FLOPS)
+    fwd, bwd = compare_with_grad(kern, plain, x, g)
+    if name == "channel_moments":
+        with torch.no_grad():
+            whole = rel_err(GN.stats_group_norm(x, wt, bt, 32, eps, silu),
+                            GN.group_norm_plain(x, wt, bt, 32, eps, silu))
+        fwd = max(fwd, whole, key=lambda e: e[1])
+    res = result(fwd[0], timings(kern, plain, x, dtype, library), bnd)
+    log(f"  {name:24s} {shape} eps {eps:g}{' +silu' if silu else ''} {str(dtype)[6:]}: "
+        f"{describe(fwd, bwd, tol)}; {describe_times(res)}")
+    if fwd[1] > tol or bwd[2] > tol:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return res
+
+
+def check_conv2d(xshape, wshape, dtype, gen, tol):
+    """conv2d_same (forward kernel, plain adjoint backward) against the plain
+    version, beside F.conv2d (the plain version is that one call)."""
+    from diffmusic_tpu_torch.kernels import conv2d as C2
+    dev = "cuda"
+    b, cin, h, w = xshape
+    cout, _, kh, kw = wshape
+    x = randn(xshape, gen, dev, dtype)
+    wt = randn(wshape, gen, dev, dtype, 1.0 / math.sqrt(kh * kw * cin))
+    bias = randn((cout,), gen, dev, dtype, 0.1)
+    g = randn((b, cout, h, w), gen, dev, dtype)
+    kern = lambda xx: C2.conv2d_same(xx, wt, bias)
+    plain = lambda xx: C2.conv2d_plain(xx, wt, bias)
+    library = lambda xx: F.conv2d(xx, wt, bias, padding=(kh // 2, kw // 2))
+    fwd, bwd = compare_with_grad(kern, plain, x, g)
+    size, m = x.element_size(), b * h * w
+    res = result(fwd[0], timings(kern, plain, x, dtype, library),
+                 bound(size * (m * cin + m * cout + cout * cin * kh * kw + cout),
+                       2 * m * cout * cin * kh * kw))
+    log(f"  conv2d_same              x{xshape} w{wshape} {str(dtype)[6:]}: "
+        f"{describe(fwd, bwd, tol)}; {describe_times(res)}")
+    if fwd[1] > tol or bwd[2] > tol:
+        raise AssertionError("conv2d_same disagrees with its plain version")
+    return res
+
+
+def check_mask(name, shape, dtype, gen, tol):
+    """leaky_mask or leaky_mask_add against the plain version; times beside
+    aten.leaky_relu_backward for leaky_mask (it differs only where h == 0);
+    leaky_mask_add has no one-call counterpart."""
+    from diffmusic_tpu_torch.kernels import mask as M
+    dev = "cuda"
+    h, g, r = (randn(shape, gen, dev, dtype) for _ in range(3))
+    add = name == "leaky_mask_add"
+    if add:
+        kern = lambda hh: M.leaky_mask_add(hh, g, r, SLOPE)
+        plain = lambda hh: M.leaky_mask_plain(hh, g, SLOPE, r)
+        library = None
+    else:
+        kern = lambda hh: M.leaky_mask(hh, g, SLOPE)
+        plain = lambda hh: M.leaky_mask_plain(hh, g, SLOPE)
+        library = lambda hh: torch.ops.aten.leaky_relu_backward(g, hh, SLOPE, False)
+    with torch.no_grad():
+        out, ref = kern(h), plain(h)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+    n = h.numel()
+    res = result(err[0], timings(kern, plain, h, dtype, library),
+                 bound(h.element_size() * (3 + add) * n, (2 + add) * n, FP32_FLOPS))
+    log(f"  {name:24s} {shape} {str(dtype)[6:]}: max|err| {err[0]:.3e} rel {err[1]:.2e} "
+        f"(tol {tol:.0e}); {describe_times(res)}")
+    if err[1] > tol:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return res
 
 
 def phase_kernels(gen) -> dict:
-    """Every kernel at the slice's shapes (bf16) and a small fp32 case.
-    Returns per kernel: max abs error, and kernel/plain ms summed over one
-    guided step's calls."""
-    stats = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for n in REPLACES}
+    """Every kernel at the slice's shapes (bf16) and small fp32 cases.
+    Returns per kernel: max abs error, and kernel / plain / library / bound
+    ms summed over one guided step's calls."""
+    stats = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+                 "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0} for n in REPLACES}
 
     def add(name, res, per_step=1):
-        err, ms, plain_ms = res
         s = stats[name]
-        s["max_abs_err"] = max(s["max_abs_err"], err)
-        if not math.isnan(ms):
-            s["ms"] += per_step * ms
-            s["plain_ms"] += per_step * plain_ms
+        s["max_abs_err"] = max(s["max_abs_err"], res["err"])
+        if math.isnan(res["ms"]):
+            return
+        s["ms"] += per_step * res["ms"]
+        s["plain_ms"] += per_step * res["plain_ms"]
+        if res["library_ms"] is not None:
+            s["library_ms"] = (s["library_ms"] or 0.0) + per_step * res["library_ms"]
+        bytes_ms, ops_ms = res["bound"]
+        s["bound_ms"] += per_step * max(bytes_ms, ops_ms)
+        s["bytes_ms"] += per_step * bytes_ms
+        s["ops_ms"] += per_step * ops_ms
 
     bf = torch.bfloat16
     log("kernels vs plain versions, slice shapes, bf16:")
@@ -313,6 +601,18 @@ def phase_kernels(gen) -> dict:
                                   (256, 128, 8, 2, 20004)):
         add("phase_convtranspose", check_upsampler(cin, cout, k, s, t_in, bf, gen,
                                                    TOL_CONV_BF16))
+    calls = route_calls()
+    log("route kernels at the slice's geometries, bf16 (times per call; the line "
+        "sums them over one guided step):")
+    for name in ("fused_group_norm", "channel_moments"):
+        for (shape, eps, silu), n in sorted(calls[name].items()):
+            add(name, check_group_norm(name, shape, eps, silu, bf, gen, TOL_ROUTE_BF16), n)
+    for (xs, ws), n in sorted(calls["conv2d_same"].items()):
+        add("conv2d_same", check_conv2d(xs, ws, bf, gen, TOL_ROUTE_BF16), n)
+    for name in ("leaky_mask", "leaky_mask_add"):
+        for shape, n in sorted(calls[name].items()):
+            add(name, check_mask(name, shape, bf, gen, TOL_ROUTE_BF16), n)
+
     log("kernels vs plain versions, small fp32 cases (TF32 off):")
     f32 = torch.float32
     add("fused_transformer_block", check_block(600, 128, f32, gen, TOL_FP32))
@@ -323,6 +623,15 @@ def phase_kernels(gen) -> dict:
     add("conv1d_fused", check_conv("conv1d_fused", (2, 300, 128), 11, 5, True, f32, gen,
                                    TOL_FP32))
     add("phase_convtranspose", check_upsampler(256, 128, 16, 5, 100, f32, gen, TOL_FP32))
+    # the groups' and rows' runs of 252 and 63 elements take the scalar paths
+    for name, shape, silu in (("fused_group_norm", (2, 128, 16, 16), True),
+                              ("fused_group_norm", (1, 128, 9, 7), False),
+                              ("channel_moments", (2, 256, 9, 7), True)):
+        add(name, check_group_norm(name, shape, 1e-5, silu, f32, gen, TOL_FP32))
+    for xs, ws in (((2, 128, 9, 20), (128, 128, 3, 3)), ((1, 64, 10, 12), (64, 64, 1, 3))):
+        add("conv2d_same", check_conv2d(xs, ws, f32, gen, TOL_FP32))
+    for name, shape in (("leaky_mask", (1, 1001, 100)), ("leaky_mask_add", (2, 999, 128))):
+        add(name, check_mask(name, shape, f32, gen, TOL_FP32))
     return stats
 
 
@@ -345,12 +654,12 @@ def inpainting(audio_s: float, device):
     return op, op.forward(torch.as_tensor(harmonic_stack(owl, 16000), device=device))
 
 
-def build_pipe(unet_cfg, vae_cfg, voc_cfg, audio_s, device, weight_dtype):
+def build_pipe(unet_cfg, vae_cfg, voc_cfg, audio_s, device, weight_dtype, **routes):
     from diffmusic_tpu_torch.pipelines import MusicLDMPipeline
     op, measurement = inpainting(audio_s, device)
     pipe = MusicLDMPipeline.random(unet_cfg, vae_cfg, voc_cfg, seed=0, device=device,
                                    weight_dtype=weight_dtype, scheduler_name="dps",
-                                   operator=op)
+                                   operator=op, **routes)
     return pipe, measurement
 
 
@@ -364,6 +673,23 @@ def build_audioldm2(unet_cfg, vae_cfg, voc_cfg, audio_s, device, weight_dtype, f
     return pipe, measurement
 
 
+def with_routes(pipe, gn_mode: str):
+    """The pipeline with its UNet, VAE and vocoder rebuilt with the guided
+    step's routes on (`gn_mode`, the conv2d and the mask kernels), sharing
+    the pipeline's weight tensors (no copy)."""
+    from diffmusic_tpu_torch.models.hifigan import SpeechT5HifiGan
+    from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
+    from diffmusic_tpu_torch.models.vae import AutoencoderKL
+    routes = dict(gn_mode=gn_mode, conv2d_kernel=True)
+    with torch.device("meta"):
+        models = dict(unet=UNet2DConditionModel(pipe.unet_cfg, **routes),
+                      vae=AutoencoderKL(pipe.vae_cfg, **routes),
+                      vocoder=SpeechT5HifiGan(pipe.vocoder_cfg, mask_kernel=True))
+    for name, model in models.items():
+        model.load_state_dict(getattr(pipe, name).state_dict(), assign=True)
+    return dataclasses.replace(pipe, **models)
+
+
 def audioldm2_unet_config(**widths):
     """cvssp/audioldm2-music's UNet as the repo configures it
     (tools/check_audioldm2_step.py): two cross streams, no class embedding."""
@@ -374,14 +700,22 @@ def audioldm2_unet_config(**widths):
     return UNetConfig(**kw)
 
 
-def expected_launches(blocks: str) -> dict:
+def expected_launches(blocks: str, gn_mode: str = "plain") -> dict:
     """Launches of every kernel over a slice's STEPS guided steps and its
     final decode, where `blocks` is the kernel its 10 transformer blocks per
-    step take."""
-    want = {n: 0 for n in BLOCK_KERNELS}
+    step take and `gn_mode` "stats" or "fused" means the guided step's
+    routes are on (conv2d and mask kernels too)."""
+    want = {n: 0 for n in BLOCK_KERNELS + ROUTE_KERNELS}
     want[blocks] = 10 * STEPS
     # the vocoder kernels run once more in the final decode
     want.update({n: k * (STEPS + 1) for n, k in VOCODER_PER_STEP.items()})
+    if gn_mode != "plain":
+        # the UNet once a step; the VAE once a step and in the final decode;
+        # the masks in the vocoder backward, once a step
+        for model, runs in (("unet", STEPS), ("vae", STEPS + 1)):
+            for name, n in ROUTE_LAUNCHES[model][gn_mode].items():
+                want[name] += n * runs
+        want.update({n: k * STEPS for n, k in MASKS_PER_STEP.items()})
     return want
 
 
@@ -402,6 +736,10 @@ def check_launches(label: str, counts: dict, want: dict) -> None:
 REF_LATENT_TOL = {"mel_spectrogram": 2e-2, "wav_form": 1e-4}
 REF_LOSS_TOL = 1e-4
 REF_AUDIO_S = 0.64   # latent (1, 8, 32, 32): level-0 T = 1024 -> the block kernels
+# latent (1, 8, 64, 32): the UNet's levels 0-1 and the VAE's 128-channel
+# levels meet the conv2d and GroupNorm rules, and the vocoder's ch256 and
+# ch128 stages (T 2564, 5130) meet mask_ok
+ROUTES_REF_AUDIO_S = 1.28
 
 
 def reference_configs():
@@ -458,6 +796,39 @@ def phase_reference():
                           lat_tol, ("fused_transformer_block",) + tuple(VOCODER_PER_STEP))
 
 
+def phase_reference_routes():
+    """A small fp32 MusicLDM with the guided step's routes on (`gn_mode`
+    "stats", then "fused"; the conv2d and mask kernels), 2 DPS steps with the
+    waveform loss, on the card and on the CPU: every route kernel of the
+    setting launches on the card, inside the differentiated chain too (the
+    VAE's 128-channel levels, the vocoder backward), and none on the CPU."""
+    from diffmusic_tpu_torch import kernels
+    from diffmusic_tpu_torch.models.configs import UNetConfig, VAEConfig
+    unet, _, voc_cfg = reference_configs()
+    vae_cfg = VAEConfig(block_out_channels=(32, 128), layers_per_block=1, norm_num_groups=32)
+    lat = torch.randn((1, 8, 64, 32), generator=torch.Generator().manual_seed(7))
+    gn_kernels = {"stats": "channel_moments", "fused": "fused_group_norm"}
+    for gn_mode, gn_kernel in gn_kernels.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            pipe, meas = build_pipe(UNetConfig(**unet), vae_cfg, voc_cfg, ROUTES_REF_AUDIO_S,
+                                    dev, torch.float32, gn_mode=gn_mode, conv2d_kernel=True,
+                                    mask_kernel=True)
+            kernels.reset_launch_counts()
+            res, losses = pipe(audio_length_in_s=ROUTES_REF_AUDIO_S, num_inference_steps=2,
+                               eta=0.0, prompt_embeds=torch.zeros(2, 512), measurement=meas,
+                               ip_guidance_rate=2.0, latents=lat, output_type="latent",
+                               return_losses=True, supervised_space="wav_form")
+            out[dev] = (res.audios, losses, kernels.launch_counts())
+        compare_reference(f"MusicLDM with the routes, gn_mode {gn_mode}, fp32, small model, "
+                          f"2 DPS steps, wav_form loss", out, REF_LATENT_TOL["wav_form"],
+                          (gn_kernel, "conv2d_same", "leaky_mask", "leaky_mask_add",
+                           "fused_transformer_block") + tuple(VOCODER_PER_STEP))
+        other = gn_kernels["fused" if gn_mode == "stats" else "stats"]
+        if out["cuda"][2][other]:
+            raise AssertionError(f"gn_mode {gn_mode} launched {other}")
+
+
 def phase_reference_audioldm2():
     """A small fp32 AudioLDM2 (tiny text stack, the reference's UNet with two
     32-wide cross streams) from a text prompt under classifier-free guidance
@@ -497,7 +868,7 @@ def drive(label: str, pipe, meas, want: dict, **call_kw) -> dict:
     eta 0, rate 2.0, seeded latents (1, 8, 250, 16); the launch counts are set
     to 0 just before and read just after, and must equal `want`."""
     from diffmusic_tpu_torch import kernels
-    lat = torch.randn((1, 8, 250, 16), generator=torch.Generator().manual_seed(0))
+    lat = torch.randn(LATENTS, generator=torch.Generator().manual_seed(0))
     stamps = []
 
     def on_step(i, t, x):
@@ -517,12 +888,12 @@ def drive(label: str, pipe, meas, want: dict, **call_kw) -> dict:
     peak = torch.cuda.max_memory_allocated()
     audio = out.audios
     q1, med, q3 = statistics.quantiles(step_ms[1:], n=4)
-    log(f"{label}: DPS {STEPS} steps, eta 0, rate 2.0, latents (1, 8, 250, 16); "
+    log(f"{label}: DPS {STEPS} steps, eta 0, rate 2.0, latents {LATENTS}; "
         f"loss first {losses[0]:.4f} last {losses[-1]:.4f}; "
         f"ms/guided step after the first: median {med:.2f}, quartiles {q1:.2f}/{q3:.2f} "
         f"(first {step_ms[0]:.1f}); peak memory {peak / 2**30:.2f} GiB; "
         f"audio {audio.shape}")
-    log(f"{label}: launches {counts}")
+    log(f"{label}: launches over the {STEPS} steps and the final decode {counts}")
     if not np.isfinite(losses).all() or not np.isfinite(audio).all():
         raise AssertionError(f"{label} produced non-finite losses or audio")
     if audio.shape != (1, 160000):
@@ -531,23 +902,36 @@ def drive(label: str, pipe, meas, want: dict, **call_kw) -> dict:
     return counts
 
 
-def phase_slice():
+def phase_slice(profile_dir=None) -> dict:
+    """Full-width MusicLDM on the default route and with the guided step's
+    routes on, in the turns default, stats, fused, fused, stats, default,
+    then each setting's breakdown. Returns the launch counts of the first run
+    of each setting."""
     from diffmusic_tpu_torch.models.configs import HiFiGANConfig, UNetConfig, VAEConfig
     t0 = time.time()
     pipe, meas = build_pipe(UNetConfig(), VAEConfig(), HiFiGANConfig(), 10.0, "cuda",
                             torch.bfloat16)
     log(f"slice: full-width MusicLDM, seeded random bf16 weights, built in "
         f"{time.time() - t0:.1f} s")
-    counts = drive("slice", pipe, meas, expected_launches("fused_transformer_block"),
-                   prompt_embeds=torch.zeros(2, 512))
-    return counts, pipe, meas
+    pipes = {"plain": pipe, "stats": with_routes(pipe, "stats"),
+             "fused": with_routes(pipe, "fused")}
+    counts = {}
+    for turn, gn_mode in enumerate(("plain", "stats", "fused", "fused", "stats", "plain")):
+        label = "slice" if gn_mode == "plain" else f"slice routes gn_mode={gn_mode}"
+        c = drive(f"{label} (turn {turn + 1})", pipes[gn_mode], meas,
+                  expected_launches("fused_transformer_block", gn_mode),
+                  prompt_embeds=torch.zeros(2, 512))
+        counts.setdefault(gn_mode, c)
+    for gn_mode, p in pipes.items():
+        label = "slice" if gn_mode == "plain" else f"slice_routes_{gn_mode}"
+        phase_breakdown(p, meas, LATENTS, torch.zeros(2, 512), label,
+                        profile_dir if gn_mode != "fused" else None)
+    return counts
 
 
 def phase_audioldm2(profile_dir=None) -> dict:
     """Full-width AudioLDM2 from the empty prompt, both UNet routes; returns
     the launch counts of each route's run."""
-    import dataclasses
-
     from diffmusic_tpu_torch.models.configs import HiFiGANConfig, VAEConfig
     from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
     t0 = time.time()
@@ -576,7 +960,7 @@ def phase_audioldm2(profile_dir=None) -> dict:
     counts[True] = drive("audioldm2 fuse_cross=True", fused_pipe, meas,
                          expected_launches("fused_transformer_block_cross"), prompt="")
     del fused_pipe, fused
-    phase_breakdown(pipe, meas, (1, 8, 250, 16), embeds, "audioldm2", profile_dir)
+    phase_breakdown(pipe, meas, LATENTS, embeds, "audioldm2", profile_dir)
     return counts
 
 
@@ -696,21 +1080,30 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     stats = phase_kernels(gen)
     phase_reference()
+    phase_reference_routes()
     phase_reference_audioldm2()
-    counts, pipe, meas = phase_slice()
-    phase_breakdown(pipe, meas, (1, 8, 250, 16), torch.zeros(2, 512), "slice", profile_dir)
-    del pipe
+    slice_counts = phase_slice(profile_dir)
     a2 = phase_audioldm2(profile_dir)
-    # each kernel's launches from the path that runs it: MusicLDM for its four,
-    # AudioLDM2 with fuse_cross off for flash, on for the dual-cross block
+    # each kernel's launches from the path that runs it: MusicLDM's default
+    # route for its four, its routes for the route kernels (the fused
+    # GroupNorm from gn_mode "fused", the others from "stats"), AudioLDM2 with
+    # fuse_cross off for flash, on for the dual-cross block
+    counts = dict(slice_counts["stats"])
+    counts.update({n: slice_counts["plain"][n] for n in VOCODER_PER_STEP})
+    counts["fused_transformer_block"] = slice_counts["plain"]["fused_transformer_block"]
+    counts["fused_group_norm"] = slice_counts["fused"]["fused_group_norm"]
     counts["flash_attention"] = a2[False]["flash_attention"]
     counts["fused_transformer_block_cross"] = a2[True]["fused_transformer_block_cross"]
 
-    kernels_line = [{"name": n, "route": "cuda", "source": SOURCES[n],
-                     "replaces": REPLACES[n], "launches": counts[n],
-                     "max_abs_err": stats[n]["max_abs_err"],
-                     "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"]}
-                    for n in REPLACES]
+    kernels_line = []
+    for n in REPLACES:
+        s = stats[n]
+        kernels_line.append({
+            "name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
+            "launches": counts[n], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": "operations" if s["ops_ms"] > s["bytes_ms"] else "bytes",
+            "library_ms": s["library_ms"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

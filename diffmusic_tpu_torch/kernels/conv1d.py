@@ -16,13 +16,16 @@ Layout as in the JAX package: activations (B, T, C), weights (k, Cin, Cout),
 versions beside them; on a CUDA tensor they launch the kernel or raise.
 Weights are frozen: the backward returns the activation cotangent only, as
 plain adjoint convolutions in the weight dtype followed by the leaky-ReLU
-masks (`_conv1d_bwd` and `_pair_bwd` of the JAX module).
+masks (`_conv1d_bwd` and `_pair_bwd` of the JAX module). With `mask_kernel`
+(the JAX package's `DIFFMUSIC_TPU_MASK=pallas`) the masks of tensors that
+`mask.mask_ok` admits take the mask kernels of `kernels/mask.py`.
 """
 
 import torch
 import torch.nn.functional as F
 
 from .device import use_plain
+from .mask import leaky_mask, leaky_mask_add, leaky_mask_plain, mask_ok
 
 # launches of each kernel since the last reset (see kernels.launch_counts)
 LAUNCHES = {"conv1d_fused": 0, "conv1d_fused_pair": 0}
@@ -63,8 +66,14 @@ def _adjoint(g, w, dilation: int):
     return conv1d_plain(g.to(w.dtype), w.flip(0).transpose(1, 2), None, dilation)
 
 
-def _leaky_mask(x, d, slope):
-    return torch.where(x >= 0, d, slope * d)
+def _leaky_mask(x, d, slope, use_kernel: bool, r=None):
+    """where(x >= 0, d, slope * d) [+ r], through the mask kernels when
+    `use_kernel` (the JAX backwards' `use_pallas_mask`)."""
+    if not use_kernel:
+        return leaky_mask_plain(x, d, slope, r)
+    if r is None:
+        return leaky_mask(x, d, slope)
+    return leaky_mask_add(x, d, r.contiguous(), slope)
 
 
 def _launch_fused(x, w, b, residual, dilation, slope):
@@ -121,9 +130,9 @@ def _launch_pair(x, w1, b1, w2, b2, dilation, slope):
 
 class _Conv1dFused(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b, residual, dilation, slope):
+    def forward(ctx, x, w, b, residual, dilation, slope, mask_kernel):
         ctx.save_for_backward(x, w)
-        ctx.dilation, ctx.slope = dilation, slope
+        ctx.dilation, ctx.slope, ctx.mask_kernel = dilation, slope, mask_kernel
         ctx.has_residual = residual is not None
         if use_plain(x, "conv1d_fused"):
             return conv1d_plain(x, w, b, dilation, slope, residual)
@@ -134,35 +143,41 @@ class _Conv1dFused(torch.autograd.Function):
         x, w = ctx.saved_tensors
         dx = _adjoint(g, w, ctx.dilation)
         if ctx.slope is not None:
-            dx = _leaky_mask(x, dx, ctx.slope)
+            dx = _leaky_mask(x, dx, ctx.slope, ctx.mask_kernel and mask_ok(x))
         dres = g if ctx.has_residual else None
-        return dx.to(x.dtype), None, None, dres, None, None
+        return dx.to(x.dtype), None, None, dres, None, None, None
 
 
 class _Conv1dPair(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, dilation, slope):
+    def forward(ctx, x, w1, b1, w2, b2, dilation, slope, mask_kernel):
         if use_plain(x, "conv1d_fused_pair"):
             y, h = pair_plain(x, w1, b1, w2, b2, dilation, slope)
         else:
             y, h = _launch_pair(x, w1, b1, w2, b2, dilation, slope)
         ctx.save_for_backward(x, h, w1, w2)
-        ctx.dilation, ctx.slope = dilation, slope
+        ctx.dilation, ctx.slope, ctx.mask_kernel = dilation, slope, mask_kernel
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, h, w1, w2 = ctx.saved_tensors
-        dh = _leaky_mask(h, _adjoint(g, w2, 1), ctx.slope)
-        dx = _leaky_mask(x, _adjoint(dh, w1, ctx.dilation), ctx.slope) + g
-        return dx.to(x.dtype), None, None, None, None, None, None
+        # both masks follow x's eligibility, as `_pair_bwd` does
+        use_kernel = ctx.mask_kernel and mask_ok(x)
+        dh = _leaky_mask(h, _adjoint(g, w2, 1), ctx.slope, use_kernel)
+        dx = _leaky_mask(x, _adjoint(dh, w1, ctx.dilation), ctx.slope, use_kernel, r=g)
+        return dx.to(x.dtype), None, None, None, None, None, None, None
 
 
-def conv1d_fused(x, w, b, residual=None, dilation: int = 1, slope=None):
-    """y = conv1d(leaky(x), w, dilation) + b [+ residual]; 'same', odd k."""
-    return _Conv1dFused.apply(x, w, b, residual, dilation, slope)
+def conv1d_fused(x, w, b, residual=None, dilation: int = 1, slope=None,
+                 mask_kernel: bool = False):
+    """y = conv1d(leaky(x), w, dilation) + b [+ residual]; 'same', odd k.
+    `mask_kernel` routes the backward's leaky-ReLU mask to the mask kernel."""
+    return _Conv1dFused.apply(x, w, b, residual, dilation, slope, mask_kernel)
 
 
-def conv1d_fused_pair(x, w1, b1, w2, b2, dilation: int, slope: float):
-    """y = conv2(leaky(conv1(leaky(x), dilation) + b1)) + b2 + x in one launch."""
-    return _Conv1dPair.apply(x, w1, b1, w2, b2, dilation, slope)
+def conv1d_fused_pair(x, w1, b1, w2, b2, dilation: int, slope: float,
+                      mask_kernel: bool = False):
+    """y = conv2(leaky(conv1(leaky(x), dilation) + b1)) + b2 + x in one launch.
+    `mask_kernel` routes the backward's leaky-ReLU masks to the mask kernels."""
+    return _Conv1dPair.apply(x, w1, b1, w2, b2, dilation, slope, mask_kernel)

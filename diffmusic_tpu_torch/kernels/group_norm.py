@@ -1,0 +1,176 @@
+"""GroupNorm over NCHW: `fused_group_norm`, and `channel_moments` under
+`stats_group_norm`.
+
+Replace `diffmusic_tpu/pallas/groupnorm_kernel.py::fused_group_norm` and
+`::channel_moments` / `::stats_group_norm` with the CUDA kernels of
+`csrc/group_norm.cu`.
+
+Bound on the H100: device memory. A GroupNorm does about ten operations per
+element it reads once and writes once, far below the card's ~295 bf16
+operations per byte. In NCHW a group (C/G channels x H*W) is contiguous, so
+the fused kernel gives each (batch, group) one block that sums x and x^2 in
+fp32 and then normalises, scales, shifts and applies the optional SiLU, in
+one read (the second pass hits L2) and one write. The moments kernel reads
+each (batch, channel) row once and writes its fp32 (sum, sum of squares);
+the group combine and the normalise stay in plain PyTorch, as in the JAX
+package. Statistics are var = E[x^2] - mu^2 in fp32, as the port's plain
+GroupNorm and the JAX package compute them (no Welford).
+
+On a CPU tensor the wrappers run the plain versions beside them; on a CUDA
+tensor they launch the kernel or raise. Gradients: the fused GroupNorm's
+backward is a plain recompute (`_fgn_bwd`); the moments' VJP is elementwise,
+dx = ds + 2 x dss in fp32, cast to x's dtype (`_moments_bwd`).
+"""
+
+import torch
+import torch.nn.functional as F
+
+from .device import use_plain
+
+# launches of each kernel since the last reset (see kernels.launch_counts)
+LAUNCHES = {"fused_group_norm": 0, "channel_moments": 0}
+
+ROW_LIMIT_ELEMS = 2 ** 20   # H*W*C per batch row (`groupnorm_kernel._ROW_LIMIT_ELEMS`)
+GN_MODES = ("plain", "fused", "stats")
+
+
+def group_norm_plain(x, weight, bias, groups: int, eps: float, use_silu: bool = False):
+    """GroupNorm over (B, C, ...) with fp32 statistics (var = E[x^2] - mu^2)
+    and an optional SiLU; output in x.dtype."""
+    b, c = x.shape[:2]
+    xg = x.float().reshape(b, groups, -1)
+    mu = xg.mean(-1, keepdim=True)
+    var = xg.square().mean(-1, keepdim=True) - mu * mu
+    y = ((xg - mu) * torch.rsqrt(var + eps)).reshape(x.shape)
+    shape = (1, c) + (1,) * (x.ndim - 2)
+    y = y * weight.float().reshape(shape) + bias.float().reshape(shape)
+    if use_silu:
+        y = F.silu(y)
+    return y.to(x.dtype)
+
+
+def fused_gn_ok(x) -> bool:
+    """The JAX routing rule (`groupnorm_kernel._eligible`) on NCHW: 4-D,
+    C % 128 == 0 and H*W*C <= 2**20."""
+    return (x.ndim == 4 and x.shape[1] % 128 == 0
+            and x.shape[1] * x.shape[2] * x.shape[3] <= ROW_LIMIT_ELEMS)
+
+
+def moments_ok(x3) -> bool:
+    """The JAX routing rule (`groupnorm_kernel._moments_eligible`) on
+    (B, C, N): C % 128 == 0, C <= 1024 and N >= 8."""
+    _, c, n = x3.shape
+    return c % 128 == 0 and c <= 1024 and n >= 8
+
+
+def moments_plain(x3):
+    """Per-channel (sum, sum of squares) of (B, C, N) x in fp32: (B, 2, C)."""
+    xf = x3.float()
+    return torch.stack([xf.sum(-1), (xf * xf).sum(-1)], dim=1)
+
+
+def _launch_fused(x, weight, bias, groups, eps, use_silu):
+    from . import build
+    build.check_tensors("fused_group_norm", x, weight, bias)
+    if x.ndim != 4:
+        raise ValueError(f"fused_group_norm: x must be NCHW, not {tuple(x.shape)}")
+    bsz, c, h, w = x.shape
+    if c % groups or tuple(weight.shape) != (c,) or tuple(bias.shape) != (c,):
+        raise ValueError(f"fused_group_norm: bad shapes x {tuple(x.shape)}, groups {groups}, "
+                         f"weight {tuple(weight.shape)}, bias {tuple(bias.shape)}")
+    lib = build.library()
+    code = build.dtype_code(x.dtype)
+    build.check_smem("fused_group_norm", lib.dm_group_norm_smem(c // groups))
+    y = torch.empty_like(x)
+    rc = lib.dm_group_norm(code, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                           y.data_ptr(), bsz, c, h * w, groups, float(eps), int(use_silu),
+                           build.stream_ptr(x.device))
+    build.check(rc, "fused_group_norm")
+    LAUNCHES["fused_group_norm"] += 1
+    return y
+
+
+def _launch_moments(x3):
+    from . import build
+    build.check_tensors("channel_moments", x3)
+    if x3.ndim != 3:
+        raise ValueError(f"channel_moments: x must be (B, C, N), not {tuple(x3.shape)}")
+    bsz, c, n = x3.shape
+    lib = build.library()
+    out = torch.empty((bsz, 2, c), dtype=torch.float32, device=x3.device)
+    rc = lib.dm_channel_moments(build.dtype_code(x3.dtype), x3.data_ptr(), out.data_ptr(),
+                                bsz, c, n, build.stream_ptr(x3.device))
+    build.check(rc, "channel_moments")
+    LAUNCHES["channel_moments"] += 1
+    return out
+
+
+class _FusedGroupNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups, eps, use_silu):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.groups, ctx.eps, ctx.use_silu = groups, eps, use_silu
+        if use_plain(x, "fused_group_norm"):
+            return group_norm_plain(x, weight, bias, groups, eps, use_silu)
+        return _launch_fused(x, weight, bias, groups, eps, use_silu)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y = group_norm_plain(*inputs, ctx.groups, ctx.eps, ctx.use_silu)
+        grads = iter(torch.autograd.grad(y, [t for t in inputs if t.requires_grad], g))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,) * 3
+
+
+class _ChannelMoments(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x3):
+        ctx.save_for_backward(x3)
+        if use_plain(x3, "channel_moments"):
+            return moments_plain(x3)
+        return _launch_moments(x3)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x3,) = ctx.saved_tensors
+        dx = g[:, 0, :, None] + 2.0 * x3.float() * g[:, 1, :, None]
+        return dx.to(x3.dtype)
+
+
+def fused_group_norm(x, weight, bias, groups: int, eps: float, use_silu: bool = False):
+    """GroupNorm(+SiLU) of NCHW x in one kernel; stats in fp32, output in x.dtype."""
+    return _FusedGroupNorm.apply(x, weight, bias, groups, eps, use_silu)
+
+
+def channel_moments(x3):
+    """(sum, sum of squares) of each (batch, channel) row of (B, C, N) x in
+    fp32: (B, 2, C)."""
+    return _ChannelMoments.apply(x3)
+
+
+def stats_group_norm(x, weight, bias, groups: int, eps: float, use_silu: bool = False):
+    """GroupNorm(+SiLU) of NCHW x with the statistics from `channel_moments`
+    and the group combine and normalise in plain PyTorch
+    (`groupnorm_kernel.stats_group_norm`)."""
+    b, c, h, w = x.shape
+    n = h * w
+    x3 = x.reshape(b, c, n)
+    # the moments kernel where the JAX package's `_moments_impl` takes it
+    m = channel_moments(x3) if moments_ok(x3) else moments_plain(x3)   # (B, 2, C) fp32
+    gsz = c // groups
+    s_g = m[:, 0].reshape(b, groups, gsz).sum(-1)
+    ss_g = m[:, 1].reshape(b, groups, gsz).sum(-1)
+    count = float(n * gsz)
+    mu_g = s_g / count
+    var_g = ss_g / count - mu_g * mu_g
+    inv_g = torch.rsqrt(var_g + eps)
+    mu_c = mu_g.repeat_interleave(gsz, dim=1)          # (B, C)
+    inv_c = inv_g.repeat_interleave(gsz, dim=1)
+    w_c = inv_c * weight.float()
+    b_c = bias.float() - mu_c * w_c
+    y = x.float() * w_c[:, :, None, None] + b_c[:, :, None, None]
+    if use_silu:
+        y = F.silu(y)
+    return y.to(x.dtype)

@@ -14,6 +14,10 @@ a TPU:
     run `phase_convtranspose`;
   - the 64- and 32-channel stages, conv_pre and conv_post are plain
     F.conv1d / F.conv_transpose1d (the plain versions beside the kernels).
+`mask_kernel` (the JAX package's `DIFFMUSIC_TPU_MASK=pallas`, off by default
+there too) routes the leaky-ReLU masks in the resblock kernels' backward to
+the mask kernels where `mask_ok` holds (ch >= 128 with a long enough T: the
+10-s slice's stages 0-2).
 """
 
 from typing import Optional
@@ -45,23 +49,25 @@ class Conv1dParams(nn.Module):
 class ResidualBlock(nn.Module):
     """HifiGanResidualBlock: (lrelu -> dilated conv -> lrelu -> conv) + skip, xN."""
 
-    def __init__(self, channels: int, kernel_size: int, dilations, slope: float):
+    def __init__(self, channels: int, kernel_size: int, dilations, slope: float,
+                 mask_kernel: bool = False):
         super().__init__()
         self.channels, self.kernel_size = channels, kernel_size
         self.dilations, self.slope = tuple(dilations), slope
+        self.mask_kernel = mask_kernel
         for i in range(len(self.dilations)):
             setattr(self, f"convs1_{i}", Conv1dParams(kernel_size, channels, channels))
             setattr(self, f"convs2_{i}", Conv1dParams(kernel_size, channels, channels))
 
     def forward(self, x):
-        c, k, s = self.channels, self.kernel_size, self.slope
+        c, k, s, mk = self.channels, self.kernel_size, self.slope, self.mask_kernel
         for i, d in enumerate(self.dilations):
             c1, c2 = getattr(self, f"convs1_{i}"), getattr(self, f"convs2_{i}")
             if pair_ok(k, c, c, x.dtype):
-                x = conv1d_fused_pair(x, c1.weight, c1.bias, c2.weight, c2.bias, d, s)
+                x = conv1d_fused_pair(x, c1.weight, c1.bias, c2.weight, c2.bias, d, s, mk)
             elif c % 128 == 0:
-                h = conv1d_fused(x, c1.weight, c1.bias, None, d, s)
-                x = conv1d_fused(h, c2.weight, c2.bias, x, 1, s)
+                h = conv1d_fused(x, c1.weight, c1.bias, None, d, s, mk)
+                x = conv1d_fused(h, c2.weight, c2.bias, x, 1, s, mk)
             else:
                 h = conv1d_plain(x, c1.weight, c1.bias, d, s)
                 x = conv1d_plain(h, c2.weight, c2.bias, 1, s, residual=x)
@@ -69,7 +75,7 @@ class ResidualBlock(nn.Module):
 
 
 class SpeechT5HifiGan(nn.Module):
-    def __init__(self, cfg: HiFiGANConfig):
+    def __init__(self, cfg: HiFiGANConfig, mask_kernel: bool = False):
         super().__init__()
         if cfg.normalize_before:
             raise ValueError("normalize_before=True is not ported yet")
@@ -83,7 +89,7 @@ class SpeechT5HifiGan(nn.Module):
             for j, (rk, dil) in enumerate(zip(cfg.resblock_kernel_sizes,
                                               cfg.resblock_dilation_sizes)):
                 setattr(self, f"resblocks_{i * len(cfg.resblock_kernel_sizes) + j}",
-                        ResidualBlock(ch, rk, dil, cfg.leaky_relu_slope))
+                        ResidualBlock(ch, rk, dil, cfg.leaky_relu_slope, mask_kernel))
         self.conv_post = Conv1dParams(7, uic // 2 ** len(cfg.upsample_rates), 1)
 
     def forward(self, spectrogram: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,22 @@ NCHW at module boundaries (PyTorch idiom); the transformer blocks run on
 (B, H*W, C) tokens in the same row-major (h, w) order as the JAX package's
 NHWC reshape. Module attribute names follow the flax parameter tree, so
 `models/convert.py::from_flax` only renames `kernel`/`scale` and transposes.
-GroupNorm and Conv2d are plain PyTorch, as the JAX default routing is plain
-XLA. The transformer blocks take the JAX package's routes:
+GroupNorm and the 3x3 'same' convs are plain PyTorch by default, as the JAX
+default routing is plain XLA; two route flags mirror the JAX package's A/B
+gates (read from the constructor, never from the environment):
+  - `gn_mode` ("plain" | "fused" | "stats", `DIFFMUSIC_TPU_GN=xla|fused|stats`):
+    "fused" runs `fused_gn_ok` geometries (C % 128 == 0, H*W*C <= 2**20) as
+    the fused GroupNorm kernel, "stats" every 4-D GroupNorm through the
+    moments kernel (`moments_ok`: C % 128 == 0, C <= 1024, H*W >= 8) with the
+    normalise in plain PyTorch;
+  - `conv2d_kernel` (`DIFFMUSIC_TPU_CONV2D=pallas`): `Conv2dSame` runs
+    `conv2d_ok` geometries (odd k > 1, W <= 64, 512 % W == 0, H*W >= 512,
+    128-aligned channels) as the conv2d kernel.
+The port never swaps the VAE's spatial axes (`spatial_swap` is not ported),
+so its routes are the JAX package's under `DIFFMUSIC_TPU_VAE_SWAP=0`: the VAE
+decoder's convs at W = 16/32/64 are eligible, and the conv2d kernel runs
+inside the guided gradient. The transformer blocks take the JAX package's
+routes:
   - self-attention only, T >= 512 and inner == C: the fused block kernel;
   - dual-cross (AudioLDM2), T >= 512, inner == C and `fuse_cross` on: the
     fused block kernel's dual-cross mode;
@@ -22,6 +36,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.attention import flash_attention
+from ..kernels.conv2d import conv2d_ok, conv2d_same
+from ..kernels.group_norm import (GN_MODES, fused_gn_ok, fused_group_norm, group_norm_plain,
+                                  stats_group_norm)
 from ..kernels.transformer_block import fused_transformer_block
 
 
@@ -43,29 +60,45 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool 
 
 class GroupNorm(nn.Module):
     """GroupNorm over NCHW with fp32 statistics (var = E[x^2] - mu^2, as the
-    JAX package computes it) and an optional fused SiLU; output in x.dtype."""
+    JAX package computes it) and an optional fused SiLU; output in x.dtype.
+    `gn_mode` picks the route (module docstring)."""
 
-    def __init__(self, num_groups: int, channels: int, eps: float, use_silu: bool = False):
+    def __init__(self, num_groups: int, channels: int, eps: float, use_silu: bool = False,
+                 gn_mode: str = "plain"):
         super().__init__()
+        if gn_mode not in GN_MODES:
+            raise ValueError(f"gn_mode must be one of {GN_MODES}, not {gn_mode!r}")
         self.num_groups, self.eps, self.use_silu = num_groups, eps, use_silu
+        self.gn_mode = gn_mode
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        b, c = x.shape[:2]
-        xg = x.float().reshape(b, self.num_groups, -1)
-        mu = xg.mean(-1, keepdim=True)
-        var = xg.square().mean(-1, keepdim=True) - mu * mu
-        y = ((xg - mu) * torch.rsqrt(var + self.eps)).reshape(x.shape)
-        shape = (1, c) + (1,) * (x.ndim - 2)
-        y = y * self.weight.float().reshape(shape) + self.bias.float().reshape(shape)
-        if self.use_silu:
-            y = F.silu(y)
-        return y.to(x.dtype)
+        args = (x, self.weight, self.bias, self.num_groups, self.eps, self.use_silu)
+        if self.gn_mode == "stats" and x.ndim == 4:
+            return stats_group_norm(*args)
+        if self.gn_mode == "fused" and fused_gn_ok(x):
+            return fused_group_norm(*args)
+        return group_norm_plain(*args)
 
 
-def conv3x3(cin: int, cout: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, padding=1)
+class Conv2dSame(nn.Conv2d):
+    """`nn.Conv2d(cin, cout, k, padding=k // 2)` (the JAX package's
+    `Conv2DSame`, same parameter names), with the conv2d kernel's route when
+    `conv2d_kernel` is on and `conv2d_ok` holds."""
+
+    def __init__(self, cin: int, cout: int, k: int = 3, conv2d_kernel: bool = False):
+        super().__init__(cin, cout, k, padding=k // 2)
+        self.conv2d_kernel = conv2d_kernel
+
+    def forward(self, x):
+        if self.conv2d_kernel and conv2d_ok(x, self.weight):
+            return conv2d_same(x, self.weight, self.bias)
+        return super().forward(x)
+
+
+def conv3x3(cin: int, cout: int, conv2d_kernel: bool = False) -> Conv2dSame:
+    return Conv2dSame(cin, cout, 3, conv2d_kernel)
 
 
 class Dense(nn.Module):
@@ -100,13 +133,14 @@ class ResnetBlock2D(nn.Module):
     """GroupNorm/SiLU/Conv x2 with a time-embedding shift and skip connection."""
 
     def __init__(self, in_channels: int, out_channels: int, groups: int = 32,
-                 eps: float = 1e-5, temb_dim: Optional[int] = None):
+                 eps: float = 1e-5, temb_dim: Optional[int] = None, gn_mode: str = "plain",
+                 conv2d_kernel: bool = False):
         super().__init__()
-        self.norm1 = GroupNorm(groups, in_channels, eps, use_silu=True)
-        self.conv1 = conv3x3(in_channels, out_channels)
+        self.norm1 = GroupNorm(groups, in_channels, eps, use_silu=True, gn_mode=gn_mode)
+        self.conv1 = conv3x3(in_channels, out_channels, conv2d_kernel)
         self.time_emb_proj = Dense(temb_dim, out_channels) if temb_dim else None
-        self.norm2 = GroupNorm(groups, out_channels, eps, use_silu=True)
-        self.conv2 = conv3x3(out_channels, out_channels)
+        self.norm2 = GroupNorm(groups, out_channels, eps, use_silu=True, gn_mode=gn_mode)
+        self.conv2 = conv3x3(out_channels, out_channels, conv2d_kernel)
         self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
@@ -244,10 +278,11 @@ class Transformer2DModel(nn.Module):
     proj_out, with a residual around the whole stack."""
 
     def __init__(self, channels: int, heads: int, head_dim: int, groups: int = 32,
-                 cross_dims: Tuple[int, ...] = (), fuse_cross: bool = False):
+                 cross_dims: Tuple[int, ...] = (), fuse_cross: bool = False,
+                 gn_mode: str = "plain"):
         super().__init__()
         inner = heads * head_dim
-        self.norm = GroupNorm(groups, channels, 1e-6)
+        self.norm = GroupNorm(groups, channels, 1e-6, gn_mode=gn_mode)
         self.proj_in = Dense(channels, inner)
         self.block_0 = BasicTransformerBlock(inner, heads, head_dim, cross_dims, fuse_cross)
         self.proj_out = Dense(inner, channels)
@@ -257,7 +292,8 @@ class Transformer2DModel(nn.Module):
         y = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         y = self.block_0(self.proj_in(y), contexts, context_masks)
         y = self.proj_out(y).reshape(b, h, w, c).permute(0, 3, 1, 2)
-        return y + x
+        # x first: the sum takes x's contiguous NCHW layout, not y's NHWC one
+        return x + y
 
 
 class Downsample2D(nn.Module):
@@ -279,9 +315,9 @@ def _nearest_index(size: int, target: int, device) -> torch.Tensor:
 class Upsample2D(nn.Module):
     """Nearest upsampling to `out_hw` (default 2x), then a 3x3 conv."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, conv2d_kernel: bool = False):
         super().__init__()
-        self.conv = conv3x3(channels, channels)
+        self.conv = conv3x3(channels, channels, conv2d_kernel)
 
     def forward(self, x, out_hw: Optional[Tuple[int, int]] = None):
         h, w = x.shape[2:]

@@ -6,6 +6,8 @@ API boundary. Both model families:
     cross-attention streams, the GPT-2 generated states and the T5 sequence
     (with its attention mask). `fuse_cross` routes the long dual-cross blocks
     to the fused block kernel (the JAX package's DIFFMUSIC_TPU_FUSED_CROSS).
+`gn_mode` and `conv2d_kernel` route the GroupNorms and the 3x3 'same' convs
+(`models/layers.py`), off by default as in the JAX package.
 """
 
 from typing import Optional
@@ -18,22 +20,25 @@ from .layers import (Dense, Downsample2D, GroupNorm, ResnetBlock2D, TimestepEmbe
                      Transformer2DModel, Upsample2D, conv3x3, timestep_embedding)
 
 
-def _transformer(cfg: UNetConfig, ch: int, fuse_cross: bool) -> Transformer2DModel:
+def _transformer(cfg: UNetConfig, ch: int, fuse_cross: bool,
+                 gn_mode: str) -> Transformer2DModel:
     return Transformer2DModel(ch, ch // cfg.attention_head_dim, cfg.attention_head_dim,
-                              cfg.norm_num_groups, cfg.cross_attention_dims, fuse_cross)
+                              cfg.norm_num_groups, cfg.cross_attention_dims, fuse_cross,
+                              gn_mode)
 
 
 class DownBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, in_ch: int, out_ch: int, temb_dim: int,
-                 attention: bool, add_downsample: bool, fuse_cross: bool):
+                 attention: bool, add_downsample: bool, fuse_cross: bool, routes: dict):
         super().__init__()
         self.layers = cfg.layers_per_block
         for i in range(self.layers):
             setattr(self, f"resnet_{i}", ResnetBlock2D(
                 in_ch if i == 0 else out_ch, out_ch, cfg.norm_num_groups,
-                temb_dim=temb_dim))
+                temb_dim=temb_dim, **routes))
             if attention:
-                setattr(self, f"attn_{i}", _transformer(cfg, out_ch, fuse_cross))
+                setattr(self, f"attn_{i}",
+                        _transformer(cfg, out_ch, fuse_cross, routes["gn_mode"]))
         self.attention = attention
         self.downsample = Downsample2D(out_ch) if add_downsample else None
 
@@ -52,17 +57,20 @@ class DownBlock(nn.Module):
 
 class UpBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, in_ch: int, skip_chs, out_ch: int,
-                 temb_dim: int, attention: bool, add_upsample: bool, fuse_cross: bool):
+                 temb_dim: int, attention: bool, add_upsample: bool, fuse_cross: bool,
+                 routes: dict):
         super().__init__()
         self.layers = len(skip_chs)
         for i, skip_ch in enumerate(skip_chs):
             setattr(self, f"resnet_{i}", ResnetBlock2D(
                 (in_ch if i == 0 else out_ch) + skip_ch, out_ch, cfg.norm_num_groups,
-                temb_dim=temb_dim))
+                temb_dim=temb_dim, **routes))
             if attention:
-                setattr(self, f"attn_{i}", _transformer(cfg, out_ch, fuse_cross))
+                setattr(self, f"attn_{i}",
+                        _transformer(cfg, out_ch, fuse_cross, routes["gn_mode"]))
         self.attention = attention
-        self.upsample = Upsample2D(out_ch) if add_upsample else None
+        self.upsample = (Upsample2D(out_ch, routes["conv2d_kernel"]) if add_upsample
+                         else None)
 
     def forward(self, x, skips, temb, contexts, context_masks):
         for i in range(self.layers):
@@ -77,12 +85,13 @@ class UpBlock(nn.Module):
 
 
 class MidBlock(nn.Module):
-    def __init__(self, cfg: UNetConfig, ch: int, temb_dim: int, fuse_cross: bool):
+    def __init__(self, cfg: UNetConfig, ch: int, temb_dim: int, fuse_cross: bool,
+                 routes: dict):
         super().__init__()
         g = cfg.norm_num_groups
-        self.resnet_0 = ResnetBlock2D(ch, ch, g, temb_dim=temb_dim)
-        self.attn = _transformer(cfg, ch, fuse_cross)
-        self.resnet_1 = ResnetBlock2D(ch, ch, g, temb_dim=temb_dim)
+        self.resnet_0 = ResnetBlock2D(ch, ch, g, temb_dim=temb_dim, **routes)
+        self.attn = _transformer(cfg, ch, fuse_cross, routes["gn_mode"])
+        self.resnet_1 = ResnetBlock2D(ch, ch, g, temb_dim=temb_dim, **routes)
 
     def forward(self, x, temb, contexts, context_masks):
         x = self.attn(self.resnet_0(x, temb), contexts, context_masks)
@@ -95,8 +104,10 @@ class UNet2DConditionModel(nn.Module):
     generated states, `encoder_hidden_states_1` (B, L, 1024) the T5 sequence,
     `encoder_attention_mask_1` (B, L) its mask."""
 
-    def __init__(self, cfg: UNetConfig, fuse_cross: bool = False):
+    def __init__(self, cfg: UNetConfig, fuse_cross: bool = False, gn_mode: str = "plain",
+                 conv2d_kernel: bool = False):
         super().__init__()
+        routes = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel)
         if len(cfg.cross_attention_dims) > 2:
             raise ValueError("the UNet takes at most two cross-attention streams")
         if cfg.class_embed_type not in (None, "simple_projection"):
@@ -111,27 +122,29 @@ class UNet2DConditionModel(nn.Module):
             self.class_embedding = Dense(cfg.projection_class_embeddings_input_dim, ted)
             if cfg.class_embeddings_concat:
                 temb_dim = 2 * ted
-        self.conv_in = conv3x3(cfg.in_channels, boc[0])
+        self.conv_in = conv3x3(cfg.in_channels, boc[0], conv2d_kernel)
 
         skip_chs = [boc[0]]
         ch = boc[0]
         for i, out_ch in enumerate(boc):
             last = i == len(boc) - 1
             setattr(self, f"down_{i}", DownBlock(cfg, ch, out_ch, temb_dim,
-                                                 cfg.has_attention[i], not last, fuse_cross))
+                                                 cfg.has_attention[i], not last, fuse_cross,
+                                                 routes))
             skip_chs += [out_ch] * (cfg.layers_per_block + (0 if last else 1))
             ch = out_ch
-        self.mid = MidBlock(cfg, ch, temb_dim, fuse_cross)
+        self.mid = MidBlock(cfg, ch, temb_dim, fuse_cross, routes)
         for i, out_ch in enumerate(reversed(boc)):
             rev_i = len(boc) - 1 - i
             n = cfg.layers_per_block + 1
             mine, skip_chs = skip_chs[-n:][::-1], skip_chs[:-n]
             setattr(self, f"up_{i}", UpBlock(cfg, ch, mine, out_ch, temb_dim,
                                              cfg.has_attention[rev_i],
-                                             i != len(boc) - 1, fuse_cross))
+                                             i != len(boc) - 1, fuse_cross, routes))
             ch = out_ch
-        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch, 1e-5, use_silu=True)
-        self.conv_out = conv3x3(ch, cfg.out_channels)
+        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch, 1e-5, use_silu=True,
+                                       gn_mode=gn_mode)
+        self.conv_out = conv3x3(ch, cfg.out_channels, conv2d_kernel)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None,

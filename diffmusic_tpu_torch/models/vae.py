@@ -3,7 +3,9 @@
 Only the decode path, which every guided step differentiates; the encoder is
 still to be ported. The mid-block attention (T = 4000 tokens x 512 channels,
 one head, at 10 s) is plain PyTorch (`kernel="plain"`), as the JAX package
-routes it to plain XLA.
+routes it to plain XLA. `gn_mode` and `conv2d_kernel` route the GroupNorms
+and the 3x3 'same' convs (`models/layers.py`); the decoder keeps the NCHW
+orientation (the JAX package's `DIFFMUSIC_TPU_VAE_SWAP=0`).
 """
 
 import torch
@@ -14,9 +16,9 @@ from .layers import Attention, GroupNorm, ResnetBlock2D, Upsample2D, conv3x3
 
 
 class VAEAttentionBlock(nn.Module):
-    def __init__(self, channels: int, groups: int = 32):
+    def __init__(self, channels: int, groups: int = 32, gn_mode: str = "plain"):
         super().__init__()
-        self.group_norm = GroupNorm(groups, channels, 1e-6)
+        self.group_norm = GroupNorm(groups, channels, 1e-6, gn_mode=gn_mode)
         self.attention = Attention(channels, heads=1, head_dim=channels, kernel="plain")
 
     def forward(self, x):
@@ -27,25 +29,26 @@ class VAEAttentionBlock(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: VAEConfig):
+    def __init__(self, cfg: VAEConfig, gn_mode: str = "plain", conv2d_kernel: bool = False):
         super().__init__()
         self.cfg = cfg
         g = cfg.norm_num_groups
         boc = cfg.block_out_channels
         ch = boc[-1]
+        routes = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel)
         self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
-        self.conv_in = conv3x3(cfg.latent_channels, ch)
-        self.mid_resnet_0 = ResnetBlock2D(ch, ch, g)
-        self.mid_attn = VAEAttentionBlock(ch, g)
-        self.mid_resnet_1 = ResnetBlock2D(ch, ch, g)
+        self.conv_in = conv3x3(cfg.latent_channels, ch, conv2d_kernel)
+        self.mid_resnet_0 = ResnetBlock2D(ch, ch, g, **routes)
+        self.mid_attn = VAEAttentionBlock(ch, g, gn_mode)
+        self.mid_resnet_1 = ResnetBlock2D(ch, ch, g, **routes)
         for i, out_ch in enumerate(reversed(boc)):
             for j in range(cfg.layers_per_block + 1):
-                setattr(self, f"up_{i}_resnet_{j}", ResnetBlock2D(ch, out_ch, g))
+                setattr(self, f"up_{i}_resnet_{j}", ResnetBlock2D(ch, out_ch, g, **routes))
                 ch = out_ch
             if i != len(boc) - 1:
-                setattr(self, f"up_{i}_upsample", Upsample2D(ch))
-        self.conv_norm_out = GroupNorm(g, ch, 1e-6, use_silu=True)
-        self.conv_out = conv3x3(ch, cfg.out_channels)
+                setattr(self, f"up_{i}_upsample", Upsample2D(ch, conv2d_kernel))
+        self.conv_norm_out = GroupNorm(g, ch, 1e-6, use_silu=True, gn_mode=gn_mode)
+        self.conv_out = conv3x3(ch, cfg.out_channels, conv2d_kernel)
 
     def forward(self, z):
         cfg = self.cfg
@@ -62,10 +65,10 @@ class Decoder(nn.Module):
 class AutoencoderKL(nn.Module):
     """NCHW at the API boundary, like the torch reference."""
 
-    def __init__(self, cfg: VAEConfig):
+    def __init__(self, cfg: VAEConfig, gn_mode: str = "plain", conv2d_kernel: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.decoder = Decoder(cfg)
+        self.decoder = Decoder(cfg, gn_mode, conv2d_kernel)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """(B, latent, h, w) -> (B, C, H, W) mel."""

@@ -63,18 +63,25 @@ class AudioLDM2Pipeline(MusicLDMPipeline):
 
     @classmethod
     def random(cls, unet_cfg: UNetConfig, vae_cfg: VAEConfig, vocoder_cfg: HiFiGANConfig,
-               seed: int = 0, device="cpu", weight_dtype=torch.float32,
+               seed: int = 0, device="cuda", weight_dtype=torch.float32,
                text_cfg: ClapTextConfig = ClapTextConfig(), t5_cfg: T5Config = T5Config(),
                gpt2_cfg: GPT2Config = GPT2Config(),
                proj_cfg: ProjectionConfig = ProjectionConfig(), fuse_cross: bool = False,
+               gn_mode: str = "plain", conv2d_kernel: bool = False, mask_kernel: bool = False,
                **kwargs):
         """Seeded flax-style random weights for all seven models, cast to
-        `weight_dtype` on `device`, with the byte tokenizer for both text
-        encoders unless `tokenizer` / `t5_tokenizer` are given. `fuse_cross`
-        routes the UNet's long dual-cross blocks to the fused block kernel."""
+        `weight_dtype` on `device` (the card unless the caller asks for the
+        CPU), with the byte tokenizer for both text encoders unless
+        `tokenizer` / `t5_tokenizer` are given. `fuse_cross` routes the UNet's
+        long dual-cross blocks to the fused block kernel; `gn_mode`,
+        `conv2d_kernel` and `mask_kernel` are `MusicLDMPipeline.random`'s
+        route flags."""
+        routes = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel)
         models = cls._random_models(
-            [UNet2DConditionModel(unet_cfg, fuse_cross=fuse_cross), AutoencoderKL(vae_cfg),
-             SpeechT5HifiGan(vocoder_cfg), ClapTextModelWithProjection(text_cfg),
+            [UNet2DConditionModel(unet_cfg, fuse_cross=fuse_cross, **routes),
+             AutoencoderKL(vae_cfg, **routes),
+             SpeechT5HifiGan(vocoder_cfg, mask_kernel=mask_kernel),
+             ClapTextModelWithProjection(text_cfg),
              T5EncoderModel(t5_cfg), GPT2Model(gpt2_cfg), AudioLDM2ProjectionModel(proj_cfg)],
             seed, device, weight_dtype)
         kwargs.setdefault("tokenizer", byte_tokenizer)

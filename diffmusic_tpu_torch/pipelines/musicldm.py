@@ -80,11 +80,19 @@ class MusicLDMPipeline:
 
     @classmethod
     def random(cls, unet_cfg: UNetConfig, vae_cfg: VAEConfig, vocoder_cfg: HiFiGANConfig,
-               seed: int = 0, device="cpu", weight_dtype=torch.float32, **kwargs):
+               seed: int = 0, device="cuda", weight_dtype=torch.float32,
+               gn_mode: str = "plain", conv2d_kernel: bool = False,
+               mask_kernel: bool = False, **kwargs):
         """Seeded flax-style random weights (no checkpoint needed), cast to
-        `weight_dtype` on `device`."""
-        return cls(*cls._random_models([UNet2DConditionModel(unet_cfg), AutoencoderKL(vae_cfg),
-                                        SpeechT5HifiGan(vocoder_cfg)],
+        `weight_dtype` on `device` (the card unless the caller asks for the
+        CPU). The route flags pick the guided step's kernel routes, all off
+        by default: `gn_mode` ("plain", "fused" or "stats") for the UNet and
+        VAE GroupNorms, `conv2d_kernel` for their 3x3 convs, `mask_kernel`
+        for the vocoder backward's leaky-ReLU masks."""
+        routes = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel)
+        return cls(*cls._random_models([UNet2DConditionModel(unet_cfg, **routes),
+                                        AutoencoderKL(vae_cfg, **routes),
+                                        SpeechT5HifiGan(vocoder_cfg, mask_kernel=mask_kernel)],
                                        seed, device, weight_dtype), **kwargs)
 
     # ------------------------------------------------------------------ text

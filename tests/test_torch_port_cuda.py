@@ -8,7 +8,8 @@ that has none; `tests/conftest.py` imports jax, so run it there with
 
 TF32 is off for the fp32 cases. Tolerances, as a fraction of max |plain|:
 fp32 1e-4 (another summation order than cuDNN/cuBLAS); bf16 2e-2 for the
-convs and the flash attention and 3e-2 for the transformer block (one bf16
+convs, the flash attention and the guided step's route kernels (GroupNorm,
+moments, conv2d, masks) and 3e-2 for the transformer block (one bf16
 rounding of an intermediate moves a product by about 2^-8 relative).
 """
 
@@ -22,6 +23,9 @@ from diffmusic_tpu_torch import kernels
 from diffmusic_tpu_torch.inverse_problem import MusicInpaintingOperator
 from diffmusic_tpu_torch.kernels import attention as tattn
 from diffmusic_tpu_torch.kernels import conv1d as tconv
+from diffmusic_tpu_torch.kernels import conv2d as tconv2d
+from diffmusic_tpu_torch.kernels import group_norm as tgn
+from diffmusic_tpu_torch.kernels import mask as tmask
 from diffmusic_tpu_torch.kernels import transformer_block as ttb
 from diffmusic_tpu_torch.kernels import upsampler as tup
 from diffmusic_tpu_torch.models.configs import HiFiGANConfig, UNetConfig, VAEConfig
@@ -79,7 +83,9 @@ def test_conv_kernels_on_card(cuda, gen, dtype, tol):
                                        "phase_convtranspose": 1,
                                        "fused_transformer_block": 0,
                                        "fused_transformer_block_cross": 0,
-                                       "flash_attention": 0}
+                                       "flash_attention": 0, "fused_group_norm": 0,
+                                       "channel_moments": 0, "conv2d_same": 0,
+                                       "leaky_mask": 0, "leaky_mask_add": 0}
 
 
 def block_params(gen, c, dtype, cross_dims=()):
@@ -217,3 +223,91 @@ def test_pipeline_draws_from_a_cpu_generator_on_card(cuda):
     assert all(counts[n] > 0 for n in MUSICLDM_KERNELS), counts
     assert np.isfinite(lat_g).all() and np.isfinite(loss_g).all()
     assert np.linalg.norm(lat_g - lat_c) / np.linalg.norm(lat_c) <= 1e-4
+
+
+def grads(fn, x, g):
+    xx = x.clone().requires_grad_(True)
+    y = fn(xx)
+    return y.detach(), torch.autograd.grad(y, xx, g)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_group_norm_kernels_on_card(cuda, gen, dtype, tol):
+    """Fused GroupNorm (+SiLU) and the channel moments, values and input
+    gradients; the groups of (1, 128, 9, 7) and the rows of (2, 256, 9, 7)
+    are runs of 252 and 63 elements, which take the scalar paths."""
+    kernels.reset_launch_counts()
+    for shape, silu in (((2, 128, 16, 16), True), ((1, 128, 9, 7), False),
+                        ((2, 256, 9, 7), True)):
+        b, c, h, w = shape
+        x = arr(gen, *shape, scale=2.0, dtype=dtype) + 0.3
+        wt = 1 + arr(gen, c, scale=0.2, dtype=dtype)
+        bt = arr(gen, c, scale=0.1, dtype=dtype)
+        g = arr(gen, *shape, dtype=dtype)
+        y, dx = grads(lambda xx: tgn.fused_group_norm(xx, wt, bt, 32, 1e-5, silu), x, g)
+        y0, dx0 = grads(lambda xx: tgn.group_norm_plain(xx, wt, bt, 32, 1e-5, silu), x, g)
+        assert rel(y, y0) <= tol
+        assert rel(dx, dx0) <= tol
+        gm = arr(gen, b, 2, c)
+        m, dm = grads(lambda xx: tgn.channel_moments(xx.reshape(b, c, h * w)), x, gm)
+        m0, dm0 = grads(lambda xx: tgn.moments_plain(xx.reshape(b, c, h * w)), x, gm)
+        assert m.dtype == torch.float32 and rel(m, m0) <= 1e-4
+        assert rel(dm, dm0) <= tol
+        assert rel(tgn.stats_group_norm(x, wt, bt, 32, 1e-6, silu),
+                   tgn.group_norm_plain(x, wt, bt, 32, 1e-6, silu)) <= tol
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["fused_group_norm"] == 3 and counts["channel_moments"] == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_conv2d_kernel_on_card(cuda, gen, dtype, tol):
+    """The 'same' conv2d forward kernel and its plain adjoint backward
+    against F.conv2d's, at ragged pixel tiles, a (1, 3) kernel and a
+    channel-raising slice geometry (W 16)."""
+    kernels.reset_launch_counts()
+    for xs, ws in (((2, 128, 9, 20), (128, 128, 3, 3)), ((1, 64, 10, 12), (64, 64, 1, 3)),
+                   ((1, 128, 32, 16), (256, 128, 3, 3))):
+        x = arr(gen, *xs, dtype=dtype)
+        w = arr(gen, *ws, scale=1.0 / math.sqrt(ws[1] * ws[2] * ws[3]), dtype=dtype)
+        b = arr(gen, ws[0], scale=0.1, dtype=dtype)
+        g = arr(gen, xs[0], ws[0], xs[2], xs[3], dtype=dtype)
+        y, dx = grads(lambda xx: tconv2d.conv2d_same(xx, w, b), x, g)
+        y0, dx0 = grads(lambda xx: tconv2d.conv2d_plain(xx, w, b), x, g)
+        assert rel(y, y0) <= tol
+        assert rel(dx, dx0) <= tol
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["conv2d_same"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.bfloat16, 2e-2)])
+def test_leaky_mask_kernels_on_card(cuda, gen, dtype, tol):
+    """Both masks against the plain versions, with a ragged tail
+    ((1, 1001, 100): 100100 elements, not a multiple of 8) and the slice's
+    ch512 stage."""
+    kernels.reset_launch_counts()
+    for shape in ((1, 1001, 100), (1, 5001, 512)):
+        h, g, r = (arr(gen, *shape, dtype=dtype) for _ in range(3))
+        assert rel(tmask.leaky_mask(h, g, SLOPE), tmask.leaky_mask_plain(h, g, SLOPE)) <= tol
+        assert rel(tmask.leaky_mask_add(h, g, r, SLOPE),
+                   tmask.leaky_mask_plain(h, g, SLOPE, r)) <= tol
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["leaky_mask"] == 2 and counts["leaky_mask_add"] == 2
+
+
+@pytest.mark.cuda
+def test_route_wrappers_reject_what_the_kernels_do_not_take(cuda, gen):
+    """A CUDA tensor the kernels do not take raises; nothing falls back."""
+    x = arr(gen, 1, 64, 16, 16)
+    with pytest.raises(ValueError):    # Cout not a multiple of 64
+        tconv2d.conv2d_same(x, arr(gen, 32, 64, 3, 3), arr(gen, 32))
+    with pytest.raises(TypeError):     # bf16 x, fp32 scale and shift
+        tgn.fused_group_norm(x.to(torch.bfloat16), arr(gen, 64), arr(gen, 64), 32, 1e-5)
+    with pytest.raises(ValueError):    # non-contiguous rows
+        tgn.channel_moments(arr(gen, 1, 16, 64).transpose(1, 2))
+    with pytest.raises(ValueError):    # shapes differ
+        tmask.leaky_mask(arr(gen, 1, 40, 128), arr(gen, 1, 41, 128), SLOPE)

@@ -10,34 +10,39 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. kernels: each kernel's wrapper against its plain PyTorch version, on the
      card, at every shape the 10-s MusicLDM and AudioLDM2 slices give it
      (bf16; the guided step's route kernels at the geometries of its UNet,
-     VAE decoder and vocoder), plus small fp32 cases with TF32 off; forward
-     and, where the kernel has a backward, the input gradient; median times
-     of the kernel, its plain version and the one PyTorch call that computes
-     the same function where there is one, from CUDA events, beside the
-     bound the shapes give (bytes over device memory rate, operations over
-     peak rate);
+     VAE decoder and vocoder; the vocoder's canvas conv, forward and adjoint,
+     at every resblock conv of stages 0-2, the canvas pair at every pair,
+     the stage backward at stage 2, the bounded-softmax block in both
+     modes), plus small fp32 cases with TF32 off; forward and, where the
+     kernel has a backward, the input gradient; canvas outputs exactly zero
+     outside the signal; median times of the kernel, its plain version and
+     the one PyTorch call that computes the same function where there is
+     one, from CUDA events, beside the bound the shapes give (bytes over
+     device memory rate, operations over peak rate);
   4. reference: small fp32 MusicLDM and AudioLDM2 models (the latter from a
-     text prompt, under classifier-free guidance, on both UNet routes), and
-     a small fp32 MusicLDM with the guided step's routes on (`gn_mode`
-     "stats", then "fused"; conv2d and mask kernels) through the whole DPS
-     pipeline on the card (kernels) and on the CPU (plain versions), which
-     must agree;
+     text prompt, under classifier-free guidance, on both UNet routes), a
+     small fp32 MusicLDM with the guided step's routes on (`gn_mode`
+     "stats", then "fused"; conv2d and mask kernels) and under each newer
+     route (the vocoder's canvas "xbwd" and "kernel", its stage route, the
+     bounded softmax), through the whole DPS pipeline on the card (kernels)
+     and on the CPU (plain versions), which must agree;
   5. slice: full-width MusicLDM with seeded random bf16 weights, 20 DPS
      steps inpainting a 10-s clip (box mask at 4-6 s) through
      `MusicLDMPipeline.__call__`, with the launch counts of every kernel, on
-     the default route and with the routes on, in the order default, stats,
-     fused, fused, stats, default (one card, one host: the turns keep the
+     the default route and on each route setting (TURN_ROUTES), each once
+     in each direction of TURNS (one card, one host: the turns keep the
      host's drift out of the comparison);
   6. breakdown: each stage of one guided step timed alone at the slice's
-     shapes, for the default route and both route settings; with --profile
-     also a torch.profiler table of two guided steps and the device busy
-     share, written to --out;
+     shapes, for the default route and each route setting (the vocoder
+     alone for its routes, the UNet alone for bsoft); with --profile also a
+     torch.profiler table of two guided steps and the device busy share,
+     written to --out;
   7. audioldm2: full-width AudioLDM2 (cvssp/audioldm2-music widths) with
      seeded random bf16 weights, the empty prompt through the whole text
      stack (CLAP, T5, projection, GPT-2), the same 20 DPS steps through
      `AudioLDM2Pipeline.__call__`, once on each UNet route: `fuse_cross` off
-     (flash attention, the JAX default) and on (the dual-cross block); then
-     its per-stage breakdown.
+     (flash attention, the JAX default), on (the dual-cross block), and on
+     with the bounded softmax; then its per-stage breakdown.
 Then the card's nvidia-smi name and power limit, a JSON line with one entry
 per kernel, and last {"ok": true, "device": {...}}. No JAX is imported.
 """
@@ -91,6 +96,11 @@ REPLACES = {
     "conv2d_same": "diffmusic_tpu/pallas/conv2d_kernel.py:168",
     "leaky_mask": "diffmusic_tpu/pallas/mask_kernel.py:80",
     "leaky_mask_add": "diffmusic_tpu/pallas/mask_kernel.py:89",
+    # the bounded-softmax mode of the block (DIFFMUSIC_TPU_BSOFT, :319-323)
+    "fused_transformer_block_bsoft": "diffmusic_tpu/pallas/transformer_kernel.py:291",
+    "conv1d_fused_canvas": "diffmusic_tpu/pallas/conv1d_kernel.py:469",
+    "conv1d_pair_canvas": "diffmusic_tpu/pallas/conv1d_kernel.py:870",
+    "stage_resblocks_canvas": "diffmusic_tpu/pallas/stage_bwd_kernel.py:261",
 }
 SOURCES = {
     "fused_transformer_block": "diffmusic_tpu_torch/kernels/csrc/transformer_block.cu",
@@ -104,14 +114,32 @@ SOURCES = {
     "conv2d_same": "diffmusic_tpu_torch/kernels/csrc/conv2d.cu",
     "leaky_mask": "diffmusic_tpu_torch/kernels/csrc/leaky_mask.cu",
     "leaky_mask_add": "diffmusic_tpu_torch/kernels/csrc/leaky_mask.cu",
+    "fused_transformer_block_bsoft": "diffmusic_tpu_torch/kernels/csrc/transformer_block.cu",
+    "conv1d_fused_canvas": "diffmusic_tpu_torch/kernels/csrc/conv1d.cu",
+    "conv1d_pair_canvas": "diffmusic_tpu_torch/kernels/csrc/conv1d.cu",
+    "stage_resblocks_canvas": "diffmusic_tpu_torch/kernels/csrc/stage_bwd.cu",
 }
 # launches per guided step of the 10-s slices (UNet levels 0/1: 2 down + 3 up
 # blocks each; vocoder: 24 pairs, the 6 ch512 k=11 convs, upsamplers 0-2).
 # MusicLDM's blocks are self-attention only; AudioLDM2's are dual-cross, and
 # take flash attention or, with fuse_cross, the dual-cross block.
-VOCODER_PER_STEP = {"conv1d_fused_pair": 24, "conv1d_fused": 6, "phase_convtranspose": 3}
-BLOCK_KERNELS = ("fused_transformer_block", "flash_attention",
-                 "fused_transformer_block_cross")
+# The vocoder's routes, by the names of the slice's turns, and their launches
+# per vocoder forward and per backward (stages 0-2 on the canvas: "xbwd" runs
+# the 24 pairs and the 6 ch512 k=11 convs there with plain backwards,
+# "kernel" all 54 convs both ways, "stage" stage 2's 9 pairs inside the stage
+# route and its backward as one launch).
+# (tests/test_torch_port_canvas.py derives these from the models on the CPU.)
+VOCODER_ROUTES = {"default": {}, "xbwd": {"canvas": "xbwd"}, "kernel": {"canvas": "kernel"},
+                  "stage": {"canvas": "xbwd", "stage_bwd": True}}
+VOCODER_LAUNCHES = {
+    "default": ({"conv1d_fused_pair": 24, "conv1d_fused": 6, "phase_convtranspose": 3}, {}),
+    "xbwd": ({"conv1d_pair_canvas": 24, "conv1d_fused_canvas": 6, "phase_convtranspose": 3}, {}),
+    "kernel": ({"conv1d_fused_canvas": 54, "phase_convtranspose": 3},
+               {"conv1d_fused_canvas": 54}),
+    "stage": ({"conv1d_pair_canvas": 24, "conv1d_fused_canvas": 6, "phase_convtranspose": 3},
+              {"stage_resblocks_canvas": 1}),
+}
+VOCODER_PER_STEP = VOCODER_LAUNCHES["default"][0]
 # The guided step's routes (`gn_mode`, `conv2d_kernel`, `mask_kernel`):
 # launches per forward of the full-width UNet and VAE decoder at latents
 # (1, 8, 250, 16), for each `gn_mode`. Of the UNet's 61 GroupNorms, the two
@@ -135,8 +163,14 @@ ROUTE_KERNELS = ("fused_group_norm", "channel_moments", "conv2d_same", "leaky_ma
 LATENTS = (1, 8, 250, 16)   # the 10-s slice's latents
 
 
+LOG_FILE = None   # with --out, every line also goes to OUT_DIR/chip_smoke.log
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if LOG_FILE is not None:
+        with open(LOG_FILE, "a") as f:
+            f.write(msg + "\n")
 
 
 def time_ms(fn, reps: int = 5, inner: int = 10, warmup: int = 2) -> float:
@@ -308,16 +342,19 @@ def check_upsampler(cin, cout, k, s, t_in, dtype, gen, tol):
     return res
 
 
-def check_block(t, c, dtype, gen, tol, cross=False):
+def check_block(t, c, dtype, gen, tol, cross=False, bsoft=False, amp=1.0):
     """The fused block at (1, t, c), 8-dim heads; with `cross`, in the
     dual-cross mode with AudioLDM2's two streams: 8 GPT-2 states of 768,
-    unmasked, and 12 T5 tokens of 1024 whose last 7 are masked."""
+    unmasked, and 12 T5 tokens of 1024 whose last 7 are masked; with `bsoft`,
+    in the bounded-softmax mode, against the plain version in that mode.
+    `amp` scales x and the LayerNorm scale (so the logits grow by amp^2 and
+    the bound grows slack)."""
     from diffmusic_tpu_torch.kernels import transformer_block as TB
     dev = "cuda"
     heads = c // 8
-    x = randn((1, t, c), gen, dev, dtype)
+    x = randn((1, t, c), gen, dev, dtype, amp)
     sc = 1.0 / math.sqrt(c)
-    p = dict(ln1_scale=1 + randn((c,), gen, dev, dtype, 0.1),
+    p = dict(ln1_scale=amp * (1 + randn((c,), gen, dev, dtype, 0.1)),
              ln1_bias=randn((c,), gen, dev, dtype, 0.1),
              wq=randn((c, c), gen, dev, dtype, sc), wk=randn((c, c), gen, dev, dtype, sc),
              wv=randn((c, c), gen, dev, dtype, sc), wo=randn((c, c), gen, dev, dtype, sc),
@@ -347,16 +384,20 @@ def check_block(t, c, dtype, gen, tol, cross=False):
         for tk, cd in ((8, 768), (12, 1024)):   # q, o; k, v of the context; attention
             ops += 4 * t * c * c + 4 * tk * cd * c + 4 * t * tk * c
             nbytes += 2 * (2 * c * c + 2 * cd * c + tk * cd) + 4 * tk
-    kern = lambda: TB.fused_transformer_block(x, p, heads, 8, contexts, biases)
-    plain = lambda: TB.transformer_block_plain(x, p, heads, 8, contexts, biases)
+    kern = lambda: TB.fused_transformer_block(x, p, heads, 8, contexts, biases, bsoft)
+    plain = lambda: TB.transformer_block_plain(x, p, heads, 8, contexts, biases, bsoft)
     with torch.no_grad():
         out, ref = kern(), plain()
         torch.cuda.synchronize()
         err = rel_err(out, ref)
+    if not torch.isfinite(out).all():
+        raise AssertionError("the fused block gave non-finite values")
     res = result(err[0], timings(lambda _: kern(), lambda _: plain(), None, dtype),
                  bound(nbytes, ops))
-    name = "fused_transformer_block_cross" if cross else "fused_transformer_block"
-    log(f"  {name:24s} (1, {t}, {c}) heads {heads} {str(dtype)[6:]}: "
+    name = ("fused_transformer_block_bsoft" if bsoft else
+            "fused_transformer_block_cross" if cross else "fused_transformer_block")
+    mode = " +cross" if bsoft and cross else ""
+    log(f"  {name:24s} (1, {t}, {c}) heads {heads}{mode} amp {amp:g} {str(dtype)[6:]}: "
         f"max|err| {err[0]:.3e} rel {err[1]:.2e} (tol {tol:.0e}); {describe_times(res)}")
     if err[1] > tol:
         raise AssertionError(f"{name} disagrees with its plain version")
@@ -567,10 +608,134 @@ def check_mask(name, shape, dtype, gen, tol):
     return res
 
 
+# -------------------------------------------------- the vocoder's canvas routes
+VOCODER_STAGES = ((5001, 512), (20004, 256), (40008, 128))   # (T, C) of stages 0-2
+RESBLOCKS = ((3, 7, 11), ((1, 3, 5),) * 3)                    # kernel sizes, dilations
+
+
+def assert_margins_zero(label, t, *tensors) -> None:
+    """Canvas tensors must be exactly zero outside the signal [512, 512 + t)."""
+    for a in tensors:
+        if a[:, :512].any() or a[:, 512 + t:].any():
+            raise AssertionError(f"{label}: a canvas output is not zero outside the signal")
+
+
+def canvas_conv_calls() -> list:
+    """(T, C, k, d, residual, launches per forward) of every resblock conv
+    of stages 0-2 with `canvas="kernel"`: per branch k, conv1 at each
+    dilation once, conv2 (d 1, with the residual) three times. Each
+    forward launch has one adjoint launch in the backward."""
+    return [(t, c, k, d, res, n) for t, c in VOCODER_STAGES for k in RESBLOCKS[0]
+            for d, res, n in ((1, False, 1), (3, False, 1), (5, False, 1), (1, True, 3))]
+
+
+def check_canvas_conv(t, c, k, d, residual, dtype, gen, tol) -> tuple:
+    """conv1d_fused_canvas's forward and its backward's adjoint launch
+    against the plain versions (`canvas_plain` of the conv and of the
+    flipped transposed conv) on the canvas of a (1, t, c) signal. Returns
+    the forward's and the adjoint's results."""
+    from diffmusic_tpu_torch.kernels import conv1d as K
+    from diffmusic_tpu_torch.kernels.canvas import canvas_rows, to_canvas
+    dev, rows = "cuda", canvas_rows(t)
+    xc, gc = (to_canvas(randn((1, t, c), gen, dev, dtype)) for _ in range(2))
+    rc = to_canvas(randn((1, t, c), gen, dev, dtype)) if residual else None
+    w = randn((k, c, c), gen, dev, dtype, 1.0 / math.sqrt(k * c))
+    b = randn((c,), gen, dev, dtype, 0.1)
+    w_adj = w.flip(0).transpose(1, 2)
+    cases = {
+        "fwd": (lambda xx: K._launch_fused(xx, w, b, rc, d, SLOPE, t),
+                lambda xx: K.canvas_plain(xx, w, b, t, d, SLOPE, rc), xc),
+        "adjoint": (lambda gg: K._launch_fused(gg, w, None, None, d, None, t, adjoint=True),
+                    lambda gg: K.canvas_plain(gg, w_adj, None, t, d), gc)}
+    size = xc.element_size()
+    bnd = bound(size * ((3 if residual else 2) * rows * c + k * c * c + c), 2 * t * k * c * c)
+    out = {}
+    for label, (kern, plain, inp) in cases.items():
+        with torch.no_grad():
+            y, ref = kern(inp), plain(inp)
+            torch.cuda.synchronize()
+            err = rel_err(y, ref)
+        assert_margins_zero(f"conv1d_fused_canvas {label}", t, y)
+        out[label] = result(err[0], timings(kern, plain, inp, dtype), bnd)
+        log(f"  conv1d_fused_canvas {label:7s} (1, {t}, {c}) k{k} d{d}"
+            f"{' +res' if residual and label == 'fwd' else ''} {str(dtype)[6:]}: max|err| "
+            f"{err[0]:.3e} rel {err[1]:.2e} (tol {tol:.0e}), margins 0; "
+            f"{describe_times(out[label])}")
+        if err[1] > tol:
+            raise AssertionError("conv1d_fused_canvas disagrees with its plain version")
+    return out["fwd"], out["adjoint"]
+
+
+def check_pair_canvas(t, c, k, d, dtype, gen, tol):
+    """conv1d_pair_canvas (y, the saved h, the input gradient through its
+    plain backward) against the plain version on the canvas."""
+    from diffmusic_tpu_torch.kernels import conv1d as K
+    from diffmusic_tpu_torch.kernels.canvas import canvas_rows, to_canvas
+    dev, rows = "cuda", canvas_rows(t)
+    xc, gc = (to_canvas(randn((1, t, c), gen, dev, dtype)) for _ in range(2))
+    w1, w2 = (randn((k, c, c), gen, dev, dtype, 1.0 / math.sqrt(k * c)) for _ in range(2))
+    b1, b2 = (randn((c,), gen, dev, dtype, 0.1) for _ in range(2))
+    kern = lambda xx: K.conv1d_pair_canvas(xx, w1, b1, w2, b2, t, d, SLOPE)
+    plain = lambda xx: K.pair_canvas_plain(xx, w1, b1, w2, b2, t, d, SLOPE)[0]
+    fwd, bwd = compare_with_grad(kern, plain, xc, gc)
+    with torch.no_grad():
+        y, h = K.pair_canvas_forward(xc, w1, b1, w2, b2, t, d, SLOPE)
+        h_err = rel_err(h, K.pair_canvas_plain(xc, w1, b1, w2, b2, t, d, SLOPE)[1])
+    xx = xc.clone().requires_grad_(True)
+    (dx,) = torch.autograd.grad(kern(xx), xx, gc)
+    assert_margins_zero("conv1d_pair_canvas", t, y, h, dx)
+    fwd = max(fwd, h_err, key=lambda e: e[1])
+    size = xc.element_size()
+    res = result(fwd[0], timings(kern, plain, xc, dtype),
+                 bound(size * (3 * rows * c + 2 * k * c * c + 2 * c), 4 * t * k * c * c))
+    log(f"  conv1d_pair_canvas       (1, {t}, {c}) k{k} d{d} {str(dtype)[6:]}: "
+        f"{describe(fwd, bwd, tol)}, margins 0; {describe_times(res)}")
+    if fwd[1] > tol or bwd[2] > tol:
+        raise AssertionError("conv1d_pair_canvas disagrees with its plain version")
+    return res
+
+
+def check_stage(t, dtype, gen, tol):
+    """The stage route on the canvas of a (1, t, 128) signal, KS (3, 7, 11),
+    dilations (1, 3, 5) x 3: its forward (9 pair launches) against the plain
+    stage, its one-launch backward against `stage_bwd_plain` on the same
+    saved tensors (held by norm); times of the backward."""
+    from diffmusic_tpu_torch.kernels import stage_bwd as S
+    from diffmusic_tpu_torch.kernels.canvas import canvas_rows, from_canvas, to_canvas
+    dev, c, rows = "cuda", 128, canvas_rows(t)
+    ks, dils = RESBLOCKS
+    params = [(randn((k, c, c), gen, dev, dtype, 0.05), randn((c,), gen, dev, dtype, 0.1),
+               randn((k, c, c), gen, dev, dtype, 0.05), randn((c,), gen, dev, dtype, 0.1))
+              for k, ds in zip(ks, dils) for _ in ds]
+    xc, gc = (to_canvas(randn((1, t, c), gen, dev, dtype)) for _ in range(2))
+    w1s, w2s = [p[0] for p in params], [p[2] for p in params]
+    with torch.no_grad():
+        y, xs, hs = S.stage_forward(xc, params, t, ks, dils, SLOPE)
+        fwd = rel_err(from_canvas(y, t), S.stage_plain(from_canvas(xc, t), params, ks, dils,
+                                                       SLOPE))
+        kern = lambda gg: S._launch(gg, xs, hs, w1s, w2s, t, ks, dils, SLOPE)
+        plain = lambda gg: S.stage_bwd_plain(gg, xs, hs, w1s, w2s, t, ks, dils, SLOPE)
+        dx, dx0 = kern(gc), plain(gc)
+        torch.cuda.synchronize()
+        bwd = grad_err(dx, dx0)
+    assert_margins_zero("stage_resblocks_canvas", t, y, dx)
+    n_taps = sum(k * len(ds) for k, ds in zip(ks, dils))
+    # g, the 18 saved canvases and dx once; the 18 weights
+    nbytes = gc.element_size() * ((2 + 2 * len(params)) * rows * c + 2 * n_taps * c * c)
+    res = result(bwd[0], timings(kern, plain, gc, dtype), bound(nbytes, 4 * t * c * c * n_taps))
+    log(f"  stage_resblocks_canvas   (1, {t}, {c}) {str(dtype)[6:]}: forward max|err| "
+        f"{fwd[0]:.3e} rel {fwd[1]:.2e}; backward max|err| {bwd[0]:.3e} rel {bwd[1]:.2e} "
+        f"norm-rel {bwd[2]:.2e} (tol {tol:.0e}), margins 0; backward {describe_times(res)}")
+    if fwd[1] > tol or bwd[2] > tol:
+        raise AssertionError("stage_resblocks_canvas disagrees with its plain version")
+    return res
+
+
 def phase_kernels(gen) -> dict:
     """Every kernel at the slice's shapes (bf16) and small fp32 cases.
     Returns per kernel: max abs error, and kernel / plain / library / bound
     ms summed over one guided step's calls."""
+    from diffmusic_tpu_torch.kernels.conv1d import pair_ok
     stats = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
                  "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0} for n in REPLACES}
 
@@ -613,6 +778,28 @@ def phase_kernels(gen) -> dict:
         for shape, n in sorted(calls[name].items()):
             add(name, check_mask(name, shape, bf, gen, TOL_ROUTE_BF16), n)
 
+    log("the vocoder's canvas routes and the bounded softmax, bf16 (the line sums each "
+        "kernel over one guided step of its route: canvas=\"kernel\", \"xbwd\", stage_bwd, "
+        "bsoft):")
+    for t, c, k, d, residual, n in canvas_conv_calls():
+        for res in check_canvas_conv(t, c, k, d, residual, bf, gen, TOL_CONV_BF16):
+            add("conv1d_fused_canvas", res, n)
+    for t, c in VOCODER_STAGES:
+        for k in RESBLOCKS[0]:
+            if pair_ok(k, c, c, bf):
+                for d in RESBLOCKS[1][0]:
+                    add("conv1d_pair_canvas", check_pair_canvas(t, c, k, d, bf, gen,
+                                                                TOL_CONV_BF16))
+    add("stage_resblocks_canvas", check_stage(VOCODER_STAGES[2][0], bf, gen, TOL_CONV_BF16))
+    for t, c in ((4000, 128), (1000, 256)):
+        add("fused_transformer_block_bsoft",
+            check_block(t, c, bf, gen, TOL_BLOCK_BF16, bsoft=True), 5)
+        # the dual-cross bsoft mode (AudioLDM2 with fuse_cross): checked, not summed
+        add("fused_transformer_block_bsoft",
+            check_block(t, c, bf, gen, TOL_BLOCK_BF16, cross=True, bsoft=True), 0)
+    add("fused_transformer_block_bsoft",
+        check_block(4000, 128, bf, gen, TOL_BLOCK_BF16, bsoft=True, amp=5.0), 0)
+
     log("kernels vs plain versions, small fp32 cases (TF32 off):")
     f32 = torch.float32
     add("fused_transformer_block", check_block(600, 128, f32, gen, TOL_FP32))
@@ -632,6 +819,14 @@ def phase_kernels(gen) -> dict:
         add("conv2d_same", check_conv2d(xs, ws, f32, gen, TOL_FP32))
     for name, shape in (("leaky_mask", (1, 1001, 100)), ("leaky_mask_add", (2, 999, 128))):
         add(name, check_mask(name, shape, f32, gen, TOL_FP32))
+    for k, d, residual in ((11, 5, False), (3, 1, True)):
+        for res in check_canvas_conv(1100, 128, k, d, residual, f32, gen, TOL_FP32):
+            add("conv1d_fused_canvas", res)
+    add("conv1d_pair_canvas", check_pair_canvas(1100, 128, 7, 3, f32, gen, TOL_FP32))
+    add("stage_resblocks_canvas", check_stage(700, f32, gen, TOL_FP32))
+    for cross, amp in ((False, 1.0), (True, 1.0), (False, 5.0)):
+        add("fused_transformer_block_bsoft",
+            check_block(600, 128, f32, gen, TOL_FP32, cross=cross, bsoft=True, amp=amp))
     return stats
 
 
@@ -673,18 +868,30 @@ def build_audioldm2(unet_cfg, vae_cfg, voc_cfg, audio_s, device, weight_dtype, f
     return pipe, measurement
 
 
-def with_routes(pipe, gn_mode: str):
-    """The pipeline with its UNet, VAE and vocoder rebuilt with the guided
-    step's routes on (`gn_mode`, the conv2d and the mask kernels), sharing
-    the pipeline's weight tensors (no copy)."""
+# each turn's route flags: the guided step's GroupNorm routes ("stats",
+# "fused", with the conv2d and mask kernels), the vocoder's routes and the
+# bounded softmax
+TURN_ROUTES = {"default": {},
+               "stats": dict(gn_mode="stats", conv2d_kernel=True, mask_kernel=True),
+               "fused": dict(gn_mode="fused", conv2d_kernel=True, mask_kernel=True),
+               **{name: r for name, r in VOCODER_ROUTES.items() if name != "default"},
+               "bsoft": dict(bsoft=True)}
+
+
+def with_routes(pipe, gn_mode="plain", conv2d_kernel=False, mask_kernel=False, bsoft=False,
+                canvas="off", stage_bwd=False, fuse_cross=False):
+    """The pipeline with its UNet, VAE and vocoder rebuilt with the given
+    route flags, sharing the pipeline's weight tensors (no copy)."""
     from diffmusic_tpu_torch.models.hifigan import SpeechT5HifiGan
     from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
     from diffmusic_tpu_torch.models.vae import AutoencoderKL
-    routes = dict(gn_mode=gn_mode, conv2d_kernel=True)
+    routes = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel)
     with torch.device("meta"):
-        models = dict(unet=UNet2DConditionModel(pipe.unet_cfg, **routes),
+        models = dict(unet=UNet2DConditionModel(pipe.unet_cfg, fuse_cross=fuse_cross,
+                                                bsoft=bsoft, **routes),
                       vae=AutoencoderKL(pipe.vae_cfg, **routes),
-                      vocoder=SpeechT5HifiGan(pipe.vocoder_cfg, mask_kernel=True))
+                      vocoder=SpeechT5HifiGan(pipe.vocoder_cfg, mask_kernel=mask_kernel,
+                                              canvas=canvas, stage_bwd=stage_bwd))
     for name, model in models.items():
         model.load_state_dict(getattr(pipe, name).state_dict(), assign=True)
     return dataclasses.replace(pipe, **models)
@@ -700,15 +907,20 @@ def audioldm2_unet_config(**widths):
     return UNetConfig(**kw)
 
 
-def expected_launches(blocks: str, gn_mode: str = "plain") -> dict:
+def expected_launches(blocks: str, gn_mode: str = "plain", vocoder: str = "default") -> dict:
     """Launches of every kernel over a slice's STEPS guided steps and its
     final decode, where `blocks` is the kernel its 10 transformer blocks per
-    step take and `gn_mode` "stats" or "fused" means the guided step's
-    routes are on (conv2d and mask kernels too)."""
-    want = {n: 0 for n in BLOCK_KERNELS + ROUTE_KERNELS}
+    step take, `gn_mode` "stats" or "fused" means the guided step's routes
+    are on (conv2d and mask kernels too) and `vocoder` names the vocoder's
+    route. Every other kernel must not launch."""
+    want = dict.fromkeys(REPLACES, 0)
     want[blocks] = 10 * STEPS
-    # the vocoder kernels run once more in the final decode
-    want.update({n: k * (STEPS + 1) for n, k in VOCODER_PER_STEP.items()})
+    # the vocoder's forward runs once more in the final decode, its backward not
+    fwd, bwd = VOCODER_LAUNCHES[vocoder]
+    for n, k in fwd.items():
+        want[n] += k * (STEPS + 1)
+    for n, k in bwd.items():
+        want[n] += k * STEPS
     if gn_mode != "plain":
         # the UNet once a step; the VAE once a step and in the final decode;
         # the masks in the vocoder backward, once a step
@@ -796,30 +1008,37 @@ def phase_reference():
                           lat_tol, ("fused_transformer_block",) + tuple(VOCODER_PER_STEP))
 
 
+def reference_runs(cfgs, audio_s, lat, **routes) -> dict:
+    """2 DPS steps with the waveform loss of a small fp32 MusicLDM of the
+    (UNet, VAE, HiFi-GAN) configs `cfgs` with the route flags, on the card
+    and on the CPU: per device (final latents, losses, launch counts)."""
+    from diffmusic_tpu_torch import kernels
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pipe, meas = build_pipe(*cfgs, audio_s, dev, torch.float32, **routes)
+        kernels.reset_launch_counts()
+        res, losses = pipe(audio_length_in_s=audio_s, num_inference_steps=2, eta=0.0,
+                           prompt_embeds=torch.zeros(2, 512), measurement=meas,
+                           ip_guidance_rate=2.0, latents=lat, output_type="latent",
+                           return_losses=True, supervised_space="wav_form")
+        out[dev] = (res.audios, losses, kernels.launch_counts())
+    return out
+
+
 def phase_reference_routes():
     """A small fp32 MusicLDM with the guided step's routes on (`gn_mode`
     "stats", then "fused"; the conv2d and mask kernels), 2 DPS steps with the
     waveform loss, on the card and on the CPU: every route kernel of the
     setting launches on the card, inside the differentiated chain too (the
     VAE's 128-channel levels, the vocoder backward), and none on the CPU."""
-    from diffmusic_tpu_torch import kernels
     from diffmusic_tpu_torch.models.configs import UNetConfig, VAEConfig
     unet, _, voc_cfg = reference_configs()
     vae_cfg = VAEConfig(block_out_channels=(32, 128), layers_per_block=1, norm_num_groups=32)
     lat = torch.randn((1, 8, 64, 32), generator=torch.Generator().manual_seed(7))
     gn_kernels = {"stats": "channel_moments", "fused": "fused_group_norm"}
     for gn_mode, gn_kernel in gn_kernels.items():
-        out = {}
-        for dev in ("cuda", "cpu"):
-            pipe, meas = build_pipe(UNetConfig(**unet), vae_cfg, voc_cfg, ROUTES_REF_AUDIO_S,
-                                    dev, torch.float32, gn_mode=gn_mode, conv2d_kernel=True,
-                                    mask_kernel=True)
-            kernels.reset_launch_counts()
-            res, losses = pipe(audio_length_in_s=ROUTES_REF_AUDIO_S, num_inference_steps=2,
-                               eta=0.0, prompt_embeds=torch.zeros(2, 512), measurement=meas,
-                               ip_guidance_rate=2.0, latents=lat, output_type="latent",
-                               return_losses=True, supervised_space="wav_form")
-            out[dev] = (res.audios, losses, kernels.launch_counts())
+        out = reference_runs((UNetConfig(**unet), vae_cfg, voc_cfg), ROUTES_REF_AUDIO_S, lat,
+                             **TURN_ROUTES[gn_mode])
         compare_reference(f"MusicLDM with the routes, gn_mode {gn_mode}, fp32, small model, "
                           f"2 DPS steps, wav_form loss", out, REF_LATENT_TOL["wav_form"],
                           (gn_kernel, "conv2d_same", "leaky_mask", "leaky_mask_add",
@@ -827,6 +1046,30 @@ def phase_reference_routes():
         other = gn_kernels["fused" if gn_mode == "stats" else "stats"]
         if out["cuda"][2][other]:
             raise AssertionError(f"gn_mode {gn_mode} launched {other}")
+
+
+# each new route's kernels, which must launch on the card in its reference run
+NEW_ROUTE_KERNELS = {"xbwd": ("conv1d_pair_canvas", "conv1d_fused_canvas"),
+                     "kernel": ("conv1d_fused_canvas",),
+                     "stage": ("stage_resblocks_canvas", "conv1d_pair_canvas"),
+                     "bsoft": ("fused_transformer_block_bsoft",)}
+
+
+def phase_reference_new_routes():
+    """The small fp32 MusicLDM of `phase_reference` (HiFi-GAN at full width
+    with resblocks (3, 7): stage 2 is ch128 at T 2560 on a canvas of 7
+    blocks, and meets the stage rule in fp32), 2 DPS steps with the waveform
+    loss, card against CPU, under each new route: the vocoder's canvas
+    "xbwd", "kernel", the stage route, and the bounded softmax."""
+    from diffmusic_tpu_torch.models.configs import UNetConfig
+    unet, vae_cfg, voc_cfg = reference_configs()
+    lat = torch.randn((1, 8, 32, 32), generator=torch.Generator().manual_seed(8))
+    for name, card_kernels in NEW_ROUTE_KERNELS.items():
+        out = reference_runs((UNetConfig(**unet), vae_cfg, voc_cfg), REF_AUDIO_S, lat,
+                             **TURN_ROUTES[name])
+        compare_reference(f"MusicLDM, route {name} {TURN_ROUTES[name]}, fp32, small model, 2 "
+                          f"DPS steps, wav_form loss", out, REF_LATENT_TOL["wav_form"],
+                          card_kernels)
 
 
 def phase_reference_audioldm2():
@@ -902,30 +1145,46 @@ def drive(label: str, pipe, meas, want: dict, **call_kw) -> dict:
     return counts
 
 
+# the slice's turns: each route once each way, so that the host's drift over
+# the call falls on every route alike
+TURNS = ("default", "stats", "fused", "xbwd", "kernel", "stage", "bsoft",
+         "bsoft", "stage", "kernel", "xbwd", "fused", "stats", "default")
+
+
+def turn_launches(name: str) -> dict:
+    """The launches a turn of the slice must give."""
+    flags = TURN_ROUTES[name]
+    return expected_launches("fused_transformer_block_bsoft" if flags.get("bsoft")
+                             else "fused_transformer_block",
+                             flags.get("gn_mode", "plain"),
+                             name if name in VOCODER_ROUTES else "default")
+
+
 def phase_slice(profile_dir=None) -> dict:
-    """Full-width MusicLDM on the default route and with the guided step's
-    routes on, in the turns default, stats, fused, fused, stats, default,
-    then each setting's breakdown. Returns the launch counts of the first run
-    of each setting."""
+    """Full-width MusicLDM on the default route and on each route of
+    TURN_ROUTES, in the TURNS, then each setting's breakdown (the whole step
+    for the default and the GroupNorm routes, the vocoder for its routes, the UNet
+    for bsoft). Returns the launch counts of the first run of each setting."""
     from diffmusic_tpu_torch.models.configs import HiFiGANConfig, UNetConfig, VAEConfig
     t0 = time.time()
     pipe, meas = build_pipe(UNetConfig(), VAEConfig(), HiFiGANConfig(), 10.0, "cuda",
                             torch.bfloat16)
     log(f"slice: full-width MusicLDM, seeded random bf16 weights, built in "
         f"{time.time() - t0:.1f} s")
-    pipes = {"plain": pipe, "stats": with_routes(pipe, "stats"),
-             "fused": with_routes(pipe, "fused")}
+    pipes = {name: with_routes(pipe, **flags) if flags else pipe
+             for name, flags in TURN_ROUTES.items()}
     counts = {}
-    for turn, gn_mode in enumerate(("plain", "stats", "fused", "fused", "stats", "plain")):
-        label = "slice" if gn_mode == "plain" else f"slice routes gn_mode={gn_mode}"
-        c = drive(f"{label} (turn {turn + 1})", pipes[gn_mode], meas,
-                  expected_launches("fused_transformer_block", gn_mode),
+    for turn, name in enumerate(TURNS):
+        label = "slice" if name == "default" else f"slice route {name}"
+        c = drive(f"{label} (turn {turn + 1})", pipes[name], meas, turn_launches(name),
                   prompt_embeds=torch.zeros(2, 512))
-        counts.setdefault(gn_mode, c)
-    for gn_mode, p in pipes.items():
-        label = "slice" if gn_mode == "plain" else f"slice_routes_{gn_mode}"
-        phase_breakdown(p, meas, LATENTS, torch.zeros(2, 512), label,
-                        profile_dir if gn_mode != "fused" else None)
+        counts.setdefault(name, c)
+    for name, p in pipes.items():
+        parts = (None if name in ("default", "stats", "fused") else
+                 ("unet fwd (no grad)",) if name == "bsoft" else ("vocoder fwd+bwd",))
+        phase_breakdown(p, meas, LATENTS, torch.zeros(2, 512),
+                        "slice" if name == "default" else f"slice_route_{name}",
+                        profile_dir if name in ("default", "stats") else None, parts)
     return counts
 
 
@@ -960,15 +1219,20 @@ def phase_audioldm2(profile_dir=None) -> dict:
     counts[True] = drive("audioldm2 fuse_cross=True", fused_pipe, meas,
                          expected_launches("fused_transformer_block_cross"), prompt="")
     del fused_pipe, fused
+    counts["bsoft"] = drive("audioldm2 fuse_cross=True bsoft=True",
+                            with_routes(pipe, fuse_cross=True, bsoft=True), meas,
+                            expected_launches("fused_transformer_block_bsoft"), prompt="")
     phase_breakdown(pipe, meas, LATENTS, embeds, "audioldm2", profile_dir)
     return counts
 
 
-def phase_breakdown(pipe, meas, lat_shape, embeds, label, profile_dir=None) -> None:
+def phase_breakdown(pipe, meas, lat_shape, embeds, label, profile_dir=None,
+                    only=None) -> None:
     """Where one guided step's time goes at the slice's shapes: each stage of
-    the step alone (median ms from CUDA events), then optionally a
-    torch.profiler table of two guided steps, written to `profile_dir`.
-    `embeds` is the CFG-stacked conditioning of the empty prompt."""
+    the step alone (median ms from CUDA events; `only` names the stages to
+    time, all by default), then optionally a torch.profiler table of two
+    guided steps, written to `profile_dir`. `embeds` is the CFG-stacked
+    conditioning of the empty prompt."""
     from diffmusic_tpu_torch.pipelines.musicldm import per_clip_loss
     dev = pipe.device
     gen = torch.Generator().manual_seed(1)
@@ -1001,6 +1265,7 @@ def phase_breakdown(pipe, meas, lat_shape, embeds, label, profile_dir=None) -> N
 
     parts = {"unet fwd (no grad)": unet, "vae decode fwd+bwd": vae,
              "vocoder fwd+bwd": vocoder, "mel loss head fwd+bwd": loss_head}
+    parts = {name: fn for name, fn in parts.items() if only is None or name in only}
     # one call per timing: a stage's latency inside the step, host dispatch included
     times = {name: time_ms(fn, reps=5, inner=1, warmup=1) for name, fn in parts.items()}
     log(f"{label} breakdown of one guided step (median ms, CUDA events): " +
@@ -1043,7 +1308,8 @@ def phase_breakdown(pipe, meas, lat_shape, embeds, label, profile_dir=None) -> N
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None,
-                    help="directory for the build log and the profile (optional)")
+                    help="directory for the whole log, the build log and the profile "
+                         "(optional)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile two guided steps with torch.profiler (needs --out)")
     args = ap.parse_args()
@@ -1052,6 +1318,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.out is not None:
+        global LOG_FILE
+        args.out.mkdir(parents=True, exist_ok=True)
+        LOG_FILE = args.out / "chip_smoke.log"
+        LOG_FILE.write_text("")
     # fp32 references in full fp32: state both TF32 switches
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1081,17 +1352,24 @@ def main() -> int:
     stats = phase_kernels(gen)
     phase_reference()
     phase_reference_routes()
+    phase_reference_new_routes()
     phase_reference_audioldm2()
     slice_counts = phase_slice(profile_dir)
     a2 = phase_audioldm2(profile_dir)
     # each kernel's launches from the path that runs it: MusicLDM's default
     # route for its four, its routes for the route kernels (the fused
-    # GroupNorm from gn_mode "fused", the others from "stats"), AudioLDM2 with
-    # fuse_cross off for flash, on for the dual-cross block
+    # GroupNorm from gn_mode "fused", the others from "stats"; the canvas
+    # conv from canvas "kernel", the pair from "xbwd", the stage from its
+    # route, the bounded softmax from bsoft), AudioLDM2 with fuse_cross off
+    # for flash, on for the dual-cross block
     counts = dict(slice_counts["stats"])
-    counts.update({n: slice_counts["plain"][n] for n in VOCODER_PER_STEP})
-    counts["fused_transformer_block"] = slice_counts["plain"]["fused_transformer_block"]
+    counts.update({n: slice_counts["default"][n] for n in VOCODER_PER_STEP})
+    counts["fused_transformer_block"] = slice_counts["default"]["fused_transformer_block"]
     counts["fused_group_norm"] = slice_counts["fused"]["fused_group_norm"]
+    for name, route in (("conv1d_fused_canvas", "kernel"), ("conv1d_pair_canvas", "xbwd"),
+                        ("stage_resblocks_canvas", "stage"),
+                        ("fused_transformer_block_bsoft", "bsoft")):
+        counts[name] = slice_counts[route][name]
     counts["flash_attention"] = a2[False]["flash_attention"]
     counts["fused_transformer_block_cross"] = a2[True]["fused_transformer_block_cross"]
 

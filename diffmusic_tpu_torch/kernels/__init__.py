@@ -5,14 +5,18 @@ counter; the CUDA sources are in `csrc/` and `build.py` compiles them at first
 use on a machine with `nvcc`. Ported so far: the four kernels of the MusicLDM
 DPS main path, the flash attention and the dual-cross mode of the
 transformer block on the AudioLDM2 path, and the guided step's optional
-routes: the fused GroupNorm, the channel moments, the 'same' conv2d and the
-leaky-ReLU backward masks.
+routes: the fused GroupNorm, the channel moments, the 'same' conv2d, the
+leaky-ReLU backward masks, the vocoder's canvas convs and pairs
+(`conv1d.py`), the stage backward (`stage_bwd.py`) and the bounded-softmax
+mode of the transformer block.
 """
 
-from . import attention, conv1d, conv2d, group_norm, mask, transformer_block, upsampler
+from . import (attention, conv1d, conv2d, group_norm, mask, stage_bwd, transformer_block,
+               upsampler)
 
 _COUNTERS = (conv1d.LAUNCHES, upsampler.LAUNCHES, transformer_block.LAUNCHES,
-             attention.LAUNCHES, group_norm.LAUNCHES, conv2d.LAUNCHES, mask.LAUNCHES)
+             attention.LAUNCHES, group_norm.LAUNCHES, conv2d.LAUNCHES, mask.LAUNCHES,
+             stage_bwd.LAUNCHES)
 
 
 def launch_counts() -> dict:

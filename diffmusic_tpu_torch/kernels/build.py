@@ -32,13 +32,14 @@ LIB_NAME = "libdiffmusic_kernels.so"
 _P, _I, _F, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
 # C entry points: name -> (argtypes, restype)
 SIGNATURES = {
-    "dm_conv1d_fused": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
-    "dm_conv1d_pair": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
+    "dm_conv1d_fused": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+                         _P], _I),
+    "dm_conv1d_pair": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
     "dm_conv1d_fused_smem": ([_I, _I, _I], _S),
     "dm_conv1d_pair_smem": ([_I, _I, _I, _I], _S),
     "dm_phase_convtranspose": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "dm_phase_convtranspose_smem": ([_I, _I, _I], _S),
-    "dm_transformer_block": ([_I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    "dm_transformer_block": ([_I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P], _I),
     "dm_transformer_block_smem": ([_I, _I], _S),
     "dm_flash_attention": ([_I, _P, _P, _P, _P, _I, _I, _I, _F, _P], _I),
     "dm_flash_attention_smem": ([_I, _I], _S),
@@ -48,6 +49,8 @@ SIGNATURES = {
     "dm_conv2d_same": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "dm_conv2d_same_smem": ([_I], _S),
     "dm_leaky_mask": ([_I, _P, _P, _P, _P, _S, _F, _P], _I),
+    "dm_stage_bwd": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P], _I),
+    "dm_stage_bwd_smem": ([_I], _S),
 }
 
 # bytes of dynamic shared memory one block may use on the H100 (227 KB)

@@ -1,7 +1,11 @@
-"""HiFi-GAN resblock convolutions: `conv1d_fused` and `conv1d_fused_pair`.
+"""HiFi-GAN resblock convolutions: `conv1d_fused` and `conv1d_fused_pair`, and
+their canvas forms `conv1d_fused_canvas` and `conv1d_pair_canvas`.
 
-Replace `diffmusic_tpu/pallas/conv1d_kernel.py::conv1d_fused` and
-`::conv1d_fused_pair` with the CUDA kernels of `csrc/conv1d.cu`.
+Replace `diffmusic_tpu/pallas/conv1d_kernel.py::conv1d_fused`,
+`::conv1d_fused_pair`, `::conv1d_fused_canvas` / `::conv1d_canvas_xbwd` and
+`::conv1d_pair_canvas` with the CUDA kernels of `csrc/conv1d.cu` (the canvas
+forms are the same two kernels told where the signal lies, plus an adjoint
+mode of the single conv).
 
 Bound on the H100: tensor-core work (the vocoder forward is about 1 TFLOP at
 10 s), while each conv reads x and w once. The kernels stage one haloed time
@@ -19,16 +23,30 @@ plain adjoint convolutions in the weight dtype followed by the leaky-ReLU
 masks (`_conv1d_bwd` and `_pair_bwd` of the JAX module). With `mask_kernel`
 (the JAX package's `DIFFMUSIC_TPU_MASK=pallas`) the masks of tensors that
 `mask.mask_ok` admits take the mask kernels of `kernels/mask.py`.
+
+The canvas forms (`kernels/canvas.py`) take and return canvas tensors and
+leave exact zeros outside the signal. Their backwards copy the JAX ones:
+`conv1d_fused_canvas(bwd="kernel")` (`_canvas_bwd`, the JAX package's
+`DIFFMUSIC_TPU_CANVAS=1`) launches the canvas kernel again on the cotangent
+in its adjoint mode, then masks with a plain `where`; `bwd="plain"`
+(`_canvas_xbwd_bwd`, `CANVAS=xbwd`) and `conv1d_pair_canvas`
+(`_pair_canvas_bwd`) run plain adjoint convs over the whole canvas and
+re-zero the margins with the row mask. None of them takes the mask kernels.
 """
 
 import torch
 import torch.nn.functional as F
 
+from .canvas import TIME_BLOCK, canvas_row_mask, canvas_rows, from_canvas, to_canvas
 from .device import use_plain
 from .mask import leaky_mask, leaky_mask_add, leaky_mask_plain, mask_ok
 
-# launches of each kernel since the last reset (see kernels.launch_counts)
-LAUNCHES = {"conv1d_fused": 0, "conv1d_fused_pair": 0}
+# launches of each kernel since the last reset (see kernels.launch_counts);
+# the canvas forms count apart, the adjoint launches of the canvas backward
+# with the forward ones
+LAUNCHES = {"conv1d_fused": 0, "conv1d_fused_pair": 0, "conv1d_fused_canvas": 0,
+            "conv1d_pair_canvas": 0}
+CANVAS_BWD = ("kernel", "plain")
 
 
 def conv1d_plain(x, w, b=None, dilation: int = 1, slope=None, residual=None):
@@ -50,6 +68,19 @@ def pair_plain(x, w1, b1, w2, b2, dilation: int, slope):
     y = conv2(leaky(h)) + b2 + x."""
     h = conv1d_plain(x, w1, b1, dilation, slope)
     return conv1d_plain(h, w2, b2, 1, slope, residual=x), h
+
+
+def canvas_plain(xc, w, b, t: int, dilation: int = 1, slope=None, residual=None):
+    """`conv1d_plain` on the canvas (the JAX `_canvas_reference`): the
+    signal out, the conv, back onto a canvas with zero margins."""
+    r = from_canvas(residual, t) if residual is not None else None
+    return to_canvas(conv1d_plain(from_canvas(xc, t), w, b, dilation, slope, r))
+
+
+def pair_canvas_plain(xc, w1, b1, w2, b2, t: int, dilation: int, slope):
+    """`pair_plain` on the canvas (`_pair_canvas_reference`): (y, h)."""
+    y, h = pair_plain(from_canvas(xc, t), w1, b1, w2, b2, dilation, slope)
+    return to_canvas(y), to_canvas(h)
 
 
 def pair_ok(k: int, cin: int, cout: int, dtype) -> bool:
@@ -76,56 +107,82 @@ def _leaky_mask(x, d, slope, use_kernel: bool, r=None):
     return leaky_mask_add(x, d, r.contiguous(), slope)
 
 
-def _launch_fused(x, w, b, residual, dilation, slope):
+def _signal(name, x, t):
+    """Rows [first, end) of x that hold the signal: all of them, or, given a
+    canvas signal length t, [512, 512 + t) of a canvas of t."""
+    if t is None:
+        return 0, x.shape[1]
+    if x.shape[1] != canvas_rows(t):
+        raise ValueError(f"{name}: {x.shape[1]} rows are not the canvas of a "
+                         f"{t}-row signal ({canvas_rows(t)} rows)")
+    return TIME_BLOCK, TIME_BLOCK + t
+
+
+def _launch_fused(x, w, b, residual, dilation, slope, t=None, adjoint=False):
+    """The conv kernel; `t` puts it on the canvas of a t-row signal, and
+    `adjoint` reads w (k, Cout, Cin) as the flipped transposed kernel."""
     from . import build
-    ops = [x, w, b] + ([residual] if residual is not None else [])
-    build.check_tensors("conv1d_fused", *ops)
-    bsz, t, cin = x.shape
-    k, cin_w, cout = w.shape
-    if cin_w != cin or k % 2 == 0 or tuple(b.shape) != (cout,):
-        raise ValueError(f"conv1d_fused: bad shapes x {tuple(x.shape)}, "
-                         f"w {tuple(w.shape)}, b {tuple(b.shape)}")
-    if residual is not None and tuple(residual.shape) != (bsz, t, cout):
-        raise ValueError("conv1d_fused: residual must have the output's shape")
+    name = "conv1d_fused" if t is None else "conv1d_fused_canvas"
+    ops = [x, w] + [a for a in (b, residual) if a is not None]
+    build.check_tensors(name, *ops)
+    bsz, rows, cin = x.shape
+    k, cin_w, cout = (w.shape[0], w.shape[2], w.shape[1]) if adjoint else w.shape
+    if cin_w != cin or k % 2 == 0 or (b is not None and tuple(b.shape) != (cout,)):
+        raise ValueError(f"{name}: bad shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                         f"b {None if b is None else tuple(b.shape)}")
+    if residual is not None and tuple(residual.shape) != (bsz, rows, cout):
+        raise ValueError(f"{name}: residual must have the output's shape")
     if cin % 32 or cout % 64:
-        raise ValueError("conv1d_fused: Cin must be a multiple of 32, Cout of 64")
+        raise ValueError(f"{name}: Cin must be a multiple of 32, Cout of 64")
+    sig0, sig1 = _signal(name, x, t)
     lib = build.library()
     code = build.dtype_code(x.dtype)
-    build.check_smem("conv1d_fused", lib.dm_conv1d_fused_smem(code, k, dilation))
-    y = torch.empty((bsz, t, cout), dtype=x.dtype, device=x.device)
+    build.check_smem(name, lib.dm_conv1d_fused_smem(code, k, dilation))
+    y = torch.empty((bsz, rows, cout), dtype=x.dtype, device=x.device)
     rc = lib.dm_conv1d_fused(
-        code, x.data_ptr(), w.data_ptr(), b.data_ptr(),
+        code, x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None,
         residual.data_ptr() if residual is not None else None, y.data_ptr(),
-        bsz, t, cin, cout, k, dilation, float(slope or 0.0), int(slope is not None),
-        build.stream_ptr(x.device))
-    build.check(rc, "conv1d_fused")
-    LAUNCHES["conv1d_fused"] += 1
+        bsz, rows, cin, cout, k, dilation, float(slope or 0.0), int(slope is not None),
+        sig0, sig1, int(adjoint), build.stream_ptr(x.device))
+    build.check(rc, name)
+    LAUNCHES[name] += 1
     return y
 
 
-def _launch_pair(x, w1, b1, w2, b2, dilation, slope):
+def _launch_pair(x, w1, b1, w2, b2, dilation, slope, t=None):
+    """The pair kernel; `t` puts it on the canvas of a t-row signal."""
     from . import build
-    build.check_tensors("conv1d_fused_pair", x, w1, b1, w2, b2)
-    bsz, t, c = x.shape
+    name = "conv1d_fused_pair" if t is None else "conv1d_pair_canvas"
+    build.check_tensors(name, x, w1, b1, w2, b2)
+    bsz, rows, c = x.shape
     k = w1.shape[0]
     if (tuple(w1.shape) != (k, c, c) or tuple(w2.shape) != (k, c, c)
             or tuple(b1.shape) != (c,) or tuple(b2.shape) != (c,) or k % 2 == 0):
-        raise ValueError(f"conv1d_fused_pair: bad shapes x {tuple(x.shape)}, "
+        raise ValueError(f"{name}: bad shapes x {tuple(x.shape)}, "
                          f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
     if c % 64 or (k - 1) // 2 > 8:
-        raise ValueError("conv1d_fused_pair: C must be a multiple of 64 and k <= 17")
+        raise ValueError(f"{name}: C must be a multiple of 64 and k <= 17")
+    sig0, sig1 = _signal(name, x, t)
     lib = build.library()
     code = build.dtype_code(x.dtype)
-    build.check_smem("conv1d_fused_pair", lib.dm_conv1d_pair_smem(code, c, k, dilation))
+    build.check_smem(name, lib.dm_conv1d_pair_smem(code, c, k, dilation))
     y = torch.empty_like(x)
     h = torch.empty_like(x)
     rc = lib.dm_conv1d_pair(
         code, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        y.data_ptr(), h.data_ptr(), bsz, t, c, k, dilation, float(slope),
+        y.data_ptr(), h.data_ptr(), bsz, rows, c, k, dilation, float(slope), sig0, sig1,
         build.stream_ptr(x.device))
-    build.check(rc, "conv1d_fused_pair")
-    LAUNCHES["conv1d_fused_pair"] += 1
+    build.check(rc, name)
+    LAUNCHES[name] += 1
     return y, h
+
+
+def pair_canvas_forward(xc, w1, b1, w2, b2, t: int, dilation: int, slope):
+    """(y, h) of one canvas pair, no autograd: the kernel on a CUDA tensor,
+    the plain version on a CPU one (the stage route's forward chain)."""
+    if use_plain(xc, "conv1d_pair_canvas"):
+        return pair_canvas_plain(xc, w1, b1, w2, b2, t, dilation, slope)
+    return _launch_pair(xc, w1, b1, w2, b2, dilation, slope, t)
 
 
 class _Conv1dFused(torch.autograd.Function):
@@ -169,6 +226,64 @@ class _Conv1dPair(torch.autograd.Function):
         return dx.to(x.dtype), None, None, None, None, None, None, None
 
 
+class _Conv1dCanvas(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xc, w, b, residual, t, dilation, slope, bwd):
+        ctx.save_for_backward(xc, w)
+        ctx.t, ctx.dilation, ctx.slope, ctx.bwd = t, dilation, slope, bwd
+        ctx.has_residual = residual is not None
+        if use_plain(xc, "conv1d_fused_canvas"):
+            return canvas_plain(xc, w, b, t, dilation, slope, residual)
+        return _launch_fused(xc, w, b, residual, dilation, slope, t)
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, w = ctx.saved_tensors
+        t, slope = ctx.t, ctx.slope
+        if ctx.bwd == "kernel":
+            # `_canvas_bwd`: the canvas kernel's adjoint mode on the cotangent
+            g16 = g.to(w.dtype).contiguous()
+            if use_plain(g16, "conv1d_fused_canvas"):
+                dx = canvas_plain(g16, w.flip(0).transpose(1, 2), None, t, ctx.dilation)
+            else:
+                dx = _launch_fused(g16, w, None, None, ctx.dilation, None, t, adjoint=True)
+            if slope is not None:
+                dx = torch.where(xc >= 0, dx, slope * dx)
+        else:
+            # `_canvas_xbwd_bwd`: a plain adjoint over the whole canvas
+            rv = canvas_row_mask(xc.shape[1], t, device=xc.device)
+            g = g * rv.to(g.dtype)
+            dx = _adjoint(g, w, ctx.dilation)
+            if slope is not None:
+                dx = torch.where(xc >= 0, dx, slope * dx)
+            dx = dx * rv.to(dx.dtype)
+        dres = g if ctx.has_residual else None
+        return dx.to(xc.dtype), None, None, dres, None, None, None, None
+
+
+class _PairCanvas(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xc, w1, b1, w2, b2, t, dilation, slope):
+        y, h = pair_canvas_forward(xc, w1, b1, w2, b2, t, dilation, slope)
+        ctx.save_for_backward(xc, h, w1, w2)
+        ctx.t, ctx.dilation, ctx.slope = t, dilation, slope
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        # `_pair_canvas_bwd`: plain adjoints over the whole canvas, the
+        # margins re-zeroed by the row mask
+        xc, h, w1, w2 = ctx.saved_tensors
+        slope = ctx.slope
+        rv = canvas_row_mask(xc.shape[1], ctx.t, device=xc.device)
+        g = g * rv.to(g.dtype)
+        dhs = _adjoint(g, w2, 1)
+        dh = torch.where(h >= 0, dhs, slope * dhs) * rv.to(dhs.dtype)
+        dxs = _adjoint(dh, w1, ctx.dilation)
+        dx = (torch.where(xc >= 0, dxs, slope * dxs) + g) * rv.to(dxs.dtype)
+        return dx.to(xc.dtype), None, None, None, None, None, None, None
+
+
 def conv1d_fused(x, w, b, residual=None, dilation: int = 1, slope=None,
                  mask_kernel: bool = False):
     """y = conv1d(leaky(x), w, dilation) + b [+ residual]; 'same', odd k.
@@ -181,3 +296,20 @@ def conv1d_fused_pair(x, w1, b1, w2, b2, dilation: int, slope: float,
     """y = conv2(leaky(conv1(leaky(x), dilation) + b1)) + b2 + x in one launch.
     `mask_kernel` routes the backward's leaky-ReLU masks to the mask kernels."""
     return _Conv1dPair.apply(x, w1, b1, w2, b2, dilation, slope, mask_kernel)
+
+
+def conv1d_fused_canvas(xc, w, b, residual, t: int, dilation: int = 1, slope=None,
+                        bwd: str = "kernel"):
+    """`conv1d_fused` on the canvas of a t-row signal: xc, residual and the
+    result are canvas tensors (`kernels/canvas.py`). `bwd` "kernel" runs the
+    backward's adjoint conv as the kernel (the JAX `conv1d_fused_canvas`),
+    "plain" as a plain conv (`conv1d_canvas_xbwd`)."""
+    if bwd not in CANVAS_BWD:
+        raise ValueError(f"bwd must be one of {CANVAS_BWD}, not {bwd!r}")
+    return _Conv1dCanvas.apply(xc, w, b, residual, t, dilation, slope, bwd)
+
+
+def conv1d_pair_canvas(xc, w1, b1, w2, b2, t: int, dilation: int, slope: float):
+    """`conv1d_fused_pair` on the canvas of a t-row signal; the backward is
+    plain (the JAX `conv1d_pair_canvas`)."""
+    return _PairCanvas.apply(xc, w1, b1, w2, b2, t, dilation, slope)

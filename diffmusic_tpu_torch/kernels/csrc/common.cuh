@@ -81,6 +81,25 @@ __device__ __forceinline__ void load_rows(T* dst, int ldd, const T* src, int ld,
   }
 }
 
+// The transpose of rows [row0, row0 + nrows) x cols [col0, col0 + ncols) of a
+// row-major global matrix into shared memory: dst[c * ldd + r] = src[row0 + r,
+// col0 + c]. The adjoint convolutions read a weight tap w[j] (Cin, Cout) as
+// its transpose this way, so no transposed weight copy is ever made. ncols a
+// multiple of 16 / sizeof(T); every row read must exist.
+template <typename T>
+__device__ __forceinline__ void load_rows_t(T* dst, int ldd, const T* src, int ld, int row0,
+                                            int nrows, int col0, int ncols) {
+  constexpr int V = 16 / sizeof(T);
+  const int vpr = ncols / V;
+  for (int i = threadIdx.x; i < nrows * vpr; i += blockDim.x) {
+    const int r = i / vpr, c = (i % vpr) * V;
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + col0 + c);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int q = 0; q < V; ++q) dst[(size_t)(c + q) * ldd + r] = e[q];
+  }
+}
+
 // C(BM x BN) += A(BM x K) @ B(K x BN); A, B row-major in shared memory.
 // WM x WN warps tile the output; the block has exactly 32*WM*WN threads.
 template <typename T, int BM, int BN, int WM, int WN> struct TileAcc;
@@ -137,6 +156,23 @@ template <int BM, int BN, int WM, int WN> struct TileAcc<bf16, BM, BN, WM, WN> {
         nvcuda::wmma::load_matrix_sync(c[i][j], C + (size_t)(r0 + i * 16) * ldc + c0 + j * 16,
                                        ldc, nvcuda::wmma::mem_row_major);
   }
+  // f(row, col, value) for every element this warp holds, fragment by
+  // fragment through `stage`, the warp's own 16 x 16 fp32 tile (row stride
+  // ldw): the epilogue sees the fp32 sums without an accumulator-sized buffer.
+  template <typename F>
+  __device__ void for_each(float* stage, int ldw, F f) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int j = 0; j < FN; ++j) {
+        __syncwarp();
+        nvcuda::wmma::store_matrix_sync(stage, c[i][j], ldw, nvcuda::wmma::mem_row_major);
+        __syncwarp();
+        for (int e = lane; e < 256; e += 32)
+          f(r0 + i * 16 + e / 16, c0 + j * 16 + e % 16, stage[(e / 16) * ldw + e % 16]);
+      }
+  }
 };
 
 template <int BM, int BN, int WM, int WN> struct TileAcc<float, BM, BN, WM, WN> {
@@ -170,6 +206,14 @@ template <int BM, int BN, int WM, int WN> struct TileAcc<float, BM, BN, WM, WN> 
     for (int i = 0; i < PER; ++i) {
       const int e = threadIdx.x + i * NT;
       c[i] = C[(size_t)(e / BN) * ldc + e % BN];
+    }
+  }
+  template <typename F>
+  __device__ void for_each(float*, int, F f) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = threadIdx.x + i * NT;
+      f(e / BN, e % BN, c[i]);
     }
   }
 };
@@ -214,27 +258,44 @@ __device__ __forceinline__ void store8<bf16>(bf16* p, const float* v) {
 // no bank conflicts). Logits are in log2 units (q pre-scaled by
 // log2(e) / sqrt(8)), so the softmax runs on exp2f. Every thread of the block
 // calls each method: `run` synchronises the block.
+//
+// Bounded softmax (the JAX package's DIFFMUSIC_TPU_BSOFT): given kmax, the
+// largest key norm of each head, the shift of row r is fixed from the start
+// at the Cauchy-Schwarz bound ||q_r|| * kmax * scale_log2e >= max_k s_rk (the
+// norm of the rounded q the logits are made of), so there is no running max
+// and no rescale; the denominator is guarded with max(l, 1e-37), since a
+// slack bound scales every p of the row by 2^-slack.
 template <typename T, int NP, int KT>
 struct HeadAttention {
   static constexpr int HD = 8;
   float q[NP][HD], o[NP][HD], m[NP], l[NP];
   int heads, npairs;
+  bool bounded;
 
   // q of (row r, head h) at src[r * ld + h * 8] times scale_log2e; rows at or
-  // past rows_valid read as zero.
+  // past rows_valid read as zero. kmax, if not null, holds one key-norm bound
+  // per head and turns on the bounded softmax.
   __device__ __forceinline__ void begin(const T* src, size_t ld, int nheads, int rows,
-                                        int rows_valid, float scale_log2e) {
+                                        int rows_valid, float scale_log2e,
+                                        const float* kmax = nullptr) {
     heads = nheads;
     npairs = rows * nheads;
+    bounded = kmax != nullptr;
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
       const int p = threadIdx.x + i * blockDim.x;
-      m[i] = -CUDART_INF_F;
+      m[i] = bounded ? 0.f : -CUDART_INF_F;
       l[i] = 0.f;
 #pragma unroll
       for (int d = 0; d < HD; ++d) o[i][d] = q[i][d] = 0.f;
       if (p < npairs && p / heads < rows_valid) {
         load8<T>(src + (size_t)(p / heads) * ld + (p % heads) * HD, q[i]);
+        if (bounded) {
+          float n2 = 0.f;
+#pragma unroll
+          for (int d = 0; d < HD; ++d) n2 = fmaf(q[i][d], q[i][d], n2);
+          m[i] = sqrtf(n2) * kmax[p % heads] * scale_log2e;
+        }
 #pragma unroll
         for (int d = 0; d < HD; ++d) q[i][d] *= scale_log2e;
       }
@@ -271,13 +332,15 @@ struct HeadAttention {
 #pragma unroll
           for (int d = 0; d < HD; ++d) acc = fmaf(q[i][d], kv[d], acc);
           s[j] = j < nk ? acc : -CUDART_INF_F;
-          mc = fmaxf(mc, s[j]);
+          if (!bounded) mc = fmaxf(mc, s[j]);
         }
-        const float corr = exp2f(m[i] - mc);   // 0 on the first chunk (m = -inf)
-        l[i] *= corr;
+        if (!bounded) {
+          const float corr = exp2f(m[i] - mc);   // 0 on the first chunk (m = -inf)
+          l[i] *= corr;
 #pragma unroll
-        for (int d = 0; d < HD; ++d) o[i][d] *= corr;
-        m[i] = mc;
+          for (int d = 0; d < HD; ++d) o[i][d] *= corr;
+          m[i] = mc;
+        }
 #pragma unroll
         for (int j = 0; j < KT; ++j) {
           const float pj = exp2f(s[j] - mc);
@@ -298,7 +361,7 @@ struct HeadAttention {
     for (int i = 0; i < NP; ++i) {
       const int p = threadIdx.x + i * blockDim.x;
       if (p >= npairs || p / heads >= rows_valid) continue;
-      const float inv = 1.f / l[i];
+      const float inv = 1.f / (bounded ? fmaxf(l[i], 1e-37f) : l[i]);
       float r[HD];
 #pragma unroll
       for (int d = 0; d < HD; ++d) r[d] = o[i][d] * inv;

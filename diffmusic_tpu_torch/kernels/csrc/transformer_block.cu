@@ -2,8 +2,9 @@
 // cross-attention streams (AudioLDM2's dual conditioning), GEGLU FF.
 //
 // Replaces diffmusic_tpu/pallas/transformer_kernel.py::fused_transformer_block
-// (self-attention and dual-cross modes). One thread block per (batch, 32-row
-// query tile):
+// (self-attention and dual-cross modes, each with or without the bounded
+// softmax of its self-attention: common.cuh HeadAttention). One thread block
+// per (batch, 32-row query tile):
 //   LN1 -> Q projection -> per-head online softmax over all T keys
 //   -> output projection + residual
 //   -> per cross stream i: LN2_i -> Q_i projection -> online softmax over the
@@ -119,9 +120,9 @@ __device__ void layer_norm(const float* src, int lds, T* dst, int ldd, const T* 
 template <typename T>
 __device__ __forceinline__ void attention_residual(T* abuf, T* qbuf, float* res, const T* wq, const T* wo,
                                    const T* bo, const T* kg, const T* vg, int Tk,
-                                   const float* bias, int heads, int C, float scale_log2e,
-                                   const Layout& L, T* bt, float* st_a, T* ks, T* vs,
-                                   float* bs) {
+                                   const float* bias, const float* kmax, int heads, int C,
+                                   float scale_log2e, const Layout& L, T* bt, float* st_a, T* ks,
+                                   T* vs, float* bs) {
   for (int n0 = 0; n0 < C; n0 += BN) {
     dm::TileAcc<T, QB, BN, 2, 4> acc;
     acc.zero();
@@ -134,7 +135,7 @@ __device__ __forceinline__ void attention_residual(T* abuf, T* qbuf, float* res,
   __syncthreads();
   {
     dm::HeadAttention<T, MAXP, KT> att;
-    att.begin(qbuf, L.lda, heads, QB, QB, scale_log2e);
+    att.begin(qbuf, L.lda, heads, QB, QB, scale_log2e, kmax);
     att.run(kg, vg, C, Tk, bias, ks, vs, L.ldk, bs);
     att.end(abuf, L.lda, QB);
   }
@@ -160,8 +161,8 @@ transformer_block_kernel(const T* __restrict__ x, const T* __restrict__ kx,
                          const T* __restrict__ ln3_s, const T* __restrict__ ln3_b,
                          const T* __restrict__ wi, const T* __restrict__ bi,
                          const T* __restrict__ wo2, const T* __restrict__ bo2,
-                         const Cross<T> cross, T* __restrict__ out, int Tlen, int C,
-                         float scale_log2e) {
+                         const Cross<T> cross, const float* __restrict__ kmax,
+                         T* __restrict__ out, int Tlen, int C, float scale_log2e) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = layout<T>(C);
   float* res = reinterpret_cast<float*>(smem + L.res);
@@ -187,9 +188,11 @@ transformer_block_kernel(const T* __restrict__ x, const T* __restrict__ kx,
   __syncthreads();
   layer_norm<T>(res, L.ldr, abuf, L.lda, ln1_s, ln1_b, C);
 
-  // self-attention: q = LN1(x) @ wq, attention over all T keys, @ wo + bo
+  // self-attention: q = LN1(x) @ wq, attention over all T keys, @ wo + bo;
+  // kmax (B, heads), if given, bounds the softmax
   attention_residual<T>(abuf, qbuf, res, wq, wo, bo, kx + base, vx + base, Tlen, nullptr,
-                        heads, C, scale_log2e, L, bt, st_a, ks, vs, bs);
+                        kmax ? kmax + (size_t)b * heads : nullptr, heads, C, scale_log2e, L,
+                        bt, st_a, ks, vs, bs);
   // cross streams, in order: res += attn(LN2_i(res) @ wq_i, K_i, V_i) @ wo_i + bo_i
   for (int i = 0; i < cross.n; ++i) {
     __syncthreads();
@@ -197,8 +200,8 @@ transformer_block_kernel(const T* __restrict__ x, const T* __restrict__ kx,
     const size_t cbase = (size_t)b * cross.tk[i];
     attention_residual<T>(abuf, qbuf, res, cross.wq[i], cross.wo[i], cross.bo[i],
                           cross.k[i] + cbase * C, cross.v[i] + cbase * C, cross.tk[i],
-                          cross.bias[i] + cbase, heads, C, scale_log2e, L, bt, st_a, ks,
-                          vs, bs);
+                          cross.bias[i] + cbase, nullptr, heads, C, scale_log2e, L, bt, st_a,
+                          ks, vs, bs);
   }
   __syncthreads();
   layer_norm<T>(res, L.ldr, abuf, L.lda, ln3_s, ln3_b, C);
@@ -240,7 +243,7 @@ transformer_block_kernel(const T* __restrict__ x, const T* __restrict__ kx,
 
 template <typename T>
 int run(const void* const* a, void* out, int B, int Tlen, int C, int n_cross, const int* tk,
-        float scale_log2e, cudaStream_t s) {
+        float scale_log2e, const float* kmax, cudaStream_t s) {
   Cross<T> cross = {};
   cross.n = n_cross;
   for (int i = 0; i < n_cross; ++i) {
@@ -260,7 +263,8 @@ int run(const void* const* a, void* out, int B, int Tlen, int C, int n_cross, co
                     (const T*)a[0], (const T*)a[1], (const T*)a[2], (const T*)a[3],
                     (const T*)a[4], (const T*)a[5], (const T*)a[6], (const T*)a[7],
                     (const T*)a[8], (const T*)a[9], (const T*)a[10], (const T*)a[11],
-                    (const T*)a[12], (const T*)a[13], cross, (T*)out, Tlen, C, scale_log2e);
+                    (const T*)a[12], (const T*)a[13], cross, kmax, (T*)out, Tlen, C,
+                    scale_log2e);
 }
 
 }  // namespace
@@ -268,15 +272,17 @@ int run(const void* const* a, void* out, int B, int Tlen, int C, int n_cross, co
 // args: x, k, v, ln1_scale, ln1_bias, wq, wo, bo, ln3_scale, ln3_bias, wi, bi,
 // wo2, bo2 (14 device pointers), then per cross stream i < n_cross (at most 2):
 // k_i, v_i, bias_i (fp32), ln2_scale_i, ln2_bias_i, wq_i, wo_i, bo_i, whose
-// keys number tk0 and tk1. dtype: 0 = float32, 1 = bfloat16.
+// keys number tk0 and tk1. kmax: null, or (B, C / 8) fp32 key-norm maxima for
+// the bounded softmax. dtype: 0 = float32, 1 = bfloat16.
 extern "C" int dm_transformer_block(int dtype, const void* const* args, void* out, int B,
                                     int Tlen, int C, int n_cross, int tk0, int tk1,
-                                    float scale_log2e, void* stream) {
+                                    float scale_log2e, const void* kmax, void* stream) {
   if (n_cross < 0 || n_cross > MAX_CROSS) return (int)cudaErrorInvalidValue;
   const int tk[MAX_CROSS] = {tk0, tk1};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1) return run<bf16>(args, out, B, Tlen, C, n_cross, tk, scale_log2e, s);
-  return run<float>(args, out, B, Tlen, C, n_cross, tk, scale_log2e, s);
+  const float* km = (const float*)kmax;
+  if (dtype == 1) return run<bf16>(args, out, B, Tlen, C, n_cross, tk, scale_log2e, km, s);
+  return run<float>(args, out, B, Tlen, C, n_cross, tk, scale_log2e, km, s);
 }
 
 extern "C" size_t dm_transformer_block_smem(int dtype, int C) {

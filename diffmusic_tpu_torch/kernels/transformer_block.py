@@ -28,6 +28,15 @@ the attention mask; zeros when unmasked). The self K/V and the cross K/V are
 projected outside the kernel with `torch.matmul`, as the JAX wrapper does; the
 kernel masks the keys past each stream's Tk itself, so they are not padded.
 
+`bsoft` (the JAX package's `DIFFMUSIC_TPU_BSOFT`) runs the self-attention's
+softmax with the bounded shift: the row max is replaced by the Cauchy-Schwarz
+bound ||q_r|| * max_k ||k_k|| (times the logit scale, in log2 units), fixed
+before the first key, so there is no running max and no rescale; the
+denominator is guarded with max(den, 1e-37). The wrapper computes max_k
+||k_k|| per (batch, head) over the rounded keys the kernel dots against, as
+the JAX wrapper does outside its kernel. The cross streams keep the exact
+softmax. The bounded mode counts its launches apart.
+
 On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA tensor
 it launches the kernel or raises. The backward recomputes through the plain
 version and returns the gradients of x and of the contexts (`_ftb_bwd`);
@@ -44,8 +53,10 @@ from .attention import attention_plain
 from .device import use_plain
 
 # launches of the kernel since the last reset (see kernels.launch_counts)
-# (the dual-cross mode counts apart from the self-attention mode)
-LAUNCHES = {"fused_transformer_block": 0, "fused_transformer_block_cross": 0}
+# (the dual-cross mode counts apart from the self-attention mode, and the
+# bounded-softmax mode, self-attention or dual-cross, apart from both)
+LAUNCHES = {"fused_transformer_block": 0, "fused_transformer_block_cross": 0,
+            "fused_transformer_block_bsoft": 0}
 
 PARAM_ORDER = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo", "bo",
                "ln3_scale", "ln3_bias", "wi", "bi", "wo2", "bo2")
@@ -67,16 +78,44 @@ def layer_norm(x, scale, bias, eps: float = 1e-6):
     return (xf - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
 
 
-def transformer_block_plain(x, p, heads: int, head_dim: int, contexts=(), cross_biases=()):
-    """The JAX `_reference_block` in plain PyTorch."""
+def key_norm_max(k, heads: int):
+    """max over the keys of ||k|| per (batch, head): (B, T, heads * D) -> (B,
+    heads) fp32, of k as it is (the rounded keys the kernel dots against).
+    Two ops: on the host-bound guided step each op costs host time."""
+    b, t, c = k.shape
+    return torch.linalg.vector_norm(k.reshape(b, t, heads, c // heads), dim=-1,
+                                    dtype=torch.float32).amax(1)
+
+
+def bounded_attention_plain(q, k, v):
+    """Softmax attention over (B, T, H, D) with the bounded shift of the
+    JAX kernel's bsoft mode: logits and shift in log2 units, fp32, the
+    denominator guarded with max(den, 1e-37)."""
+    scale = _LOG2E / math.sqrt(q.shape[-1])
+    qf = q.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, k.float()) * scale
+    kmax = key_norm_max(k.flatten(2), k.shape[2])                    # (B, H)
+    bound = qf.norm(dim=-1).transpose(1, 2)[..., None] * kmax[..., None, None] * scale
+    p = torch.exp2(s - bound)
+    den = p.sum(-1, keepdim=True).clamp_min(1e-37)
+    o = torch.einsum("bhqk,bkhd->bhqd", p, v.float()) / den
+    return o.transpose(1, 2).to(q.dtype)
+
+
+def transformer_block_plain(x, p, heads: int, head_dim: int, contexts=(), cross_biases=(),
+                            bsoft: bool = False):
+    """The JAX `_reference_block` in plain PyTorch; with `bsoft`, its
+    self-attention takes the bounded softmax of the kernel's bsoft mode."""
     b, t, c = x.shape
 
-    def attend(q, k, v, bias=None):   # (B, T, C) rows split into heads
+    def attend(q, k, v, bias=None, fn=attention_plain):   # (B, T, C) rows split into heads
         split = lambda a: a.reshape(b, a.shape[1], heads, head_dim)
-        return attention_plain(split(q), split(k), split(v), bias).reshape(b, t, c)
+        args = (split(q), split(k), split(v)) + ((bias,) if bias is not None else ())
+        return fn(*args).reshape(b, t, c)
 
     h1 = layer_norm(x, p["ln1_scale"], p["ln1_bias"]).to(x.dtype)
-    o = attend(h1 @ p["wq"], h1 @ p["wk"], h1 @ p["wv"])
+    o = attend(h1 @ p["wq"], h1 @ p["wk"], h1 @ p["wv"],
+               fn=bounded_attention_plain if bsoft else attention_plain)
     res1 = x + (o @ p["wo"] + p["bo"]).to(x.dtype)
     for i, ctx in enumerate(contexts):
         hc = layer_norm(res1, p[f"ln2{i}_scale"], p[f"ln2{i}_bias"]).to(x.dtype)
@@ -89,11 +128,12 @@ def transformer_block_plain(x, p, heads: int, head_dim: int, contexts=(), cross_
     return res1 + ((a * F.gelu(g)) @ p["wo2"] + p["bo2"]).to(x.dtype)
 
 
-def _launch(x, p, heads: int, head_dim: int, contexts, cross_biases):
+def _launch(x, p, heads: int, head_dim: int, contexts, cross_biases, bsoft: bool):
     from . import build
     bsz, t, c = x.shape
     n = len(contexts)
-    name = "fused_transformer_block_cross" if n else "fused_transformer_block"
+    name = ("fused_transformer_block_bsoft" if bsoft else
+            "fused_transformer_block_cross" if n else "fused_transformer_block")
     if head_dim != 8 or heads * head_dim != c or c % 64 or heads > 32 or n > MAX_CROSS:
         raise ValueError(f"fused_transformer_block: the kernel takes head_dim 8, "
                          f"C = heads * 8, C % 64 == 0, heads <= 32 and at most "
@@ -114,7 +154,9 @@ def _launch(x, p, heads: int, head_dim: int, contexts, cross_biases):
             raise ValueError(f"fused_transformer_block: {k} has shape {tuple(p[k].shape)}")
     build.check_tensors(name, x, *contexts, *(p[k] for k in names))
     h1 = layer_norm(x, p["ln1_scale"], p["ln1_bias"]).to(x.dtype)
-    operands = [x, (h1 @ p["wk"]).contiguous(), (h1 @ p["wv"]).contiguous(),
+    keys = (h1 @ p["wk"]).contiguous()
+    kmax = key_norm_max(keys, heads).contiguous() if bsoft else None
+    operands = [x, keys, (h1 @ p["wv"]).contiguous(),
                 p["ln1_scale"], p["ln1_bias"], p["wq"], p["wo"], p["bo"],
                 p["ln3_scale"], p["ln3_bias"], p["wi"], p["bi"], p["wo2"], p["bo2"]]
     tks = [0] * MAX_CROSS
@@ -133,6 +175,7 @@ def _launch(x, p, heads: int, head_dim: int, contexts, cross_biases):
     rc = lib.dm_transformer_block(code, ctypes.cast(ptrs, ctypes.c_void_p),
                                   out.data_ptr(), bsz, t, c, n, *tks,
                                   _LOG2E / math.sqrt(head_dim),
+                                  kmax.data_ptr() if bsoft else None,
                                   build.stream_ptr(x.device))
     build.check(rc, name)
     LAUNCHES[name] += 1
@@ -141,14 +184,14 @@ def _launch(x, p, heads: int, head_dim: int, contexts, cross_biases):
 
 class _FusedBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, heads, head_dim, n_cross, *tensors):
+    def forward(ctx, x, heads, head_dim, n_cross, bsoft, *tensors):
         ctx.save_for_backward(x, *tensors)
         ctx.heads, ctx.head_dim, ctx.n_cross = heads, head_dim, n_cross
         contexts, biases = tensors[:n_cross], tensors[n_cross:2 * n_cross]
         p = dict(zip(param_names(n_cross), tensors[2 * n_cross:]))
         if use_plain(x, "fused_transformer_block"):
-            return transformer_block_plain(x, p, heads, head_dim, contexts, biases)
-        return _launch(x, p, heads, head_dim, contexts, biases)
+            return transformer_block_plain(x, p, heads, head_dim, contexts, biases, bsoft)
+        return _launch(x, p, heads, head_dim, contexts, biases, bsoft)
 
     @staticmethod
     def backward(ctx, g):
@@ -162,15 +205,18 @@ class _FusedBlock(torch.autograd.Function):
                 contexts, tensors[n:2 * n])
             grads = torch.autograd.grad(out, [xd, *contexts], g.to(out.dtype))
         # the biases encode the (non-differentiable) attention mask; the
-        # weights are frozen
-        return (grads[0], None, None, None, *grads[1:]) + (None,) * (len(tensors) - n)
+        # weights are frozen. The recompute takes the exact softmax in either
+        # mode, as the JAX `_ftb_bwd` does.
+        return (grads[0], None, None, None, None, *grads[1:]) + (None,) * (len(tensors) - n)
 
 
-def fused_transformer_block(x, p, heads: int, head_dim: int, contexts=(), cross_biases=()):
+def fused_transformer_block(x, p, heads: int, head_dim: int, contexts=(), cross_biases=(),
+                            bsoft: bool = False):
     """One BasicTransformerBlock over x (B, T, C): self-attention, then the
-    given cross-attention streams, then the GEGLU FF."""
+    given cross-attention streams, then the GEGLU FF. `bsoft` bounds the
+    self-attention's softmax (module docstring)."""
     n = len(contexts)
     if len(cross_biases) != n:
         raise ValueError("fused_transformer_block: one bias per context")
-    return _FusedBlock.apply(x, heads, head_dim, n, *contexts, *cross_biases,
+    return _FusedBlock.apply(x, heads, head_dim, n, bsoft, *contexts, *cross_biases,
                              *(p[k] for k in param_names(n)))

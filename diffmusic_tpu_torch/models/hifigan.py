@@ -18,6 +18,21 @@ a TPU:
 there too) routes the leaky-ReLU masks in the resblock kernels' backward to
 the mask kernels where `mask_ok` holds (ch >= 128 with a long enough T: the
 10-s slice's stages 0-2).
+
+Two more routes, off by default as in the JAX package, put whole resblock
+stages on the canvas (`kernels/canvas.py`: pad once, slice once), checked in
+the JAX order, stage rule first:
+  - `stage_bwd` (`DIFFMUSIC_TPU_STAGE_BWD=1`): a stage where `stage_ok` holds
+    (128 channels, the 10-s slice's stage 2) and every pair meets `pair_ok`
+    runs `stage_resblocks_canvas`, whose backward is one kernel launch;
+  - `canvas` (`DIFFMUSIC_TPU_CANVAS`): the other stages with 128-aligned
+    channels (stages 0-2) run on the canvas; "xbwd" (`CANVAS=xbwd`) takes
+    `conv1d_pair_canvas` where `pair_ok` holds and `conv1d_fused_canvas`
+    with a plain backward for the rest (the ch512 k=11 convs); "kernel"
+    (`CANVAS=1`) runs every resblock conv as `conv1d_fused_canvas`, whose
+    backward launches the canvas kernel's adjoint mode.
+The canvas convs mask their backward with a plain `where`: `mask_kernel`
+applies to the stages off the canvas only.
 """
 
 from typing import Optional
@@ -26,10 +41,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..kernels.conv1d import conv1d_fused, conv1d_fused_pair, conv1d_plain, pair_ok
+from ..kernels.canvas import canvas_ok, from_canvas, to_canvas
+from ..kernels.conv1d import (conv1d_fused, conv1d_fused_canvas, conv1d_fused_pair,
+                              conv1d_pair_canvas, conv1d_plain, pair_ok)
+from ..kernels.stage_bwd import stage_ok, stage_resblocks_canvas
 from ..kernels.upsampler import (convtranspose_plain, output_length,
                                  phase_convtranspose, phase_ct_ok)
 from .configs import HiFiGANConfig
+
+CANVAS_MODES = ("off", "xbwd", "kernel")
 
 
 class Conv1dParams(nn.Module):
@@ -59,11 +79,27 @@ class ResidualBlock(nn.Module):
             setattr(self, f"convs1_{i}", Conv1dParams(kernel_size, channels, channels))
             setattr(self, f"convs2_{i}", Conv1dParams(kernel_size, channels, channels))
 
-    def forward(self, x):
+    def pairs(self):
+        """(w1, b1, w2, b2) per iteration."""
+        return [(getattr(self, f"convs1_{i}").weight, getattr(self, f"convs1_{i}").bias,
+                 getattr(self, f"convs2_{i}").weight, getattr(self, f"convs2_{i}").bias)
+                for i in range(len(self.dilations))]
+
+    def forward(self, x, signal_len: Optional[int] = None, canvas: str = "off"):
+        """x: (B, T, C), or with `signal_len` the canvas of a signal of that
+        length, run in the `canvas` mode "xbwd" or "kernel"."""
         c, k, s, mk = self.channels, self.kernel_size, self.slope, self.mask_kernel
         for i, d in enumerate(self.dilations):
             c1, c2 = getattr(self, f"convs1_{i}"), getattr(self, f"convs2_{i}")
-            if pair_ok(k, c, c, x.dtype):
+            if signal_len is not None:
+                if canvas == "xbwd" and pair_ok(k, c, c, x.dtype):
+                    x = conv1d_pair_canvas(x, c1.weight, c1.bias, c2.weight, c2.bias,
+                                           signal_len, d, s)
+                else:
+                    bwd = "plain" if canvas == "xbwd" else "kernel"
+                    h = conv1d_fused_canvas(x, c1.weight, c1.bias, None, signal_len, d, s, bwd)
+                    x = conv1d_fused_canvas(h, c2.weight, c2.bias, x, signal_len, 1, s, bwd)
+            elif pair_ok(k, c, c, x.dtype):
                 x = conv1d_fused_pair(x, c1.weight, c1.bias, c2.weight, c2.bias, d, s, mk)
             elif c % 128 == 0:
                 h = conv1d_fused(x, c1.weight, c1.bias, None, d, s, mk)
@@ -75,11 +111,15 @@ class ResidualBlock(nn.Module):
 
 
 class SpeechT5HifiGan(nn.Module):
-    def __init__(self, cfg: HiFiGANConfig, mask_kernel: bool = False):
+    def __init__(self, cfg: HiFiGANConfig, mask_kernel: bool = False, canvas: str = "off",
+                 stage_bwd: bool = False):
         super().__init__()
         if cfg.normalize_before:
             raise ValueError("normalize_before=True is not ported yet")
+        if canvas not in CANVAS_MODES:
+            raise ValueError(f"canvas must be one of {CANVAS_MODES}, not {canvas!r}")
         self.cfg = cfg
+        self.canvas, self.stage_bwd = canvas, stage_bwd
         uic = cfg.upsample_initial_channel
         self.conv_pre = Conv1dParams(7, cfg.model_in_dim, uic)
         for i, (rate, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
@@ -107,10 +147,26 @@ class SpeechT5HifiGan(nn.Module):
             else:
                 x = convtranspose_plain(F.leaky_relu(x, slope),
                                         up.weight, up.bias, rate, k)
+            blocks = [getattr(self, f"resblocks_{i * nk + j}") for j in range(nk)]
+            t, ch = x.shape[1], x.shape[2]
+            if (self.stage_bwd
+                    and stage_ok(ch, cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes,
+                                 x.dtype)
+                    and all(pair_ok(k, ch, ch, x.dtype) for k in cfg.resblock_kernel_sizes)):
+                params = [p for blk in blocks for p in blk.pairs()]
+                x = from_canvas(stage_resblocks_canvas(
+                    to_canvas(x), params, t, cfg.resblock_kernel_sizes,
+                    cfg.resblock_dilation_sizes, slope), t)
+                continue
+            on_canvas = self.canvas != "off" and canvas_ok(ch, ch)
+            if on_canvas:
+                x = to_canvas(x)
             res = None
-            for j in range(nk):
-                out = getattr(self, f"resblocks_{i * nk + j}")(x)
+            for blk in blocks:
+                out = blk(x, t, self.canvas) if on_canvas else blk(x)
                 res = out if res is None else res + out
             x = res / nk
+            if on_canvas:
+                x = from_canvas(x, t)
         x = conv1d_plain(x, self.conv_post.weight, self.conv_post.bias, slope=slope)
         return torch.tanh(x)[..., 0]

@@ -24,6 +24,8 @@ routes:
   - self-attention only, T >= 512 and inner == C: the fused block kernel;
   - dual-cross (AudioLDM2), T >= 512, inner == C and `fuse_cross` on: the
     fused block kernel's dual-cross mode;
+  - `bsoft` (`DIFFMUSIC_TPU_BSOFT=1`) runs both fused modes with the bounded
+    softmax (`kernels/transformer_block.py`); flash attention is untouched;
   - otherwise plain, where `attn1` with T == Tk >= 512 and no mask takes the
     flash attention kernel (`kernels/attention.py`).
 """
@@ -222,13 +224,15 @@ class BasicTransformerBlock(nn.Module):
     AudioLDM2 has two streams: GPT-2 generated states, then the T5 sequence.
     Long sequences (T >= 512 with inner == C) run as one fused kernel launch
     when the block is self-attention only, or when `fuse_cross` is on (the
-    JAX package's `DIFFMUSIC_TPU_FUSED_CROSS`, off by default there too)."""
+    JAX package's `DIFFMUSIC_TPU_FUSED_CROSS`, off by default there too).
+    `bsoft` bounds the fused launches' self-attention softmax."""
 
     def __init__(self, dim: int, heads: int, head_dim: int,
-                 cross_dims: Tuple[int, ...] = (), fuse_cross: bool = False):
+                 cross_dims: Tuple[int, ...] = (), fuse_cross: bool = False,
+                 bsoft: bool = False):
         super().__init__()
         self.heads, self.head_dim = heads, head_dim
-        self.cross_dims, self.fuse_cross = tuple(cross_dims), fuse_cross
+        self.cross_dims, self.fuse_cross, self.bsoft = tuple(cross_dims), fuse_cross, bsoft
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn1 = Attention(dim, heads, head_dim)
         for i, cdim in enumerate(self.cross_dims):
@@ -265,7 +269,7 @@ class BasicTransformerBlock(nn.Module):
                 torch.zeros(x.shape[0], 1, ctx.shape[1], device=x.device) if m is None
                 else mask_bias(m)[:, 0] for ctx, m in zip(contexts, masks))
             return fused_transformer_block(x, self.fused_params(), self.heads,
-                                           self.head_dim, tuple(contexts), biases)
+                                           self.head_dim, tuple(contexts), biases, self.bsoft)
         x = x + self.attn1(self.norm1(x))
         for i, m in enumerate(masks):
             h = getattr(self, f"norm2_{i}")(x)
@@ -279,12 +283,13 @@ class Transformer2DModel(nn.Module):
 
     def __init__(self, channels: int, heads: int, head_dim: int, groups: int = 32,
                  cross_dims: Tuple[int, ...] = (), fuse_cross: bool = False,
-                 gn_mode: str = "plain"):
+                 gn_mode: str = "plain", bsoft: bool = False):
         super().__init__()
         inner = heads * head_dim
         self.norm = GroupNorm(groups, channels, 1e-6, gn_mode=gn_mode)
         self.proj_in = Dense(channels, inner)
-        self.block_0 = BasicTransformerBlock(inner, heads, head_dim, cross_dims, fuse_cross)
+        self.block_0 = BasicTransformerBlock(inner, heads, head_dim, cross_dims, fuse_cross,
+                                             bsoft)
         self.proj_out = Dense(inner, channels)
 
     def forward(self, x, contexts=(), context_masks=()):

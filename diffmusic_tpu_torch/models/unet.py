@@ -6,8 +6,9 @@ API boundary. Both model families:
     cross-attention streams, the GPT-2 generated states and the T5 sequence
     (with its attention mask). `fuse_cross` routes the long dual-cross blocks
     to the fused block kernel (the JAX package's DIFFMUSIC_TPU_FUSED_CROSS).
-`gn_mode` and `conv2d_kernel` route the GroupNorms and the 3x3 'same' convs
-(`models/layers.py`), off by default as in the JAX package.
+`gn_mode` and `conv2d_kernel` route the GroupNorms and the 3x3 'same' convs,
+and `bsoft` bounds the fused blocks' softmax (`models/layers.py`), off by
+default as in the JAX package.
 """
 
 from typing import Optional
@@ -20,16 +21,16 @@ from .layers import (Dense, Downsample2D, GroupNorm, ResnetBlock2D, TimestepEmbe
                      Transformer2DModel, Upsample2D, conv3x3, timestep_embedding)
 
 
-def _transformer(cfg: UNetConfig, ch: int, fuse_cross: bool,
-                 gn_mode: str) -> Transformer2DModel:
+def _transformer(cfg: UNetConfig, ch: int, attn: dict, gn_mode: str) -> Transformer2DModel:
+    """`attn`: the blocks' routes, `fuse_cross` and `bsoft`."""
     return Transformer2DModel(ch, ch // cfg.attention_head_dim, cfg.attention_head_dim,
-                              cfg.norm_num_groups, cfg.cross_attention_dims, fuse_cross,
-                              gn_mode)
+                              cfg.norm_num_groups, cfg.cross_attention_dims,
+                              gn_mode=gn_mode, **attn)
 
 
 class DownBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, in_ch: int, out_ch: int, temb_dim: int,
-                 attention: bool, add_downsample: bool, fuse_cross: bool, routes: dict):
+                 attention: bool, add_downsample: bool, attn: dict, routes: dict):
         super().__init__()
         self.layers = cfg.layers_per_block
         for i in range(self.layers):
@@ -38,7 +39,7 @@ class DownBlock(nn.Module):
                 temb_dim=temb_dim, **routes))
             if attention:
                 setattr(self, f"attn_{i}",
-                        _transformer(cfg, out_ch, fuse_cross, routes["gn_mode"]))
+                        _transformer(cfg, out_ch, attn, routes["gn_mode"]))
         self.attention = attention
         self.downsample = Downsample2D(out_ch) if add_downsample else None
 
@@ -57,7 +58,7 @@ class DownBlock(nn.Module):
 
 class UpBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, in_ch: int, skip_chs, out_ch: int,
-                 temb_dim: int, attention: bool, add_upsample: bool, fuse_cross: bool,
+                 temb_dim: int, attention: bool, add_upsample: bool, attn: dict,
                  routes: dict):
         super().__init__()
         self.layers = len(skip_chs)
@@ -67,7 +68,7 @@ class UpBlock(nn.Module):
                 temb_dim=temb_dim, **routes))
             if attention:
                 setattr(self, f"attn_{i}",
-                        _transformer(cfg, out_ch, fuse_cross, routes["gn_mode"]))
+                        _transformer(cfg, out_ch, attn, routes["gn_mode"]))
         self.attention = attention
         self.upsample = (Upsample2D(out_ch, routes["conv2d_kernel"]) if add_upsample
                          else None)
@@ -85,12 +86,11 @@ class UpBlock(nn.Module):
 
 
 class MidBlock(nn.Module):
-    def __init__(self, cfg: UNetConfig, ch: int, temb_dim: int, fuse_cross: bool,
-                 routes: dict):
+    def __init__(self, cfg: UNetConfig, ch: int, temb_dim: int, attn: dict, routes: dict):
         super().__init__()
         g = cfg.norm_num_groups
         self.resnet_0 = ResnetBlock2D(ch, ch, g, temb_dim=temb_dim, **routes)
-        self.attn = _transformer(cfg, ch, fuse_cross, routes["gn_mode"])
+        self.attn = _transformer(cfg, ch, attn, routes["gn_mode"])
         self.resnet_1 = ResnetBlock2D(ch, ch, g, temb_dim=temb_dim, **routes)
 
     def forward(self, x, temb, contexts, context_masks):
@@ -105,9 +105,10 @@ class UNet2DConditionModel(nn.Module):
     `encoder_attention_mask_1` (B, L) its mask."""
 
     def __init__(self, cfg: UNetConfig, fuse_cross: bool = False, gn_mode: str = "plain",
-                 conv2d_kernel: bool = False):
+                 conv2d_kernel: bool = False, bsoft: bool = False):
         super().__init__()
         routes = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel)
+        attn = dict(fuse_cross=fuse_cross, bsoft=bsoft)
         if len(cfg.cross_attention_dims) > 2:
             raise ValueError("the UNet takes at most two cross-attention streams")
         if cfg.class_embed_type not in (None, "simple_projection"):
@@ -129,18 +130,18 @@ class UNet2DConditionModel(nn.Module):
         for i, out_ch in enumerate(boc):
             last = i == len(boc) - 1
             setattr(self, f"down_{i}", DownBlock(cfg, ch, out_ch, temb_dim,
-                                                 cfg.has_attention[i], not last, fuse_cross,
+                                                 cfg.has_attention[i], not last, attn,
                                                  routes))
             skip_chs += [out_ch] * (cfg.layers_per_block + (0 if last else 1))
             ch = out_ch
-        self.mid = MidBlock(cfg, ch, temb_dim, fuse_cross, routes)
+        self.mid = MidBlock(cfg, ch, temb_dim, attn, routes)
         for i, out_ch in enumerate(reversed(boc)):
             rev_i = len(boc) - 1 - i
             n = cfg.layers_per_block + 1
             mine, skip_chs = skip_chs[-n:][::-1], skip_chs[:-n]
             setattr(self, f"up_{i}", UpBlock(cfg, ch, mine, out_ch, temb_dim,
                                              cfg.has_attention[rev_i],
-                                             i != len(boc) - 1, fuse_cross, routes))
+                                             i != len(boc) - 1, attn, routes))
             ch = out_ch
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch, 1e-5, use_silu=True,
                                        gn_mode=gn_mode)

@@ -68,19 +68,20 @@ class AudioLDM2Pipeline(MusicLDMPipeline):
                gpt2_cfg: GPT2Config = GPT2Config(),
                proj_cfg: ProjectionConfig = ProjectionConfig(), fuse_cross: bool = False,
                gn_mode: str = "plain", conv2d_kernel: bool = False, mask_kernel: bool = False,
-               **kwargs):
+               bsoft: bool = False, canvas: str = "off", stage_bwd: bool = False, **kwargs):
         """Seeded flax-style random weights for all seven models, cast to
         `weight_dtype` on `device` (the card unless the caller asks for the
         CPU), with the byte tokenizer for both text encoders unless
         `tokenizer` / `t5_tokenizer` are given. `fuse_cross` routes the UNet's
         long dual-cross blocks to the fused block kernel; `gn_mode`,
-        `conv2d_kernel` and `mask_kernel` are `MusicLDMPipeline.random`'s
-        route flags."""
+        `conv2d_kernel`, `mask_kernel`, `bsoft`, `canvas` and `stage_bwd` are
+        `MusicLDMPipeline.random`'s route flags."""
         routes = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel)
         models = cls._random_models(
-            [UNet2DConditionModel(unet_cfg, fuse_cross=fuse_cross, **routes),
+            [UNet2DConditionModel(unet_cfg, fuse_cross=fuse_cross, bsoft=bsoft, **routes),
              AutoencoderKL(vae_cfg, **routes),
-             SpeechT5HifiGan(vocoder_cfg, mask_kernel=mask_kernel),
+             SpeechT5HifiGan(vocoder_cfg, mask_kernel=mask_kernel, canvas=canvas,
+                             stage_bwd=stage_bwd),
              ClapTextModelWithProjection(text_cfg),
              T5EncoderModel(t5_cfg), GPT2Model(gpt2_cfg), AudioLDM2ProjectionModel(proj_cfg)],
             seed, device, weight_dtype)

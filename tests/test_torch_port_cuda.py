@@ -9,8 +9,12 @@ that has none; `tests/conftest.py` imports jax, so run it there with
 TF32 is off for the fp32 cases. Tolerances, as a fraction of max |plain|:
 fp32 1e-4 (another summation order than cuDNN/cuBLAS); bf16 2e-2 for the
 convs, the flash attention and the guided step's route kernels (GroupNorm,
-moments, conv2d, masks) and 3e-2 for the transformer block (one bf16
-rounding of an intermediate moves a product by about 2^-8 relative).
+moments, conv2d, masks, the canvas convs and the stage backward) and 3e-2
+for the transformer block (one bf16 rounding of an intermediate moves a
+product by about 2^-8 relative). bf16 gradients of the vocoder kernels are
+held by norm (a leaky-ReLU mask flips where an activation rounds across
+zero differently in the two versions). Canvas outputs and gradients must be
+exactly zero outside the signal.
 """
 
 import math
@@ -22,10 +26,12 @@ import torch
 from diffmusic_tpu_torch import kernels
 from diffmusic_tpu_torch.inverse_problem import MusicInpaintingOperator
 from diffmusic_tpu_torch.kernels import attention as tattn
+from diffmusic_tpu_torch.kernels import canvas as tcanvas
 from diffmusic_tpu_torch.kernels import conv1d as tconv
 from diffmusic_tpu_torch.kernels import conv2d as tconv2d
 from diffmusic_tpu_torch.kernels import group_norm as tgn
 from diffmusic_tpu_torch.kernels import mask as tmask
+from diffmusic_tpu_torch.kernels import stage_bwd as tstage
 from diffmusic_tpu_torch.kernels import transformer_block as ttb
 from diffmusic_tpu_torch.kernels import upsampler as tup
 from diffmusic_tpu_torch.models.configs import HiFiGANConfig, UNetConfig, VAEConfig
@@ -83,9 +89,12 @@ def test_conv_kernels_on_card(cuda, gen, dtype, tol):
                                        "phase_convtranspose": 1,
                                        "fused_transformer_block": 0,
                                        "fused_transformer_block_cross": 0,
+                                       "fused_transformer_block_bsoft": 0,
                                        "flash_attention": 0, "fused_group_norm": 0,
                                        "channel_moments": 0, "conv2d_same": 0,
-                                       "leaky_mask": 0, "leaky_mask_add": 0}
+                                       "leaky_mask": 0, "leaky_mask_add": 0,
+                                       "conv1d_fused_canvas": 0, "conv1d_pair_canvas": 0,
+                                       "stage_resblocks_canvas": 0}
 
 
 def block_params(gen, c, dtype, cross_dims=()):
@@ -311,3 +320,110 @@ def test_route_wrappers_reject_what_the_kernels_do_not_take(cuda, gen):
         tgn.channel_moments(arr(gen, 1, 16, 64).transpose(1, 2))
     with pytest.raises(ValueError):    # shapes differ
         tmask.leaky_mask(arr(gen, 1, 40, 128), arr(gen, 1, 41, 128), SLOPE)
+
+
+def norm_rel(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def outside(a, t: int) -> float:
+    """max |a| over the canvas rows outside the signal [512, 512 + t)."""
+    a = a.detach().float()
+    return max(float(a[:, :512].abs().max()), float(a[:, 512 + t:].abs().max()))
+
+
+def canvas(gen, t, c, dtype):
+    return tcanvas.to_canvas(arr(gen, 1, t, c, dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_canvas_conv_kernels_on_card(cuda, gen, dtype, tol):
+    """conv1d_fused_canvas (forward and its adjoint launch, bwd "kernel")
+    and conv1d_pair_canvas against autograd through their plain versions,
+    at a signal that ends inside a 64-row tile and inside a 512-row block;
+    exact zeros outside the signal."""
+    t, c = 1100, 128
+    kernels.reset_launch_counts()
+    for k, d in ((11, 3), (3, 1)):
+        xc, rc, gc = (canvas(gen, t, c, dtype) for _ in range(3))
+        w = arr(gen, k, c, c, scale=1 / math.sqrt(k * c), dtype=dtype)
+        b = arr(gen, c, scale=0.1, dtype=dtype)
+        res = rc if d == 1 else None
+        y, dx = grads(lambda xx: tconv.conv1d_fused_canvas(xx, w, b, res, t, d, SLOPE, "kernel"),
+                      xc, gc)
+        y0, dx0 = grads(lambda xx: tconv.canvas_plain(xx, w, b, t, d, SLOPE, res), xc, gc)
+        assert rel(y, y0) <= tol and norm_rel(dx, dx0) <= tol
+        assert outside(y, t) == 0 and outside(dx, t) == 0
+        w2 = arr(gen, k, c, c, scale=1 / math.sqrt(k * c), dtype=dtype)
+        y, dx = grads(lambda xx: tconv.conv1d_pair_canvas(xx, w, b, w2, b, t, d, SLOPE), xc, gc)
+        y0, dx0 = grads(lambda xx: tconv.pair_canvas_plain(xx, w, b, w2, b, t, d, SLOPE)[0],
+                        xc, gc)
+        h = tconv.pair_canvas_forward(xc, w, b, w2, b, t, d, SLOPE)[1]
+        h0 = tconv.pair_canvas_plain(xc, w, b, w2, b, t, d, SLOPE)[1]
+        assert rel(y, y0) <= tol and rel(h, h0) <= tol and norm_rel(dx, dx0) <= tol
+        assert outside(y, t) == 0 and outside(h, t) == 0 and outside(dx, t) == 0
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["conv1d_fused_canvas"] == 4 and counts["conv1d_pair_canvas"] == 4, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_stage_kernel_on_card(cuda, gen, dtype, tol):
+    """The stage route at KS (3, 7, 11), dilations (1, 3, 5) x 3, t 700: its
+    forward (9 pair launches) against the plain stage, its one-launch
+    backward against `stage_bwd_plain` on the same saved tensors (the same
+    roundings) and, in fp32, against autograd through the plain stage (in
+    bf16 that autograd rounds every cotangent to bf16 where the kernel keeps
+    them in fp32, and differs from it by several per cent); exact zeros
+    outside the signal."""
+    t, c = 700, 128
+    ks, dils = (3, 7, 11), ((1, 3, 5),) * 3
+    params = [(arr(gen, k, c, c, scale=0.05, dtype=dtype), arr(gen, c, scale=0.1, dtype=dtype),
+               arr(gen, k, c, c, scale=0.05, dtype=dtype), arr(gen, c, scale=0.1, dtype=dtype))
+              for k, ds in zip(ks, dils) for _ in ds]
+    xc, gc = canvas(gen, t, c, dtype), canvas(gen, t, c, dtype)
+    kernels.reset_launch_counts()
+    y, dx = grads(lambda xx: tstage.stage_resblocks_canvas(xx, params, t, ks, dils, SLOPE),
+                  xc, gc)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["stage_resblocks_canvas"] == 1 and counts["conv1d_pair_canvas"] == 9, counts
+    x = tcanvas.from_canvas(xc, t)
+    y0, dx0 = grads(lambda xx: tstage.stage_plain(xx, params, ks, dils, SLOPE), x,
+                    tcanvas.from_canvas(gc, t))
+    assert rel(tcanvas.from_canvas(y, t), y0) <= tol
+    if dtype == torch.float32:
+        assert norm_rel(tcanvas.from_canvas(dx, t), dx0) <= tol
+    _, xs, hs = tstage.stage_forward(xc, params, t, ks, dils, SLOPE)
+    w1s, w2s = [p[0] for p in params], [p[2] for p in params]
+    dk = tstage._launch(gc, xs, hs, w1s, w2s, t, ks, dils, SLOPE)
+    dp = tstage.stage_bwd_plain(gc, xs, hs, w1s, w2s, t, ks, dils, SLOPE)
+    assert torch.equal(dk, dx)
+    assert norm_rel(dk, dp) <= tol
+    assert outside(y, t) == 0 and outside(dx, t) == 0 and outside(dk, t) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("amp", [0.3, 5.0])
+def test_bsoft_block_kernel_on_card(cuda, gen, dtype, tol, amp):
+    """The bounded-softmax mode, self-attention and dual-cross, against the
+    plain version in bsoft mode; at amplitude 5.0 the LayerNorm scale is
+    raised too, so the logits and the bound's slack are large."""
+    c = 128
+    x = arr(gen, 2, 700, c, dtype=dtype) * amp
+    for cross_dims in ((), (96, 64)):
+        p = block_params(gen, c, dtype, cross_dims)
+        p["ln1_scale"] = p["ln1_scale"] * amp
+        ctx = tuple(arr(gen, 2, n, cd, dtype=dtype) for n, cd in zip((8, 40), cross_dims))
+        biases = tuple(torch.zeros(2, 1, n, device=cuda) for n in (8, 40)[:len(cross_dims)])
+        kernels.reset_launch_counts()
+        out = ttb.fused_transformer_block(x, p, c // 8, 8, ctx, biases, bsoft=True)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["fused_transformer_block_bsoft"] == 1
+        ref = ttb.transformer_block_plain(x, p, c // 8, 8, ctx, biases, bsoft=True)
+        assert torch.isfinite(out).all()
+        assert rel(out, ref) <= tol

@@ -13,7 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      VAE decoder and vocoder; the vocoder's canvas conv, forward and adjoint,
      at every resblock conv of stages 0-2, the canvas pair at every pair,
      the stage backward at stage 2, the bounded-softmax block in both
-     modes), plus small fp32 cases with TF32 off; forward and, where the
+     modes), plus small fp32 cases with TF32 off; the fused mel spectrogram
+     in fp32 at the eval's MFCC geometry, the default geometry, an odd
+     length, a batch shape and power 1; forward and, where the
      kernel has a backward, the input gradient; canvas outputs exactly zero
      outside the signal; median times of the kernel, its plain version and
      the one PyTorch call that computes the same function where there is
@@ -42,13 +44,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      stack (CLAP, T5, projection, GPT-2), the same 20 DPS steps through
      `AudioLDM2Pipeline.__call__`, once on each UNet route: `fuse_cross` off
      (flash attention, the JAX default), on (the dual-cross block), and on
-     with the bounded softmax; then its per-stage breakdown.
+     with the bounded softmax; then its per-stage breakdown;
+  8. eval: in a temporary directory, EVAL_PAIRS pairs of 10-s clips (pair 0
+     the slice's ground truth and the audio its default turn restored; two
+     pairs as 44.1-kHz stereo) and a seeded random torchvggish-layout
+     `vggish.pth`, scored by `diffmusic_tpu_torch.eval.main` on the card with
+     --embedding mfcc-stack vggish --fad_inf --individual from cold caches:
+     finite scores, one CSV row per pair, the mel kernel's launches, the
+     wall seconds and their split, peak memory; then 4 of the pairs on the
+     card and on the CPU, whose scores and cached embeddings must agree.
 Then the card's nvidia-smi name and power limit, a JSON line with one entry
 per kernel, and last {"ok": true, "device": {...}}. No JAX is imported.
 """
 
 import argparse
 import contextlib
+import csv
 import dataclasses
 import json
 import math
@@ -56,6 +67,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -101,6 +113,7 @@ REPLACES = {
     "conv1d_fused_canvas": "diffmusic_tpu/pallas/conv1d_kernel.py:469",
     "conv1d_pair_canvas": "diffmusic_tpu/pallas/conv1d_kernel.py:870",
     "stage_resblocks_canvas": "diffmusic_tpu/pallas/stage_bwd_kernel.py:261",
+    "fused_mel_spectrogram": "diffmusic_tpu/pallas/mel_kernel.py:152",
 }
 SOURCES = {
     "fused_transformer_block": "diffmusic_tpu_torch/kernels/csrc/transformer_block.cu",
@@ -118,6 +131,7 @@ SOURCES = {
     "conv1d_fused_canvas": "diffmusic_tpu_torch/kernels/csrc/conv1d.cu",
     "conv1d_pair_canvas": "diffmusic_tpu_torch/kernels/csrc/conv1d.cu",
     "stage_resblocks_canvas": "diffmusic_tpu_torch/kernels/csrc/stage_bwd.cu",
+    "fused_mel_spectrogram": "diffmusic_tpu_torch/kernels/csrc/mel.cu",
 }
 # launches per guided step of the 10-s slices (UNet levels 0/1: 2 down + 3 up
 # blocks each; vocoder: 24 pairs, the 6 ch512 k=11 convs, upsamplers 0-2).
@@ -161,6 +175,18 @@ MASKS_PER_STEP = {"leaky_mask": 30, "leaky_mask_add": 24}
 ROUTE_KERNELS = ("fused_group_norm", "channel_moments", "conv2d_same", "leaky_mask",
                  "leaky_mask_add")
 LATENTS = (1, 8, 250, 16)   # the 10-s slice's latents
+# The eval phase: EVAL_PAIRS pairs of 10-s clips through the port's eval
+# with --embedding mfcc-stack vggish --fad_inf --individual.
+EVAL_PAIRS = 64
+
+
+def eval_mel_launches(n_pairs: int) -> int:
+    """fused_mel_spectrogram launches of one such eval from cold caches, with
+    mfcc-stack first: the mfcc-stack FAD caches embed each gt and recon clip
+    once (2 n), KL re-embeds each with the first model (2 n); --fad_inf and
+    --individual read the caches, and VGGish computes its own numpy log-mel.
+    (tests/test_torch_port_eval.py counts them on the CPU.)"""
+    return 4 * n_pairs
 
 
 LOG_FILE = None   # with --out, every line also goes to OUT_DIR/chip_smoke.log
@@ -731,6 +757,91 @@ def check_stage(t, dtype, gen, tol):
     return res
 
 
+# ------------------------------------------------------ the eval's mel kernel
+MEL_MFCC = dict(n_fft=400, hop_length=160, win_length=400, n_mels=64, sample_rate=16000,
+                f_min=125.0, f_max=7500.0)    # the MFCC-stack embedder's geometry
+MEL_DEFAULT = dict(n_fft=1024, hop_length=160, win_length=1024, n_mels=64,
+                   sample_rate=16000, f_min=0.0, f_max=None)   # the kernel's defaults
+
+
+def mel_composition(x, kw):
+    """The cuFFT composition of the same function, a yardstick: torch.stft
+    (centre, reflect pad, periodic Hann), |.|^2, the filterbank."""
+    from diffmusic_tpu_torch.ops.mel import mel_filterbank
+    n_fft, hop, win = kw["n_fft"], kw["hop_length"], kw["win_length"]
+    fb = torch.as_tensor(mel_filterbank(n_fft // 2 + 1, kw["n_mels"], kw["sample_rate"],
+                                        kw["f_min"], kw["f_max"]), device=x.device)
+    window = torch.hann_window(win, periodic=True, device=x.device)
+    xb = x.reshape(-1, x.shape[-1])
+    spec = torch.stft(xb, n_fft, hop, win, window, center=True, pad_mode="reflect",
+                      return_complex=True).abs().square()
+    return torch.einsum("bft,fm->bmt", spec, fb).reshape(*x.shape[:-1], kw["n_mels"], -1)
+
+
+def mel_bound(shape, kw) -> tuple:
+    """The least work of the mel spectrogram, not this kernel's dense DFT:
+    the bytes of the signal in and the mels out, and per frame the window
+    (win_length products), a real FFT (the usual 2.5 n log2 n operations),
+    |X|^2 (3 per frequency) and the filterbank's nonzeros (2 each), fp32."""
+    from diffmusic_tpu_torch.ops.mel import mel_filterbank
+    n_fft, n_mels = kw["n_fft"], kw["n_mels"]
+    rows, length = math.prod(shape[:-1]), shape[-1]
+    frames, freqs = rows * (1 + length // kw["hop_length"]), n_fft // 2 + 1
+    fb_nonzeros = int(np.count_nonzero(mel_filterbank(freqs, n_mels, kw["sample_rate"],
+                                                      kw["f_min"], kw["f_max"])))
+    per_frame = kw["win_length"] + 2.5 * n_fft * math.log2(n_fft) + 3 * freqs + 2 * fb_nonzeros
+    return bound(4 * (rows * length + n_mels * frames), frames * per_frame, FP32_FLOPS)
+
+
+def check_mel(shape, kw, gen, power=2.0, timed=False, grad=False):
+    """fused_mel_spectrogram against fused_mel_plain on the card, fp32 (TF32
+    off), at tolerance TOL_FP32 of max |plain|; with `grad`, the input
+    gradient of sum(mel ** 0.5) against autograd through the plain version;
+    with `timed`, the kernel, the plain version and the cuFFT composition;
+    the bound is `mel_bound`."""
+    from diffmusic_tpu_torch.kernels import mel as M
+    kw = dict(kw, power=power)
+    x = randn(shape, gen, "cuda", torch.float32, 0.3)
+    kern = lambda xx: M.fused_mel_spectrogram(xx, **kw)
+    plain = lambda xx: M.fused_mel_plain(xx, **kw)
+    with torch.no_grad():
+        out, ref = kern(x), plain(x)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"fused_mel_spectrogram: shape {tuple(out.shape)} or non-finite values")
+    desc = f"max|err| {err[0]:.3e} rel {err[1]:.2e}"
+    bad = err[1] > TOL_FP32
+    if grad:
+        dx = {}
+        for label, fn in (("kernel", kern), ("plain", plain)):
+            xx = x.clone().requires_grad_(True)
+            (dx[label],) = torch.autograd.grad(fn(xx).pow(0.5).sum(), xx)
+        torch.cuda.synchronize()
+        g = grad_err(dx["kernel"], dx["plain"])
+        desc += f"; grad of sum(mel ** 0.5) max|err| {g[0]:.3e} rel {g[1]:.2e}"
+        bad = bad or g[1] > TOL_FP32
+    n_fft, n_mels = kw["n_fft"], kw["n_mels"]
+    bnd = mel_bound(shape, kw)
+    times = (float("nan"), float("nan"), None)
+    comp = ""
+    if timed:
+        with torch.no_grad():
+            times = (time_ms(lambda: kern(x)), time_ms(lambda: plain(x)), None)
+            comp_ms = time_ms(lambda: mel_composition(x, kw))
+            comp_err = rel_err(mel_composition(x, kw), ref)
+        comp = f"; cuFFT composition {comp_ms:.3f} ms (rel {comp_err[1]:.1e})"
+    res = result(err[0], times, bnd)
+    geometry = "mfcc" if n_fft == 400 else f"n_fft {n_fft}"
+    log(f"  fused_mel_spectrogram    {shape} {geometry} hop {kw['hop_length']} mels {n_mels} "
+        f"power {power:g} fp32: {desc} (tol {TOL_FP32:.0e})"
+        + (f"; {describe_times(res)}{comp}" if timed else
+           f"; bound {max(bnd):.4g} ms"))
+    if bad:
+        raise AssertionError("fused_mel_spectrogram disagrees with its plain version")
+    return res
+
+
 def phase_kernels(gen) -> dict:
     """Every kernel at the slice's shapes (bf16) and small fp32 cases.
     Returns per kernel: max abs error, and kernel / plain / library / bound
@@ -827,6 +938,22 @@ def phase_kernels(gen) -> dict:
     for cross, amp in ((False, 1.0), (True, 1.0), (False, 5.0)):
         add("fused_transformer_block_bsoft",
             check_block(600, 128, f32, gen, TOL_FP32, cross=cross, bsoft=True, amp=amp))
+
+    log(f"the eval's fused mel spectrogram, fp32 (the line sums the {EVAL_PAIRS}-pair eval's "
+        f"{eval_mel_launches(EVAL_PAIRS)} launches at the per-clip shape (1, 160000)):")
+    add("fused_mel_spectrogram", check_mel((1, 160000), MEL_MFCC, gen, timed=True),
+        eval_mel_launches(EVAL_PAIRS))
+    add("fused_mel_spectrogram", check_mel((64, 160000), MEL_MFCC, gen, timed=True), 0)
+    add("fused_mel_spectrogram", check_mel((1, 160000), MEL_DEFAULT, gen, timed=True,
+                                           grad=True), 0)
+    # every variant the wrapper takes: 64 or 128 mel columns, float4 or scalar
+    # frame reads (hop a multiple of 4 or not), the power 2, 1 and powf epilogues
+    for shape, kw, power in (((2, 32123), MEL_DEFAULT, 2.0), ((3, 2, 4000), MEL_DEFAULT, 2.0),
+                             ((2, 32123), MEL_MFCC, 1.0),
+                             ((2, 32123), dict(MEL_MFCC, hop_length=100), 2.0),
+                             ((1, 16000), dict(MEL_DEFAULT, n_mels=128), 2.0),
+                             ((2, 16001), dict(MEL_DEFAULT, hop_length=100, n_mels=128), 1.5)):
+        add("fused_mel_spectrogram", check_mel(shape, kw, gen, power), 0)
     return stats
 
 
@@ -1106,10 +1233,11 @@ def phase_reference_audioldm2():
             raise AssertionError(f"fuse_cross {fuse_cross} launched the other route")
 
 
-def drive(label: str, pipe, meas, want: dict, **call_kw) -> dict:
+def drive(label: str, pipe, meas, want: dict, **call_kw) -> tuple:
     """One 10-s slice run through the pipeline's __call__: STEPS DPS steps,
     eta 0, rate 2.0, seeded latents (1, 8, 250, 16); the launch counts are set
-    to 0 just before and read just after, and must equal `want`."""
+    to 0 just before and read just after, and must equal `want`. Returns
+    (launch counts, the restored audio (1, 160000))."""
     from diffmusic_tpu_torch import kernels
     lat = torch.randn(LATENTS, generator=torch.Generator().manual_seed(0))
     stamps = []
@@ -1142,7 +1270,7 @@ def drive(label: str, pipe, meas, want: dict, **call_kw) -> dict:
     if audio.shape != (1, 160000):
         raise AssertionError(f"audio shape {audio.shape}, expected (1, 160000)")
     check_launches(label, counts, want)
-    return counts
+    return counts, audio
 
 
 # the slice's turns: each route once each way, so that the host's drift over
@@ -1160,11 +1288,12 @@ def turn_launches(name: str) -> dict:
                              name if name in VOCODER_ROUTES else "default")
 
 
-def phase_slice(profile_dir=None) -> dict:
+def phase_slice(profile_dir=None) -> tuple:
     """Full-width MusicLDM on the default route and on each route of
     TURN_ROUTES, in the TURNS, then each setting's breakdown (the whole step
     for the default and the GroupNorm routes, the vocoder for its routes, the UNet
-    for bsoft). Returns the launch counts of the first run of each setting."""
+    for bsoft). Returns the launch counts of the first run of each setting
+    and the audio of the first default turn."""
     from diffmusic_tpu_torch.models.configs import HiFiGANConfig, UNetConfig, VAEConfig
     t0 = time.time()
     pipe, meas = build_pipe(UNetConfig(), VAEConfig(), HiFiGANConfig(), 10.0, "cuda",
@@ -1173,19 +1302,20 @@ def phase_slice(profile_dir=None) -> dict:
         f"{time.time() - t0:.1f} s")
     pipes = {name: with_routes(pipe, **flags) if flags else pipe
              for name, flags in TURN_ROUTES.items()}
-    counts = {}
+    counts, audio = {}, {}
     for turn, name in enumerate(TURNS):
         label = "slice" if name == "default" else f"slice route {name}"
-        c = drive(f"{label} (turn {turn + 1})", pipes[name], meas, turn_launches(name),
-                  prompt_embeds=torch.zeros(2, 512))
+        c, a = drive(f"{label} (turn {turn + 1})", pipes[name], meas, turn_launches(name),
+                     prompt_embeds=torch.zeros(2, 512))
         counts.setdefault(name, c)
+        audio.setdefault(name, a)
     for name, p in pipes.items():
         parts = (None if name in ("default", "stats", "fused") else
                  ("unet fwd (no grad)",) if name == "bsoft" else ("vocoder fwd+bwd",))
         phase_breakdown(p, meas, LATENTS, torch.zeros(2, 512),
                         "slice" if name == "default" else f"slice_route_{name}",
                         profile_dir if name in ("default", "stats") else None, parts)
-    return counts
+    return counts, audio["default"]
 
 
 def phase_audioldm2(profile_dir=None) -> dict:
@@ -1211,17 +1341,17 @@ def phase_audioldm2(profile_dir=None) -> dict:
         f"prompt '') {secs[0]:.3f} s first, {secs[1]:.3f} s again; streams "
         f"{[tuple(a.shape) for a in embeds]}")
     counts = {False: drive("audioldm2 fuse_cross=False", pipe, meas,
-                           expected_launches("flash_attention"), prompt="")}
+                           expected_launches("flash_attention"), prompt="")[0]}
     with pipe.device:
         fused = UNet2DConditionModel(unet_cfg, fuse_cross=True)
     fused.to(torch.bfloat16).load_state_dict(pipe.unet.state_dict())
     fused_pipe = dataclasses.replace(pipe, unet=fused)
     counts[True] = drive("audioldm2 fuse_cross=True", fused_pipe, meas,
-                         expected_launches("fused_transformer_block_cross"), prompt="")
+                         expected_launches("fused_transformer_block_cross"), prompt="")[0]
     del fused_pipe, fused
     counts["bsoft"] = drive("audioldm2 fuse_cross=True bsoft=True",
                             with_routes(pipe, fuse_cross=True, bsoft=True), meas,
-                            expected_launches("fused_transformer_block_bsoft"), prompt="")
+                            expected_launches("fused_transformer_block_bsoft"), prompt="")[0]
     phase_breakdown(pipe, meas, LATENTS, embeds, "audioldm2", profile_dir)
     return counts
 
@@ -1305,6 +1435,175 @@ def phase_breakdown(pipe, meas, lat_shape, embeds, label, profile_dir=None,
         log(f"  {line}")
 
 
+# ------------------------------------------------------------------- eval
+EVAL_CARD_CPU_PAIRS = 4          # pairs scored on the card and on the CPU
+EVAL_SCORE_TOL = 1e-3            # card vs CPU, relative, every score
+EVAL_LEVEL_FLIPS = 0.01          # post-PCA VGGish: share of elements off by one level
+
+
+def eval_pair(i: int, rng, sr: int, seconds: float = 10.0):
+    """(gt, recon) of pair i >= 1 at `sr`: a harmonic stack of a seeded
+    fundamental and AM rate, and the same clip with the 4-6 s box zeroed plus
+    seeded Gaussian noise."""
+    tt = np.arange(int(seconds * sr)) / sr
+    f0, am = 110.0 * 2.0 ** rng.uniform(0.0, 3.0), rng.uniform(0.5, 4.0)
+    gt = sum(0.25 / (h + 1) * np.sin(2 * np.pi * f0 * (h + 1) * tt + rng.uniform(0, 6))
+             for h in range(4)) * (0.6 + 0.4 * np.sin(2 * np.pi * am * tt))
+    rec = gt.copy()
+    rec[int(0.4 * rec.size):int(0.6 * rec.size)] = 0.0
+    rec = rec + rng.uniform(0.01, 0.1) * rng.standard_normal(rec.size)
+    return gt.astype(np.float32), rec.astype(np.float32)
+
+
+def write_eval_dirs(root: Path, restored: np.ndarray) -> None:
+    """root/gt and root/recon, EVAL_PAIRS files each: pair 0 the slice's
+    ground truth and the audio its default turn restored, pairs 1 and 2 as
+    44.1-kHz stereo float32 (the loaders resample them), the rest 16 kHz
+    mono."""
+    from diffmusic_tpu_torch.data import write_wav
+    rng = np.random.default_rng(0)
+    for d in ("gt", "recon"):
+        (root / d).mkdir(parents=True)
+    write_wav(root / "gt" / "000.wav", harmonic_stack(160000, 16000), 16000)
+    write_wav(root / "recon" / "000.wav", restored, 16000)
+    for i in range(1, EVAL_PAIRS):
+        sr = 44100 if i in (1, 2) else 16000
+        gt, rec = eval_pair(i, rng, sr)
+        if sr != 16000:
+            gt, rec = np.stack([gt, 0.9 * gt]), np.stack([rec, rec])
+        write_wav(root / "gt" / f"{i:03d}.wav", gt, sr)
+        write_wav(root / "recon" / f"{i:03d}.wav", rec, sr)
+
+
+@contextlib.contextmanager
+def eval_split(split: Counter):
+    """Seconds of the eval's parts into `split`, by wrapping the functions
+    that do them: the directory loads, each embedder's cache pass (its file
+    reads and embedding calls), KL (re-embedding every clip), LSD, MSE."""
+    from diffmusic_tpu_torch import eval as E
+    from diffmusic_tpu_torch.fadtk import engine
+
+    def wrap(owner, attr, key):
+        fn = getattr(owner, attr)
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                split[key(*a)] += time.perf_counter() - t
+        return owner, attr, fn, timed
+
+    wraps = [wrap(E, "load_dir", lambda *a: "wav loading"),
+             wrap(engine, "cache_embedding_files", lambda d, m: f"embedding {m.name}"),
+             wrap(E.KullbackLeiblerDivergence, "score", lambda *a: "KL"),
+             wrap(E.LogSpectralDistance, "score", lambda *a: "LSD"),
+             wrap(E.MeanSquaredError, "score", lambda *a: "MSE")]
+    for owner, attr, _, timed in wraps:
+        setattr(owner, attr, timed)
+    try:
+        yield
+    finally:
+        for owner, attr, fn, _ in wraps:
+            setattr(owner, attr, fn)
+
+
+def run_eval(root: Path, ckpt: Path, device: str) -> dict:
+    from diffmusic_tpu_torch import eval as E
+    return E.main(["-gt", str(root / "gt"), "-r", str(root / "recon"),
+                   "--embedding", "mfcc-stack", "vggish", "--fad_inf",
+                   "--individual", str(root / "songs.csv"), "--device", device,
+                   "--checkpoint_dir", str(ckpt)])
+
+
+def compare_eval_card_cpu(root: Path, ckpt: Path) -> None:
+    """The first EVAL_CARD_CPU_PAIRS pairs copied into fresh directories and
+    scored on the card and on the CPU: every score within EVAL_SCORE_TOL
+    relative; the cached mfcc-stack embeddings within TOL_FP32 of max; the
+    cached (post-PCA) VGGish embeddings off by at most one level on at most
+    EVAL_LEVEL_FLIPS of the elements; VGGish before PCA within TOL_FP32 of
+    max on pair 0's examples."""
+    from diffmusic_tpu_torch.metrics import vggish as V
+    from diffmusic_tpu_torch.utils import load_audio_task
+    scores, caches = {}, {}
+    for dev in ("cuda", "cpu"):
+        d = root / f"card_cpu_{dev}"
+        for sub_dir in ("gt", "recon"):
+            (d / sub_dir).mkdir(parents=True)
+            for f in sorted((root / sub_dir).glob("*.wav"))[:EVAL_CARD_CPU_PAIRS]:
+                shutil.copy(f, d / sub_dir / f.name)
+        t = time.perf_counter()
+        scores[dev] = run_eval(d, ckpt, dev)
+        log(f"eval card vs cpu: {EVAL_CARD_CPU_PAIRS} pairs on {dev} in "
+            f"{time.perf_counter() - t:.2f} s")
+        caches[dev] = {m: np.stack([np.load(f) for f in sorted(
+            (d / "gt" / "embeddings" / m).glob("*.npy"))]) for m in ("mfcc-stack", "vggish")}
+    errs = {k: abs(scores["cuda"][k] - scores["cpu"][k]) / max(abs(scores["cpu"][k]), 1e-30)
+            for k in scores["cpu"]}
+    mfcc = rel_err(torch.from_numpy(caches["cuda"]["mfcc-stack"]),
+                   torch.from_numpy(caches["cpu"]["mfcc-stack"]))
+    levels = np.abs(caches["cuda"]["vggish"] - caches["cpu"]["vggish"])
+    flips = float((levels > 0).mean())
+    wav = load_audio_task(root / "gt" / "000.wav", 16000)
+    pre = {dev: torch.from_numpy(V.vggish_embedding(
+        V.load_vggish(ckpt / "vggish" / "vggish.pth", dev)[0], None, wav))
+        for dev in ("cuda", "cpu")}
+    pre_err = rel_err(pre["cuda"], pre["cpu"])
+    log(f"eval card vs cpu: score rel errors {({k: f'{v:.1e}' for k, v in errs.items()})} "
+        f"(tol {EVAL_SCORE_TOL:.0e}); mfcc-stack caches max|err| {mfcc[0]:.3e} rel "
+        f"{mfcc[1]:.2e} (tol {TOL_FP32:.0e}); vggish caches max level difference "
+        f"{levels.max():g} on {flips:.2%} of elements (tol 1 on {EVAL_LEVEL_FLIPS:.0%}); "
+        f"vggish pre-PCA rel {pre_err[1]:.2e} (tol {TOL_FP32:.0e})")
+    if (max(errs.values()) > EVAL_SCORE_TOL or mfcc[1] > TOL_FP32 or levels.max() > 1
+            or flips > EVAL_LEVEL_FLIPS or pre_err[1] > TOL_FP32):
+        raise AssertionError("the eval on the card disagrees with the eval on the CPU")
+
+
+def phase_eval(restored: np.ndarray) -> dict:
+    """The port's eval CLI on the card over EVAL_PAIRS pairs of 10-s clips
+    from cold caches, then card against CPU; returns the launch counts of the
+    card run."""
+    from diffmusic_tpu_torch import kernels
+    from diffmusic_tpu_torch.metrics import vggish as V
+    with tempfile.TemporaryDirectory() as tmp:
+        root, t0 = Path(tmp), time.perf_counter()
+        write_eval_dirs(root, restored)
+        ckpt = root / "ckpt"
+        (ckpt / "vggish").mkdir(parents=True)
+        torch.save({k: torch.from_numpy(v) for k, v in V.random_state_dict(0).items()},
+                   ckpt / "vggish" / "vggish.pth")
+        log(f"eval: {EVAL_PAIRS} pairs of 10-s clips and a seeded random torchvggish-layout "
+            f"vggish.pth written in {time.perf_counter() - t0:.2f} s")
+        split = Counter()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with eval_split(split):
+            scores = run_eval(root, ckpt, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        rows = list(csv.reader(open(root / "songs.csv")))
+        log(f"eval: {EVAL_PAIRS} pairs, --embedding mfcc-stack vggish --fad_inf --individual, "
+            f"cold caches: {wall:.2f} s wall; " +
+            "; ".join(f"{k} {v:.2f}" for k, v in split.items()) +
+            f"; the rest (FAD, FAD-inf, per-song statistics) {wall - sum(split.values()):.2f} s; "
+            f"peak memory {peak / 2**30:.2f} GiB; scores {scores}; CSV rows {len(rows)}; "
+            f"launches {counts}")
+        if not all(math.isfinite(v) for v in scores.values()) or len(scores) != 7:
+            raise AssertionError(f"eval scores {scores}")
+        if len(rows) != EVAL_PAIRS:
+            raise AssertionError(f"the per-song CSV has {len(rows)} rows, expected {EVAL_PAIRS}")
+        want = dict.fromkeys(REPLACES, 0)
+        want["fused_mel_spectrogram"] = eval_mel_launches(EVAL_PAIRS)
+        check_launches("eval", counts, want)
+        compare_eval_card_cpu(root, ckpt)
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -1354,14 +1653,15 @@ def main() -> int:
     phase_reference_routes()
     phase_reference_new_routes()
     phase_reference_audioldm2()
-    slice_counts = phase_slice(profile_dir)
+    slice_counts, restored = phase_slice(profile_dir)
     a2 = phase_audioldm2(profile_dir)
+    eval_counts = phase_eval(restored)
     # each kernel's launches from the path that runs it: MusicLDM's default
     # route for its four, its routes for the route kernels (the fused
     # GroupNorm from gn_mode "fused", the others from "stats"; the canvas
     # conv from canvas "kernel", the pair from "xbwd", the stage from its
     # route, the bounded softmax from bsoft), AudioLDM2 with fuse_cross off
-    # for flash, on for the dual-cross block
+    # for flash, on for the dual-cross block; the eval for the mel kernel
     counts = dict(slice_counts["stats"])
     counts.update({n: slice_counts["default"][n] for n in VOCODER_PER_STEP})
     counts["fused_transformer_block"] = slice_counts["default"]["fused_transformer_block"]
@@ -1372,6 +1672,7 @@ def main() -> int:
         counts[name] = slice_counts[route][name]
     counts["flash_attention"] = a2[False]["flash_attention"]
     counts["fused_transformer_block_cross"] = a2[True]["fused_transformer_block_cross"]
+    counts["fused_mel_spectrogram"] = eval_counts["fused_mel_spectrogram"]
 
     kernels_line = []
     for n in REPLACES:

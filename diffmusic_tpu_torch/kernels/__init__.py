@@ -8,15 +8,17 @@ transformer block on the AudioLDM2 path, and the guided step's optional
 routes: the fused GroupNorm, the channel moments, the 'same' conv2d, the
 leaky-ReLU backward masks, the vocoder's canvas convs and pairs
 (`conv1d.py`), the stage backward (`stage_bwd.py`) and the bounded-softmax
-mode of the transformer block.
+mode of the transformer block; and the fused mel spectrogram of the eval
+path's MFCC front end (`mel.py`).
 """
 
-from . import (attention, conv1d, conv2d, group_norm, mask, stage_bwd, transformer_block,
-               upsampler)
+from . import (attention, conv1d, conv2d, group_norm, mask, mel, stage_bwd,
+               transformer_block, upsampler)
+from .mel import fused_mel_spectrogram
 
 _COUNTERS = (conv1d.LAUNCHES, upsampler.LAUNCHES, transformer_block.LAUNCHES,
              attention.LAUNCHES, group_norm.LAUNCHES, conv2d.LAUNCHES, mask.LAUNCHES,
-             stage_bwd.LAUNCHES)
+             stage_bwd.LAUNCHES, mel.LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -51,6 +51,8 @@ SIGNATURES = {
     "dm_leaky_mask": ([_I, _P, _P, _P, _P, _S, _F, _P], _I),
     "dm_stage_bwd": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P], _I),
     "dm_stage_bwd_smem": ([_I], _S),
+    "dm_fused_mel": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    "dm_fused_mel_smem": ([_I, _I, _I], _S),
 }
 
 # bytes of dynamic shared memory one block may use on the H100 (227 KB)

@@ -2,9 +2,11 @@
 
 from .masks import box_mask
 from .mel import MelSpectrogram, Wav2Mel, amplitude_to_db, mel_filterbank
-from .stft import frame_signal, hann_window, spectrogram
+from .resample import resample
+from .stft import frame_signal, hann_window, overlap_add, spectrogram
 
 __all__ = [
     "box_mask", "MelSpectrogram", "Wav2Mel", "amplitude_to_db",
-    "mel_filterbank", "frame_signal", "hann_window", "spectrogram",
+    "mel_filterbank", "frame_signal", "hann_window", "overlap_add", "resample",
+    "spectrogram",
 ]

@@ -75,3 +75,18 @@ def spectrogram(x: torch.Tensor, n_fft: int = 1024, hop_length: int = 160,
     if power == 1.0:
         return torch.sqrt(mag_sq + 1e-24)
     return torch.pow(mag_sq + 1e-24, power / 2.0)
+
+
+def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
+    """(..., T, n_fft) -> (..., (T - 1) * hop + n_fft): frame t added at
+    offset t * hop (the adjoint of `frame_signal` without its padding).
+    Shifted-sum form: each frame is cut into ceil(n_fft / hop) hop-sized
+    chunks, and chunk c of every frame lands at row t + c of a
+    (T + k - 1, hop) grid."""
+    *batch, t, n_fft = frames.shape
+    k = -(-n_fft // hop_length)
+    fr = F.pad(frames, (0, k * hop_length - n_fft)).reshape(*batch, t, k, hop_length)
+    out = frames.new_zeros(*batch, t + k - 1, hop_length)
+    for c in range(k):
+        out[..., c:c + t, :] += fr[..., :, c, :]
+    return out.reshape(*batch, (t + k - 1) * hop_length)[..., :(t - 1) * hop_length + n_fft]

@@ -14,7 +14,8 @@ for the transformer block (one bf16 rounding of an intermediate moves a
 product by about 2^-8 relative). bf16 gradients of the vocoder kernels are
 held by norm (a leaky-ReLU mask flips where an activation rounds across
 zero differently in the two versions). Canvas outputs and gradients must be
-exactly zero outside the signal.
+exactly zero outside the signal. The fused mel spectrogram is fp32 only:
+1e-4 of max |plain| forward, gradients too.
 """
 
 import math
@@ -31,9 +32,11 @@ from diffmusic_tpu_torch.kernels import conv1d as tconv
 from diffmusic_tpu_torch.kernels import conv2d as tconv2d
 from diffmusic_tpu_torch.kernels import group_norm as tgn
 from diffmusic_tpu_torch.kernels import mask as tmask
+from diffmusic_tpu_torch.kernels import mel as tmel
 from diffmusic_tpu_torch.kernels import stage_bwd as tstage
 from diffmusic_tpu_torch.kernels import transformer_block as ttb
 from diffmusic_tpu_torch.kernels import upsampler as tup
+from diffmusic_tpu_torch.metrics.embeddings import MFCCStackEmbedding
 from diffmusic_tpu_torch.models.configs import HiFiGANConfig, UNetConfig, VAEConfig
 from diffmusic_tpu_torch.pipelines import MusicLDMPipeline
 
@@ -94,7 +97,8 @@ def test_conv_kernels_on_card(cuda, gen, dtype, tol):
                                        "channel_moments": 0, "conv2d_same": 0,
                                        "leaky_mask": 0, "leaky_mask_add": 0,
                                        "conv1d_fused_canvas": 0, "conv1d_pair_canvas": 0,
-                                       "stage_resblocks_canvas": 0}
+                                       "stage_resblocks_canvas": 0,
+                                       "fused_mel_spectrogram": 0}
 
 
 def block_params(gen, c, dtype, cross_dims=()):
@@ -427,3 +431,55 @@ def test_bsoft_block_kernel_on_card(cuda, gen, dtype, tol, amp):
         ref = ttb.transformer_block_plain(x, p, c // 8, 8, ctx, biases, bsoft=True)
         assert torch.isfinite(out).all()
         assert rel(out, ref) <= tol
+
+
+MEL_MFCC = dict(n_fft=400, hop_length=160, win_length=400, n_mels=64, sample_rate=16000,
+                f_min=125.0, f_max=7500.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", [((2, 160000), MEL_MFCC), ((1, 160000), {}),
+                                      ((2, 32123), {}), ((3, 2, 4000), dict(power=1.0)),
+                                      ((1, 8000), dict(n_fft=512, hop_length=128,
+                                                       win_length=400, n_mels=40)),
+                                      ((2, 16001), dict(hop_length=100)),
+                                      ((1, 16000), dict(n_mels=128)),
+                                      ((2, 16001), dict(hop_length=100, n_mels=128,
+                                                        power=1.5))])
+def test_fused_mel_kernel_on_card(cuda, gen, shape, kw):
+    """The mel kernel and its backward against autograd through the plain
+    version: the MFCC and default geometries, an odd length (not a
+    multiple of 4: the span takes its scalar loads), a batch shape with
+    power 1, 40 mels at hop 128, and every other variant the wrapper takes:
+    hop 100 (scalar frame reads), 128 mel columns, and the powf epilogue."""
+    x = arr(gen, *shape, scale=0.3)
+    n_frames = 1 + shape[-1] // kw.get("hop_length", 160)
+    g = arr(gen, *shape[:-1], kw.get("n_mels", 64), n_frames)
+    kernels.reset_launch_counts()
+    y, dx = grads(lambda xx: tmel.fused_mel_spectrogram(xx, **kw), x, g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_mel_spectrogram"] == 1
+    y0, dx0 = grads(lambda xx: tmel.fused_mel_plain(xx, **kw), x, g)
+    assert y.shape == y0.shape and torch.isfinite(y).all()
+    assert rel(y, y0) <= 1e-4 and rel(dx, dx0) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_mfcc_stack_embedding_card_against_cpu(cuda, gen):
+    """The MFCC-stack embedder of a 10-s clip on the card (the mel kernel)
+    and on the CPU (its plain version) within 1e-4 of max."""
+    wav = (gen.standard_normal(160000) * 0.3).astype(np.float32)
+    kernels.reset_launch_counts()
+    card = MFCCStackEmbedding("cuda")(wav)
+    assert kernels.launch_counts()["fused_mel_spectrogram"] == 1
+    cpu = MFCCStackEmbedding("cpu")(wav)
+    assert card.shape == cpu.shape == (19, 160)
+    assert float(np.abs(card - cpu).max() / np.abs(cpu).max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_mel_wrapper_rejects_what_the_kernel_does_not_take(cuda, gen):
+    with pytest.raises(ValueError):    # reflect padding needs L > n_fft // 2
+        tmel.fused_mel_spectrogram(arr(gen, 1, 300), n_fft=1024)
+    with pytest.raises(ValueError):    # more mels than the kernel's 128 columns
+        tmel.fused_mel_spectrogram(arr(gen, 1, 4000), n_mels=160)

@@ -204,7 +204,11 @@ def test_port_imports_no_jax():
             "diffmusic_tpu_torch.pipelines.audioldm2, diffmusic_tpu_torch.kernels.build, "
             "diffmusic_tpu_torch.kernels.attention, diffmusic_tpu_torch.models.convert, "
             "diffmusic_tpu_torch.models.clap, diffmusic_tpu_torch.models.t5, "
-            "diffmusic_tpu_torch.models.gpt2, diffmusic_tpu_torch.models.projection; "
+            "diffmusic_tpu_torch.models.gpt2, diffmusic_tpu_torch.models.projection, "
+            "diffmusic_tpu_torch.eval, diffmusic_tpu_torch.metrics, "
+            "diffmusic_tpu_torch.metrics.vggish, diffmusic_tpu_torch.fadtk, "
+            "diffmusic_tpu_torch.data, diffmusic_tpu_torch.utils, "
+            "diffmusic_tpu_torch.kernels.mel; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'diffmusic_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -92,6 +92,8 @@ TOL_FP32 = 1e-4
 BF16_FLOPS = 989e12   # tensor cores, bf16
 FP32_FLOPS = 67e12    # fp32 outside the tensor cores
 HBM_BYTES = 3.35e12   # device memory, bytes per second
+SMS = 132             # streaming multiprocessors
+EXP2_PER_CLOCK = 16   # exp2 results per clock per SM (the MUFU)
 
 SLOPE = 0.1
 STEPS = 20   # DPS steps of the slice
@@ -430,9 +432,21 @@ def check_block(t, c, dtype, gen, tol, cross=False, bsoft=False, amp=1.0):
     return res
 
 
+def sm_clock_mhz() -> tuple:
+    """(current, max) SM clock in MHz as nvidia-smi reads them now."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    cur, top = (float(v) for v in out.split(","))
+    return cur, top
+
+
 def check_flash(t, heads, dtype, gen, tol):
     """Flash attention over (1, t, heads, 8) q, k, v of unit variance, beside
-    F.scaled_dot_product_attention on the same tensors (as (B, H, T, 8) views)."""
+    F.scaled_dot_product_attention on the same tensors (as (B, H, T, 8) views).
+    bf16 also prints the exponentials' floor: t^2 * heads exp2 at
+    EXP2_PER_CLOCK per clock per SM, at the SM clock nvidia-smi reads right
+    after the timing (and at the card's maximum); the bound is unchanged."""
     from diffmusic_tpu_torch.kernels import attention as A
     q, k, v = (randn((1, t, heads, 8), gen, "cuda", dtype) for _ in range(3))
     with torch.no_grad():
@@ -444,8 +458,15 @@ def check_flash(t, heads, dtype, gen, tol):
     times = timings(lambda _: A.flash_attention(q, k, v), lambda _: A.attention_plain(q, k, v),
                     None, dtype, sdpa)
     res = result(err[0], times, bound(2 * 4 * t * heads * 8, 4 * t * t * heads * 8))
+    floor = ""
+    if dtype == torch.bfloat16:
+        exps = t * t * heads / (EXP2_PER_CLOCK * SMS)
+        cur, top = sm_clock_mhz()
+        res["exp2_floor_ms"] = exps / (cur * 1e3)
+        floor = (f"; exp2 floor {res['exp2_floor_ms']:.4f} ms at {cur:.0f} MHz "
+                 f"({exps / (top * 1e3):.4f} at {top:.0f})")
     log(f"  flash_attention          (1, {t}, {heads}, 8) {str(dtype)[6:]}: "
-        f"max|err| {err[0]:.3e} rel {err[1]:.2e} (tol {tol:.0e}); {describe_times(res)}")
+        f"max|err| {err[0]:.3e} rel {err[1]:.2e} (tol {tol:.0e}); {describe_times(res)}{floor}")
     if err[1] > tol:
         raise AssertionError("flash_attention disagrees with its plain version")
     return res
@@ -866,11 +887,16 @@ def phase_kernels(gen) -> dict:
 
     bf = torch.bfloat16
     log("kernels vs plain versions, slice shapes, bf16:")
+    floor = 0.0
     for t, c in ((4000, 128), (1000, 256)):
         add("fused_transformer_block", check_block(t, c, bf, gen, TOL_BLOCK_BF16), 5)
         add("fused_transformer_block_cross",
             check_block(t, c, bf, gen, TOL_BLOCK_BF16, cross=True), 5)
-        add("flash_attention", check_flash(t, c // 8, bf, gen, TOL_FLASH_BF16), 5)
+        res = check_flash(t, c // 8, bf, gen, TOL_FLASH_BF16)
+        add("flash_attention", res, 5)
+        floor += 5 * res["exp2_floor_ms"]
+    log(f"  flash_attention per guided step (10 calls): {stats['flash_attention']['ms']:.3f} ms "
+        f"vs SDPA {stats['flash_attention']['library_ms']:.3f}; exp2 floor {floor:.4f} ms")
     for name, shape, k, d, res in conv_cases(bf):
         add(name, check_conv(name, shape, k, d, res, bf, gen, TOL_CONV_BF16))
     for cin, cout, k, s, t_in in ((1024, 512, 16, 5, 1000), (512, 256, 16, 4, 5001),
@@ -1233,22 +1259,27 @@ def phase_reference_audioldm2():
             raise AssertionError(f"fuse_cross {fuse_cross} launched the other route")
 
 
-def drive(label: str, pipe, meas, want: dict, **call_kw) -> tuple:
+def drive(label: str, pipe, meas, want: dict, repacks: int = 0, **call_kw) -> tuple:
     """One 10-s slice run through the pipeline's __call__: STEPS DPS steps,
     eta 0, rate 2.0, seeded latents (1, 8, 250, 16); the launch counts are set
-    to 0 just before and read just after, and must equal `want`. Returns
-    (launch counts, the restored audio (1, 160000))."""
+    to 0 just before and read just after, and must equal `want`. The conv2d
+    kernel's tap-major weight copies are counted per step: `repacks` in the
+    first (the route's weights not yet seen), none after. Returns (launch
+    counts, the restored audio (1, 160000))."""
     from diffmusic_tpu_torch import kernels
+    from diffmusic_tpu_torch.kernels import conv2d as C2
     lat = torch.randn(LATENTS, generator=torch.Generator().manual_seed(0))
-    stamps = []
+    stamps, made = [], []
 
     def on_step(i, t, x):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
+        made.append(C2.REPACKS["conv2d_same"])
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    C2.REPACKS["conv2d_same"] = 0
     start = time.perf_counter()
     out, losses = pipe(audio_length_in_s=10.0, num_inference_steps=STEPS, eta=0.0,
                        measurement=meas, ip_guidance_rate=2.0, latents=lat,
@@ -1270,6 +1301,14 @@ def drive(label: str, pipe, meas, want: dict, **call_kw) -> tuple:
     if audio.shape != (1, 160000):
         raise AssertionError(f"audio shape {audio.shape}, expected (1, 160000)")
     check_launches(label, counts, want)
+    per_step = [b - a for a, b in zip([0] + made[:-1], made)]
+    if want["conv2d_same"]:
+        log(f"{label}: conv2d tap-major weight copies in step 1: {per_step[0]}, in steps "
+            f"2-{STEPS}: {sum(per_step[1:])}")
+    if per_step[0] != repacks or sum(per_step[1:]) or C2.REPACKS["conv2d_same"] != repacks:
+        raise AssertionError(f"{label}: conv2d weight copies per step {per_step} and "
+                             f"{C2.REPACKS['conv2d_same']} in all, expected {repacks} in the "
+                             f"first step and none after")
     return counts, audio
 
 
@@ -1303,9 +1342,14 @@ def phase_slice(profile_dir=None) -> tuple:
     pipes = {name: with_routes(pipe, **flags) if flags else pipe
              for name, flags in TURN_ROUTES.items()}
     counts, audio = {}, {}
+    # the conv2d routes share the weight tensors, so only the first of their
+    # turns copies the 46 conv2d weights to the kernel's tap-major layout
+    conv2d_weights = sum(ROUTE_LAUNCHES[m]["stats"]["conv2d_same"] for m in ROUTE_LAUNCHES)
+    first_conv2d = next(i for i, n in enumerate(TURNS) if TURN_ROUTES[n].get("conv2d_kernel"))
     for turn, name in enumerate(TURNS):
         label = "slice" if name == "default" else f"slice route {name}"
         c, a = drive(f"{label} (turn {turn + 1})", pipes[name], meas, turn_launches(name),
+                     repacks=conv2d_weights if turn == first_conv2d else 0,
                      prompt_embeds=torch.zeros(2, 512))
         counts.setdefault(name, c)
         audio.setdefault(name, a)
@@ -1604,6 +1648,18 @@ def phase_eval(restored: np.ndarray) -> dict:
     return counts
 
 
+def ptxas_summary(build_log: str, kernel: str) -> str:
+    """Registers, shared memory and spills that `nvcc -Xptxas -v` reported
+    for the kernel whose mangled name contains `kernel`."""
+    lines = build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            info = [ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 4]
+                    if "spill" in ln or "registers" in ln]
+            return "; ".join(info) or "no ptxas lines"
+    return "not found in the build log"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -1639,9 +1695,16 @@ def main() -> int:
     log(f"build: {time.time() - t0:.1f} s ({build.BUILD_ROOT / build.source_hash()})")
     build_log = (build.BUILD_ROOT / build.source_hash() / "build.log")
     if build_log.exists():
-        for line in build_log.read_text().splitlines():
+        text = build_log.read_text()
+        for line in text.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
+        lib = build.library()
+        for name, dyn in (("conv2d_wgmma_kernel", lib.dm_conv2d_same_smem(1)),
+                          ("nchw_to_nhwc_kernel", None),
+                          ("flash_mma_kernel", lib.dm_flash_attention_smem(1, 16))):
+            extra = "" if dyn is None else f"; {dyn} bytes of dynamic shared memory"
+            log(f"  ptxas {name}: {ptxas_summary(text, name)}{extra}")
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
             shutil.copy(build_log, args.out / "build.log")

@@ -4,13 +4,17 @@ Replaces `diffmusic_tpu/pallas/attention_kernel.py::flash_attention` with the
 CUDA kernel of `csrc/flash_attention.cu`: unmasked softmax(Q K^T / sqrt(D)) V
 over (B, T, H, D) tensors, the layout of `jax.nn.dot_product_attention`.
 
-Bound on the H100: at head_dim 8, QK^T and PV are below the bf16 MMA depth of
-16, so the attention is T^2 * H * (2 * 8 * 2 + 2) scalar operations (plus one
-exp2 per logit) per call, against only 4 * T * H * D elements of input and
-output. The kernel runs them as fp32 FMAs with an online softmax over key
-chunks staged in shared memory (the attention core it shares with the fused
-transformer block, `csrc/common.cuh`), so the (T, T) logits never reach
-device memory. It takes head_dim 8 and raises otherwise.
+Bound on the H100: the exponentials. At head_dim 8 the products are small
+(4 * T^2 * H * 8 FLOPs) and the bytes smaller (4 * T * H * 8 elements of
+input and output), but every logit needs one exp2: T^2 * H of them at 16 per
+clock per SM. Depth 8 is within the tensor cores' reach (`mma.sync`
+m16n8k8 takes bf16; only WMMA and wgmma need depth 16). In bf16 a warp owns
+16 query rows of one head: QK^T on m16n8k8, an online softmax per chunk of
+`KEY_CHUNK` keys, P rounded to bf16 in registers, PV on m16n8k16, with the
+key and value chunks of a block's heads staged through a double-buffered
+`cp.async` ring. fp32 runs the exact scalar core it shares with the fused
+transformer block (`csrc/common.cuh`). Either way the (T, T) logits never
+reach device memory. It takes head_dim 8 and raises otherwise.
 
 On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA tensor
 it launches the kernel or raises. The backward is a plain fp32 recompute
@@ -18,6 +22,7 @@ through autograd, as the JAX package's default `_flash_bwd`; guided DPS
 sampling never calls it, because the UNet runs under no-grad.
 """
 
+import functools
 import math
 
 import torch
@@ -28,6 +33,7 @@ from .device import use_plain
 LAUNCHES = {"flash_attention": 0}
 
 _LOG2E = 1.4426950408889634
+KEY_CHUNK = 64      # keys per online-softmax step of the bf16 kernel (csrc, tc::KC)
 
 
 def attention_plain(q, k, v, bias=None):
@@ -38,6 +44,12 @@ def attention_plain(q, k, v, bias=None):
     if bias is not None:
         s = s + bias.float()
     return torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v.float()).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _check_smem(code: int, heads: int) -> None:
+    from . import build
+    build.check_smem("flash_attention", build.library().dm_flash_attention_smem(code, heads))
 
 
 def _launch(q, k, v):
@@ -52,7 +64,7 @@ def _launch(q, k, v):
     build.check_tensors("flash_attention", q, k, v)
     lib = build.library()
     code = build.dtype_code(q.dtype)
-    build.check_smem("flash_attention", lib.dm_flash_attention_smem(code, heads))
+    _check_smem(code, heads)
     out = torch.empty_like(q)
     rc = lib.dm_flash_attention(code, q.data_ptr(), k.data_ptr(),
                                 v.data_ptr(), out.data_ptr(), bsz, t, heads,
@@ -81,4 +93,7 @@ class _Flash(torch.autograd.Function):
 
 def flash_attention(q, k, v):
     """Unmasked self-attention over (B, T, H, D) tensors."""
+    if q.device.type == "cuda" and not (torch.is_grad_enabled() and any(
+            a.requires_grad for a in (q, k, v))):
+        return _launch(q, k, v)      # no graph to record: skip autograd's bookkeeping
     return _Flash.apply(q, k, v)

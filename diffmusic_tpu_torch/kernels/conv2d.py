@@ -4,9 +4,22 @@ Replaces `diffmusic_tpu/pallas/conv2d_kernel.py::conv2d_same_fused` with the
 CUDA kernel of `csrc/conv2d.cu`, forward only.
 
 Bound on the H100: tensor-core work (a 3x3 conv at (250, 16) with 512
-channels is 19 GFLOP, at (500, 32) 75). The kernel is an implicit GEMM over
-the port's NCHW tensors as they are: no layout copy, and the zero padding at
-the image edges comes from predicated loads, not a padded copy.
+channels is 19 GFLOP, at (500, 32) 75). In bf16 the kernel is an implicit
+GEMM on wgmma whose operands arrive by TMA into a 3-stage shared-memory
+ring: per (64-channel slice, tap), a box of the weights' tap-major copy and
+a box of the input's NHWC copy at the tap's own offset, whose out-of-image
+part TMA fills with zeros (the 'same' padding, with no padded copy). A block
+owns `BLOCK_M` output channels x `BLOCK_N` pixels, `tile_rows(W)` whole
+image rows of `tile_width(W)` columns. Channels are innermost because a TMA
+box must start 16-byte aligned in the innermost dimension: the tap's +-1
+column shift of an NCHW row is a 2-byte start, which the card refuses. fp32
+takes the exact scalar path with predicated loads on NCHW x.
+
+Per call, a transpose kernel that the same C call launches first writes the
+NHWC copy (one read and one write of x) into scratch the wrapper allocates.
+The tap-major copy (kh*kw, Cout, Cin) of a weight is made once per weight
+tensor and kept until the tensor changes (`REPACKS` counts the copies made);
+the module's parameters stay those of `nn.Conv2d`.
 
 x (B, Cin, H, W), w (Cout, Cin, kh, kw) as `nn.Conv2d` keeps it, stride 1,
 padding (kh // 2, kw // 2), odd kh and kw. On a CPU tensor the wrapper runs
@@ -16,6 +29,9 @@ conv with the flipped, channel-swapped kernel run in the weight dtype
 (`_conv2d_bwd`, the JAX default `DIFFMUSIC_TPU_CONV2D_BWD=xla`).
 """
 
+import functools
+import weakref
+
 import torch
 import torch.nn.functional as F
 
@@ -23,8 +39,15 @@ from .device import use_plain
 
 # launches of the kernel since the last reset (see kernels.launch_counts)
 LAUNCHES = {"conv2d_same": 0}
+# tap-major weight copies made since the last reset (not launches)
+REPACKS = {"conv2d_same": 0}
 
 ROW_BLOCK = 512   # `conv2d_kernel.ROW_BLOCK`, which the routing rule reads
+
+# the tensor-core kernel's tile (csrc/conv2d.cu, namespace tc)
+BLOCK_M = 128     # output channels per block
+BLOCK_N = 128     # output pixels per block
+BLOCK_K = 64      # input channels per step
 
 
 def conv2d_ok(x, w) -> bool:
@@ -38,9 +61,60 @@ def conv2d_ok(x, w) -> bool:
             and ROW_BLOCK % wd == 0 and h * wd >= ROW_BLOCK)
 
 
+def tile_width(w: int) -> int:
+    """Columns of a pixel tile: W rounded up to a power of two, at most
+    `BLOCK_N` (wider images take several column tiles)."""
+    wp = 1
+    while wp < w and wp < BLOCK_N:
+        wp *= 2
+    return wp
+
+
+def tile_rows(w: int) -> int:
+    """Image rows of a pixel tile."""
+    return BLOCK_N // tile_width(w)
+
+
+def tap_major(w):
+    """(Cout, Cin, kh, kw) -> (kh*kw, Cout, Cin): each tap's (Cout, Cin)
+    matrix contiguous, input channels innermost (K-major for wgmma)."""
+    cout, cin, kh, kw = w.shape
+    return w.detach().permute(2, 3, 0, 1).reshape(kh * kw, cout, cin).contiguous()
+
+
+# data_ptr, shape, stride, dtype, device -> (weakref to the tensor, _version,
+# tap-major copy). The weakref keeps the entry honest: while the tensor lives,
+# no other tensor can hold its address; views and the detached copies a
+# state_dict hands out share its storage and version counter, so modules
+# rebuilt on the same weights hit the same entry.
+_TAPS = {}
+
+
+def cached_tap_major(w):
+    """`tap_major(w)`, made once per weight tensor and remade when the tensor
+    is written in place (its `_version` moves) or has died."""
+    key = (w.data_ptr(), tuple(w.shape), w.stride(), w.dtype, w.device)
+    hit = _TAPS.get(key)
+    if hit is not None and hit[0]() is not None and hit[1] == w._version:
+        return hit[2]
+    with torch.no_grad():
+        taps = tap_major(w)
+    for k in [k for k, (ref, _, _) in _TAPS.items() if ref() is None]:
+        del _TAPS[k]
+    _TAPS[key] = (weakref.ref(w), w._version, taps)
+    REPACKS["conv2d_same"] += 1
+    return taps
+
+
 def conv2d_plain(x, w, b):
     """conv2d(x, w, 'same', stride 1) + b."""
     return F.conv2d(x, w, b, padding=(w.shape[2] // 2, w.shape[3] // 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _check_smem(code: int) -> None:
+    from . import build
+    build.check_smem("conv2d_same", build.library().dm_conv2d_same_smem(code))
 
 
 def _launch(x, w, b):
@@ -58,10 +132,19 @@ def _launch(x, w, b):
         raise ValueError("conv2d_same: Cin must be a multiple of 32, Cout of 64")
     lib = build.library()
     code = build.dtype_code(x.dtype)
-    build.check_smem("conv2d_same", lib.dm_conv2d_same_smem(code))
+    _check_smem(code)
+    # bf16: scratch for the NHWC copy (the C entry point's transpose kernel
+    # writes it) and the cached tap-major weights; fp32 reads x and w
+    xh, taps = (None, None)
+    if code == 1:
+        xh = torch.empty((bsz, h, wd, cin), dtype=x.dtype, device=x.device)
+        taps = cached_tap_major(w)
     y = torch.empty((bsz, cout, h, wd), dtype=x.dtype, device=x.device)
-    rc = lib.dm_conv2d_same(code, x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                            bsz, cin, cout, h, wd, kh, kw, build.stream_ptr(x.device))
+    rc = lib.dm_conv2d_same(code, x.data_ptr(), w.data_ptr(),
+                            None if xh is None else xh.data_ptr(),
+                            None if taps is None else taps.data_ptr(), b.data_ptr(),
+                            y.data_ptr(), bsz, cin, cout, h, wd, kh, kw,
+                            build.stream_ptr(x.device))
     build.check(rc, "conv2d_same")
     LAUNCHES["conv2d_same"] += 1
     return y
@@ -86,4 +169,6 @@ class _Conv2dSame(torch.autograd.Function):
 
 def conv2d_same(x, w, b):
     """y = conv2d(x, w, 'same', stride 1) + b on NCHW, odd kh and kw."""
+    if x.device.type == "cuda" and not (torch.is_grad_enabled() and x.requires_grad):
+        return _launch(x, w, b)      # no graph to record: skip autograd's bookkeeping
     return _Conv2dSame.apply(x, w, b)

@@ -10,13 +10,17 @@
 //   - fp32 operands run as scalar FMAs, so the fp32 path is exact fp32 (no
 //     TF32) and serves the tight-tolerance checks.
 // The accumulator tile is read from / written to fp32 shared memory, where the
-// kernels apply their epilogues. wgmma, TMA and persistent scheduling are not
-// used yet.
+// kernels apply their epilogues. The bf16 conv2d (conv2d.cu: TMA and wgmma)
+// and flash attention (flash_attention.cu: mma.sync) kernels keep their own
+// tensor-core paths.
 //
-// `HeadAttention` is the attention core at head_dim 8 that the flash kernel and
-// the transformer block share: an online softmax over key chunks staged in
-// shared memory, with QK^T and PV as scalar fp32 FMAs (8 is below the bf16 MMA
-// depth of 16, so an MMA would multiply zeros half the time).
+// `HeadAttention` is the attention core at head_dim 8 that the transformer
+// block (and the fp32 flash kernel) use: an online softmax over key chunks
+// staged in shared memory, with QK^T and PV as scalar fp32 FMAs, one thread
+// per (row, head) pair. Depth 8 is not what keeps it off the tensor cores:
+// mma.sync has m16n8k8 for bf16 (only WMMA and wgmma need depth 16), which
+// the bf16 flash kernel uses; this core is the exact fp32 path and the
+// block kernels' attention, still to be redesigned.
 #pragma once
 
 #include <math_constants.h>

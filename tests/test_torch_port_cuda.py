@@ -157,8 +157,11 @@ def test_dual_cross_block_kernel_on_card(cuda, gen, dtype, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("t,heads", [(700, 16), (333, 4), (1000, 32)])
+@pytest.mark.parametrize("t,heads", [(700, 16), (333, 4), (1000, 32), (4000, 16), (1001, 8)])
 def test_flash_attention_kernel_on_card(cuda, gen, dtype, tol, t, heads):
+    """bf16 runs the tensor-core kernel (64-key chunks: 333, 1001 and 700 end
+    in a ragged chunk; 4 heads leave half a block's warps idle), fp32 the
+    scalar core."""
     q, k, v = (arr(gen, 2, t, heads, 8, dtype=dtype) for _ in range(3))
     kernels.reset_launch_counts()
     out = tattn.flash_attention(q, k, v)
@@ -278,21 +281,38 @@ def test_group_norm_kernels_on_card(cuda, gen, dtype, tol):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_conv2d_kernel_on_card(cuda, gen, dtype, tol):
     """The 'same' conv2d forward kernel and its plain adjoint backward
-    against F.conv2d's, at ragged pixel tiles, a (1, 3) kernel and a
-    channel-raising slice geometry (W 16)."""
+    against F.conv2d's, at ragged pixel tiles, a (1, 3) kernel, a
+    channel-raising geometry (W 16) and one slice geometry of each tile
+    width (W 8, 16, 32, 64; W 20 and 12 take tiles wider than the image and
+    Cout 64 half a channel tile; bf16 runs the tensor-core kernel, fp32 the
+    scalar path); then a repeated call on a weight whose tap-major copy is
+    cached, and one after the weight is written in place."""
     kernels.reset_launch_counts()
-    for xs, ws in (((2, 128, 9, 20), (128, 128, 3, 3)), ((1, 64, 10, 12), (64, 64, 1, 3)),
-                   ((1, 128, 32, 16), (256, 128, 3, 3))):
+    tconv2d.REPACKS["conv2d_same"] = 0
+    geoms = (((2, 128, 9, 20), (128, 128, 3, 3)), ((1, 64, 10, 12), (64, 64, 1, 3)),
+             ((1, 128, 32, 16), (256, 128, 3, 3)), ((1, 128, 125, 8), (256, 128, 3, 3)),
+             ((1, 512, 250, 16), (512, 512, 3, 3)), ((1, 256, 500, 32), (256, 256, 3, 3)),
+             ((1, 128, 1000, 64), (128, 128, 3, 3)))
+    for xs, ws in geoms:
         x = arr(gen, *xs, dtype=dtype)
         w = arr(gen, *ws, scale=1.0 / math.sqrt(ws[1] * ws[2] * ws[3]), dtype=dtype)
         b = arr(gen, ws[0], scale=0.1, dtype=dtype)
         g = arr(gen, xs[0], ws[0], xs[2], xs[3], dtype=dtype)
         y, dx = grads(lambda xx: tconv2d.conv2d_same(xx, w, b), x, g)
         y0, dx0 = grads(lambda xx: tconv2d.conv2d_plain(xx, w, b), x, g)
-        assert rel(y, y0) <= tol
-        assert rel(dx, dx0) <= tol
+        assert rel(y, y0) <= tol, (xs, ws)
+        assert rel(dx, dx0) <= tol, (xs, ws)
+    repacks = len(geoms) if dtype == torch.bfloat16 else 0    # one per bf16 weight
+    assert tconv2d.REPACKS["conv2d_same"] == repacks
+    with torch.no_grad():
+        assert torch.equal(tconv2d.conv2d_same(x, w, b), y)        # the cached copy
+        assert tconv2d.REPACKS["conv2d_same"] == repacks
+        w.mul_(-1.0)                                               # _version moves
+        assert rel(tconv2d.conv2d_same(x, w, b), -(y0 - b[:, None, None])
+                   + b[:, None, None]) <= tol
+    assert tconv2d.REPACKS["conv2d_same"] == repacks + (dtype == torch.bfloat16)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["conv2d_same"] == 3
+    assert kernels.launch_counts()["conv2d_same"] == len(geoms) + 2
 
 
 @pytest.mark.cuda

@@ -20,7 +20,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      outside the signal; median times of the kernel, its plain version and
      the one PyTorch call that computes the same function where there is
      one, from CUDA events, beside the bound the shapes give (bytes over
-     device memory rate, operations over peak rate);
+     device memory rate, operations over peak rate); for the upsampler and
+     the masks also each call's device time (torch.profiler) and host time,
+     the masks with g in both layouts, and the layout of the adjoint conv's
+     output that the mask route hands them;
   4. reference: small fp32 MusicLDM and AudioLDM2 models (the latter from a
      text prompt, under classifier-free guidance, on both UNet routes), a
      small fp32 MusicLDM with the guided step's routes on (`gn_mode`
@@ -54,7 +57,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      wall seconds and their split, peak memory; then 4 of the pairs on the
      card and on the CPU, whose scores and cached embeddings must agree.
 Then the card's nvidia-smi name and power limit, a JSON line with one entry
-per kernel, and last {"ok": true, "device": {...}}. No JAX is imported.
+per kernel (the masks' entries time g as h, and give the route's form, g
+transposed, under "g_transposed"), and last {"ok": true, "device": {...}}.
+No JAX is imported.
 """
 
 import argparse
@@ -177,6 +182,8 @@ MASKS_PER_STEP = {"leaky_mask": 30, "leaky_mask_add": 24}
 ROUTE_KERNELS = ("fused_group_norm", "channel_moments", "conv2d_same", "leaky_mask",
                  "leaky_mask_add")
 LATENTS = (1, 8, 250, 16)   # the 10-s slice's latents
+# (Cin, Cout, k, stride, t_in) of the 10-s slice's upsamplers 0-2
+UPSAMPLERS = ((1024, 512, 16, 5, 1000), (512, 256, 16, 4, 5001), (256, 128, 8, 2, 20004))
 # The eval phase: EVAL_PAIRS pairs of 10-s clips through the port's eval
 # with --embedding mfcc-stack vggish --fad_inf --individual.
 EVAL_PAIRS = 64
@@ -218,6 +225,50 @@ def time_ms(fn, reps: int = 5, inner: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def split_ms(fns: dict, n: int = 20, reps: int = 7) -> dict:
+    """name -> (device ms, host ms) per call of each fn(): the device time is
+    the self CUDA time of every kernel it launches, from torch.profiler over
+    n calls; the host time the median over `reps` windows of n calls issued
+    back to back after a synchronize (the card's queue does not fill, so the
+    host never waits for it), the functions taking turns window by window so
+    that the host's drift falls on each alike."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    host = {name: [] for name in fns}
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    for _ in range(reps):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            host[name].append((time.perf_counter() - t0) / n)
+    out = {}
+    for name, fn in fns.items():
+        dev_us = 0.0
+        for _ in range(3):   # now and then a trace holds no device events: trace again
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+            if dev_us > 0:
+                break
+        # nan: not measured (no trace of the three held a device event)
+        out[name] = (dev_us / 1e3 / n if dev_us > 0 else float("nan"),
+                     1e3 * statistics.median(host[name]))
+    return out
+
+
+def describe_split(split: dict) -> str:
+    return "; ".join(f"{name} device {d:.4f} host {h:.4f} ms/call"
+                     for name, (d, h) in split.items())
 
 
 def randn(shape, gen, device, dtype, scale=1.0, shift=0.0):
@@ -363,8 +414,15 @@ def check_upsampler(cin, cout, k, s, t_in, dtype, gen, tol):
     size = x.element_size()
     res = result(fwd[0], times, bound(size * (t_in * cin + t_out * cout + k * cin * cout + cout),
                                       2 * t_in * k * cin * cout))
+    split = ""
+    if dtype == torch.bfloat16:
+        xl = F.leaky_relu(x, SLOPE)
+        with torch.no_grad():
+            split = "; " + describe_split(split_ms({
+                "kernel": lambda: U.phase_convtranspose(xl, w, b, s, k, t_out),
+                "library": lambda: library(xl)}))
     log(f"  phase_convtranspose      {t_in}->{t_out} {cin}->{cout} k{k} s{s} "
-        f"{str(dtype)[6:]}: {describe(fwd, bwd, tol)}; {describe_times(res)}")
+        f"{str(dtype)[6:]}: {describe(fwd, bwd, tol)}; {describe_times(res)}{split}")
     if fwd[1] > tol or bwd[2] > tol:
         raise AssertionError("phase_convtranspose disagrees with its plain version")
     return res
@@ -626,33 +684,79 @@ def check_conv2d(xshape, wshape, dtype, gen, tol):
 
 
 def check_mask(name, shape, dtype, gen, tol):
-    """leaky_mask or leaky_mask_add against the plain version; times beside
-    aten.leaky_relu_backward for leaky_mask (it differs only where h == 0);
-    leaky_mask_add has no one-call counterpart."""
+    """leaky_mask or leaky_mask_add against the plain version, with g in each
+    layout the kernel takes: as h, and (where C % 8 == 0) as the mask route
+    passes it, the transposed view of a contiguous (B, C, T) tensor, which
+    is how the adjoint conv leaves it. Times beside aten.leaky_relu_backward
+    on the same g (it differs only where h == 0), and for the transposed g
+    also beside the copy to (B, T, C) plus that call; leaky_mask_add has no
+    one-call counterpart. Returns the result of each form, by form."""
     from diffmusic_tpu_torch.kernels import mask as M
     dev = "cuda"
+    b, t, c = shape
     h, g, r = (randn(shape, gen, dev, dtype) for _ in range(3))
+    forms = {"g as h": (g, M.G_AS_H)}
+    if c % 8 == 0:
+        forms["g transposed"] = (randn((b, c, t), gen, dev, dtype).transpose(1, 2),
+                                 M.G_TRANSPOSED)
     add = name == "leaky_mask_add"
-    if add:
-        kern = lambda hh: M.leaky_mask_add(hh, g, r, SLOPE)
-        plain = lambda hh: M.leaky_mask_plain(hh, g, SLOPE, r)
-        library = None
-    else:
-        kern = lambda hh: M.leaky_mask(hh, g, SLOPE)
-        plain = lambda hh: M.leaky_mask_plain(hh, g, SLOPE)
-        library = lambda hh: torch.ops.aten.leaky_relu_backward(g, hh, SLOPE, False)
-    with torch.no_grad():
-        out, ref = kern(h), plain(h)
-        torch.cuda.synchronize()
-        err = rel_err(out, ref)
     n = h.numel()
-    res = result(err[0], timings(kern, plain, h, dtype, library),
-                 bound(h.element_size() * (3 + add) * n, (2 + add) * n, FP32_FLOPS))
-    log(f"  {name:24s} {shape} {str(dtype)[6:]}: max|err| {err[0]:.3e} rel {err[1]:.2e} "
-        f"(tol {tol:.0e}); {describe_times(res)}")
-    if err[1] > tol:
-        raise AssertionError(f"{name} disagrees with its plain version")
+    bnd = bound(h.element_size() * (3 + add) * n, (2 + add) * n, FP32_FLOPS)
+    res = {}
+    for form, (gg, want) in forms.items():
+        layout = M.launch_plan(name, (h.shape, gg.shape), (h.stride(), gg.stride()),
+                               (h.dtype, gg.dtype), (h.device, gg.device))[1]
+        if layout != want:
+            raise AssertionError(f"{name}: {form} took g layout {layout}, not {want}")
+        if add:
+            kern = lambda hh, gg=gg: M.leaky_mask_add(hh, gg, r, SLOPE)
+            plain = lambda hh, gg=gg: M.leaky_mask_plain(hh, gg, SLOPE, r)
+            library = None
+        else:
+            kern = lambda hh, gg=gg: M.leaky_mask(hh, gg, SLOPE)
+            plain = lambda hh, gg=gg: M.leaky_mask_plain(hh, gg, SLOPE)
+            library = lambda hh, gg=gg: torch.ops.aten.leaky_relu_backward(gg, hh, SLOPE, False)
+        with torch.no_grad():
+            out, ref = kern(h), plain(h)
+            torch.cuda.synchronize()
+            err = rel_err(out, ref)
+        res[form] = result(err[0], timings(kern, plain, h, dtype, library), bnd)
+        split = ""
+        if dtype == torch.bfloat16:
+            fns = {"kernel": lambda: kern(h)}
+            if library is not None:
+                fns["library"] = lambda: library(h)
+                if form == "g transposed":
+                    fns["copy + library"] = lambda: torch.ops.aten.leaky_relu_backward(
+                        gg.contiguous(), h, SLOPE, False)
+            with torch.no_grad():
+                split = "; " + describe_split(split_ms(fns))
+        log(f"  {name:24s} {shape} {form:12s} {str(dtype)[6:]}: max|err| {err[0]:.3e} rel "
+            f"{err[1]:.2e} (tol {tol:.0e}); {describe_times(res[form])}{split}")
+        if err[1] > tol:
+            raise AssertionError(f"{name} with {form} disagrees with its plain version")
     return res
+
+
+def adjoint_layout(shape, gen) -> None:
+    """How the mask route's adjoint conv (bf16, k 3) leaves its output on the
+    card: the strides of the (B, T, C) view the masks get and the g layout
+    the mask kernel takes for it, and the device and host time of the copy
+    to contiguous (B, T, C) that a mask reading g only as h would need first
+    (none where the view is contiguous already)."""
+    from diffmusic_tpu_torch.kernels import conv1d as K
+    from diffmusic_tpu_torch.kernels import mask as M
+    c = shape[-1]
+    g = randn(shape, gen, "cuda", torch.bfloat16)
+    w = randn((3, c, c), gen, "cuda", torch.bfloat16, 1.0 / math.sqrt(3 * c))
+    with torch.no_grad():
+        v = K._adjoint(g, w, 1, copy=False)
+        copy = split_ms({"copy": lambda: v.contiguous()})["copy"]
+    layout = M.launch_plan("leaky_mask", (g.shape, v.shape), (g.stride(), v.stride()),
+                           (g.dtype, v.dtype), (g.device, v.device))[1]
+    log(f"  adjoint conv output {shape}: strides {v.stride()}, contiguous "
+        f"{v.is_contiguous()}, mask g layout {layout}; the copy it no longer needs: device "
+        f"{copy[0]:.4f} host {copy[1]:.4f} ms/call")
 
 
 # -------------------------------------------------- the vocoder's canvas routes
@@ -871,11 +975,16 @@ def phase_kernels(gen) -> dict:
     stats = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
                  "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0} for n in REPLACES}
 
-    def add(name, res, per_step=1):
+    def add(name, res, per_step=1, form=None):
+        """Sum res into the kernel's line; a second form of its operands
+        (`form`) sums its times into an entry of its own."""
         s = stats[name]
         s["max_abs_err"] = max(s["max_abs_err"], res["err"])
         if math.isnan(res["ms"]):
             return
+        if form is not None:
+            s = s.setdefault(form, {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+                                    "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0})
         s["ms"] += per_step * res["ms"]
         s["plain_ms"] += per_step * res["plain_ms"]
         if res["library_ms"] is not None:
@@ -899,8 +1008,7 @@ def phase_kernels(gen) -> dict:
         f"vs SDPA {stats['flash_attention']['library_ms']:.3f}; exp2 floor {floor:.4f} ms")
     for name, shape, k, d, res in conv_cases(bf):
         add(name, check_conv(name, shape, k, d, res, bf, gen, TOL_CONV_BF16))
-    for cin, cout, k, s, t_in in ((1024, 512, 16, 5, 1000), (512, 256, 16, 4, 5001),
-                                  (256, 128, 8, 2, 20004)):
+    for cin, cout, k, s, t_in in UPSAMPLERS:
         add("phase_convtranspose", check_upsampler(cin, cout, k, s, t_in, bf, gen,
                                                    TOL_CONV_BF16))
     calls = route_calls()
@@ -911,9 +1019,23 @@ def phase_kernels(gen) -> dict:
             add(name, check_group_norm(name, shape, eps, silu, bf, gen, TOL_ROUTE_BF16), n)
     for (xs, ws), n in sorted(calls["conv2d_same"].items()):
         add("conv2d_same", check_conv2d(xs, ws, bf, gen, TOL_ROUTE_BF16), n)
+    # the masks' line times g as h, the operands it has always timed; the
+    # route's form, g as the adjoint's transposed view, is summed under
+    # "g_transposed"
     for name in ("leaky_mask", "leaky_mask_add"):
         for shape, n in sorted(calls[name].items()):
-            add(name, check_mask(name, shape, bf, gen, TOL_ROUTE_BF16), n)
+            forms = check_mask(name, shape, bf, gen, TOL_ROUTE_BF16)
+            add(name, forms["g as h"], n)
+            add(name, forms["g transposed"], n, form="g_transposed")
+        parts = []
+        for form, s in (("g as h", stats[name]),
+                        ("g transposed (the route's)", stats[name]["g_transposed"])):
+            lib = "" if s["library_ms"] is None else f" vs {s['library_ms']:.3f}"
+            parts.append(f"{form} {s['ms']:.3f} ms{lib}")
+        log(f"  {name} per guided step ({sum(calls[name].values())} calls; library "
+            f"leaky_relu_backward on the same g): {'; '.join(parts)}")
+    for shape in sorted(calls["leaky_mask"]):
+        adjoint_layout(shape, gen)
 
     log("the vocoder's canvas routes and the bounded softmax, bf16 (the line sums each "
         "kernel over one guided step of its route: canvas=\"kernel\", \"xbwd\", stage_bwd, "
@@ -955,7 +1077,8 @@ def phase_kernels(gen) -> dict:
     for xs, ws in (((2, 128, 9, 20), (128, 128, 3, 3)), ((1, 64, 10, 12), (64, 64, 1, 3))):
         add("conv2d_same", check_conv2d(xs, ws, f32, gen, TOL_FP32))
     for name, shape in (("leaky_mask", (1, 1001, 100)), ("leaky_mask_add", (2, 999, 128))):
-        add(name, check_mask(name, shape, f32, gen, TOL_FP32))
+        for res in check_mask(name, shape, f32, gen, TOL_FP32).values():
+            add(name, res)
     for k, d, residual in ((11, 5, False), (3, 1, True)):
         for res in check_canvas_conv(1100, 128, k, d, residual, f32, gen, TOL_FP32):
             add("conv1d_fused_canvas", res)
@@ -1259,27 +1382,29 @@ def phase_reference_audioldm2():
             raise AssertionError(f"fuse_cross {fuse_cross} launched the other route")
 
 
-def drive(label: str, pipe, meas, want: dict, repacks: int = 0, **call_kw) -> tuple:
+def drive(label: str, pipe, meas, want: dict, repacks=None, **call_kw) -> tuple:
     """One 10-s slice run through the pipeline's __call__: STEPS DPS steps,
     eta 0, rate 2.0, seeded latents (1, 8, 250, 16); the launch counts are set
-    to 0 just before and read just after, and must equal `want`. The conv2d
-    kernel's tap-major weight copies are counted per step: `repacks` in the
-    first (the route's weights not yet seen), none after. Returns (launch
-    counts, the restored audio (1, 160000))."""
+    to 0 just before and read just after, and must equal `want`. The
+    kernels' tap-major weight copies (conv2d, upsampler) are counted per
+    step: `repacks[kernel]` in the first (the route's weights not yet seen),
+    none after. Returns (launch counts, the restored audio (1, 160000))."""
     from diffmusic_tpu_torch import kernels
-    from diffmusic_tpu_torch.kernels import conv2d as C2
+    from diffmusic_tpu_torch.kernels import repack
     lat = torch.randn(LATENTS, generator=torch.Generator().manual_seed(0))
     stamps, made = [], []
+    repacks = {**dict.fromkeys(repack.REPACKS, 0), **(repacks or {})}
 
     def on_step(i, t, x):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
-        made.append(C2.REPACKS["conv2d_same"])
+        made.append(dict(repack.REPACKS))
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    C2.REPACKS["conv2d_same"] = 0
+    for name in repack.REPACKS:
+        repack.REPACKS[name] = 0
     start = time.perf_counter()
     out, losses = pipe(audio_length_in_s=10.0, num_inference_steps=STEPS, eta=0.0,
                        measurement=meas, ip_guidance_rate=2.0, latents=lat,
@@ -1301,14 +1426,11 @@ def drive(label: str, pipe, meas, want: dict, repacks: int = 0, **call_kw) -> tu
     if audio.shape != (1, 160000):
         raise AssertionError(f"audio shape {audio.shape}, expected (1, 160000)")
     check_launches(label, counts, want)
-    per_step = [b - a for a, b in zip([0] + made[:-1], made)]
-    if want["conv2d_same"]:
-        log(f"{label}: conv2d tap-major weight copies in step 1: {per_step[0]}, in steps "
-            f"2-{STEPS}: {sum(per_step[1:])}")
-    if per_step[0] != repacks or sum(per_step[1:]) or C2.REPACKS["conv2d_same"] != repacks:
-        raise AssertionError(f"{label}: conv2d weight copies per step {per_step} and "
-                             f"{C2.REPACKS['conv2d_same']} in all, expected {repacks} in the "
-                             f"first step and none after")
+    later = {n: repack.REPACKS[n] - made[0][n] for n in repacks}
+    log(f"{label}: tap-major weight copies in step 1: {made[0]}, after it: {later}")
+    if made[0] != repacks or any(later.values()):
+        raise AssertionError(f"{label}: tap-major weight copies {made[0]} in the first step "
+                             f"and {later} after it, expected {repacks} and none")
     return counts, audio
 
 
@@ -1342,14 +1464,17 @@ def phase_slice(profile_dir=None) -> tuple:
     pipes = {name: with_routes(pipe, **flags) if flags else pipe
              for name, flags in TURN_ROUTES.items()}
     counts, audio = {}, {}
-    # the conv2d routes share the weight tensors, so only the first of their
-    # turns copies the 46 conv2d weights to the kernel's tap-major layout
+    # the routes share the weight tensors, so only the first of the conv2d
+    # routes' turns copies the 46 conv2d weights to the kernel's tap-major
+    # layout, and only the first turn the 3 upsamplers' weights
+    upsampler_weights = VOCODER_PER_STEP["phase_convtranspose"]
     conv2d_weights = sum(ROUTE_LAUNCHES[m]["stats"]["conv2d_same"] for m in ROUTE_LAUNCHES)
     first_conv2d = next(i for i, n in enumerate(TURNS) if TURN_ROUTES[n].get("conv2d_kernel"))
     for turn, name in enumerate(TURNS):
         label = "slice" if name == "default" else f"slice route {name}"
         c, a = drive(f"{label} (turn {turn + 1})", pipes[name], meas, turn_launches(name),
-                     repacks=conv2d_weights if turn == first_conv2d else 0,
+                     repacks={"conv2d_same": conv2d_weights if turn == first_conv2d else 0,
+                              "phase_convtranspose": upsampler_weights if turn == 0 else 0},
                      prompt_embeds=torch.zeros(2, 512))
         counts.setdefault(name, c)
         audio.setdefault(name, a)
@@ -1384,8 +1509,12 @@ def phase_audioldm2(profile_dir=None) -> dict:
     log(f"audioldm2: text stack (CLAP, T5, projection, 8 GPT-2 steps; prompt and negative "
         f"prompt '') {secs[0]:.3f} s first, {secs[1]:.3f} s again; streams "
         f"{[tuple(a.shape) for a in embeds]}")
+    # the first run copies its own vocoder's 3 upsampler weights; the other
+    # two share them
     counts = {False: drive("audioldm2 fuse_cross=False", pipe, meas,
-                           expected_launches("flash_attention"), prompt="")[0]}
+                           expected_launches("flash_attention"),
+                           {"phase_convtranspose": VOCODER_PER_STEP["phase_convtranspose"]},
+                           prompt="")[0]}
     with pipe.device:
         fused = UNet2DConditionModel(unet_cfg, fuse_cross=True)
     fused.to(torch.bfloat16).load_state_dict(pipe.unet.state_dict())
@@ -1702,7 +1831,10 @@ def main() -> int:
         lib = build.library()
         for name, dyn in (("conv2d_wgmma_kernel", lib.dm_conv2d_same_smem(1)),
                           ("nchw_to_nhwc_kernel", None),
-                          ("flash_mma_kernel", lib.dm_flash_attention_smem(1, 16))):
+                          ("flash_mma_kernel", lib.dm_flash_attention_smem(1, 16)),
+                          ("phase_ct_wgmma_kernel", lib.dm_phase_convtranspose_smem(1, -2, 1)),
+                          ("leaky_mask_gt_kernelI13__nv_bfloat16", None),
+                          ("leaky_mask_kernelI13__nv_bfloat16", None)):
             extra = "" if dyn is None else f"; {dyn} bytes of dynamic shared memory"
             log(f"  ptxas {name}: {ptxas_summary(text, name)}{extra}")
         if args.out is not None:
@@ -1746,6 +1878,9 @@ def main() -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "operations" if s["ops_ms"] > s["bytes_ms"] else "bytes",
             "library_ms": s["library_ms"]})
+        if "g_transposed" in s:
+            kernels_line[-1]["g_transposed"] = {
+                k: s["g_transposed"][k] for k in ("ms", "plain_ms", "library_ms")}
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

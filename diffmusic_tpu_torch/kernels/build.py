@@ -37,7 +37,8 @@ SIGNATURES = {
     "dm_conv1d_pair": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
     "dm_conv1d_fused_smem": ([_I, _I, _I], _S),
     "dm_conv1d_pair_smem": ([_I, _I, _I, _I], _S),
-    "dm_phase_convtranspose": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    "dm_phase_convtranspose": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                               _I),
     "dm_phase_convtranspose_smem": ([_I, _I, _I], _S),
     "dm_transformer_block": ([_I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P], _I),
     "dm_transformer_block_smem": ([_I, _I], _S),
@@ -48,7 +49,7 @@ SIGNATURES = {
     "dm_channel_moments": ([_I, _P, _P, _I, _I, _I, _P], _I),
     "dm_conv2d_same": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "dm_conv2d_same_smem": ([_I], _S),
-    "dm_leaky_mask": ([_I, _P, _P, _P, _P, _S, _F, _P], _I),
+    "dm_leaky_mask": ([_I, _I, _P, _P, _P, _P, _S, _I, _I, _I, _F, _P], _I),
     "dm_stage_bwd": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P], _I),
     "dm_stage_bwd_smem": ([_I], _S),
     "dm_fused_mel": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
@@ -141,7 +142,10 @@ def dtype_code(dtype) -> int:
 
 
 def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of PyTorch's current stream on a CUDA device, read
+    without building a `torch.cuda.Stream` object at every launch."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check_tensors(name: str, *tensors) -> None:

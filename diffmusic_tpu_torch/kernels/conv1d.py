@@ -22,7 +22,9 @@ Weights are frozen: the backward returns the activation cotangent only, as
 plain adjoint convolutions in the weight dtype followed by the leaky-ReLU
 masks (`_conv1d_bwd` and `_pair_bwd` of the JAX module). With `mask_kernel`
 (the JAX package's `DIFFMUSIC_TPU_MASK=pallas`) the masks of tensors that
-`mask.mask_ok` admits take the mask kernels of `kernels/mask.py`.
+`mask.mask_ok` admits take the mask kernels of `kernels/mask.py`, which read
+each adjoint's output as the conv leaves it (the transposed view of a
+contiguous (B, C, T) tensor), with no copy to (B, T, C) first.
 
 The canvas forms (`kernels/canvas.py`) take and return canvas tensors and
 leave exact zeros outside the signal. Their backwards copy the JAX ones:
@@ -49,15 +51,21 @@ LAUNCHES = {"conv1d_fused": 0, "conv1d_fused_pair": 0, "conv1d_fused_canvas": 0,
 CANVAS_BWD = ("kernel", "plain")
 
 
+def _conv_view(h, w, b, dilation: int):
+    """F.conv1d(h, w, dilation) + b, 'same', of (B, T, Cin) h and (k, Cin,
+    Cout) w: the (B, T, Cout) view of the conv's (B, Cout, T) output."""
+    k = w.shape[0]
+    out = F.conv1d(h.transpose(1, 2), w.permute(2, 1, 0), b,
+                   padding=(k - 1) * dilation // 2, dilation=dilation)
+    return out.transpose(1, 2)
+
+
 def conv1d_plain(x, w, b=None, dilation: int = 1, slope=None, residual=None):
     """conv1d(leaky(x), w, dilation) + b [+ residual], 'same' padding.
 
     x: (B, T, Cin); w: (k, Cin, Cout) -> (B, T, Cout), contiguous."""
-    k = w.shape[0]
     h = F.leaky_relu(x, slope) if slope is not None else x
-    out = F.conv1d(h.transpose(1, 2), w.permute(2, 1, 0), b,
-                   padding=(k - 1) * dilation // 2, dilation=dilation)
-    out = out.transpose(1, 2)
+    out = _conv_view(h, w, b, dilation)
     if residual is not None:
         out = out + residual
     return out.contiguous()
@@ -91,10 +99,13 @@ def pair_ok(k: int, cin: int, cout: int, dtype) -> bool:
     return cin % 128 == 0 and cout % 128 == 0 and weights_mb <= 9.0
 
 
-def _adjoint(g, w, dilation: int):
+def _adjoint(g, w, dilation: int, copy: bool = True):
     """Input cotangent of a 'same' odd-k conv: the same conv with the
-    flipped, transposed kernel, run in the weight dtype."""
-    return conv1d_plain(g.to(w.dtype), w.flip(0).transpose(1, 2), None, dilation)
+    flipped, transposed kernel, run in the weight dtype. `copy=False` returns
+    the conv's (B, T, C) view of its (B, C, T) output as it is, which the
+    mask kernels read without a copy."""
+    out = _conv_view(g.to(w.dtype), w.flip(0).transpose(1, 2), None, dilation)
+    return out.contiguous() if copy else out
 
 
 def _leaky_mask(x, d, slope, use_kernel: bool, r=None):
@@ -198,9 +209,11 @@ class _Conv1dFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        dx = _adjoint(g, w, ctx.dilation)
+        use_kernel = ctx.slope is not None and ctx.mask_kernel and mask_ok(x)
+        # the mask kernel reads the adjoint's output as the conv leaves it
+        dx = _adjoint(g, w, ctx.dilation, copy=not use_kernel)
         if ctx.slope is not None:
-            dx = _leaky_mask(x, dx, ctx.slope, ctx.mask_kernel and mask_ok(x))
+            dx = _leaky_mask(x, dx, ctx.slope, use_kernel)
         dres = g if ctx.has_residual else None
         return dx.to(x.dtype), None, None, dres, None, None, None
 
@@ -221,8 +234,10 @@ class _Conv1dPair(torch.autograd.Function):
         x, h, w1, w2 = ctx.saved_tensors
         # both masks follow x's eligibility, as `_pair_bwd` does
         use_kernel = ctx.mask_kernel and mask_ok(x)
-        dh = _leaky_mask(h, _adjoint(g, w2, 1), ctx.slope, use_kernel)
-        dx = _leaky_mask(x, _adjoint(dh, w1, ctx.dilation), ctx.slope, use_kernel, r=g)
+        # the mask kernels read the adjoints' outputs as the convs leave them
+        copy = not use_kernel
+        dh = _leaky_mask(h, _adjoint(g, w2, 1, copy), ctx.slope, use_kernel)
+        dx = _leaky_mask(x, _adjoint(dh, w1, ctx.dilation, copy), ctx.slope, use_kernel, r=g)
         return dx.to(x.dtype), None, None, None, None, None, None, None
 
 

@@ -18,8 +18,8 @@ takes the exact scalar path with predicated loads on NCHW x.
 Per call, a transpose kernel that the same C call launches first writes the
 NHWC copy (one read and one write of x) into scratch the wrapper allocates.
 The tap-major copy (kh*kw, Cout, Cin) of a weight is made once per weight
-tensor and kept until the tensor changes (`REPACKS` counts the copies made);
-the module's parameters stay those of `nn.Conv2d`.
+tensor and kept until the tensor changes (`repack.cached`; `REPACKS` counts
+the copies made); the module's parameters stay those of `nn.Conv2d`.
 
 x (B, Cin, H, W), w (Cout, Cin, kh, kw) as `nn.Conv2d` keeps it, stride 1,
 padding (kh // 2, kw // 2), odd kh and kw. On a CPU tensor the wrapper runs
@@ -30,17 +30,16 @@ conv with the flipped, channel-swapped kernel run in the weight dtype
 """
 
 import functools
-import weakref
 
 import torch
 import torch.nn.functional as F
 
+from . import repack
 from .device import use_plain
+from .repack import REPACKS  # noqa: F401  (tap-major weight copies, "conv2d_same")
 
 # launches of the kernel since the last reset (see kernels.launch_counts)
 LAUNCHES = {"conv2d_same": 0}
-# tap-major weight copies made since the last reset (not launches)
-REPACKS = {"conv2d_same": 0}
 
 ROW_BLOCK = 512   # `conv2d_kernel.ROW_BLOCK`, which the routing rule reads
 
@@ -82,28 +81,10 @@ def tap_major(w):
     return w.detach().permute(2, 3, 0, 1).reshape(kh * kw, cout, cin).contiguous()
 
 
-# data_ptr, shape, stride, dtype, device -> (weakref to the tensor, _version,
-# tap-major copy). The weakref keeps the entry honest: while the tensor lives,
-# no other tensor can hold its address; views and the detached copies a
-# state_dict hands out share its storage and version counter, so modules
-# rebuilt on the same weights hit the same entry.
-_TAPS = {}
-
-
 def cached_tap_major(w):
     """`tap_major(w)`, made once per weight tensor and remade when the tensor
     is written in place (its `_version` moves) or has died."""
-    key = (w.data_ptr(), tuple(w.shape), w.stride(), w.dtype, w.device)
-    hit = _TAPS.get(key)
-    if hit is not None and hit[0]() is not None and hit[1] == w._version:
-        return hit[2]
-    with torch.no_grad():
-        taps = tap_major(w)
-    for k in [k for k, (ref, _, _) in _TAPS.items() if ref() is None]:
-        del _TAPS[k]
-    _TAPS[key] = (weakref.ref(w), w._version, taps)
-    REPACKS["conv2d_same"] += 1
-    return taps
+    return repack.cached("conv2d_same", w, tap_major)
 
 
 def conv2d_plain(x, w, b):

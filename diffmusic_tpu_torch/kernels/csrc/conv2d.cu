@@ -49,9 +49,8 @@
 // fp32: `conv2d_same_kernel`, the exact scalar path (dm::TileAcc, fp32 FMAs)
 // with per-pixel predicated loads, which serves the 1e-4 checks and the
 // card-against-CPU reference runs (TF32 would break them).
-#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -128,6 +127,8 @@ int run_conv2d(const void* x, const void* w, const void* b, void* y, int B, int 
 // ------------------------------------------------- the bf16 TMA + wgmma path
 namespace tc {
 
+using namespace dm::hopper;
+
 constexpr int BM = 128;                      // output channels per block (2 x 64)
 constexpr int BN = 128;                      // output pixels per block
 constexpr int BK = 64;                       // input channels per step
@@ -143,110 +144,6 @@ constexpr int PART_LD = BN + 4;  // fp32 partial-sum rows of a split-K cluster
 constexpr int MAX_SPLITS = 8;    // the portable cluster size
 static_assert((size_t)BM * PART_LD * 4 <= (size_t)STAGES * STAGE_BYTES, "partials fit the ring");
 constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES + 2 * STAGES * sizeof(uint64_t) + 1024;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Returns once the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile of 128-byte rows (64 bf16 channels),
-// swizzled 128 B as TMA wrote it: 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(16 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-
-// every thread of every block of the cluster; orders shared-memory writes
-// before it against reads after it, across the cluster
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;" ::: "memory");
-}
-
-// this thread's address in the shared memory of block `rank` of the cluster
-__device__ __forceinline__ const float4* cluster_peer(const float4* p, int rank) {
-  uint64_t out;
-  asm volatile("mapa.u64 %0, %1, %2;" : "=l"(out) : "l"(p), "r"(rank));
-  return reinterpret_cast<const float4*>(out);
-}
-
-__device__ __forceinline__ void fence_operands(float* d) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128, fp32) += A (64 x 16) @ B (16 x 128), both K-major in shared memory
-__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 // log2_wp: log2 of the pixel tile's width wp (wp x BN / wp pixels). Two
 // blocks share an SM (99 KB of shared memory each), so one block's epilogue
@@ -467,32 +364,9 @@ nchw_to_nhwc_kernel(const bf16* __restrict__ x, bf16* __restrict__ xh, int C, in
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's tensor-map encoder, fetched through the runtime (no -lcuda).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
 int launch(const void* x, void* x_nhwc, const void* w_taps, const void* b, void* y, int B,
            int Cin, int Cout, int H, int W, int kh, int kw, cudaStream_t s) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   nchw_to_nhwc_kernel<<<dim3((H * W + TT - 1) / TT, (Cin + TT - 1) / TT, B), TT_THREADS, 0, s>>>(
       (const bf16*)x, (bf16*)x_nhwc, Cin, H * W);
   // pixel tile: W rounded up to a power of two (at most BN) columns x R rows
@@ -500,26 +374,20 @@ int launch(const void* x, void* x_nhwc, const void* w_taps, const void* b, void*
   while ((1 << log2_wp) < W && (1 << log2_wp) < BN) ++log2_wp;
   const int wp = 1 << log2_wp, rows = BN / wp;
   alignas(64) CUtensorMap xmap, wmap;
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
   // x in NHWC as (C, W, H, B): a box (BK, wp, rows) lands as 128 K-major
   // pixel rows of 64 channels; the tap's (dw, dh) moves whole 128-B rows
   const cuuint64_t xdim[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t xstride[3] = {(cuuint64_t)Cin * 2, (cuuint64_t)W * Cin * 2,
                                  (cuuint64_t)H * W * Cin * 2};
   const cuuint32_t xbox[4] = {BK, (cuuint32_t)wp, (cuuint32_t)rows, 1};
-  CUresult rc = encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x_nhwc),
-                       xdim, xstride, xbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (rc != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  int rc = encode_bf16(&xmap, x_nhwc, 4, xdim, xstride, xbox);
+  if (rc != 0) return rc;
   // the tap-major weights (kh*kw, Cout, Cin) as (Cin, Cout, taps)
   const cuuint64_t wdim[3] = {(cuuint64_t)Cin, (cuuint64_t)Cout, (cuuint64_t)(kh * kw)};
   const cuuint64_t wstride[2] = {(cuuint64_t)Cin * 2, (cuuint64_t)Cout * Cin * 2};
   const cuuint32_t wbox[3] = {BK, BM, 1};
-  rc = encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w_taps), wdim,
-              wstride, wbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (rc != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  rc = encode_bf16(&wmap, w_taps, 3, wdim, wstride, wbox);
+  if (rc != 0) return rc;
   const int col_tiles = (W + wp - 1) / wp;
   const int blocks = ((H + rows - 1) / rows) * col_tiles * ((Cout + BM - 1) / BM) * B;
   const int steps = (Cin + BK - 1) / BK * kh * kw;

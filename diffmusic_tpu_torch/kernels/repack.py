@@ -1,0 +1,40 @@
+"""Kernel-layout copies of frozen weights, made once per weight tensor.
+
+The bf16 tensor-core kernels read their weights as a tap-major, K-major copy
+(each tap's (Cout, Cin) matrix contiguous, input channels innermost): the
+'same' conv2d (`conv2d.py`) and the upsampler (`upsampler.py`). The modules
+keep their parameters in their own layouts; `cached(name, w, make)` makes
+`make(w)` once per (kernel, weight tensor) and keeps it until the tensor is
+written in place (its `_version` moves) or has died. `REPACKS` counts the
+copies made per kernel (not launches).
+"""
+
+import weakref
+
+import torch
+
+# copies made since the last reset, per kernel
+REPACKS = {"conv2d_same": 0, "phase_convtranspose": 0}
+
+# (kernel, data_ptr, shape, stride, dtype, device) -> (weakref to the tensor,
+# _version, copy). The weakref keeps the entry honest: while the tensor lives,
+# no other tensor can hold its address; views and the detached copies a
+# state_dict hands out share its storage and version counter, so modules
+# rebuilt on the same weights hit the same entry.
+_CACHE = {}
+
+
+def cached(name: str, w, make):
+    """`make(w)` for kernel `name`, made once per weight tensor and remade
+    when the tensor is written in place or has died."""
+    key = (name, w.data_ptr(), tuple(w.shape), w.stride(), w.dtype, w.device)
+    hit = _CACHE.get(key)
+    if hit is not None and hit[0]() is not None and hit[1] == w._version:
+        return hit[2]
+    with torch.no_grad():
+        copy = make(w)
+    for k in [k for k, (ref, _, _) in _CACHE.items() if ref() is None]:
+        del _CACHE[k]
+    _CACHE[key] = (weakref.ref(w), w._version, copy)
+    REPACKS[name] += 1
+    return copy

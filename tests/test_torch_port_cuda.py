@@ -33,6 +33,7 @@ from diffmusic_tpu_torch.kernels import conv2d as tconv2d
 from diffmusic_tpu_torch.kernels import group_norm as tgn
 from diffmusic_tpu_torch.kernels import mask as tmask
 from diffmusic_tpu_torch.kernels import mel as tmel
+from diffmusic_tpu_torch.kernels import repack
 from diffmusic_tpu_torch.kernels import stage_bwd as tstage
 from diffmusic_tpu_torch.kernels import transformer_block as ttb
 from diffmusic_tpu_torch.kernels import upsampler as tup
@@ -69,15 +70,25 @@ def arr(gen, *shape, scale=1.0, device="cuda", dtype=torch.float32):
         device, dtype)
 
 
+# (Cin, Cout, k, stride, t_in) of the 10-s slice's upsamplers 0-2
+UPSAMPLERS = ((1024, 512, 16, 5, 1000), (512, 256, 16, 4, 5001), (256, 128, 8, 2, 20004))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_conv_kernels_on_card(cuda, gen, dtype, tol):
+    """The conv1d pair and single conv, and the upsampler: at a ragged input
+    (t 333, Cout 64, half a channel tile), in bf16 at the slice's three
+    upsampler geometries (the TMA + wgmma kernel), then a repeated call on a
+    weight whose tap-major copy is cached, and one after the weight is
+    written in place; fp32 takes the scalar path and makes no copy."""
     c, t = 128, 333
     x = arr(gen, 2, t, c, dtype=dtype)
     w1 = arr(gen, 7, c, c, scale=0.03, dtype=dtype)
     w2 = arr(gen, 7, c, c, scale=0.03, dtype=dtype)
     b = arr(gen, c, scale=0.1, dtype=dtype)
     kernels.reset_launch_counts()
+    repack.REPACKS["phase_convtranspose"] = 0
     y = tconv.conv1d_fused_pair(x, w1, b, w2, b, 3, SLOPE)
     assert rel(y, tconv.pair_plain(x, w1, b, w2, b, 3, SLOPE)[0]) <= tol
     y = tconv.conv1d_fused(x, w1, b, x, 5, SLOPE)
@@ -87,9 +98,27 @@ def test_conv_kernels_on_card(cuda, gen, dtype, tol):
     t_out = tup.output_length(t, 5, 16)
     y = tup.phase_convtranspose(x, wt, bt, 5, 16, t_out)
     assert rel(y, tup.convtranspose_plain(x, wt, bt, 5, 16)) <= tol
+    geoms = UPSAMPLERS if dtype == torch.bfloat16 else ()
+    for cin, cout, k, s, t_in in geoms:
+        xu = arr(gen, 1, t_in, cin, dtype=dtype)
+        wu = arr(gen, k, cin, cout, scale=1.0 / math.sqrt(k * cout), dtype=dtype)
+        bu = arr(gen, cout, scale=0.1, dtype=dtype)
+        y = tup.phase_convtranspose(xu, wu, bu, s, k, tup.output_length(t_in, s, k))
+        y0 = tup.convtranspose_plain(xu, wu, bu, s, k)
+        assert rel(y, y0) <= tol, (cin, cout, k, s)
+    repacks = 1 + len(geoms) if dtype == torch.bfloat16 else 0    # one per bf16 weight
+    assert repack.REPACKS["phase_convtranspose"] == repacks
+    with torch.no_grad():
+        assert torch.equal(tup.phase_convtranspose(x, wt, bt, 5, 16, t_out),
+                           tup.phase_convtranspose(x, wt, bt, 5, 16, t_out))   # cached copy
+        assert repack.REPACKS["phase_convtranspose"] == repacks
+        wt.mul_(-1.0)                                              # _version moves
+        assert rel(tup.phase_convtranspose(x, wt, bt, 5, 16, t_out),
+                   tup.convtranspose_plain(x, wt, bt, 5, 16)) <= tol
+    assert repack.REPACKS["phase_convtranspose"] == repacks + (dtype == torch.bfloat16)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"conv1d_fused": 1, "conv1d_fused_pair": 1,
-                                       "phase_convtranspose": 1,
+                                       "phase_convtranspose": 4 + len(geoms),
                                        "fused_transformer_block": 0,
                                        "fused_transformer_block_cross": 0,
                                        "fused_transformer_block_bsoft": 0,
@@ -320,16 +349,40 @@ def test_conv2d_kernel_on_card(cuda, gen, dtype, tol):
 def test_leaky_mask_kernels_on_card(cuda, gen, dtype, tol):
     """Both masks against the plain versions, with a ragged tail
     ((1, 1001, 100): 100100 elements, not a multiple of 8) and the slice's
-    ch512 stage."""
+    three stages; at those, g also as the transposed view of a (B, C, T)
+    tensor, as the adjoint conv leaves it (T 5001 and 20004 leave its rows
+    off 16 bytes in bf16, 5001 in fp32: the tile's scalar loads), and at a
+    batch of 2 with a ragged last tile in both t and c."""
     kernels.reset_launch_counts()
-    for shape in ((1, 1001, 100), (1, 5001, 512)):
+    shapes = ((1, 1001, 100), (1, 5001, 512), (1, 20004, 256), (1, 40008, 128), (2, 999, 136))
+    launches = 0
+    for shape in shapes:
         h, g, r = (arr(gen, *shape, dtype=dtype) for _ in range(3))
-        assert rel(tmask.leaky_mask(h, g, SLOPE), tmask.leaky_mask_plain(h, g, SLOPE)) <= tol
-        assert rel(tmask.leaky_mask_add(h, g, r, SLOPE),
-                   tmask.leaky_mask_plain(h, g, SLOPE, r)) <= tol
+        forms = [g]
+        if shape[2] % 8 == 0:
+            forms.append(arr(gen, shape[0], shape[2], shape[1], dtype=dtype).transpose(1, 2))
+        for gg in forms:
+            assert rel(tmask.leaky_mask(h, gg, SLOPE),
+                       tmask.leaky_mask_plain(h, gg, SLOPE)) <= tol, (shape, gg.stride())
+            assert rel(tmask.leaky_mask_add(h, gg, r, SLOPE),
+                       tmask.leaky_mask_plain(h, gg, SLOPE, r)) <= tol, (shape, gg.stride())
+            launches += 1
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert counts["leaky_mask"] == 2 and counts["leaky_mask_add"] == 2
+    assert counts["leaky_mask"] == launches and counts["leaky_mask_add"] == launches
+
+
+@pytest.mark.cuda
+def test_raw_stream_handle_is_the_current_stream(cuda):
+    """The launch path's raw stream handle is PyTorch's current stream, on the
+    default stream and under a side stream."""
+    from diffmusic_tpu_torch.kernels import build
+    assert build.stream_ptr(cuda) == torch.cuda.current_stream(cuda).cuda_stream
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        assert build.stream_ptr(cuda) == torch.cuda.current_stream(cuda).cuda_stream
+        assert build.stream_ptr(torch.device("cuda", 0)) == side.cuda_stream
+    assert build.stream_ptr(cuda) != side.cuda_stream
 
 
 @pytest.mark.cuda
@@ -344,6 +397,10 @@ def test_route_wrappers_reject_what_the_kernels_do_not_take(cuda, gen):
         tgn.channel_moments(arr(gen, 1, 16, 64).transpose(1, 2))
     with pytest.raises(ValueError):    # shapes differ
         tmask.leaky_mask(arr(gen, 1, 40, 128), arr(gen, 1, 41, 128), SLOPE)
+    with pytest.raises(ValueError):    # g in neither layout: every other row
+        tmask.leaky_mask(arr(gen, 1, 40, 128), arr(gen, 1, 80, 128)[:, ::2], SLOPE)
+    with pytest.raises(ValueError):    # g in neither layout: a permuted batch
+        tmask.leaky_mask(arr(gen, 2, 40, 128), arr(gen, 40, 2, 128).transpose(0, 1), SLOPE)
 
 
 def norm_rel(a, b) -> float:

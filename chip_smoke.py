@@ -20,8 +20,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      outside the signal; median times of the kernel, its plain version and
      the one PyTorch call that computes the same function where there is
      one, from CUDA events, beside the bound the shapes give (bytes over
-     device memory rate, operations over peak rate); for the upsampler and
-     the masks also each call's device time (torch.profiler) and host time,
+     device memory rate, operations over peak rate); for the upsampler, the
+     masks, the fused GroupNorm (against F.group_norm, in turns) and the
+     conv1d pair at one geometry of each vocoder stage (against the plain
+     pair) also each call's device time (torch.profiler) and host time,
      the masks with g in both layouts, and the layout of the adjoint conv's
      output that the mask route hands them;
   4. reference: small fp32 MusicLDM and AudioLDM2 models (the latter from a
@@ -356,6 +358,11 @@ def conv_cases(dtype):
     return cases
 
 
+# (T, C, k, dilation) of one pair per vocoder stage whose device and host
+# time per call `check_conv` also reads (split_ms), beside the plain pair's
+PAIR_SPLITS = ((5001, 512, 3, 1), (20004, 256, 11, 1), (40008, 128, 3, 1))
+
+
 def check_conv(name, shape, k, d, residual, dtype, gen, tol):
     from diffmusic_tpu_torch.kernels import conv1d as K
     dev = "cuda"
@@ -385,8 +392,14 @@ def check_conv(name, shape, k, d, residual, dtype, gen, tol):
                             K.pair_plain(x, w1, b1, w2, b2, d, SLOPE)[1])
         fwd = max(fwd, h_err, key=lambda e: e[1])
     res = result(fwd[0], timings(kern, plain, x, dtype), bnd)
+    split = ""
+    if name == "conv1d_fused_pair" and dtype == torch.bfloat16 and (shape[1], c, k, d) in \
+            PAIR_SPLITS:
+        with torch.no_grad():
+            split = "; " + describe_split(split_ms({"kernel": lambda: kern(x),
+                                                    "plain": lambda: plain(x)}))
     log(f"  {name:24s} x{shape} k{k} d{d}{' +res' if residual else ''} {str(dtype)[6:]}: "
-        f"{describe(fwd, bwd, tol)}; {describe_times(res)}")
+        f"{describe(fwd, bwd, tol)}; {describe_times(res)}{split}")
     if fwd[1] > tol or bwd[2] > tol:
         raise AssertionError(f"{name} disagrees with its plain version")
     return res
@@ -650,8 +663,17 @@ def check_group_norm(name, shape, eps, silu, dtype, gen, tol):
                             GN.group_norm_plain(x, wt, bt, 32, eps, silu))
         fwd = max(fwd, whole, key=lambda e: e[1])
     res = result(fwd[0], timings(kern, plain, x, dtype, library), bnd)
+    split = ""
+    if name == "fused_group_norm" and dtype == torch.bfloat16:
+        # in turns with F.group_norm (and, for the +SiLU calls, F.group_norm
+        # then F.silu, the same function in two calls)
+        fns = {"kernel": lambda: kern(x), "F.group_norm": lambda: library(x)}
+        if silu:
+            fns["F.group_norm+F.silu"] = lambda: F.silu(library(x))
+        with torch.no_grad():
+            split = "; " + describe_split(split_ms(fns))
     log(f"  {name:24s} {shape} eps {eps:g}{' +silu' if silu else ''} {str(dtype)[6:]}: "
-        f"{describe(fwd, bwd, tol)}; {describe_times(res)}")
+        f"{describe(fwd, bwd, tol)}; {describe_times(res)}{split}")
     if fwd[1] > tol or bwd[2] > tol:
         raise AssertionError(f"{name} disagrees with its plain version")
     return res
@@ -1386,9 +1408,9 @@ def drive(label: str, pipe, meas, want: dict, repacks=None, **call_kw) -> tuple:
     """One 10-s slice run through the pipeline's __call__: STEPS DPS steps,
     eta 0, rate 2.0, seeded latents (1, 8, 250, 16); the launch counts are set
     to 0 just before and read just after, and must equal `want`. The
-    kernels' tap-major weight copies (conv2d, upsampler) are counted per
-    step: `repacks[kernel]` in the first (the route's weights not yet seen),
-    none after. Returns (launch counts, the restored audio (1, 160000))."""
+    kernels' tap-major weight copies (conv2d, upsampler, conv1d pair) are
+    counted per step: `repacks[kernel]` in the first (the route's weights
+    not yet seen), none after. Returns (launch counts, the restored audio (1, 160000))."""
     from diffmusic_tpu_torch import kernels
     from diffmusic_tpu_torch.kernels import repack
     lat = torch.randn(LATENTS, generator=torch.Generator().manual_seed(0))
@@ -1466,15 +1488,18 @@ def phase_slice(profile_dir=None) -> tuple:
     counts, audio = {}, {}
     # the routes share the weight tensors, so only the first of the conv2d
     # routes' turns copies the 46 conv2d weights to the kernel's tap-major
-    # layout, and only the first turn the 3 upsamplers' weights
+    # layout, and only the first turn the 3 upsamplers' weights and the 24
+    # pairs' 48 (the canvas and stage routes' pairs read the same copies)
     upsampler_weights = VOCODER_PER_STEP["phase_convtranspose"]
+    pair_weights = 2 * VOCODER_PER_STEP["conv1d_fused_pair"]
     conv2d_weights = sum(ROUTE_LAUNCHES[m]["stats"]["conv2d_same"] for m in ROUTE_LAUNCHES)
     first_conv2d = next(i for i, n in enumerate(TURNS) if TURN_ROUTES[n].get("conv2d_kernel"))
     for turn, name in enumerate(TURNS):
         label = "slice" if name == "default" else f"slice route {name}"
         c, a = drive(f"{label} (turn {turn + 1})", pipes[name], meas, turn_launches(name),
                      repacks={"conv2d_same": conv2d_weights if turn == first_conv2d else 0,
-                              "phase_convtranspose": upsampler_weights if turn == 0 else 0},
+                              "phase_convtranspose": upsampler_weights if turn == 0 else 0,
+                              "conv1d_pair": pair_weights if turn == 0 else 0},
                      prompt_embeds=torch.zeros(2, 512))
         counts.setdefault(name, c)
         audio.setdefault(name, a)
@@ -1509,11 +1534,12 @@ def phase_audioldm2(profile_dir=None) -> dict:
     log(f"audioldm2: text stack (CLAP, T5, projection, 8 GPT-2 steps; prompt and negative "
         f"prompt '') {secs[0]:.3f} s first, {secs[1]:.3f} s again; streams "
         f"{[tuple(a.shape) for a in embeds]}")
-    # the first run copies its own vocoder's 3 upsampler weights; the other
-    # two share them
+    # the first run copies its own vocoder's 3 upsampler weights and 48 pair
+    # weights; the other two share them
     counts = {False: drive("audioldm2 fuse_cross=False", pipe, meas,
                            expected_launches("flash_attention"),
-                           {"phase_convtranspose": VOCODER_PER_STEP["phase_convtranspose"]},
+                           {"phase_convtranspose": VOCODER_PER_STEP["phase_convtranspose"],
+                            "conv1d_pair": 2 * VOCODER_PER_STEP["conv1d_fused_pair"]},
                            prompt="")[0]}
     with pipe.device:
         fused = UNet2DConditionModel(unet_cfg, fuse_cross=True)
@@ -1826,13 +1852,15 @@ def main() -> int:
     if build_log.exists():
         text = build_log.read_text()
         for line in text.splitlines():
-            if "entry function" in line or "registers" in line or "spill" in line:
+            if ("entry function" in line or "registers" in line or "spill" in line
+                    or "C7515" in line):   # C7515: ptxas serialized a kernel's wgmma
                 log(f"  ptxas: {line.strip()}")
         lib = build.library()
         for name, dyn in (("conv2d_wgmma_kernel", lib.dm_conv2d_same_smem(1)),
                           ("nchw_to_nhwc_kernel", None),
                           ("flash_mma_kernel", lib.dm_flash_attention_smem(1, 16)),
                           ("phase_ct_wgmma_kernel", lib.dm_phase_convtranspose_smem(1, -2, 1)),
+                          ("conv1d_pair_wgmma_kernel", lib.dm_conv1d_pair_smem(1, 512, 3, 1)),
                           ("leaky_mask_gt_kernelI13__nv_bfloat16", None),
                           ("leaky_mask_kernelI13__nv_bfloat16", None)):
             extra = "" if dyn is None else f"; {dyn} bytes of dynamic shared memory"

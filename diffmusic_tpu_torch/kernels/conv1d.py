@@ -4,16 +4,34 @@ their canvas forms `conv1d_fused_canvas` and `conv1d_pair_canvas`.
 Replace `diffmusic_tpu/pallas/conv1d_kernel.py::conv1d_fused`,
 `::conv1d_fused_pair`, `::conv1d_fused_canvas` / `::conv1d_canvas_xbwd` and
 `::conv1d_pair_canvas` with the CUDA kernels of `csrc/conv1d.cu` (the canvas
-forms are the same two kernels told where the signal lies, plus an adjoint
-mode of the single conv).
+forms are the same kernels told where the signal lies, plus an adjoint mode
+of the single conv).
 
 Bound on the H100: tensor-core work (the vocoder forward is about 1 TFLOP at
-10 s), while each conv reads x and w once. The kernels stage one haloed time
-window of x per block (leaky applied on the way in) and accumulate all k
-shifted tap products from it with WMMA (bf16 in, fp32 accumulate), so no
-im2col patches reach device memory. The pair kernel keeps h, for its rows
-plus conv2's halo over all channels, in shared memory, writes it once for
-the backward's mask and runs conv2 from shared memory.
+10 s), while each conv reads x and w once. The single conv stages one haloed
+time window of x per block (leaky applied on the way in) and accumulates all
+k shifted tap products from it with WMMA (bf16 in, fp32 accumulate), so no
+im2col patches reach device memory.
+
+The bf16 pair is two passes of one implicit GEMM on wgmma fed by TMA, in one
+C call: pass 1 writes h, pass 2 reads h back and writes y. Each block owns
+`BLOCK_M` rows x `BLOCK_N` output channels (160 / 314 / 313 blocks at the
+10-s slice's stages 0-2, where keeping h on chip, as the fp32 path does,
+leaves 79 at stage 0) and walks (`BLOCK_K`-channel slice, tap): per step one
+TMA box of the pass's input, (B, T, C) rows starting at the tap's shift, the
+rows outside the tensor filled with zeros, which is the 'same' padding, and
+one box of the weights' tap-major copy (k, Cout, Cin). Each consumer
+warpgroup applies the leaky ReLU to its rows of the staged input in place
+before its products. The copy and the TMA tensor map that reads it are made
+once per weight tensor (`repack.cached(REPACK, ...)`, shared by the plain and
+the canvas form and by every route over the same weights). The epilogue adds
+the bias (pass 2 also x) in fp32 and rounds once. Pass 2 reads h rounded,
+leaky(round(h)), as `pair_plain` does; the JAX Pallas kernel rounds leaky(h)
+from fp32, one bf16 ulp apart on negative h. The fp32 pair is the exact
+scalar path: one block keeps h, for its rows plus conv2's halo over all
+channels, in shared memory. The launch path checks once per operand geometry
+(`pair_plan`); per call it reads the addresses, allocates y and h and
+launches both passes on the current stream's raw handle.
 
 Layout as in the JAX package: activations (B, T, C), weights (k, Cin, Cout),
 'same' padding, odd k. On a CPU tensor the wrappers run the plain PyTorch
@@ -36,12 +54,16 @@ in its adjoint mode, then masks with a plain `where`; `bwd="plain"`
 re-zero the margins with the row mask. None of them takes the mask kernels.
 """
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
+from . import build, repack
 from .canvas import TIME_BLOCK, canvas_row_mask, canvas_rows, from_canvas, to_canvas
 from .device import use_plain
-from .mask import leaky_mask, leaky_mask_add, leaky_mask_plain, mask_ok
+from .mask import _dense, leaky_mask, leaky_mask_add, leaky_mask_plain, mask_ok
+from .upsampler import tap_major
 
 # launches of each kernel since the last reset (see kernels.launch_counts);
 # the canvas forms count apart, the adjoint launches of the canvas backward
@@ -49,6 +71,12 @@ from .mask import leaky_mask, leaky_mask_add, leaky_mask_plain, mask_ok
 LAUNCHES = {"conv1d_fused": 0, "conv1d_fused_pair": 0, "conv1d_fused_canvas": 0,
             "conv1d_pair_canvas": 0}
 CANVAS_BWD = ("kernel", "plain")
+
+# the bf16 pair kernel's tile (csrc/conv1d.cu, namespace tc)
+BLOCK_M = 128     # output rows per block
+BLOCK_N = 128     # output channels per block
+BLOCK_K = 64      # input channels per step
+REPACK = "conv1d_pair"   # its weight copies' name in repack.REPACKS
 
 
 def _conv_view(h, w, b, dilation: int):
@@ -118,13 +146,13 @@ def _leaky_mask(x, d, slope, use_kernel: bool, r=None):
     return leaky_mask_add(x, d, r.contiguous(), slope)
 
 
-def _signal(name, x, t):
-    """Rows [first, end) of x that hold the signal: all of them, or, given a
-    canvas signal length t, [512, 512 + t) of a canvas of t."""
+def _signal(name, rows: int, t):
+    """Rows [first, end) of `rows` that hold the signal: all of them, or,
+    given a canvas signal length t, [512, 512 + t) of a canvas of t."""
     if t is None:
-        return 0, x.shape[1]
-    if x.shape[1] != canvas_rows(t):
-        raise ValueError(f"{name}: {x.shape[1]} rows are not the canvas of a "
+        return 0, rows
+    if rows != canvas_rows(t):
+        raise ValueError(f"{name}: {rows} rows are not the canvas of a "
                          f"{t}-row signal ({canvas_rows(t)} rows)")
     return TIME_BLOCK, TIME_BLOCK + t
 
@@ -132,7 +160,6 @@ def _signal(name, x, t):
 def _launch_fused(x, w, b, residual, dilation, slope, t=None, adjoint=False):
     """The conv kernel; `t` puts it on the canvas of a t-row signal, and
     `adjoint` reads w (k, Cout, Cin) as the flipped transposed kernel."""
-    from . import build
     name = "conv1d_fused" if t is None else "conv1d_fused_canvas"
     ops = [x, w] + [a for a in (b, residual) if a is not None]
     build.check_tensors(name, *ops)
@@ -145,7 +172,7 @@ def _launch_fused(x, w, b, residual, dilation, slope, t=None, adjoint=False):
         raise ValueError(f"{name}: residual must have the output's shape")
     if cin % 32 or cout % 64:
         raise ValueError(f"{name}: Cin must be a multiple of 32, Cout of 64")
-    sig0, sig1 = _signal(name, x, t)
+    sig0, sig1 = _signal(name, rows, t)
     lib = build.library()
     code = build.dtype_code(x.dtype)
     build.check_smem(name, lib.dm_conv1d_fused_smem(code, k, dilation))
@@ -160,29 +187,66 @@ def _launch_fused(x, w, b, residual, dilation, slope, t=None, adjoint=False):
     return y
 
 
-def _launch_pair(x, w1, b1, w2, b2, dilation, slope, t=None):
-    """The pair kernel; `t` puts it on the canvas of a t-row signal."""
-    from . import build
-    name = "conv1d_fused_pair" if t is None else "conv1d_pair_canvas"
-    build.check_tensors(name, x, w1, b1, w2, b2)
-    bsz, rows, c = x.shape
-    k = w1.shape[0]
-    if (tuple(w1.shape) != (k, c, c) or tuple(w2.shape) != (k, c, c)
-            or tuple(b1.shape) != (c,) or tuple(b2.shape) != (c,) or k % 2 == 0):
-        raise ValueError(f"{name}: bad shapes x {tuple(x.shape)}, "
-                         f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+def pair_weights(w):
+    """The bf16 pair kernel's copy of a weight (k, C, C): its tap-major layout
+    (k, Cout, Cin) and the 128-byte TMA tensor map (host memory) through
+    which the kernel reads it."""
+    taps = tap_major(w)
+    wmap = torch.empty(128, dtype=torch.uint8)
+    build.check(build.library().dm_conv1d_pair_wmap(taps.data_ptr(), w.shape[0], w.shape[1],
+                                                    wmap.data_ptr()), REPACK)
+    return taps, wmap
+
+
+@functools.lru_cache(maxsize=256)
+def pair_plan(name: str, shapes: tuple, strides: tuple, dtypes: tuple, devices: tuple,
+              dilation: int, t) -> tuple:
+    """(dtype code, sig0, sig1) of a pair launch on x, w1, b1, w2, b2, given
+    in that order by their shapes, strides, dtypes and devices, with `t` the
+    canvas signal length or None; raises for what the kernel does not take:
+    tensors not on one CUDA device, mixed or other dtypes, a tensor not
+    contiguous, shapes other than x (B, T, C), w (k, C, C) with odd k <= 17,
+    b (C,), C not a multiple of 64, a canvas of another length."""
+    if any(d.type != "cuda" or d != devices[0] for d in devices):
+        raise ValueError(f"{name}: all tensors must be on one CUDA device, not {devices}")
+    if any(dt != dtypes[0] for dt in dtypes):
+        raise TypeError(f"{name}: mixed dtypes {dtypes}")
+    code = build.dtype_code(dtypes[0])
+    if not all(_dense(sh, st) for sh, st in zip(shapes, strides)):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    xs, w1s, b1s, w2s, b2s = (tuple(sh) for sh in shapes)
+    if len(xs) != 3 or len(w1s) != 3:
+        raise ValueError(f"{name}: bad shapes x {xs}, w1 {w1s}, w2 {w2s}")
+    bsz, rows, c = xs
+    k = w1s[0]
+    if w1s != (k, c, c) or w2s != (k, c, c) or b1s != (c,) or b2s != (c,) or k % 2 == 0:
+        raise ValueError(f"{name}: bad shapes x {xs}, w1 {w1s}, w2 {w2s}")
     if c % 64 or (k - 1) // 2 > 8:
         raise ValueError(f"{name}: C must be a multiple of 64 and k <= 17")
-    sig0, sig1 = _signal(name, x, t)
-    lib = build.library()
-    code = build.dtype_code(x.dtype)
-    build.check_smem(name, lib.dm_conv1d_pair_smem(code, c, k, dilation))
+    sig0, sig1 = _signal(name, rows, t)
+    build.check_smem(name, build.library().dm_conv1d_pair_smem(code, c, k, dilation))
+    return code, sig0, sig1
+
+
+def _launch_pair(x, w1, b1, w2, b2, dilation, slope, t=None):
+    """The pair kernel; `t` puts it on the canvas of a t-row signal."""
+    name = "conv1d_fused_pair" if t is None else "conv1d_pair_canvas"
+    ops = (x, w1, b1, w2, b2)
+    code, sig0, sig1 = pair_plan(name, tuple(a.shape for a in ops),
+                                 tuple(a.stride() for a in ops), tuple(a.dtype for a in ops),
+                                 tuple(a.device for a in ops), dilation, t)
+    xp, w1p, b1p, w2p, b2p = (a.data_ptr() for a in ops)
+    if (xp | w1p | b1p | w2p | b2p) % 16:
+        raise ValueError(f"{name}: tensors must start 16-byte aligned")
+    if code == 1:   # bf16 reads the cached copies through their tensor maps
+        w1p = repack.cached(REPACK, w1, pair_weights)[1].data_ptr()
+        w2p = repack.cached(REPACK, w2, pair_weights)[1].data_ptr()
     y = torch.empty_like(x)
     h = torch.empty_like(x)
-    rc = lib.dm_conv1d_pair(
-        code, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        y.data_ptr(), h.data_ptr(), bsz, rows, c, k, dilation, float(slope), sig0, sig1,
-        build.stream_ptr(x.device))
+    bsz, rows, c = x.shape
+    rc = build.library().dm_conv1d_pair(
+        code, xp, w1p, b1p, w2p, b2p, y.data_ptr(), h.data_ptr(), bsz, rows, c, w1.shape[0],
+        dilation, float(slope), sig0, sig1, build.stream_ptr(x.device))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return y, h

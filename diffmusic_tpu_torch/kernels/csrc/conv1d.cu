@@ -8,25 +8,59 @@
 // (B, T, C), weights (k, Cin, Cout), 'same' padding, odd k.
 //
 // Bound: the vocoder forward is ~1 TFLOP at 10 s (tensor-core work), while
-// each conv reads x and w once and writes y once -- so the design keeps all k
-// taps of one time tile on one staged window: a block loads the haloed window
+// each conv reads x and w once and writes y once.
+//
+// The single conv (`conv1d_fused_kernel`, both dtypes) keeps all k taps of one
+// time tile on one staged window: a block loads the haloed window
 // x[t0 - pad, t0 + BM + pad) of a 32-channel slice once (leaky applied on the
 // way in) and accumulates k shifted (BM, 32) @ (32, BN) tap products from it
-// on the tensor cores, instead of materialising im2col patches in device
-// memory. The pair kernel also keeps the intermediate h in shared memory: one
-// block computes h for its time tile plus conv2's halo over ALL channels,
-// zeroes it outside the signal, writes it once (the backward's mask needs it)
-// and runs conv2 straight from shared memory.
+// with WMMA, instead of materialising im2col patches in device memory. The
+// adjoint mode (the canvas backward) flips the taps and contracts the other
+// channel axis, reading each tap w[k-1-j] transposed into shared memory
+// (load_rows_t): the backward needs no transposed weight copy.
+//
+// The bf16 pair (`conv1d_pair_wgmma_kernel`) is two passes of one implicit
+// GEMM on wgmma fed by TMA, launched back to back by one C call: pass 1 reads
+// x and writes h = conv1(leaky(x)) + b1, pass 2 reads h and x and writes
+// y = conv2(leaky(h)) + b2 + x. A block that kept h on chip would have to own
+// every channel of its rows (79 blocks at stage 0, ch512); two (row tile x
+// Cout tile) GEMMs give 160 / 314 / 313 blocks at stages 0-2 for the price
+// of reading h back once, which the kernel writes for the backward anyway.
+//   - A block owns BM = 128 output rows x BN = 128 output channels; two
+//     consumer warpgroups run wgmma m64n128k16 (bf16 -> fp32 registers) on
+//     64 rows each, one producer thread keeps a 3-stage TMA + mbarrier ring
+//     full, and two blocks share an SM.
+//   - It walks (channel slice of BK = 64, tap j). Each step's operands are
+//     two boxes: A, 64 channels x 128 rows of the pass's input starting at
+//     row t0 + j*dil - pad (channels innermost, so the tap's shift is a
+//     whole-row box start; TMA fills rows before 0 or past T with zeros,
+//     the 'same' padding, with no predicate); B, 64 input x 128 output
+//     channels of the tap-major weights (k, Cout, Cin), made once per
+//     weight tensor by the wrapper together with their tensor map.
+//   - leaky on A, in place: once a stage lands, each consumer warpgroup
+//     rewrites its own 64 rows (8 KB) through leaky in fp32, rounded back to
+//     bf16 (elementwise, so the 128-B swizzle does not matter), then fences
+//     the generic proxy's writes against the async proxy and meets its
+//     warpgroup barrier before its wgmma reads the tile.
+//   - Epilogue: the fp32 tile staged in the drained ring; per 8 channels of
+//     a row the bias in fp32 (pass 2 also the residual x), one rounding to
+//     bf16, one 16-byte store; rows outside [sig0, sig1) are written as
+//     exact zeros, rows at or past T not at all.
+// Pass 2 reads h as pass 1 rounded it, leaky(round(h)), as the plain version
+// does; the JAX kernel rounds leaky(h) from fp32 (one bf16 ulp apart on
+// negative h). The fp32 pair (`conv1d_pair_kernel<float>`) is the exact
+// scalar path: one block computes h for its time tile plus conv2's halo over
+// ALL channels in shared memory, writes it once and runs conv2 from there.
 //
 // The signal is rows [sig0, sig1) of x's T rows: [0, T) for the plain calls,
 // [512, 512 + t) on a canvas (kernels/canvas.py), whose zero margins let every
 // window be read with no edge case. Rows outside the signal are written as
 // exact zeros (a bias must not leak into a margin the next conv reads), and a
-// tile that holds no signal row writes its zeros and stops. The adjoint mode
-// (the canvas backward) flips the taps and contracts the other channel axis,
-// reading each tap w[k-1-j] transposed into shared memory (load_rows_t): the
-// backward needs no transposed weight copy.
+// tile that holds no signal row writes its zeros and stops.
+#include <cstring>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -100,8 +134,9 @@ conv1d_fused_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// conv1d_fused_pair: h = conv1(leaky(x), w1, dil) + b1, zeroed outside the
-// signal; y = conv2(leaky(h), w2) + b2 + x on the signal rows. Emits y and h.
+// conv1d_fused_pair in fp32 (the exact scalar path; bf16 takes tc:: below):
+// h = conv1(leaky(x), w1, dil) + b1, zeroed outside the signal;
+// y = conv2(leaky(h), w2) + b2 + x on the signal rows. Emits y and h.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 conv1d_pair_kernel(const T* __restrict__ x, const T* __restrict__ w1,
@@ -204,15 +239,216 @@ int run_fused(const void* x, const void* w, const void* b, const void* res, void
                     Cout, k, dil, slope, has_slope, sig0, sig1, adjoint);
 }
 
-template <typename T>
-int run_pair(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-             void* y, void* h, int B, int Tlen, int C, int k, int dil, float slope,
-             int sig0, int sig1, cudaStream_t s) {
+int run_pair_fp32(const void* x, const void* w1, const void* b1, const void* w2,
+                  const void* b2, void* y, void* h, int B, int Tlen, int C, int k, int dil,
+                  float slope, int sig0, int sig1, cudaStream_t s) {
   dim3 grid((Tlen + BM - 1) / BM, 1, B);
-  return dm::launch(conv1d_pair_kernel<T>, grid, dim3(THREADS), pair_smem<T>(C, k, dil), s,
-                    (const T*)x, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,
-                    (T*)y, (T*)h, Tlen, C, k, dil, slope, sig0, sig1);
+  return dm::launch(conv1d_pair_kernel<float>, grid, dim3(THREADS), pair_smem<float>(C, k, dil),
+                    s, (const float*)x, (const float*)w1, (const float*)b1, (const float*)w2,
+                    (const float*)b2, (float*)y, (float*)h, Tlen, C, k, dil, slope, sig0, sig1);
 }
+
+// --------------------------------------------- the bf16 pair: TMA + wgmma
+namespace tc {
+
+using namespace dm::hopper;
+
+constexpr int BM = 128;                      // output rows per block (2 x 64)
+constexpr int BN = 128;                      // output channels per block
+constexpr int BK = 64;                       // input channels per step
+constexpr int STAGES = 3;                    // depth of the shared-memory ring
+constexpr int A_BYTES = BM * BK * 2;         // 16 KB of input window per stage
+constexpr int B_BYTES = BN * BK * 2;         // 16 KB of weights per stage
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int CONSUMER_WARPS = 8;            // warpgroups 0-1
+constexpr int THREADS = 32 * CONSUMER_WARPS + 32;   // + one producer warp
+constexpr int PRODUCER = 32 * CONSUMER_WARPS;
+// staged fp32 output rows: 528 bytes, so the 8 rows of a fragment store fall
+// on 8 distinct 4-bank offsets (two wavefronts, the least for 256 bytes)
+constexpr int OUT_LD = BN + 4;
+static_assert(BM * OUT_LD * 4 <= STAGES * STAGE_BYTES, "the staged tile fits the ring");
+constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES + 2 * STAGES * sizeof(uint64_t) + 1024;
+
+// One pass: out = conv(leaky(in), w, dil) + bias [+ res] on the signal rows
+// [sig0, sig1), exact zeros on the other rows before T. `in` arrives through
+// amap (B, T, C) and the tap-major w through wmap (k, Cout, Cin).
+__global__ void __launch_bounds__(THREADS, 2)
+conv1d_pair_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                         const __grid_constant__ CUtensorMap wmap,
+                         const bf16* __restrict__ bias, const bf16* __restrict__ res,
+                         bf16* __restrict__ out, int Tlen, int C, int k, int dil, float slope,
+                         int sig0, int sig1) {
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte alignment: the 128-B swizzle pattern repeats every 8 rows
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int t0 = blockIdx.x * BM, n0 = blockIdx.y * BN, b = blockIdx.z;
+  if (t0 + BM <= sig0 || t0 >= sig1) {   // no signal row in this tile: zeros
+    for (int i = threadIdx.x; i < BM * BN / 8; i += THREADS) {
+      const int t = t0 + i / (BN / 8), n = n0 + i % (BN / 8) * 8;
+      if (t < Tlen && n < C)
+        *reinterpret_cast<uint4*>(out + ((size_t)b * Tlen + t) * C + n) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  const int pad = (k - 1) * dil / 2;
+  const int iters = C / BK * k;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x >= PRODUCER) {
+    // producer: one thread keeps the ring full
+    if (threadIdx.x == PRODUCER) {
+      for (int it = 0; it < iters; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        const int kc = (it / k) * BK, j = it % k;
+        unsigned char* a = smem + s * STAGE_BYTES;
+        mbar_expect_tx(&full[s], STAGE_BYTES);
+        tma_load_3d(a, &amap, &full[s], kc, t0 + j * dil - pad, b);
+        tma_load_3d(a + A_BYTES, &wmap, &full[s], kc, n0, j);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg multiplies output rows [t0 + 64 wg, + 64). The
+  // first product overwrites d (scale-d 0) instead of adding to zeros: with
+  // d zeroed, ptxas serialized this kernel's wgmma (warning C7515). The empty
+  // asm only tells the compiler that d is defined.
+  float d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "=f"(d[i]));
+  const int tid = threadIdx.x % 128, lane = threadIdx.x % 32, warp = tid / 32;
+  for (int it = 0; it < iters; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    unsigned char* tile = smem + s * STAGE_BYTES + wg * 64 * 128;
+    // leaky on this warpgroup's 64 rows of A, in place, 16 bytes a thread
+    // per pass; then hand the tile back to the async proxy
+    uint4* v = reinterpret_cast<uint4*>(tile);
+#pragma unroll
+    for (int q = 0; q < 64 * 128 / 16 / 128; ++q)
+      v[tid + 128 * q] = leaky_bf16x8(v[tid + 128 * q], slope);
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+    const uint32_t a = smem_u32(tile);
+    const uint32_t bw = smem_u32(smem + s * STAGE_BYTES + A_BYTES);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    fence_operands(d);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n128k16(d, kmajor_desc(a + 32 * kk), kmajor_desc(bw + 32 * kk),
+                       it > 0 || kk > 0);
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    // the previous step's products are done: release its stage
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    fence_operands(d);
+    if (it > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_operands(d);
+
+  // d[4j + e]: row warp * 16 + lane / 4 (+8 for e >= 2), channel
+  // 8j + 2 (lane % 4) + e % 2. Stage the warpgroup's 64 x 128 fp32 tile in
+  // the drained ring, then per 8 channels of a row: + bias [+ res] in fp32,
+  // one rounding, one 16-byte store.
+  asm volatile("bar.sync 1, %0;" ::"n"(32 * CONSUMER_WARPS) : "memory");   // ring drained
+  float* stage = reinterpret_cast<float*>(smem) + wg * 64 * OUT_LD;
+  const int r = warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = 8 * j + 2 * (lane % 4);
+    *reinterpret_cast<float2*>(stage + r * OUT_LD + n) = make_float2(d[4 * j], d[4 * j + 1]);
+    *reinterpret_cast<float2*>(stage + (r + 8) * OUT_LD + n) =
+        make_float2(d[4 * j + 2], d[4 * j + 3]);
+  }
+  asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");   // this warpgroup's tile
+#pragma unroll 2
+  for (int v = 0; v < 64 * BN / 8 / 128; ++v) {
+    const int idx = tid + v * 128, rr = idx / (BN / 8), n = idx % (BN / 8) * 8;
+    const int t = t0 + wg * 64 + rr;
+    if (t >= Tlen || n0 + n >= C) continue;
+    const size_t o = ((size_t)b * Tlen + t) * C + n0 + n;
+    uint4 packed = make_uint4(0, 0, 0, 0);
+    if (t >= sig0 && t < sig1) {
+      const float4 lo = *reinterpret_cast<const float4*>(stage + rr * OUT_LD + n);
+      const float4 hi = *reinterpret_cast<const float4*>(stage + rr * OUT_LD + n + 4);
+      float f[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      const uint4 braw = *reinterpret_cast<const uint4*>(bias + n0 + n);
+      const bf16* be = reinterpret_cast<const bf16*>(&braw);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) f[q] += __bfloat162float(be[q]);
+      if (res != nullptr) {
+        const uint4 rraw = *reinterpret_cast<const uint4*>(res + o);
+        const bf16* re = reinterpret_cast<const bf16*>(&rraw);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) f[q] += __bfloat162float(re[q]);
+      }
+      __nv_bfloat162* pe = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) pe[q] = __floats2bfloat162_rn(f[2 * q], f[2 * q + 1]);
+    }
+    *reinterpret_cast<uint4*>(out + o) = packed;
+  }
+}
+
+// The tensor map of an activation (B, T, C) as (C, T, B): a box (BK, BM)
+// lands as 128 K-major rows of 64 channels; a tap's row shift moves whole
+// 128-B rows.
+int encode_rows(CUtensorMap* map, const void* base, int B, int Tlen, int C) {
+  const cuuint64_t dim[3] = {(cuuint64_t)C, (cuuint64_t)Tlen, (cuuint64_t)B};
+  const cuuint64_t stride[2] = {(cuuint64_t)C * 2, (cuuint64_t)Tlen * C * 2};
+  const cuuint32_t box[3] = {BK, BM, 1};
+  return encode_bf16(map, base, 3, dim, stride, box);
+}
+
+// The tensor map of tap-major weights (k, Cout, Cin) as (Cin, Cout, k).
+int encode_taps(CUtensorMap* map, const void* w_taps, int k, int C) {
+  const cuuint64_t dim[3] = {(cuuint64_t)C, (cuuint64_t)C, (cuuint64_t)k};
+  const cuuint64_t stride[2] = {(cuuint64_t)C * 2, (cuuint64_t)C * C * 2};
+  const cuuint32_t box[3] = {BK, BN, 1};
+  return encode_bf16(map, w_taps, 3, dim, stride, box);
+}
+
+int launch(const void* x, const void* w1map, const void* b1, const void* w2map, const void* b2,
+           void* y, void* h, int B, int Tlen, int C, int k, int dil, float slope, int sig0,
+           int sig1, cudaStream_t s) {
+  static bool opted_in = false;   // more than 48 KB of dynamic shared memory, once
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        conv1d_pair_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  alignas(64) CUtensorMap xmap, hmap, w1, w2;
+  int rc = encode_rows(&xmap, x, B, Tlen, C);
+  if (rc == 0) rc = encode_rows(&hmap, h, B, Tlen, C);
+  if (rc != 0) return rc;
+  memcpy(&w1, w1map, sizeof(CUtensorMap));
+  memcpy(&w2, w2map, sizeof(CUtensorMap));
+  const dim3 grid((Tlen + BM - 1) / BM, (C + BN - 1) / BN, B);
+  conv1d_pair_wgmma_kernel<<<grid, THREADS, SMEM, s>>>(xmap, w1, (const bf16*)b1, nullptr,
+                                                        (bf16*)h, Tlen, C, k, dil, slope, sig0,
+                                                        sig1);
+  conv1d_pair_wgmma_kernel<<<grid, THREADS, SMEM, s>>>(hmap, w2, (const bf16*)b2,
+                                                        (const bf16*)x, (bf16*)y, Tlen, C, k, 1,
+                                                        slope, sig0, sig1);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -230,14 +466,30 @@ extern "C" int dm_conv1d_fused(int dtype, const void* x, const void* w, const vo
                           sig1, adjoint, s);
 }
 
+// The pair: x (B, Tlen, C), w1 and w2 (k, C, C), b1 and b2 (C,), y and h
+// (B, Tlen, C); C % 64 == 0. For bf16, w1 and w2 are the host addresses of
+// the 128-byte tensor maps of the weights' tap-major copies, which
+// dm_conv1d_pair_wmap encodes once per copy; the call launches the two
+// passes of the TMA + wgmma kernel. fp32 reads the weights themselves.
+// Returns a cudaError_t (0 = launched).
 extern "C" int dm_conv1d_pair(int dtype, const void* x, const void* w1, const void* b1,
                               const void* w2, const void* b2, void* y, void* h, int B,
                               int Tlen, int C, int k, int dil, float slope, int sig0, int sig1,
                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
-    return run_pair<bf16>(x, w1, b1, w2, b2, y, h, B, Tlen, C, k, dil, slope, sig0, sig1, s);
-  return run_pair<float>(x, w1, b1, w2, b2, y, h, B, Tlen, C, k, dil, slope, sig0, sig1, s);
+    return tc::launch(x, w1, b1, w2, b2, y, h, B, Tlen, C, k, dil, slope, sig0, sig1, s);
+  return run_pair_fp32(x, w1, b1, w2, b2, y, h, B, Tlen, C, k, dil, slope, sig0, sig1, s);
+}
+
+// Writes into `map` (128 bytes of host memory) the tensor map through which
+// the bf16 pair reads the tap-major weights w_taps (k, C, C) that lie on the
+// card. Returns a cudaError_t (0 = encoded).
+extern "C" int dm_conv1d_pair_wmap(const void* w_taps, int k, int C, void* map) {
+  alignas(64) CUtensorMap m;
+  const int rc = tc::encode_taps(&m, w_taps, k, C);
+  if (rc == 0) memcpy(map, &m, sizeof(CUtensorMap));
+  return rc;
 }
 
 extern "C" size_t dm_conv1d_fused_smem(int dtype, int k, int dil) {
@@ -245,5 +497,5 @@ extern "C" size_t dm_conv1d_fused_smem(int dtype, int k, int dil) {
 }
 
 extern "C" size_t dm_conv1d_pair_smem(int dtype, int C, int k, int dil) {
-  return dtype == 1 ? pair_smem<bf16>(C, k, dil) : pair_smem<float>(C, k, dil);
+  return dtype == 1 ? tc::SMEM : pair_smem<float>(C, k, dil);
 }

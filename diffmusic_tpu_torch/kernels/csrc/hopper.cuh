@@ -1,12 +1,15 @@
 // Hopper's asynchronous copies and warpgroup products, shared by the kernels
-// that use them (conv2d.cu, upsampler.cu): TMA tile loads that complete on
-// an mbarrier, the mbarrier operations of a producer / consumer ring, the
-// wgmma descriptor of a K-major 128-byte-swizzled tile and the m64n128k16
-// bf16 product, the cluster barrier and distributed shared memory, and the
-// driver's tensor-map encoder fetched at run time (no -lcuda).
+// that use them (conv1d.cu, conv2d.cu, upsampler.cu): TMA tile loads that
+// complete on an mbarrier, the mbarrier operations of a producer / consumer
+// ring, the wgmma descriptor of a K-major 128-byte-swizzled tile and the
+// m64n128k16 bf16 product, the leaky ReLU rewritten in place on a staged
+// operand tile and the proxy fence that hands it back to wgmma, the cluster
+// barrier and distributed shared memory, and libcuda's tensor-map encoder
+// fetched at run time (no -lcuda).
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,6 +77,28 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
+// Orders this thread's generic-proxy writes to shared memory before the
+// async proxy's later accesses to it: wgmma reading an operand tile that
+// the threads rewrote, or TMA refilling it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// leaky ReLU on 8 bf16 values: each taken to fp32, scaled by `slope` where
+// negative and rounded back to bf16 (common.cuh::load_rows's order). Zero
+// stays zero, so TMA's zero fill needs no special case.
+__device__ __forceinline__ uint4 leaky_bf16x8(uint4 raw, float slope) {
+  __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float2 f = __bfloat1622float2(e[q]);
+    f.x = f.x >= 0.f ? f.x : slope * f.x;
+    f.y = f.y >= 0.f ? f.y : slope * f.y;
+    e[q] = __floats2bfloat162_rn(f.x, f.y);
+  }
+  return raw;
+}
+
 // every thread of every block of the cluster; orders shared-memory writes
 // before it against reads after it, across the cluster
 __device__ __forceinline__ void cluster_sync() {
@@ -93,9 +118,11 @@ __device__ __forceinline__ void fence_operands(float* d) {
 }
 
 // d (64 x 128, fp32) += A (64 x 16) @ B (16 x 128), both K-major in shared
-// memory. d[4j + e] of thread (warp, lane) of the warpgroup holds row
+// memory; with `accumulate` 0, d = A @ B (a tile's first product, so d needs
+// no zeroing). d[4j + e] of thread (warp, lane) of the warpgroup holds row
 // 16 warp + lane / 4 (+ 8 for e >= 2), column 8 j + 2 (lane % 4) + e % 2.
-__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da, uint64_t db,
+                                                 int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -118,7 +145,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da, uint64_t
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -14,8 +14,10 @@ for the transformer block (one bf16 rounding of an intermediate moves a
 product by about 2^-8 relative). bf16 gradients of the vocoder kernels are
 held by norm (a leaky-ReLU mask flips where an activation rounds across
 zero differently in the two versions). Canvas outputs and gradients must be
-exactly zero outside the signal. The fused mel spectrogram is fp32 only:
-1e-4 of max |plain| forward, gradients too.
+exactly zero outside the signal. The bf16 conv1d pair (TMA + wgmma) runs at
+each of the slice's 24 (C, k, dilation), on the canvas and off it. The
+fused mel spectrogram is fp32 only: 1e-4 of max |plain| forward, gradients
+too.
 """
 
 import math
@@ -448,6 +450,75 @@ def test_canvas_conv_kernels_on_card(cuda, gen, dtype, tol):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts["conv1d_fused_canvas"] == 4 and counts["conv1d_pair_canvas"] == 4, counts
+
+
+# (C, k, dilation) of the 10-s slice's 24 resblock pairs (vocoder stages 0-2;
+# ch512 k11 is over pair_ok's weight budget)
+SLICE_PAIRS = [(c, k, d) for c, ks in ((512, (3, 7)), (256, (3, 7, 11)), (128, (3, 7, 11)))
+               for k in ks for d in (1, 3, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,d", SLICE_PAIRS)
+def test_bf16_pair_kernel_at_the_slice_geometries(cuda, gen, c, k, d):
+    """The bf16 pair (TMA + wgmma, two passes) against autograd through the
+    plain version at each (C, k, dilation) of the slice: off the canvas at a
+    ragged T with two batch rows, and on the canvas of a signal that ends
+    inside a row tile; y, the saved h and the input gradient within 2e-2
+    (the gradient by norm); exact zeros outside the signal."""
+    bf, tol, t = torch.bfloat16, 2e-2, 1031
+    w1, w2 = (arr(gen, k, c, c, scale=1 / math.sqrt(k * c), dtype=bf) for _ in range(2))
+    b1, b2 = (arr(gen, c, scale=0.1, dtype=bf) for _ in range(2))
+    x, g = arr(gen, 2, t, c, dtype=bf), arr(gen, 2, t, c, dtype=bf)
+    y, dx = grads(lambda xx: tconv.conv1d_fused_pair(xx, w1, b1, w2, b2, d, SLOPE), x, g)
+    y0, dx0 = grads(lambda xx: tconv.pair_plain(xx, w1, b1, w2, b2, d, SLOPE)[0], x, g)
+    h = tconv._launch_pair(x, w1, b1, w2, b2, d, SLOPE)[1]
+    h0 = tconv.pair_plain(x, w1, b1, w2, b2, d, SLOPE)[1]
+    assert rel(y, y0) <= tol and rel(h, h0) <= tol and norm_rel(dx, dx0) <= tol
+    tc = 700
+    xc, gc = canvas(gen, tc, c, bf), canvas(gen, tc, c, bf)
+    y, dx = grads(lambda xx: tconv.conv1d_pair_canvas(xx, w1, b1, w2, b2, tc, d, SLOPE), xc, gc)
+    y0, dx0 = grads(lambda xx: tconv.pair_canvas_plain(xx, w1, b1, w2, b2, tc, d, SLOPE)[0],
+                    xc, gc)
+    h = tconv.pair_canvas_forward(xc, w1, b1, w2, b2, tc, d, SLOPE)[1]
+    h0 = tconv.pair_canvas_plain(xc, w1, b1, w2, b2, tc, d, SLOPE)[1]
+    assert rel(y, y0) <= tol and rel(h, h0) <= tol and norm_rel(dx, dx0) <= tol
+    assert outside(y, tc) == 0 and outside(h, tc) == 0 and outside(dx, tc) == 0
+
+
+@pytest.mark.cuda
+def test_bf16_pair_kernel_short_input_and_weight_copies(cuda, gen):
+    """A T under one row tile (the input box longer than the tensor) and C
+    64 (half a Cout tile), then the weight copies: one tap-major copy per
+    weight tensor, shared by the plain and the canvas form, none made again
+    by later calls, one remade after an in-place write; a launch counts once
+    for its two passes."""
+    bf, tol = torch.bfloat16, 2e-2
+    for c, t, k, d in ((128, 100, 7, 3), (64, 333, 3, 5)):
+        w1, w2 = (arr(gen, k, c, c, scale=1 / math.sqrt(k * c), dtype=bf) for _ in range(2))
+        b = arr(gen, c, scale=0.1, dtype=bf)
+        x = arr(gen, 1, t, c, dtype=bf)
+        y, h = tconv._launch_pair(x, w1, b, w2, b, d, SLOPE)
+        y0, h0 = tconv.pair_plain(x, w1, b, w2, b, d, SLOPE)
+        assert rel(y, y0) <= tol and rel(h, h0) <= tol, (c, t)
+    c, t, k = 256, 300, 11
+    w1, w2 = (arr(gen, k, c, c, scale=1 / math.sqrt(k * c), dtype=bf) for _ in range(2))
+    b = arr(gen, c, scale=0.1, dtype=bf)
+    x, xc = arr(gen, 1, t, c, dtype=bf), canvas(gen, t, c, bf)
+    repack.REPACKS["conv1d_pair"] = 0
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        for _ in range(2):
+            tconv.conv1d_fused_pair(x, w1, b, w2, b, 5, SLOPE)
+            tconv.conv1d_pair_canvas(xc, w1, b, w2, b, t, 5, SLOPE)
+        assert repack.REPACKS["conv1d_pair"] == 2
+        w2.mul_(-1.0)                                              # _version moves
+        y = tconv.conv1d_fused_pair(x, w1, b, w2, b, 5, SLOPE)
+    assert repack.REPACKS["conv1d_pair"] == 3
+    assert rel(y, tconv.pair_plain(x, w1, b, w2, b, 5, SLOPE)[0]) <= tol
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["conv1d_fused_pair"] == 3 and counts["conv1d_pair_canvas"] == 2, counts
 
 
 @pytest.mark.cuda

@@ -20,12 +20,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      outside the signal; median times of the kernel, its plain version and
      the one PyTorch call that computes the same function where there is
      one, from CUDA events, beside the bound the shapes give (bytes over
-     device memory rate, operations over peak rate); for the upsampler, the
-     masks, the fused GroupNorm (against F.group_norm, in turns) and the
-     conv1d pair at one geometry of each vocoder stage (against the plain
-     pair) also each call's device time (torch.profiler) and host time,
-     the masks with g in both layouts, and the layout of the adjoint conv's
-     output that the mask route hands them;
+     device memory rate, operations over peak rate; for the fused blocks
+     also their exponentials, one exp2 per logit at EXP2_PER_CLOCK per SM
+     at the SM clock nvidia-smi reads); for the upsampler, the masks, the
+     fused GroupNorm (against F.group_norm, in turns), the conv1d pair at
+     one geometry of each vocoder stage, the single conv at ch512 k11, the
+     canvas conv forward and adjoint at one geometry a stage and the fused
+     block at both UNet levels (against their plain versions) also each
+     call's device time (torch.profiler) and host time, the masks with g in
+     both layouts, and the layout of the adjoint conv's output that the
+     mask route hands them;
   4. reference: small fp32 MusicLDM and AudioLDM2 models (the latter from a
      text prompt, under classifier-free guidance, on both UNet routes), a
      small fp32 MusicLDM with the guided step's routes on (`gn_mode`
@@ -358,9 +362,11 @@ def conv_cases(dtype):
     return cases
 
 
-# (T, C, k, dilation) of one pair per vocoder stage whose device and host
-# time per call `check_conv` also reads (split_ms), beside the plain pair's
+# (T, C, k, dilation) of one pair per vocoder stage, and of the single conv,
+# whose device and host time per call `check_conv` also reads (split_ms),
+# beside the plain version's
 PAIR_SPLITS = ((5001, 512, 3, 1), (20004, 256, 11, 1), (40008, 128, 3, 1))
+SINGLE_SPLITS = ((5001, 512, 11, 1),)
 
 
 def check_conv(name, shape, k, d, residual, dtype, gen, tol):
@@ -393,8 +399,8 @@ def check_conv(name, shape, k, d, residual, dtype, gen, tol):
         fwd = max(fwd, h_err, key=lambda e: e[1])
     res = result(fwd[0], timings(kern, plain, x, dtype), bnd)
     split = ""
-    if name == "conv1d_fused_pair" and dtype == torch.bfloat16 and (shape[1], c, k, d) in \
-            PAIR_SPLITS:
+    splits = PAIR_SPLITS if name == "conv1d_fused_pair" else SINGLE_SPLITS
+    if dtype == torch.bfloat16 and (shape[1], c, k, d) in splits and not residual:
         with torch.no_grad():
             split = "; " + describe_split(split_ms({"kernel": lambda: kern(x),
                                                     "plain": lambda: plain(x)}))
@@ -447,7 +453,11 @@ def check_block(t, c, dtype, gen, tol, cross=False, bsoft=False, amp=1.0):
     unmasked, and 12 T5 tokens of 1024 whose last 7 are masked; with `bsoft`,
     in the bounded-softmax mode, against the plain version in that mode.
     `amp` scales x and the LayerNorm scale (so the logits grow by amp^2 and
-    the bound grows slack)."""
+    the bound grows slack). In bf16 the bound's operations are the larger of
+    the tensor-core work and the exponentials, one exp2 per logit at
+    EXP2_PER_CLOCK per clock per SM at the SM clock nvidia-smi reads right
+    after the timing; at amp 1 also the device and host time per call
+    (split_ms) beside the plain block's."""
     from diffmusic_tpu_torch.kernels import transformer_block as TB
     dev = "cuda"
     heads = c // 8
@@ -491,13 +501,27 @@ def check_block(t, c, dtype, gen, tol, cross=False, bsoft=False, amp=1.0):
         err = rel_err(out, ref)
     if not torch.isfinite(out).all():
         raise AssertionError("the fused block gave non-finite values")
-    res = result(err[0], timings(lambda _: kern(), lambda _: plain(), None, dtype),
-                 bound(nbytes, ops))
+    times = timings(lambda _: kern(), lambda _: plain(), None, dtype)
+    bnd, floor, split = bound(nbytes, ops), "", ""
+    if dtype == torch.bfloat16:
+        # one exp2 per logit: t keys of the self-attention and the streams'
+        # keys per query row and head, at the clock right after the timing
+        exps = t * (t + sum(a.shape[1] for a in contexts)) * heads / (EXP2_PER_CLOCK * SMS)
+        cur, top = sm_clock_mhz()
+        exp2_ms = exps / (cur * 1e3)
+        bnd = (bnd[0], max(bnd[1], exp2_ms))
+        floor = (f"; exp2 floor {exp2_ms:.4f} ms at {cur:.0f} MHz "
+                 f"({exps / (top * 1e3):.4f} at {top:.0f})")
+        if amp == 1.0:
+            with torch.no_grad():
+                split = "; " + describe_split(split_ms({"kernel": kern, "plain": plain}))
+    res = result(err[0], times, bnd)
     name = ("fused_transformer_block_bsoft" if bsoft else
             "fused_transformer_block_cross" if cross else "fused_transformer_block")
     mode = " +cross" if bsoft and cross else ""
     log(f"  {name:24s} (1, {t}, {c}) heads {heads}{mode} amp {amp:g} {str(dtype)[6:]}: "
-        f"max|err| {err[0]:.3e} rel {err[1]:.2e} (tol {tol:.0e}); {describe_times(res)}")
+        f"max|err| {err[0]:.3e} rel {err[1]:.2e} (tol {tol:.0e}); {describe_times(res)}"
+        f"{floor}{split}")
     if err[1] > tol:
         raise AssertionError(f"{name} disagrees with its plain version")
     return res
@@ -802,6 +826,11 @@ def canvas_conv_calls() -> list:
             for d, res, n in ((1, False, 1), (3, False, 1), (5, False, 1), (1, True, 3))]
 
 
+# (T, C, k, dilation) of one canvas conv per vocoder stage whose device and
+# host time per call, forward and adjoint, `check_canvas_conv` also reads
+CANVAS_SPLITS = ((5001, 512, 11, 1), (20004, 256, 11, 1), (40008, 128, 3, 1))
+
+
 def check_canvas_conv(t, c, k, d, residual, dtype, gen, tol) -> tuple:
     """conv1d_fused_canvas's forward and its backward's adjoint launch
     against the plain versions (`canvas_plain` of the conv and of the
@@ -830,10 +859,15 @@ def check_canvas_conv(t, c, k, d, residual, dtype, gen, tol) -> tuple:
             err = rel_err(y, ref)
         assert_margins_zero(f"conv1d_fused_canvas {label}", t, y)
         out[label] = result(err[0], timings(kern, plain, inp, dtype), bnd)
+        split = ""
+        if dtype == torch.bfloat16 and (t, c, k, d) in CANVAS_SPLITS and not residual:
+            with torch.no_grad():
+                split = "; " + describe_split(split_ms({"kernel": lambda: kern(inp),
+                                                        "plain": lambda: plain(inp)}))
         log(f"  conv1d_fused_canvas {label:7s} (1, {t}, {c}) k{k} d{d}"
             f"{' +res' if residual and label == 'fwd' else ''} {str(dtype)[6:]}: max|err| "
             f"{err[0]:.3e} rel {err[1]:.2e} (tol {tol:.0e}), margins 0; "
-            f"{describe_times(out[label])}")
+            f"{describe_times(out[label])}{split}")
         if err[1] > tol:
             raise AssertionError("conv1d_fused_canvas disagrees with its plain version")
     return out["fwd"], out["adjoint"]
@@ -1488,10 +1522,14 @@ def phase_slice(profile_dir=None) -> tuple:
     counts, audio = {}, {}
     # the routes share the weight tensors, so only the first of the conv2d
     # routes' turns copies the 46 conv2d weights to the kernel's tap-major
-    # layout, and only the first turn the 3 upsamplers' weights and the 24
-    # pairs' 48 (the canvas and stage routes' pairs read the same copies)
+    # layout, and only the first turn the 3 upsamplers' weights and the
+    # conv1d kernel's 54 (the 24 pairs' 48 and the 6 single convs'; the canvas
+    # and stage routes read the same copies); the first "kernel" turn maps
+    # the 54 weights for its adjoint passes, with no copy
     upsampler_weights = VOCODER_PER_STEP["phase_convtranspose"]
-    pair_weights = 2 * VOCODER_PER_STEP["conv1d_fused_pair"]
+    pair_weights = 2 * VOCODER_PER_STEP["conv1d_fused_pair"] + VOCODER_PER_STEP["conv1d_fused"]
+    adjoint_maps = VOCODER_LAUNCHES["kernel"][1]["conv1d_fused_canvas"]
+    first_kernel = TURNS.index("kernel")
     conv2d_weights = sum(ROUTE_LAUNCHES[m]["stats"]["conv2d_same"] for m in ROUTE_LAUNCHES)
     first_conv2d = next(i for i, n in enumerate(TURNS) if TURN_ROUTES[n].get("conv2d_kernel"))
     for turn, name in enumerate(TURNS):
@@ -1499,7 +1537,8 @@ def phase_slice(profile_dir=None) -> tuple:
         c, a = drive(f"{label} (turn {turn + 1})", pipes[name], meas, turn_launches(name),
                      repacks={"conv2d_same": conv2d_weights if turn == first_conv2d else 0,
                               "phase_convtranspose": upsampler_weights if turn == 0 else 0,
-                              "conv1d_pair": pair_weights if turn == 0 else 0},
+                              "conv1d_pair": pair_weights if turn == 0 else 0,
+                              "conv1d_adjoint": adjoint_maps if turn == first_kernel else 0},
                      prompt_embeds=torch.zeros(2, 512))
         counts.setdefault(name, c)
         audio.setdefault(name, a)
@@ -1534,12 +1573,13 @@ def phase_audioldm2(profile_dir=None) -> dict:
     log(f"audioldm2: text stack (CLAP, T5, projection, 8 GPT-2 steps; prompt and negative "
         f"prompt '') {secs[0]:.3f} s first, {secs[1]:.3f} s again; streams "
         f"{[tuple(a.shape) for a in embeds]}")
-    # the first run copies its own vocoder's 3 upsampler weights and 48 pair
-    # weights; the other two share them
+    # the first run copies its own vocoder's 3 upsampler weights and the
+    # conv1d kernel's 54 (48 pair weights, 6 single); the other two share them
     counts = {False: drive("audioldm2 fuse_cross=False", pipe, meas,
                            expected_launches("flash_attention"),
                            {"phase_convtranspose": VOCODER_PER_STEP["phase_convtranspose"],
-                            "conv1d_pair": 2 * VOCODER_PER_STEP["conv1d_fused_pair"]},
+                            "conv1d_pair": 2 * VOCODER_PER_STEP["conv1d_fused_pair"]
+                            + VOCODER_PER_STEP["conv1d_fused"]},
                            prompt="")[0]}
     with pipe.device:
         fused = UNet2DConditionModel(unet_cfg, fuse_cross=True)
@@ -1860,7 +1900,9 @@ def main() -> int:
                           ("nchw_to_nhwc_kernel", None),
                           ("flash_mma_kernel", lib.dm_flash_attention_smem(1, 16)),
                           ("phase_ct_wgmma_kernel", lib.dm_phase_convtranspose_smem(1, -2, 1)),
-                          ("conv1d_pair_wgmma_kernel", lib.dm_conv1d_pair_smem(1, 512, 3, 1)),
+                          ("conv1d_wgmma_kernelILb1E", lib.dm_conv1d_pair_smem(1, 512, 3, 1)),
+                          ("conv1d_wgmma_kernelILb0E", lib.dm_conv1d_fused_smem(1, 11, 1)),
+                          ("block_mma_kernel", lib.dm_transformer_block_smem(1, 256)),
                           ("leaky_mask_gt_kernelI13__nv_bfloat16", None),
                           ("leaky_mask_kernelI13__nv_bfloat16", None)):
             extra = "" if dyn is None else f"; {dyn} bytes of dynamic shared memory"

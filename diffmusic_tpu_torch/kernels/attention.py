@@ -12,7 +12,8 @@ m16n8k8 takes bf16; only WMMA and wgmma need depth 16). In bf16 a warp owns
 16 query rows of one head: QK^T on m16n8k8, an online softmax per chunk of
 `KEY_CHUNK` keys, P rounded to bf16 in registers, PV on m16n8k16, with the
 key and value chunks of a block's heads staged through a double-buffered
-`cp.async` ring. fp32 runs the exact scalar core it shares with the fused
+`cp.async` ring (the warp core of `csrc/mma_attention.cuh`, which the bf16
+transformer block shares). fp32 runs the exact scalar core it shares with the fused
 transformer block (`csrc/common.cuh`). Either way the (T, T) logits never
 reach device memory. It takes head_dim 8 and raises otherwise.
 

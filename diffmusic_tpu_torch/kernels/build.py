@@ -37,7 +37,7 @@ SIGNATURES = {
     "dm_conv1d_pair": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
     "dm_conv1d_fused_smem": ([_I, _I, _I], _S),
     "dm_conv1d_pair_smem": ([_I, _I, _I, _I], _S),
-    "dm_conv1d_pair_wmap": ([_P, _I, _I, _P], _I),
+    "dm_conv1d_wmap": ([_P, _I, _I, _I, _P], _I),
     "dm_phase_convtranspose": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                                _I),
     "dm_phase_convtranspose_smem": ([_I, _I, _I], _S),

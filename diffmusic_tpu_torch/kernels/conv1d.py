@@ -8,30 +8,34 @@ forms are the same kernels told where the signal lies, plus an adjoint mode
 of the single conv).
 
 Bound on the H100: tensor-core work (the vocoder forward is about 1 TFLOP at
-10 s), while each conv reads x and w once. The single conv stages one haloed
-time window of x per block (leaky applied on the way in) and accumulates all
-k shifted tap products from it with WMMA (bf16 in, fp32 accumulate), so no
-im2col patches reach device memory.
+10 s), while each conv reads x and w once.
 
-The bf16 pair is two passes of one implicit GEMM on wgmma fed by TMA, in one
-C call: pass 1 writes h, pass 2 reads h back and writes y. Each block owns
-`BLOCK_M` rows x `BLOCK_N` output channels (160 / 314 / 313 blocks at the
-10-s slice's stages 0-2, where keeping h on chip, as the fp32 path does,
-leaves 79 at stage 0) and walks (`BLOCK_K`-channel slice, tap): per step one
-TMA box of the pass's input, (B, T, C) rows starting at the tap's shift, the
-rows outside the tensor filled with zeros, which is the 'same' padding, and
-one box of the weights' tap-major copy (k, Cout, Cin). Each consumer
+In bf16 both are passes of one implicit GEMM on wgmma fed by TMA: the single
+conv one pass, the pair two in one C call (pass 1 writes h, pass 2 reads h
+back and writes y). Each block owns `BLOCK_M` rows x `BLOCK_N` output
+channels (160 / 314 / 313 blocks at the 10-s slice's stages 0-2, where
+keeping the pair's h on chip, as the fp32 path does, leaves 79 at stage 0)
+and walks (`BLOCK_K`-channel slice, tap): per step one TMA box of the pass's
+input, (B, T, C) rows starting at the tap's shift, the rows outside the
+tensor filled with zeros, which is the 'same' padding, and one box of the
+tap's (Cout, Cin) weight matrix. Where the pass has a slope, each consumer
 warpgroup applies the leaky ReLU to its rows of the staged input in place
-before its products. The copy and the TMA tensor map that reads it are made
-once per weight tensor (`repack.cached(REPACK, ...)`, shared by the plain and
-the canvas form and by every route over the same weights). The epilogue adds
-the bias (pass 2 also x) in fp32 and rounds once. Pass 2 reads h rounded,
-leaky(round(h)), as `pair_plain` does; the JAX Pallas kernel rounds leaky(h)
-from fp32, one bf16 ulp apart on negative h. The fp32 pair is the exact
-scalar path: one block keeps h, for its rows plus conv2's halo over all
-channels, in shared memory. The launch path checks once per operand geometry
-(`pair_plan`); per call it reads the addresses, allocates y and h and
-launches both passes on the current stream's raw handle.
+before its products. The forward reads the weights' tap-major copy (k, Cout,
+Cin); the copy and the TMA tensor map that reads it are made once per weight
+tensor (`repack.cached(REPACK, ...)`, shared by the single conv and the pair,
+the plain and the canvas form and every route over the same weights). The
+canvas backward's adjoint pass reads tap k-1-j of the weight tensor itself,
+(k, Cin, Cout) being the (N, K) layout that the adjoint's B operand needs,
+through one tensor map per weight tensor (`repack.cached(ADJOINT, ...)`, no
+copy). The epilogue adds the bias and the residual in fp32 and rounds once.
+The pair's pass 2 reads h rounded, leaky(round(h)), as `pair_plain` does;
+the JAX Pallas kernel rounds leaky(h) from fp32, one bf16 ulp apart on
+negative h. The fp32 kernels are the exact scalar paths: the single conv
+stages a haloed time window per block, the pair keeps h, for its rows plus
+conv2's halo over all channels, in shared memory. The launch paths check
+once per operand geometry (`fused_plan`, `pair_plan`); per call they read
+the addresses, allocate the outputs and launch on the current stream's raw
+handle.
 
 Layout as in the JAX package: activations (B, T, C), weights (k, Cin, Cout),
 'same' padding, odd k. On a CPU tensor the wrappers run the plain PyTorch
@@ -72,11 +76,12 @@ LAUNCHES = {"conv1d_fused": 0, "conv1d_fused_pair": 0, "conv1d_fused_canvas": 0,
             "conv1d_pair_canvas": 0}
 CANVAS_BWD = ("kernel", "plain")
 
-# the bf16 pair kernel's tile (csrc/conv1d.cu, namespace tc)
+# the bf16 kernel's tile (csrc/conv1d.cu, namespace tc)
 BLOCK_M = 128     # output rows per block
 BLOCK_N = 128     # output channels per block
 BLOCK_K = 64      # input channels per step
-REPACK = "conv1d_pair"   # its weight copies' name in repack.REPACKS
+REPACK = "conv1d_pair"   # the forward's tap-major copies in repack.REPACKS
+ADJOINT = "conv1d_adjoint"   # the adjoint's tensor maps over the weights themselves
 
 
 def _conv_view(h, w, b, dilation: int):
@@ -157,45 +162,104 @@ def _signal(name, rows: int, t):
     return TIME_BLOCK, TIME_BLOCK + t
 
 
+def _operand_code(name: str, shapes, strides, dtypes, devices) -> int:
+    """The dtype code of a conv1d launch's operands, given by their shapes,
+    strides, dtypes and devices; raises unless they are contiguous tensors
+    of one kernel dtype on one CUDA device."""
+    if any(d.type != "cuda" or d != devices[0] for d in devices):
+        raise ValueError(f"{name}: all tensors must be on one CUDA device, not {devices}")
+    if any(dt != dtypes[0] for dt in dtypes):
+        raise TypeError(f"{name}: mixed dtypes {dtypes}")
+    code = build.dtype_code(dtypes[0])
+    if not all(_dense(sh, st) for sh, st in zip(shapes, strides)):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    return code
+
+
+def _wmap(w, k: int, kdim: int, ndim: int):
+    """The 128-byte TMA tensor map (host memory) through which the bf16
+    kernel reads k weight matrices (k, ndim, kdim) at w, kdim innermost."""
+    wmap = torch.empty(128, dtype=torch.uint8)
+    build.check(build.library().dm_conv1d_wmap(w.data_ptr(), k, kdim, ndim, wmap.data_ptr()),
+                REPACK)
+    return wmap
+
+
+def pair_weights(w):
+    """The bf16 kernel's copy of a forward weight (k, Cin, Cout): its tap-major
+    layout (k, Cout, Cin) and the tensor map through which the kernel reads
+    it."""
+    taps = tap_major(w)
+    k, cin, cout = w.shape
+    return taps, _wmap(taps, k, cin, cout)
+
+
+def adjoint_weights(w):
+    """The tensor map through which the bf16 adjoint pass reads a weight (k,
+    Cin, Cout) as it lies: tap k-1-j's (Cin, Cout) matrix is the adjoint's
+    (N, K) operand, so no copy is made."""
+    k, cin, cout = w.shape
+    return _wmap(w, k, cout, cin)
+
+
+@functools.lru_cache(maxsize=256)
+def fused_plan(name: str, shapes: tuple, strides: tuple, dtypes: tuple, devices: tuple,
+               dilation: int, t, adjoint: bool, has_bias: bool, has_res: bool) -> tuple:
+    """(dtype code, k, Cin, Cout, sig0, sig1) of a single-conv launch on x, w
+    and, where given, b and the residual, in that order by their shapes,
+    strides, dtypes and devices, with `t` the canvas signal length or None;
+    raises for what the kernel does not take: tensors not on one CUDA device,
+    mixed or other dtypes, a tensor not contiguous, shapes other than x (B, T,
+    Cin), w (k, Cin, Cout) with odd k (with `adjoint` (k, Cout, Cin)), b
+    (Cout,), the residual the output's shape, channels the tiles do not
+    divide (bf16: Cin and Cout multiples of 64; fp32: Cin of 32, Cout of 64),
+    a canvas of another length."""
+    code = _operand_code(name, shapes, strides, dtypes, devices)
+    xs, ws = tuple(shapes[0]), tuple(shapes[1])
+    bs = tuple(shapes[2]) if has_bias else None
+    rs = tuple(shapes[2 + has_bias]) if has_res else None
+    if len(xs) != 3 or len(ws) != 3:
+        raise ValueError(f"{name}: bad shapes x {xs}, w {ws}")
+    bsz, rows, cin = xs
+    k, cin_w, cout = (ws[0], ws[2], ws[1]) if adjoint else ws
+    if cin_w != cin or k % 2 == 0 or (bs is not None and bs != (cout,)):
+        raise ValueError(f"{name}: bad shapes x {xs}, w {ws}, b {bs}")
+    if rs is not None and rs != (bsz, rows, cout):
+        raise ValueError(f"{name}: residual must have the output's shape")
+    if code == 1 and (cin % 64 or cout % 64):
+        raise ValueError(f"{name}: bf16 Cin and Cout must be multiples of 64")
+    if cin % 32 or cout % 64:
+        raise ValueError(f"{name}: Cin must be a multiple of 32, Cout of 64")
+    sig0, sig1 = _signal(name, rows, t)
+    build.check_smem(name, build.library().dm_conv1d_fused_smem(code, k, dilation))
+    return code, k, cin, cout, sig0, sig1
+
+
 def _launch_fused(x, w, b, residual, dilation, slope, t=None, adjoint=False):
     """The conv kernel; `t` puts it on the canvas of a t-row signal, and
     `adjoint` reads w (k, Cout, Cin) as the flipped transposed kernel."""
     name = "conv1d_fused" if t is None else "conv1d_fused_canvas"
     ops = [x, w] + [a for a in (b, residual) if a is not None]
-    build.check_tensors(name, *ops)
-    bsz, rows, cin = x.shape
-    k, cin_w, cout = (w.shape[0], w.shape[2], w.shape[1]) if adjoint else w.shape
-    if cin_w != cin or k % 2 == 0 or (b is not None and tuple(b.shape) != (cout,)):
-        raise ValueError(f"{name}: bad shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
-                         f"b {None if b is None else tuple(b.shape)}")
-    if residual is not None and tuple(residual.shape) != (bsz, rows, cout):
-        raise ValueError(f"{name}: residual must have the output's shape")
-    if cin % 32 or cout % 64:
-        raise ValueError(f"{name}: Cin must be a multiple of 32, Cout of 64")
-    sig0, sig1 = _signal(name, rows, t)
-    lib = build.library()
-    code = build.dtype_code(x.dtype)
-    build.check_smem(name, lib.dm_conv1d_fused_smem(code, k, dilation))
+    code, k, cin, cout, sig0, sig1 = fused_plan(
+        name, tuple(a.shape for a in ops), tuple(a.stride() for a in ops),
+        tuple(a.dtype for a in ops), tuple(a.device for a in ops), dilation, t, adjoint,
+        b is not None, residual is not None)
+    if functools.reduce(lambda acc, a: acc | a.data_ptr(), ops, 0) % 16:
+        raise ValueError(f"{name}: tensors must start 16-byte aligned")
+    wp = w.data_ptr()
+    if code == 1:   # bf16 reads the weights through a cached tensor map
+        wp = (repack.cached(ADJOINT, w, adjoint_weights) if adjoint else
+              repack.cached(REPACK, w, pair_weights)[1]).data_ptr()
+    bsz, rows = x.shape[:2]
     y = torch.empty((bsz, rows, cout), dtype=x.dtype, device=x.device)
-    rc = lib.dm_conv1d_fused(
-        code, x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None,
+    rc = build.library().dm_conv1d_fused(
+        code, x.data_ptr(), wp, b.data_ptr() if b is not None else None,
         residual.data_ptr() if residual is not None else None, y.data_ptr(),
         bsz, rows, cin, cout, k, dilation, float(slope or 0.0), int(slope is not None),
         sig0, sig1, int(adjoint), build.stream_ptr(x.device))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return y
-
-
-def pair_weights(w):
-    """The bf16 pair kernel's copy of a weight (k, C, C): its tap-major layout
-    (k, Cout, Cin) and the 128-byte TMA tensor map (host memory) through
-    which the kernel reads it."""
-    taps = tap_major(w)
-    wmap = torch.empty(128, dtype=torch.uint8)
-    build.check(build.library().dm_conv1d_pair_wmap(taps.data_ptr(), w.shape[0], w.shape[1],
-                                                    wmap.data_ptr()), REPACK)
-    return taps, wmap
 
 
 @functools.lru_cache(maxsize=256)
@@ -207,13 +271,7 @@ def pair_plan(name: str, shapes: tuple, strides: tuple, dtypes: tuple, devices: 
     tensors not on one CUDA device, mixed or other dtypes, a tensor not
     contiguous, shapes other than x (B, T, C), w (k, C, C) with odd k <= 17,
     b (C,), C not a multiple of 64, a canvas of another length."""
-    if any(d.type != "cuda" or d != devices[0] for d in devices):
-        raise ValueError(f"{name}: all tensors must be on one CUDA device, not {devices}")
-    if any(dt != dtypes[0] for dt in dtypes):
-        raise TypeError(f"{name}: mixed dtypes {dtypes}")
-    code = build.dtype_code(dtypes[0])
-    if not all(_dense(sh, st) for sh, st in zip(shapes, strides)):
-        raise ValueError(f"{name}: tensors must be contiguous")
+    code = _operand_code(name, shapes, strides, dtypes, devices)
     xs, w1s, b1s, w2s, b2s = (tuple(sh) for sh in shapes)
     if len(xs) != 3 or len(w1s) != 3:
         raise ValueError(f"{name}: bad shapes x {xs}, w1 {w1s}, w2 {w2s}")

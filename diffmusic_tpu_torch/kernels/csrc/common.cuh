@@ -10,17 +10,18 @@
 //   - fp32 operands run as scalar FMAs, so the fp32 path is exact fp32 (no
 //     TF32) and serves the tight-tolerance checks.
 // The accumulator tile is read from / written to fp32 shared memory, where the
-// kernels apply their epilogues. The bf16 conv2d (conv2d.cu: TMA and wgmma)
-// and flash attention (flash_attention.cu: mma.sync) kernels keep their own
-// tensor-core paths.
+// kernels apply their epilogues. The bf16 conv1d, conv2d and upsampler
+// kernels (TMA and wgmma, hopper.cuh), and the bf16 flash attention and
+// transformer block (mma.sync, mma_attention.cuh) keep their own
+// tensor-core paths; TileAcc<bf16> serves the bf16 stage backward
+// (stage_bwd.cu), the one bf16 kernel still on WMMA.
 //
-// `HeadAttention` is the attention core at head_dim 8 that the transformer
-// block (and the fp32 flash kernel) use: an online softmax over key chunks
-// staged in shared memory, with QK^T and PV as scalar fp32 FMAs, one thread
-// per (row, head) pair. Depth 8 is not what keeps it off the tensor cores:
-// mma.sync has m16n8k8 for bf16 (only WMMA and wgmma need depth 16), which
-// the bf16 flash kernel uses; this core is the exact fp32 path and the
-// block kernels' attention, still to be redesigned.
+// `HeadAttention` is the exact fp32 attention core at head_dim 8 that the
+// fp32 transformer block and the fp32 flash kernel use, for the
+// card-against-CPU reference runs: an online softmax over key chunks staged
+// in shared memory, with QK^T and PV as scalar fp32 FMAs, one thread per
+// (row, head) pair. The bf16 kernels run their attention on mma.sync
+// (mma_attention.cuh).
 #pragma once
 
 #include <math_constants.h>

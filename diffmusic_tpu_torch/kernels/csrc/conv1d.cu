@@ -10,47 +10,56 @@
 // Bound: the vocoder forward is ~1 TFLOP at 10 s (tensor-core work), while
 // each conv reads x and w once and writes y once.
 //
-// The single conv (`conv1d_fused_kernel`, both dtypes) keeps all k taps of one
-// time tile on one staged window: a block loads the haloed window
-// x[t0 - pad, t0 + BM + pad) of a 32-channel slice once (leaky applied on the
-// way in) and accumulates k shifted (BM, 32) @ (32, BN) tap products from it
-// with WMMA, instead of materialising im2col patches in device memory. The
-// adjoint mode (the canvas backward) flips the taps and contracts the other
-// channel axis, reading each tap w[k-1-j] transposed into shared memory
-// (load_rows_t): the backward needs no transposed weight copy.
-//
-// The bf16 pair (`conv1d_pair_wgmma_kernel`) is two passes of one implicit
-// GEMM on wgmma fed by TMA, launched back to back by one C call: pass 1 reads
-// x and writes h = conv1(leaky(x)) + b1, pass 2 reads h and x and writes
-// y = conv2(leaky(h)) + b2 + x. A block that kept h on chip would have to own
-// every channel of its rows (79 blocks at stage 0, ch512); two (row tile x
-// Cout tile) GEMMs give 160 / 314 / 313 blocks at stages 0-2 for the price
-// of reading h back once, which the kernel writes for the backward anyway.
-//   - A block owns BM = 128 output rows x BN = 128 output channels; two
-//     consumer warpgroups run wgmma m64n128k16 (bf16 -> fp32 registers) on
-//     64 rows each, one producer thread keeps a 3-stage TMA + mbarrier ring
-//     full, and two blocks share an SM.
-//   - It walks (channel slice of BK = 64, tap j). Each step's operands are
-//     two boxes: A, 64 channels x 128 rows of the pass's input starting at
-//     row t0 + j*dil - pad (channels innermost, so the tap's shift is a
+// In bf16 both functions are passes of one implicit GEMM on wgmma fed by TMA
+// (`conv1d_wgmma_kernel`, namespace tc below):
+//   - A pass writes out = conv(leaky(in), w, dil) [+ bias] [+ res] on the
+//     signal rows. A block owns BM = 128 output rows x BN = 128 output
+//     channels; two consumer warpgroups run wgmma m64n128k16 (bf16 -> fp32
+//     registers) on 64 rows each, one producer thread keeps a 3-stage TMA +
+//     mbarrier ring full, and two blocks share an SM.
+//   - It walks (input channel slice of BK = 64, tap j). Each step's operands
+//     are two boxes: A, 64 channels x 128 rows of the pass's input starting
+//     at row t0 + j*dil - pad (channels innermost, so the tap's shift is a
 //     whole-row box start; TMA fills rows before 0 or past T with zeros,
 //     the 'same' padding, with no predicate); B, 64 input x 128 output
-//     channels of the tap-major weights (k, Cout, Cin), made once per
-//     weight tensor by the wrapper together with their tensor map.
-//   - leaky on A, in place: once a stage lands, each consumer warpgroup
-//     rewrites its own 64 rows (8 KB) through leaky in fp32, rounded back to
-//     bf16 (elementwise, so the 128-B swizzle does not matter), then fences
-//     the generic proxy's writes against the async proxy and meets its
-//     warpgroup barrier before its wgmma reads the tile.
+//     channels of the tap's (N, K) weight matrix, K innermost.
+//   - The forward's B is the weights' tap-major copy (k, Cout, Cin), made
+//     once per weight tensor by the wrapper together with its tensor map.
+//     The adjoint (the canvas backward, dx = conv(g, w flipped and
+//     transposed)) needs no copy: dx[s, ci] = sum_j sum_co g[s + j dil - pad,
+//     co] w[k-1-j, ci, co], so tap j's B is w[k-1-j] as it lies, (N = Cin
+//     rows, K = Cout innermost); the producer reads tap k-1-j through a
+//     tensor map over w itself.
+//   - leaky on A, in place, where the pass has a slope: once a stage lands,
+//     each consumer warpgroup rewrites its own 64 rows (8 KB) through leaky
+//     in fp32, rounded back to bf16 (elementwise, so the 128-B swizzle does
+//     not matter), then fences the generic proxy's writes against the async
+//     proxy and meets its warpgroup barrier before its wgmma reads the tile.
+//     Passes without a slope (the plain forward without one, the adjoint)
+//     compile without the rewrite, the fence and the barrier.
 //   - Epilogue: the fp32 tile staged in the drained ring; per 8 channels of
-//     a row the bias in fp32 (pass 2 also the residual x), one rounding to
-//     bf16, one 16-byte store; rows outside [sig0, sig1) are written as
-//     exact zeros, rows at or past T not at all.
-// Pass 2 reads h as pass 1 rounded it, leaky(round(h)), as the plain version
-// does; the JAX kernel rounds leaky(h) from fp32 (one bf16 ulp apart on
-// negative h). The fp32 pair (`conv1d_pair_kernel<float>`) is the exact
-// scalar path: one block computes h for its time tile plus conv2's halo over
-// ALL channels in shared memory, writes it once and runs conv2 from there.
+//     a row the bias and the residual in fp32, one rounding to bf16, one
+//     16-byte store; rows outside [sig0, sig1) are written as exact zeros,
+//     rows at or past T not at all.
+// The single conv is one pass. The pair is two, launched back to back by one
+// C call: pass 1 reads x and writes h = conv1(leaky(x)) + b1, pass 2 reads h
+// and x and writes y = conv2(leaky(h)) + b2 + x. A block that kept h on chip
+// would have to own every channel of its rows (79 blocks at stage 0, ch512);
+// two (row tile x Cout tile) GEMMs give 160 / 314 / 313 blocks at stages
+// 0-2 for the price of reading h back once, which the kernel writes for the
+// backward anyway. Pass 2 reads h as pass 1 rounded it, leaky(round(h)), as
+// the plain version does; the JAX kernel rounds leaky(h) from fp32 (one
+// bf16 ulp apart on negative h).
+//
+// fp32 is the exact scalar path, for the card-against-CPU reference runs:
+// `conv1d_fused_kernel<float>` keeps all k taps of one time tile on one
+// staged window (the haloed window x[t0 - pad, t0 + BM + pad) of a
+// 32-channel slice, leaky applied on the way in) and accumulates k shifted
+// tap products from it (common.cuh TileAcc<float>); its adjoint mode reads
+// each tap w[k-1-j] transposed into shared memory (load_rows_t). The fp32
+// pair (`conv1d_pair_kernel<float>`) computes h for its time tile plus
+// conv2's halo over ALL channels in shared memory, writes it once and runs
+// conv2 from there.
 //
 // The signal is rows [sig0, sig1) of x's T rows: [0, T) for the plain calls,
 // [512, 512 + t) on a canvas (kernels/canvas.py), whose zero margins let every
@@ -79,8 +88,9 @@ __device__ void zero_rows(T* y, int b, int Tlen, int C, int t0, int n0, int ncol
   }
 }
 
-// conv1d_fused: y = conv1d(leaky(x), w, dil) [+ b] [+ res] on the signal rows;
-// with `adjoint`, w is (k, Cout, Cin) and tap j multiplies by w[k-1-j]^T.
+// conv1d_fused in fp32 (the exact scalar path; bf16 takes tc:: below):
+// y = conv1d(leaky(x), w, dil) [+ b] [+ res] on the signal rows; with
+// `adjoint`, w is (k, Cout, Cin) and tap j multiplies by w[k-1-j]^T.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 conv1d_fused_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -229,14 +239,13 @@ size_t pair_smem(int C, int k, int dil) {
          (size_t)HR * dm::acc_ld(BN) * sizeof(float);
 }
 
-template <typename T>
-int run_fused(const void* x, const void* w, const void* b, const void* res, void* y, int B,
-              int Tlen, int Cin, int Cout, int k, int dil, float slope, int has_slope,
-              int sig0, int sig1, int adjoint, cudaStream_t s) {
+int run_fused_fp32(const void* x, const void* w, const void* b, const void* res, void* y,
+                   int B, int Tlen, int Cin, int Cout, int k, int dil, float slope,
+                   int has_slope, int sig0, int sig1, int adjoint, cudaStream_t s) {
   dim3 grid((Tlen + BM - 1) / BM, Cout / BN, B);
-  return dm::launch(conv1d_fused_kernel<T>, grid, dim3(THREADS), fused_smem<T>(k, dil), s,
-                    (const T*)x, (const T*)w, (const T*)b, (const T*)res, (T*)y, Tlen, Cin,
-                    Cout, k, dil, slope, has_slope, sig0, sig1, adjoint);
+  return dm::launch(conv1d_fused_kernel<float>, grid, dim3(THREADS), fused_smem<float>(k, dil),
+                    s, (const float*)x, (const float*)w, (const float*)b, (const float*)res,
+                    (float*)y, Tlen, Cin, Cout, k, dil, slope, has_slope, sig0, sig1, adjoint);
 }
 
 int run_pair_fp32(const void* x, const void* w1, const void* b1, const void* w2,
@@ -248,7 +257,7 @@ int run_pair_fp32(const void* x, const void* w1, const void* b1, const void* w2,
                     (const float*)b2, (float*)y, (float*)h, Tlen, C, k, dil, slope, sig0, sig1);
 }
 
-// --------------------------------------------- the bf16 pair: TMA + wgmma
+// ------------------------------------------------------ bf16: TMA + wgmma
 namespace tc {
 
 using namespace dm::hopper;
@@ -269,15 +278,17 @@ constexpr int OUT_LD = BN + 4;
 static_assert(BM * OUT_LD * 4 <= STAGES * STAGE_BYTES, "the staged tile fits the ring");
 constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES + 2 * STAGES * sizeof(uint64_t) + 1024;
 
-// One pass: out = conv(leaky(in), w, dil) + bias [+ res] on the signal rows
-// [sig0, sig1), exact zeros on the other rows before T. `in` arrives through
-// amap (B, T, C) and the tap-major w through wmap (k, Cout, Cin).
+// One pass: out = conv(leaky(in), w, dil) [+ bias] [+ res] on the signal rows
+// [sig0, sig1), exact zeros on the other rows before T; without LEAKY, conv(in,
+// w, dil). `in` (B, T, Cin) arrives through amap; tap j's (Cout, Cin) weight
+// matrix through wmap (k, Cout, Cin) at tap j, or at tap k-1-j with `flip`
+// (the adjoint). bias and res may be null.
+template <bool LEAKY>
 __global__ void __launch_bounds__(THREADS, 2)
-conv1d_pair_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
-                         const __grid_constant__ CUtensorMap wmap,
-                         const bf16* __restrict__ bias, const bf16* __restrict__ res,
-                         bf16* __restrict__ out, int Tlen, int C, int k, int dil, float slope,
-                         int sig0, int sig1) {
+conv1d_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                    const __grid_constant__ CUtensorMap wmap, const bf16* __restrict__ bias,
+                    const bf16* __restrict__ res, bf16* __restrict__ out, int Tlen, int Cin,
+                    int Cout, int k, int dil, float slope, int sig0, int sig1, int flip) {
   extern __shared__ unsigned char smem_raw[];
   // 1024-byte alignment: the 128-B swizzle pattern repeats every 8 rows
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -289,13 +300,14 @@ conv1d_pair_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
   if (t0 + BM <= sig0 || t0 >= sig1) {   // no signal row in this tile: zeros
     for (int i = threadIdx.x; i < BM * BN / 8; i += THREADS) {
       const int t = t0 + i / (BN / 8), n = n0 + i % (BN / 8) * 8;
-      if (t < Tlen && n < C)
-        *reinterpret_cast<uint4*>(out + ((size_t)b * Tlen + t) * C + n) = make_uint4(0, 0, 0, 0);
+      if (t < Tlen && n < Cout)
+        *reinterpret_cast<uint4*>(out + ((size_t)b * Tlen + t) * Cout + n) =
+            make_uint4(0, 0, 0, 0);
     }
     return;
   }
   const int pad = (k - 1) * dil / 2;
-  const int iters = C / BK * k;
+  const int iters = Cin / BK * k;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -317,7 +329,7 @@ conv1d_pair_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
         unsigned char* a = smem + s * STAGE_BYTES;
         mbar_expect_tx(&full[s], STAGE_BYTES);
         tma_load_3d(a, &amap, &full[s], kc, t0 + j * dil - pad, b);
-        tma_load_3d(a + A_BYTES, &wmap, &full[s], kc, n0, j);
+        tma_load_3d(a + A_BYTES, &wmap, &full[s], kc, n0, flip ? k - 1 - j : j);
       }
     }
     return;
@@ -335,14 +347,16 @@ conv1d_pair_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
     const int s = it % STAGES;
     mbar_wait(&full[s], (it / STAGES) & 1);
     unsigned char* tile = smem + s * STAGE_BYTES + wg * 64 * 128;
-    // leaky on this warpgroup's 64 rows of A, in place, 16 bytes a thread
-    // per pass; then hand the tile back to the async proxy
-    uint4* v = reinterpret_cast<uint4*>(tile);
+    if (LEAKY) {
+      // leaky on this warpgroup's 64 rows of A, in place, 16 bytes a thread
+      // per pass; then hand the tile back to the async proxy
+      uint4* v = reinterpret_cast<uint4*>(tile);
 #pragma unroll
-    for (int q = 0; q < 64 * 128 / 16 / 128; ++q)
-      v[tid + 128 * q] = leaky_bf16x8(v[tid + 128 * q], slope);
-    fence_proxy_async();
-    asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+      for (int q = 0; q < 64 * 128 / 16 / 128; ++q)
+        v[tid + 128 * q] = leaky_bf16x8(v[tid + 128 * q], slope);
+      fence_proxy_async();
+      asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+    }
     const uint32_t a = smem_u32(tile);
     const uint32_t bw = smem_u32(smem + s * STAGE_BYTES + A_BYTES);
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
@@ -362,7 +376,7 @@ conv1d_pair_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
 
   // d[4j + e]: row warp * 16 + lane / 4 (+8 for e >= 2), channel
   // 8j + 2 (lane % 4) + e % 2. Stage the warpgroup's 64 x 128 fp32 tile in
-  // the drained ring, then per 8 channels of a row: + bias [+ res] in fp32,
+  // the drained ring, then per 8 channels of a row: [+ bias] [+ res] in fp32,
   // one rounding, one 16-byte store.
   asm volatile("bar.sync 1, %0;" ::"n"(32 * CONSUMER_WARPS) : "memory");   // ring drained
   float* stage = reinterpret_cast<float*>(smem) + wg * 64 * OUT_LD;
@@ -379,17 +393,19 @@ conv1d_pair_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
   for (int v = 0; v < 64 * BN / 8 / 128; ++v) {
     const int idx = tid + v * 128, rr = idx / (BN / 8), n = idx % (BN / 8) * 8;
     const int t = t0 + wg * 64 + rr;
-    if (t >= Tlen || n0 + n >= C) continue;
-    const size_t o = ((size_t)b * Tlen + t) * C + n0 + n;
+    if (t >= Tlen || n0 + n >= Cout) continue;
+    const size_t o = ((size_t)b * Tlen + t) * Cout + n0 + n;
     uint4 packed = make_uint4(0, 0, 0, 0);
     if (t >= sig0 && t < sig1) {
       const float4 lo = *reinterpret_cast<const float4*>(stage + rr * OUT_LD + n);
       const float4 hi = *reinterpret_cast<const float4*>(stage + rr * OUT_LD + n + 4);
       float f[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      const uint4 braw = *reinterpret_cast<const uint4*>(bias + n0 + n);
-      const bf16* be = reinterpret_cast<const bf16*>(&braw);
+      if (bias != nullptr) {
+        const uint4 braw = *reinterpret_cast<const uint4*>(bias + n0 + n);
+        const bf16* be = reinterpret_cast<const bf16*>(&braw);
 #pragma unroll
-      for (int q = 0; q < 8; ++q) f[q] += __bfloat162float(be[q]);
+        for (int q = 0; q < 8; ++q) f[q] += __bfloat162float(be[q]);
+      }
       if (res != nullptr) {
         const uint4 rraw = *reinterpret_cast<const uint4*>(res + o);
         const bf16* re = reinterpret_cast<const bf16*>(&rraw);
@@ -414,86 +430,123 @@ int encode_rows(CUtensorMap* map, const void* base, int B, int Tlen, int C) {
   return encode_bf16(map, base, 3, dim, stride, box);
 }
 
-// The tensor map of tap-major weights (k, Cout, Cin) as (Cin, Cout, k).
-int encode_taps(CUtensorMap* map, const void* w_taps, int k, int C) {
-  const cuuint64_t dim[3] = {(cuuint64_t)C, (cuuint64_t)C, (cuuint64_t)k};
-  const cuuint64_t stride[2] = {(cuuint64_t)C * 2, (cuuint64_t)C * C * 2};
+// The tensor map of k weight matrices (k, N, K), K innermost, as (K, N, k):
+// the tap-major copy (k, Cout, Cin) of the forward, or w (k, Cin, Cout) as it
+// lies for the adjoint.
+int encode_taps(CUtensorMap* map, const void* w, int k, int kdim, int ndim) {
+  const cuuint64_t dim[3] = {(cuuint64_t)kdim, (cuuint64_t)ndim, (cuuint64_t)k};
+  const cuuint64_t stride[2] = {(cuuint64_t)kdim * 2, (cuuint64_t)kdim * ndim * 2};
   const cuuint32_t box[3] = {BK, BN, 1};
-  return encode_bf16(map, w_taps, 3, dim, stride, box);
+  return encode_bf16(map, w, 3, dim, stride, box);
 }
 
-int launch(const void* x, const void* w1map, const void* b1, const void* w2map, const void* b2,
-           void* y, void* h, int B, int Tlen, int C, int k, int dil, float slope, int sig0,
-           int sig1, cudaStream_t s) {
-  static bool opted_in = false;   // more than 48 KB of dynamic shared memory, once
-  if (!opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        conv1d_pair_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+template <bool LEAKY>
+int opt_in() {   // more than 48 KB of dynamic shared memory, once per instantiation
+  static bool done = false;
+  if (!done) {
+    cudaError_t err = cudaFuncSetAttribute(conv1d_wgmma_kernel<LEAKY>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (err != cudaSuccess) return (int)err;
-    opted_in = true;
+    done = true;
   }
+  return 0;
+}
+
+// One pass on the current stream; the maps are passed by value (__grid_constant__).
+int pass(const CUtensorMap& amap, const CUtensorMap& wmap, const void* bias, const void* res,
+         void* out, int B, int Tlen, int Cin, int Cout, int k, int dil, bool leaky, float slope,
+         int sig0, int sig1, int flip, cudaStream_t s) {
+  const int rc = leaky ? opt_in<true>() : opt_in<false>();
+  if (rc != 0) return rc;
+  const dim3 grid((Tlen + BM - 1) / BM, (Cout + BN - 1) / BN, B);
+  if (leaky)
+    conv1d_wgmma_kernel<true><<<grid, THREADS, SMEM, s>>>(
+        amap, wmap, (const bf16*)bias, (const bf16*)res, (bf16*)out, Tlen, Cin, Cout, k, dil,
+        slope, sig0, sig1, flip);
+  else
+    conv1d_wgmma_kernel<false><<<grid, THREADS, SMEM, s>>>(
+        amap, wmap, (const bf16*)bias, (const bf16*)res, (bf16*)out, Tlen, Cin, Cout, k, dil,
+        slope, sig0, sig1, flip);
+  return (int)cudaGetLastError();
+}
+
+int single(const void* x, const void* wmap, const void* b, const void* res, void* y, int B,
+           int Tlen, int Cin, int Cout, int k, int dil, float slope, int has_slope, int sig0,
+           int sig1, int adjoint, cudaStream_t s) {
+  alignas(64) CUtensorMap xmap, wm;
+  const int rc = encode_rows(&xmap, x, B, Tlen, Cin);
+  if (rc != 0) return rc;
+  memcpy(&wm, wmap, sizeof(CUtensorMap));
+  return pass(xmap, wm, b, res, y, B, Tlen, Cin, Cout, k, dil, has_slope != 0, slope, sig0,
+              sig1, adjoint, s);
+}
+
+int pair(const void* x, const void* w1map, const void* b1, const void* w2map, const void* b2,
+         void* y, void* h, int B, int Tlen, int C, int k, int dil, float slope, int sig0,
+         int sig1, cudaStream_t s) {
   alignas(64) CUtensorMap xmap, hmap, w1, w2;
   int rc = encode_rows(&xmap, x, B, Tlen, C);
   if (rc == 0) rc = encode_rows(&hmap, h, B, Tlen, C);
   if (rc != 0) return rc;
   memcpy(&w1, w1map, sizeof(CUtensorMap));
   memcpy(&w2, w2map, sizeof(CUtensorMap));
-  const dim3 grid((Tlen + BM - 1) / BM, (C + BN - 1) / BN, B);
-  conv1d_pair_wgmma_kernel<<<grid, THREADS, SMEM, s>>>(xmap, w1, (const bf16*)b1, nullptr,
-                                                        (bf16*)h, Tlen, C, k, dil, slope, sig0,
-                                                        sig1);
-  conv1d_pair_wgmma_kernel<<<grid, THREADS, SMEM, s>>>(hmap, w2, (const bf16*)b2,
-                                                        (const bf16*)x, (bf16*)y, Tlen, C, k, 1,
-                                                        slope, sig0, sig1);
-  return (int)cudaGetLastError();
+  rc = pass(xmap, w1, b1, nullptr, h, B, Tlen, C, C, k, dil, true, slope, sig0, sig1, 0, s);
+  if (rc != 0) return rc;
+  return pass(hmap, w2, b2, x, y, B, Tlen, C, C, k, 1, true, slope, sig0, sig1, 0, s);
 }
 
 }  // namespace tc
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. The signal is rows [sig0, sig1) of the
-// Tlen; b and res may be null. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. x (B, Tlen, Cin), y (B, Tlen, Cout); the
+// signal is rows [sig0, sig1) of the Tlen; b and res may be null. fp32 reads w
+// (k, Cin, Cout), or with `adjoint` (k, Cout, Cin) as the flipped transposed
+// kernel, itself. For bf16 (Cin and Cout multiples of 64), w is the host
+// address of the 128-byte tensor map that dm_conv1d_wmap encoded: of the
+// weights' tap-major copy (k, Cout, Cin), or with `adjoint` of the weight
+// tensor itself. Returns a cudaError_t (0 = launched).
 extern "C" int dm_conv1d_fused(int dtype, const void* x, const void* w, const void* b,
                                const void* res, void* y, int B, int Tlen, int Cin, int Cout,
                                int k, int dil, float slope, int has_slope, int sig0, int sig1,
                                int adjoint, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
-    return run_fused<bf16>(x, w, b, res, y, B, Tlen, Cin, Cout, k, dil, slope, has_slope,
-                           sig0, sig1, adjoint, s);
-  return run_fused<float>(x, w, b, res, y, B, Tlen, Cin, Cout, k, dil, slope, has_slope, sig0,
-                          sig1, adjoint, s);
+    return tc::single(x, w, b, res, y, B, Tlen, Cin, Cout, k, dil, slope, has_slope, sig0,
+                      sig1, adjoint, s);
+  return run_fused_fp32(x, w, b, res, y, B, Tlen, Cin, Cout, k, dil, slope, has_slope, sig0,
+                        sig1, adjoint, s);
 }
 
 // The pair: x (B, Tlen, C), w1 and w2 (k, C, C), b1 and b2 (C,), y and h
 // (B, Tlen, C); C % 64 == 0. For bf16, w1 and w2 are the host addresses of
 // the 128-byte tensor maps of the weights' tap-major copies, which
-// dm_conv1d_pair_wmap encodes once per copy; the call launches the two
-// passes of the TMA + wgmma kernel. fp32 reads the weights themselves.
+// dm_conv1d_wmap encodes once per copy; the call launches the two passes of
+// the TMA + wgmma kernel. fp32 reads the weights themselves.
 // Returns a cudaError_t (0 = launched).
 extern "C" int dm_conv1d_pair(int dtype, const void* x, const void* w1, const void* b1,
                               const void* w2, const void* b2, void* y, void* h, int B,
                               int Tlen, int C, int k, int dil, float slope, int sig0, int sig1,
                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1)
-    return tc::launch(x, w1, b1, w2, b2, y, h, B, Tlen, C, k, dil, slope, sig0, sig1, s);
+  if (dtype == 1) return tc::pair(x, w1, b1, w2, b2, y, h, B, Tlen, C, k, dil, slope, sig0, sig1, s);
   return run_pair_fp32(x, w1, b1, w2, b2, y, h, B, Tlen, C, k, dil, slope, sig0, sig1, s);
 }
 
 // Writes into `map` (128 bytes of host memory) the tensor map through which
-// the bf16 pair reads the tap-major weights w_taps (k, C, C) that lie on the
-// card. Returns a cudaError_t (0 = encoded).
-extern "C" int dm_conv1d_pair_wmap(const void* w_taps, int k, int C, void* map) {
+// the bf16 kernel reads k weight matrices (k, ndim, kdim) that lie on the
+// card, kdim innermost: a tap-major copy (k, Cout, Cin) of the forward, or a
+// weight (k, Cin, Cout) itself for the adjoint. Returns a cudaError_t (0 =
+// encoded).
+extern "C" int dm_conv1d_wmap(const void* w, int k, int kdim, int ndim, void* map) {
   alignas(64) CUtensorMap m;
-  const int rc = tc::encode_taps(&m, w_taps, k, C);
+  const int rc = tc::encode_taps(&m, w, k, kdim, ndim);
   if (rc == 0) memcpy(map, &m, sizeof(CUtensorMap));
   return rc;
 }
 
 extern "C" size_t dm_conv1d_fused_smem(int dtype, int k, int dil) {
-  return dtype == 1 ? fused_smem<bf16>(k, dil) : fused_smem<float>(k, dil);
+  return dtype == 1 ? tc::SMEM : fused_smem<float>(k, dil);
 }
 
 extern "C" size_t dm_conv1d_pair_smem(int dtype, int C, int k, int dil) {

@@ -1,23 +1,32 @@
 """Fused transformer block: `fused_transformer_block`.
 
 Replaces `diffmusic_tpu/pallas/transformer_kernel.py::fused_transformer_block`
-(self-attention mode, and the dual-cross mode of AudioLDM2) with the CUDA
-kernel of `csrc/transformer_block.cu`, per 32-row query tile:
-LN1 -> MHSA -> +res -> [per cross stream i: LN2_i -> q_i -> attention over the
-stream's keys -> out-projection -> +res] -> LN3 -> GEGLU FF -> +res.
+(self-attention mode, the dual-cross mode of AudioLDM2, and the bounded
+softmax of either) with the CUDA kernel of `csrc/transformer_block.cu`, per
+32-row query tile: LN1 -> MHSA -> +res -> [per cross stream i: LN2_i -> q_i
+-> attention over the stream's keys -> out-projection -> +res] -> LN3 ->
+GEGLU FF -> +res.
 
-Bound on the H100: at head_dim 8 the attention is scalar work (below the
-bf16 MMA depth of 16), T^2 * heads * 18 operations per call; the projections
-and the FF are tensor-core work. The kernel runs QK^T and PV as fp32 FMAs
-with an online softmax over 32-key chunks, so the (T, T) logits never reach
-device memory, and the projections and the FF as WMMA tiles, streaming the
-FF weights through L2.
+Bound on the H100: the self-attention's exponentials, one exp2 per logit,
+T^2 * heads at 16 per clock per SM, above the tensor-core work of the
+projections, the FF and the attention's products. In bf16 the attention runs
+on the tensor cores with the flash kernel's warp core (`csrc/mma_attention.cuh`:
+QK^T on mma.sync m16n8k8, an online softmax per 64-key chunk, P rounded to
+bf16 for PV on m16n8k16), so the (T, T) logits never reach device memory.
+One block of 16 warps owns 8 heads and 64 channels of a 32-row tile, and
+the `COLS_PER_BLOCK`-channel blocks of a tile form a cluster (250 blocks at
+T 4000, 16 heads; 128 at T 1000, 32 heads): each computes q and the
+attention for its heads, the out-projection and residual for its channels
+after gathering the cluster's attention output through distributed shared
+memory, and a quarter-share of the FF's hidden units, whose partial
+products the cluster sums per output channel. The projections stream their
+weight tiles through a cp.async ring into mma.sync m16n8k16 products. fp32
+runs the exact scalar path: one block of 8 warps per tile, the attention as
+fp32 FMAs (one thread per (row, head)), the products as scalar tiles.
 
 The cross streams add a few keys each (AudioLDM2: 8 GPT-2 states, the T5
-sequence's tokens), so per stream they cost two (32, C) @ (C, C) tensor-core
-products per tile, whose weights stream through L2 like the FF's, and a
-(32 x heads) x Tk scalar softmax; the win is keeping LN2_i, q_i, the stream's
-output and the residual in shared memory.
+sequence's tokens): one 64-key chunk each, with the mask's additive bias;
+the win is keeping LN2_i, q_i, the stream's output and the residual on chip.
 
 x: (B, T, C); p: the block's parameters in the JAX math layout (dense kernels
 (in, out)): ln1_scale/ln1_bias, wq/wk/wv/wo/bo, ln3_scale/ln3_bias, wi/bi,
@@ -62,6 +71,7 @@ PARAM_ORDER = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo", "bo",
                "ln3_scale", "ln3_bias", "wi", "bi", "wo2", "bo2")
 CROSS_ORDER = ("ln2{}_scale", "ln2{}_bias", "cwq{}", "cwk{}", "cwv{}", "cwo{}", "cbo{}")
 MAX_CROSS = 2
+COLS_PER_BLOCK = 64   # bf16: channels (8 heads) per block of a tile's cluster (csrc, tc::COLS)
 _LOG2E = 1.4426950408889634
 
 

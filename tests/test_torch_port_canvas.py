@@ -300,15 +300,18 @@ class _FakeLibrary:
 def meta_launches(monkeypatch):
     """Kernel launches on meta tensors: the wrappers take their kernel path
     (shape checks, counts) and allocate meta outputs; nothing runs. The
-    pair's launch plan sees the meta tensors as on one CUDA device."""
+    conv1d launch plans see the meta tensors as on one CUDA device."""
     from diffmusic_tpu_torch.kernels import build
-    real_plan = tconv.pair_plan
+    real_plan, real_fused_plan = tconv.pair_plan, tconv.fused_plan
+    cuda = torch.device("cuda", 0)
     with monkeypatch.context() as mp:
         mp.setattr(build, "library", lambda: _FakeLibrary())
         mp.setattr(build, "check_tensors", lambda *a: None)
         mp.setattr(build, "stream_ptr", lambda device: 0)
         mp.setattr(tconv, "pair_plan", lambda name, sh, st, dt, dev, d, t: real_plan(
-            name, sh, st, dt, (torch.device("cuda", 0),) * len(dev), d, t))
+            name, sh, st, dt, (cuda,) * len(dev), d, t))
+        mp.setattr(tconv, "fused_plan", lambda name, sh, st, dt, dev, *rest: real_fused_plan(
+            name, sh, st, dt, (cuda,) * len(dev), *rest))
         for module in (tconv, tstage, tup, tmask):
             mp.setattr(module, "use_plain", lambda x, name: False)
         yield

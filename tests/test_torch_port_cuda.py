@@ -15,9 +15,12 @@ product by about 2^-8 relative). bf16 gradients of the vocoder kernels are
 held by norm (a leaky-ReLU mask flips where an activation rounds across
 zero differently in the two versions). Canvas outputs and gradients must be
 exactly zero outside the signal. The bf16 conv1d pair (TMA + wgmma) runs at
-each of the slice's 24 (C, k, dilation), on the canvas and off it. The
-fused mel spectrogram is fp32 only: 1e-4 of max |plain| forward, gradients
-too.
+each of the slice's 24 (C, k, dilation), on the canvas and off it; the bf16
+single conv (the same pass) at the slice's 6 ch512 k11 calls and, on the
+canvas, forward and adjoint, at every resblock conv of stages 0-2. The bf16
+transformer block (mma.sync attention, a cluster per 32-row tile) runs at
+both slice levels in all three modes. The fused mel spectrogram is fp32
+only: 1e-4 of max |plain| forward, gradients too.
 """
 
 import math
@@ -631,3 +634,94 @@ def test_mel_wrapper_rejects_what_the_kernel_does_not_take(cuda, gen):
         tmel.fused_mel_spectrogram(arr(gen, 1, 300), n_fft=1024)
     with pytest.raises(ValueError):    # more mels than the kernel's 128 columns
         tmel.fused_mel_spectrogram(arr(gen, 1, 4000), n_mels=160)
+
+
+# (T, C) of the vocoder's stages 0-2 and the resblock convs of each branch k:
+# conv1 at dilations 1, 3, 5, conv2 (dilation 1) with the residual
+VOCODER_STAGES = ((5001, 512), (20004, 256), (40008, 128))
+SINGLE_CALLS = ((1, False), (3, False), (5, False), (1, True))
+
+
+@pytest.mark.cuda
+def test_bf16_single_conv_at_the_slice_geometries(cuda, gen):
+    """conv1d_fused (the TMA + wgmma pass) at the slice's 6 ch512 k11 calls,
+    forward and input gradient against autograd through the plain version;
+    the forward reads the tap-major copy that one weight gets once."""
+    bf, tol, (t, c), k = torch.bfloat16, 2e-2, VOCODER_STAGES[0], 11
+    w = arr(gen, k, c, c, scale=1 / math.sqrt(k * c), dtype=bf)
+    b = arr(gen, c, scale=0.1, dtype=bf)
+    x, g, r = (arr(gen, 1, t, c, dtype=bf) for _ in range(3))
+    repack.REPACKS["conv1d_pair"] = 0
+    kernels.reset_launch_counts()
+    for d, res in SINGLE_CALLS:
+        rr = r if res else None
+        y, dx = grads(lambda xx: tconv.conv1d_fused(xx, w, b, rr, d, SLOPE), x, g)
+        y0, dx0 = grads(lambda xx: tconv.conv1d_plain(xx, w, b, d, SLOPE, rr), x, g)
+        assert rel(y, y0) <= tol and norm_rel(dx, dx0) <= tol, (d, res)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["conv1d_fused"] == 4
+    assert repack.REPACKS["conv1d_pair"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,c", VOCODER_STAGES)
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_bf16_canvas_conv_at_the_slice_geometries(cuda, gen, t, c, k):
+    """conv1d_fused_canvas at every resblock conv of the stage, forward (with
+    the slope, the bias and, for conv2, the residual) and the adjoint pass
+    (no slope, no bias, w read as it lies) against `canvas_plain` of the conv
+    and of the flipped transposed conv; exact zeros outside the signal; the
+    adjoint makes no weight copy, one tensor map per weight."""
+    bf, tol = torch.bfloat16, 2e-2
+    w = arr(gen, k, c, c, scale=1 / math.sqrt(k * c), dtype=bf)
+    b = arr(gen, c, scale=0.1, dtype=bf)
+    xc, gc, rc = (canvas(gen, t, c, bf) for _ in range(3))
+    w_adj = w.flip(0).transpose(1, 2)
+    repack.REPACKS["conv1d_pair"] = repack.REPACKS["conv1d_adjoint"] = 0
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        for d, res in SINGLE_CALLS:
+            rr = rc if res else None
+            y = tconv._launch_fused(xc, w, b, rr, d, SLOPE, t)
+            dx = tconv._launch_fused(gc, w, None, None, d, None, t, adjoint=True)
+            y0 = tconv.canvas_plain(xc, w, b, t, d, SLOPE, rr)
+            dx0 = tconv.canvas_plain(gc, w_adj, None, t, d)
+            assert rel(y, y0) <= tol and rel(dx, dx0) <= tol, (d, res)
+            assert outside(y, t) == 0 and outside(dx, t) == 0
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["conv1d_fused_canvas"] == 8
+    assert repack.REPACKS["conv1d_pair"] == 1 and repack.REPACKS["conv1d_adjoint"] == 1
+
+
+BLOCK_MODES = {"self": (0, False, 1.0), "cross": (2, False, 1.0), "bsoft": (0, True, 1.0),
+               "bsoft-amp5": (0, True, 5.0), "bsoft-cross": (2, True, 1.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,c", [(4000, 128), (1000, 256)])
+@pytest.mark.parametrize("mode", list(BLOCK_MODES))
+def test_bf16_block_at_the_slice_shapes(cuda, gen, t, c, mode):
+    """The bf16 block at both UNet levels of the 10-s slices, in each mode:
+    self-attention, dual-cross with AudioLDM2's streams (8 keys of 768, 12 of
+    1024 whose last 7 are masked), bounded at amplitude 1 and 5 (the
+    LayerNorm scale raised with x) and bounded dual-cross; within 3e-2 of
+    max |plain|, one launch counted under the mode's name."""
+    bf = torch.bfloat16
+    n_cross, bsoft, amp = BLOCK_MODES[mode]
+    cross_dims = (768, 1024)[:n_cross]
+    p = block_params(gen, c, bf, cross_dims)
+    p["ln1_scale"] = p["ln1_scale"] * amp
+    x = arr(gen, 1, t, c, dtype=bf) * amp
+    ctx = tuple(arr(gen, 1, n, cd, dtype=bf) for n, cd in zip((8, 12), cross_dims))
+    mask = torch.arange(12, device=cuda) < 5
+    biases = (torch.zeros(1, 1, 8, device=cuda),
+              torch.where(mask, 0.0, -1e9)[None, None])[:n_cross]
+    kernels.reset_launch_counts()
+    out = ttb.fused_transformer_block(x, p, c // 8, 8, ctx, biases, bsoft)
+    torch.cuda.synchronize()
+    name = ("fused_transformer_block_bsoft" if bsoft else
+            "fused_transformer_block_cross" if n_cross else "fused_transformer_block")
+    assert kernels.launch_counts()[name] == 1
+    ref = ttb.transformer_block_plain(x, p, c // 8, 8, ctx, biases, bsoft)
+    assert torch.isfinite(out).all()
+    assert rel(out, ref) <= 3e-2

@@ -23,11 +23,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      device memory rate, operations over peak rate; for the fused blocks
      also their exponentials, one exp2 per logit at EXP2_PER_CLOCK per SM
      at the SM clock nvidia-smi reads); for the upsampler, the masks, the
-     fused GroupNorm (against F.group_norm, in turns), the conv1d pair at
-     one geometry of each vocoder stage, the single conv at ch512 k11, the
-     canvas conv forward and adjoint at one geometry a stage and the fused
-     block at both UNet levels (against their plain versions) also each
-     call's device time (torch.profiler) and host time, the masks with g in
+     fused GroupNorm (against F.group_norm, in turns), the channel moments
+     at every geometry, the conv1d pair at one geometry of each vocoder
+     stage, the single conv at ch512 k11, the canvas conv forward and
+     adjoint at one geometry a stage, the stage backward and the fused block
+     at both UNet levels (against their plain versions) also each call's
+     device time (torch.profiler) and host time, the masks with g in
      both layouts, and the layout of the adjoint conv's output that the
      mask route hands them;
   4. reference: small fp32 MusicLDM and AudioLDM2 models (the latter from a
@@ -660,7 +661,8 @@ def check_group_norm(name, shape, eps, silu, dtype, gen, tol):
     (with its VJP; and the whole stats GroupNorm around it) on an NCHW x of
     `shape`, groups 32, against the plain versions; times beside
     F.group_norm (which has no SiLU) for the fused kernel, none for the
-    moments."""
+    moments; in bf16 the device and host time per call, in turns with
+    F.group_norm or the plain moments."""
     from diffmusic_tpu_torch.kernels import group_norm as GN
     dev = "cuda"
     b, c, h, w = shape
@@ -696,6 +698,10 @@ def check_group_norm(name, shape, eps, silu, dtype, gen, tol):
             fns["F.group_norm+F.silu"] = lambda: F.silu(library(x))
         with torch.no_grad():
             split = "; " + describe_split(split_ms(fns))
+    elif dtype == torch.bfloat16:   # the moments, in turns with their plain version
+        with torch.no_grad():
+            split = "; " + describe_split(split_ms({"kernel": lambda: kern(x),
+                                                    "plain": lambda: plain(x)}))
     log(f"  {name:24s} {shape} eps {eps:g}{' +silu' if silu else ''} {str(dtype)[6:]}: "
         f"{describe(fwd, bwd, tol)}; {describe_times(res)}{split}")
     if fwd[1] > tol or bwd[2] > tol:
@@ -905,8 +911,9 @@ def check_pair_canvas(t, c, k, d, dtype, gen, tol):
 def check_stage(t, dtype, gen, tol):
     """The stage route on the canvas of a (1, t, 128) signal, KS (3, 7, 11),
     dilations (1, 3, 5) x 3: its forward (9 pair launches) against the plain
-    stage, its one-launch backward against `stage_bwd_plain` on the same
-    saved tensors (held by norm); times of the backward."""
+    stage, its backward (one call: in bf16 the conv core's passes) against
+    `stage_bwd_plain` on the same saved tensors (held by norm); times of the
+    backward, in bf16 also its device and host time per call."""
     from diffmusic_tpu_torch.kernels import stage_bwd as S
     from diffmusic_tpu_torch.kernels.canvas import canvas_rows, from_canvas, to_canvas
     dev, c, rows = "cuda", 128, canvas_rows(t)
@@ -930,9 +937,15 @@ def check_stage(t, dtype, gen, tol):
     # g, the 18 saved canvases and dx once; the 18 weights
     nbytes = gc.element_size() * ((2 + 2 * len(params)) * rows * c + 2 * n_taps * c * c)
     res = result(bwd[0], timings(kern, plain, gc, dtype), bound(nbytes, 4 * t * c * c * n_taps))
+    split = ""
+    if dtype == torch.bfloat16:
+        with torch.no_grad():
+            split = "; " + describe_split(split_ms({"kernel": lambda: kern(gc),
+                                                    "plain": lambda: plain(gc)}, n=5))
     log(f"  stage_resblocks_canvas   (1, {t}, {c}) {str(dtype)[6:]}: forward max|err| "
         f"{fwd[0]:.3e} rel {fwd[1]:.2e}; backward max|err| {bwd[0]:.3e} rel {bwd[1]:.2e} "
-        f"norm-rel {bwd[2]:.2e} (tol {tol:.0e}), margins 0; backward {describe_times(res)}")
+        f"norm-rel {bwd[2]:.2e} (tol {tol:.0e}), margins 0; backward {describe_times(res)}"
+        f"{split}")
     if fwd[1] > tol or bwd[2] > tol:
         raise AssertionError("stage_resblocks_canvas disagrees with its plain version")
     return res
@@ -1902,6 +1915,9 @@ def main() -> int:
                           ("phase_ct_wgmma_kernel", lib.dm_phase_convtranspose_smem(1, -2, 1)),
                           ("conv1d_wgmma_kernelILb1E", lib.dm_conv1d_pair_smem(1, 512, 3, 1)),
                           ("conv1d_wgmma_kernelILb0E", lib.dm_conv1d_fused_smem(1, 11, 1)),
+                          ("stage_wgmma_kernelILi1E", lib.dm_stage_bwd_smem(1)),
+                          ("stage_wgmma_kernelILi2E", lib.dm_stage_bwd_smem(1)),
+                          ("moments_bf16_kernelILi8E", None),
                           ("block_mma_kernel", lib.dm_transformer_block_smem(1, 256)),
                           ("leaky_mask_gt_kernelI13__nv_bfloat16", None),
                           ("leaky_mask_kernelI13__nv_bfloat16", None)):

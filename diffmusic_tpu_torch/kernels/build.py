@@ -47,7 +47,7 @@ SIGNATURES = {
     "dm_flash_attention_smem": ([_I, _I], _S),
     "dm_group_norm": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
     "dm_group_norm_smem": ([_I], _S),
-    "dm_channel_moments": ([_I, _P, _P, _I, _I, _I, _P], _I),
+    "dm_channel_moments": ([_I, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
     "dm_conv2d_same": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "dm_conv2d_same_smem": ([_I], _S),
     "dm_leaky_mask": ([_I, _I, _P, _P, _P, _P, _S, _I, _I, _I, _F, _P], _I),

@@ -1,20 +1,16 @@
 // Shared device routines of the port's Hopper kernels (sm_90a).
 //
-// Every kernel here is a sum of (rows, K) @ (K, cols) products over tiles
-// staged in shared memory: the conv1d kernels accumulate one product per tap
-// over a haloed time window, the upsampler one per phase tap, the transformer
-// block its projections and feed-forward. `TileAcc` is that product, written
-// once:
-//   - bf16 operands run on the tensor cores through WMMA 16x16x16 fragments
-//     with fp32 accumulators (mma.sync underneath);
-//   - fp32 operands run as scalar FMAs, so the fp32 path is exact fp32 (no
-//     TF32) and serves the tight-tolerance checks.
-// The accumulator tile is read from / written to fp32 shared memory, where the
-// kernels apply their epilogues. The bf16 conv1d, conv2d and upsampler
-// kernels (TMA and wgmma, hopper.cuh), and the bf16 flash attention and
-// transformer block (mma.sync, mma_attention.cuh) keep their own
-// tensor-core paths; TileAcc<bf16> serves the bf16 stage backward
-// (stage_bwd.cu), the one bf16 kernel still on WMMA.
+// The exact fp32 paths, for the card-against-CPU reference runs, are sums of
+// (rows, K) @ (K, cols) products over tiles staged in shared memory: the
+// conv1d kernels accumulate one product per tap over a haloed time window,
+// the upsampler one per phase tap, the transformer block its projections and
+// feed-forward, the stage backward its adjoint convs. `TileAcc<float>` is
+// that product, written once, as scalar FMAs (exact fp32, no TF32); the
+// accumulator tile is read from / written to fp32 shared memory, where the
+// kernels apply their epilogues. Every bf16 kernel keeps its own
+// tensor-core path: the conv1d kernels and the stage backward's passes, the
+// conv2d and the upsampler on TMA and wgmma (hopper.cuh), the flash attention
+// and the transformer block on mma.sync (mma_attention.cuh).
 //
 // `HeadAttention` is the exact fp32 attention core at head_dim 8 that the
 // fp32 transformer block and the fp32 flash kernel use, for the
@@ -27,7 +23,6 @@
 #include <math_constants.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace dm {
@@ -49,11 +44,11 @@ __device__ __forceinline__ float leaky(float v, float slope) {
 
 // Row stride (in elements) of a shared-memory operand tile with `cols`
 // columns: a multiple of 32 bytes, so that every row start is 32-byte aligned
-// as WMMA loads require, plus 32 bytes of skew against bank conflicts.
+// for the 16-byte row loads, plus 32 bytes of skew against bank conflicts.
 template <typename T> __host__ __device__ constexpr int smem_ld(int cols) {
   return ((cols * (int)sizeof(T) + 31) / 32) * 32 / (int)sizeof(T) + 32 / (int)sizeof(T);
 }
-// fp32 accumulator staging tiles: a multiple of 4 floats (WMMA store rule).
+// fp32 accumulator staging tiles: a multiple of 4 floats (16-byte rows).
 __host__ __device__ constexpr int acc_ld(int cols) { return cols + 8; }
 
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
@@ -107,78 +102,8 @@ __device__ __forceinline__ void load_rows_t(T* dst, int ldd, const T* src, int l
 
 // C(BM x BN) += A(BM x K) @ B(K x BN); A, B row-major in shared memory.
 // WM x WN warps tile the output; the block has exactly 32*WM*WN threads.
+// fp32 only: the bf16 kernels run on the tensor cores.
 template <typename T, int BM, int BN, int WM, int WN> struct TileAcc;
-
-template <int BM, int BN, int WM, int WN> struct TileAcc<bf16, BM, BN, WM, WN> {
-  static_assert(BM % (16 * WM) == 0 && BN % (16 * WN) == 0, "tile/warp mismatch");
-  static constexpr int FM = BM / (16 * WM), FN = BN / (16 * WN);
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> c[FM][FN];
-  int r0, c0;
-
-  __device__ void zero() {
-    const int warp = threadIdx.x / 32;
-    r0 = (warp / WN) * FM * 16;
-    c0 = (warp % WN) * FN * 16;
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) nvcuda::wmma::fill_fragment(c[i][j], 0.f);
-  }
-  // K a multiple of 16; lda, ldb multiples of 16 elements; A, B 32-byte aligned.
-  __device__ void mma(const bf16* A, int lda, const bf16* B, int ldb, int K) {
-    using namespace nvcuda;
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], A + (size_t)(r0 + i * 16) * lda + kk, lda);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], B + (size_t)kk * ldb + c0 + j * 16, ldb);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
-  }
-  __device__ void store(float* C, int ldc) {
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        nvcuda::wmma::store_matrix_sync(C + (size_t)(r0 + i * 16) * ldc + c0 + j * 16,
-                                        c[i][j], ldc, nvcuda::wmma::mem_row_major);
-  }
-  __device__ void load(const float* C, int ldc) {
-    const int warp = threadIdx.x / 32;
-    r0 = (warp / WN) * FM * 16;
-    c0 = (warp % WN) * FN * 16;
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        nvcuda::wmma::load_matrix_sync(c[i][j], C + (size_t)(r0 + i * 16) * ldc + c0 + j * 16,
-                                       ldc, nvcuda::wmma::mem_row_major);
-  }
-  // f(row, col, value) for every element this warp holds, fragment by
-  // fragment through `stage`, the warp's own 16 x 16 fp32 tile (row stride
-  // ldw): the epilogue sees the fp32 sums without an accumulator-sized buffer.
-  template <typename F>
-  __device__ void for_each(float* stage, int ldw, F f) {
-    const int lane = threadIdx.x % 32;
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        __syncwarp();
-        nvcuda::wmma::store_matrix_sync(stage, c[i][j], ldw, nvcuda::wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32)
-          f(r0 + i * 16 + e / 16, c0 + j * 16 + e % 16, stage[(e / 16) * ldw + e % 16]);
-      }
-  }
-};
 
 template <int BM, int BN, int WM, int WN> struct TileAcc<float, BM, BN, WM, WN> {
   static constexpr int NT = 32 * WM * WN;

@@ -49,7 +49,10 @@
 // 0-2 for the price of reading h back once, which the kernel writes for the
 // backward anyway. Pass 2 reads h as pass 1 rounded it, leaky(round(h)), as
 // the plain version does; the JAX kernel rounds leaky(h) from fp32 (one
-// bf16 ulp apart on negative h).
+// bf16 ulp apart on negative h). The bf16 stage backward (stage_bwd.cu) runs
+// its adjoint convs as passes of the same body, `conv_pass`, with two more
+// epilogues (MASK, MASK_ACC: stage_pass.cuh) and one slot of tensor maps and
+// outputs per branch in `stage_wgmma_kernel`, block z the slot.
 //
 // fp32 is the exact scalar path, for the card-against-CPU reference runs:
 // `conv1d_fused_kernel<float>` keeps all k taps of one time tile on one
@@ -70,6 +73,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "stage_pass.cuh"
 
 namespace {
 
@@ -278,17 +282,29 @@ constexpr int OUT_LD = BN + 4;
 static_assert(BM * OUT_LD * 4 <= STAGES * STAGE_BYTES, "the staged tile fits the ring");
 constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES + 2 * STAGES * sizeof(uint64_t) + 1024;
 
-// One pass: out = conv(leaky(in), w, dil) [+ bias] [+ res] on the signal rows
-// [sig0, sig1), exact zeros on the other rows before T; without LEAKY, conv(in,
-// w, dil). `in` (B, T, Cin) arrives through amap; tap j's (Cout, Cin) weight
-// matrix through wmap (k, Cout, Cin) at tap j, or at tap k-1-j with `flip`
-// (the adjoint). bias and res may be null.
-template <bool LEAKY>
-__global__ void __launch_bounds__(THREADS, 2)
-conv1d_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
-                    const __grid_constant__ CUtensorMap wmap, const bf16* __restrict__ bias,
-                    const bf16* __restrict__ res, bf16* __restrict__ out, int Tlen, int Cin,
-                    int Cout, int k, int dil, float slope, int sig0, int sig1, int flip) {
+// The pass's epilogues: EPI_BIAS_RES, the conv's own; MASK and MASK_ACC, the
+// stage backward's (stage_pass.cuh).
+constexpr int EPI_BIAS_RES = 0;
+constexpr int MASK = dm::stage_pass::MASK, MASK_ACC = dm::stage_pass::MASK_ACC;
+
+// One pass over batch row b: acc = conv(leaky(in), w, dil), without LEAKY
+// conv(in, w, dil). `in` (B, T, Cin) arrives through amap; tap j's (Cout,
+// Cin) weight matrix through wmap (k, Cout, Cin) at tap j, or at tap k-1-j
+// with `flip` (the adjoint). On the signal rows [sig0, sig1) the epilogue
+// writes, per EPI:
+//   EPI_BIAS_RES: out = acc [+ bias] [+ res] (bias and res may be null);
+//   MASK:         out = leaky'(res) * acc, res the saved sign tensor;
+//   MASK_ACC:     v = leaky'(res) * acc + (g ? g * inv : dcur), fp32, into
+//                 dcur, and rounded into out unless out is null;
+// and exact zeros on the other rows before T.
+template <bool LEAKY, int EPI>
+__device__ __forceinline__ void conv_pass(const CUtensorMap* amap, const CUtensorMap* wmap,
+                                          const bf16* __restrict__ bias,
+                                          const bf16* __restrict__ res, bf16* __restrict__ out,
+                                          float* __restrict__ dcur, const bf16* __restrict__ g,
+                                          float inv, int Tlen, int Cin, int Cout, int k,
+                                          int dil, float slope, int sig0, int sig1, int flip,
+                                          int b) {
   extern __shared__ unsigned char smem_raw[];
   // 1024-byte alignment: the 128-B swizzle pattern repeats every 8 rows
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -296,13 +312,19 @@ conv1d_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
   uint64_t* empty = full + STAGES;
 
-  const int t0 = blockIdx.x * BM, n0 = blockIdx.y * BN, b = blockIdx.z;
+  const int t0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   if (t0 + BM <= sig0 || t0 >= sig1) {   // no signal row in this tile: zeros
     for (int i = threadIdx.x; i < BM * BN / 8; i += THREADS) {
       const int t = t0 + i / (BN / 8), n = n0 + i % (BN / 8) * 8;
-      if (t < Tlen && n < Cout)
-        *reinterpret_cast<uint4*>(out + ((size_t)b * Tlen + t) * Cout + n) =
-            make_uint4(0, 0, 0, 0);
+      if (t < Tlen && n < Cout) {
+        const size_t o = ((size_t)b * Tlen + t) * Cout + n;
+        if (EPI != MASK_ACC || out != nullptr)
+          *reinterpret_cast<uint4*>(out + o) = make_uint4(0, 0, 0, 0);
+        if constexpr (EPI == MASK_ACC) {
+          *reinterpret_cast<float4*>(dcur + o) = make_float4(0.f, 0.f, 0.f, 0.f);
+          *reinterpret_cast<float4*>(dcur + o + 4) = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
     }
     return;
   }
@@ -328,8 +350,8 @@ conv1d_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
         const int kc = (it / k) * BK, j = it % k;
         unsigned char* a = smem + s * STAGE_BYTES;
         mbar_expect_tx(&full[s], STAGE_BYTES);
-        tma_load_3d(a, &amap, &full[s], kc, t0 + j * dil - pad, b);
-        tma_load_3d(a + A_BYTES, &wmap, &full[s], kc, n0, flip ? k - 1 - j : j);
+        tma_load_3d(a, amap, &full[s], kc, t0 + j * dil - pad, b);
+        tma_load_3d(a + A_BYTES, wmap, &full[s], kc, n0, flip ? k - 1 - j : j);
       }
     }
     return;
@@ -376,8 +398,9 @@ conv1d_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
 
   // d[4j + e]: row warp * 16 + lane / 4 (+8 for e >= 2), channel
   // 8j + 2 (lane % 4) + e % 2. Stage the warpgroup's 64 x 128 fp32 tile in
-  // the drained ring, then per 8 channels of a row: [+ bias] [+ res] in fp32,
-  // one rounding, one 16-byte store.
+  // the drained ring, then per 8 channels of a row: the epilogue in fp32
+  // (16-byte loads of bias, res, g; 32-byte of dcur), one rounding, one
+  // 16-byte store.
   asm volatile("bar.sync 1, %0;" ::"n"(32 * CONSUMER_WARPS) : "memory");   // ring drained
   float* stage = reinterpret_cast<float*>(smem) + wg * 64 * OUT_LD;
   const int r = warp * 16 + lane / 4;
@@ -396,28 +419,87 @@ conv1d_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
     if (t >= Tlen || n0 + n >= Cout) continue;
     const size_t o = ((size_t)b * Tlen + t) * Cout + n0 + n;
     uint4 packed = make_uint4(0, 0, 0, 0);
-    if (t >= sig0 && t < sig1) {
-      const float4 lo = *reinterpret_cast<const float4*>(stage + rr * OUT_LD + n);
-      const float4 hi = *reinterpret_cast<const float4*>(stage + rr * OUT_LD + n + 4);
-      float f[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      if (bias != nullptr) {
-        const uint4 braw = *reinterpret_cast<const uint4*>(bias + n0 + n);
-        const bf16* be = reinterpret_cast<const bf16*>(&braw);
+    __nv_bfloat162* pe = reinterpret_cast<__nv_bfloat162*>(&packed);
+    if constexpr (EPI == EPI_BIAS_RES) {
+      if (t >= sig0 && t < sig1) {
+        const float4 lo = *reinterpret_cast<const float4*>(stage + rr * OUT_LD + n);
+        const float4 hi = *reinterpret_cast<const float4*>(stage + rr * OUT_LD + n + 4);
+        float f[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        if (bias != nullptr) {
+          const uint4 braw = *reinterpret_cast<const uint4*>(bias + n0 + n);
+          const bf16* be = reinterpret_cast<const bf16*>(&braw);
 #pragma unroll
-        for (int q = 0; q < 8; ++q) f[q] += __bfloat162float(be[q]);
+          for (int q = 0; q < 8; ++q) f[q] += __bfloat162float(be[q]);
+        }
+        if (res != nullptr) {
+          const uint4 rraw = *reinterpret_cast<const uint4*>(res + o);
+          const bf16* re = reinterpret_cast<const bf16*>(&rraw);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) f[q] += __bfloat162float(re[q]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) pe[q] = __floats2bfloat162_rn(f[2 * q], f[2 * q + 1]);
       }
-      if (res != nullptr) {
-        const uint4 rraw = *reinterpret_cast<const uint4*>(res + o);
-        const bf16* re = reinterpret_cast<const bf16*>(&rraw);
+      *reinterpret_cast<uint4*>(out + o) = packed;
+    } else {
+      float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (t >= sig0 && t < sig1) {
+        const float4 lo = *reinterpret_cast<const float4*>(stage + rr * OUT_LD + n);
+        const float4 hi = *reinterpret_cast<const float4*>(stage + rr * OUT_LD + n + 4);
+        const float acc[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        const uint4 sraw = *reinterpret_cast<const uint4*>(res + o);   // the signs
+        const bf16* se = reinterpret_cast<const bf16*>(&sraw);
 #pragma unroll
-        for (int q = 0; q < 8; ++q) f[q] += __bfloat162float(re[q]);
+        for (int q = 0; q < 8; ++q)
+          f[q] = __bfloat162float(se[q]) >= 0.f ? acc[q] : slope * acc[q];
+        if constexpr (EPI == MASK_ACC) {
+          if (g != nullptr) {   // dcur_old = g / n_branches, the branch's first pair
+            const uint4 graw = *reinterpret_cast<const uint4*>(g + o);
+            const bf16* ge = reinterpret_cast<const bf16*>(&graw);
+#pragma unroll
+            for (int q = 0; q < 8; ++q) f[q] += __bfloat162float(ge[q]) * inv;
+          } else {
+            const float4 p0 = *reinterpret_cast<const float4*>(dcur + o);
+            const float4 p1 = *reinterpret_cast<const float4*>(dcur + o + 4);
+            const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+            for (int q = 0; q < 8; ++q) f[q] += p[q];
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) pe[q] = __floats2bfloat162_rn(f[2 * q], f[2 * q + 1]);
       }
-      __nv_bfloat162* pe = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) pe[q] = __floats2bfloat162_rn(f[2 * q], f[2 * q + 1]);
+      if constexpr (EPI == MASK_ACC) {
+        *reinterpret_cast<float4*>(dcur + o) = make_float4(f[0], f[1], f[2], f[3]);
+        *reinterpret_cast<float4*>(dcur + o + 4) = make_float4(f[4], f[5], f[6], f[7]);
+      }
+      if (EPI == MASK || out != nullptr) *reinterpret_cast<uint4*>(out + o) = packed;
     }
-    *reinterpret_cast<uint4*>(out + o) = packed;
   }
+}
+
+// The conv's pass: conv_pass with the bias / residual epilogue, batch row
+// blockIdx.z.
+template <bool LEAKY>
+__global__ void __launch_bounds__(THREADS, 2)
+conv1d_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                    const __grid_constant__ CUtensorMap wmap, const bf16* __restrict__ bias,
+                    const bf16* __restrict__ res, bf16* __restrict__ out, int Tlen, int Cin,
+                    int Cout, int k, int dil, float slope, int sig0, int sig1, int flip) {
+  conv_pass<LEAKY, EPI_BIAS_RES>(&amap, &wmap, bias, res, out, nullptr, nullptr, 0.f, Tlen, Cin,
+                                 Cout, k, dil, slope, sig0, sig1, flip, blockIdx.z);
+}
+
+// The stage backward's pass: conv_pass of the adjoint (flip, no leaky) with a
+// mask epilogue, for slot blockIdx.z / B of `a` and batch row blockIdx.z % B.
+template <int EPI>
+__global__ void __launch_bounds__(THREADS, 2)
+stage_wgmma_kernel(const __grid_constant__ dm::stage_pass::Args a, int B, int Tlen, int C,
+                   float slope, int sig0, int sig1) {
+  const int slot = blockIdx.z / B;
+  conv_pass<false, EPI>(&a.a[slot], &a.w[slot], nullptr, a.sign[slot], a.out[slot],
+                        a.dcur[slot], a.g[slot], a.inv, Tlen, C, C, a.k[slot], a.dil[slot],
+                        slope, sig0, sig1, 1, blockIdx.z % B);
 }
 
 // The tensor map of an activation (B, T, C) as (C, T, B): a box (BK, BM)
@@ -445,6 +527,18 @@ int opt_in() {   // more than 48 KB of dynamic shared memory, once per instantia
   static bool done = false;
   if (!done) {
     cudaError_t err = cudaFuncSetAttribute(conv1d_wgmma_kernel<LEAKY>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+    if (err != cudaSuccess) return (int)err;
+    done = true;
+  }
+  return 0;
+}
+
+template <int EPI>
+int opt_in_stage() {   // the same, for the stage backward's passes
+  static bool done = false;
+  if (!done) {
+    cudaError_t err = cudaFuncSetAttribute(stage_wgmma_kernel<EPI>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (err != cudaSuccess) return (int)err;
     done = true;
@@ -495,9 +589,40 @@ int pair(const void* x, const void* w1map, const void* b1, const void* w2map, co
   return pass(hmap, w2, b2, x, y, B, Tlen, C, C, k, 1, true, slope, sig0, sig1, 0, s);
 }
 
+int stage(const dm::stage_pass::Args& a, int epi, int B, int Tlen, int C, float slope,
+          int sig0, int sig1, cudaStream_t s) {
+  if (a.slots < 1 || a.slots > dm::stage_pass::MAX_BRANCHES || (epi != MASK && epi != MASK_ACC))
+    return (int)cudaErrorInvalidValue;
+  const int rc = epi == MASK ? opt_in_stage<MASK>() : opt_in_stage<MASK_ACC>();
+  if (rc != 0) return rc;
+  const dim3 grid((Tlen + BM - 1) / BM, (C + BN - 1) / BN, a.slots * B);
+  if (epi == MASK)
+    stage_wgmma_kernel<MASK><<<grid, THREADS, SMEM, s>>>(a, B, Tlen, C, slope, sig0, sig1);
+  else
+    stage_wgmma_kernel<MASK_ACC><<<grid, THREADS, SMEM, s>>>(a, B, Tlen, C, slope, sig0, sig1);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tc
 
 }  // namespace
+
+namespace dm {
+namespace stage_pass {
+
+int encode_rows(CUtensorMap* map, const void* base, int B, int Tlen, int C) {
+  return tc::encode_rows(map, base, B, Tlen, C);
+}
+
+int launch(const Args& a, int epi, int B, int Tlen, int C, float slope, int sig0, int sig1,
+           cudaStream_t s) {
+  return tc::stage(a, epi, B, Tlen, C, slope, sig0, sig1, s);
+}
+
+size_t smem() { return tc::SMEM; }
+
+}  // namespace stage_pass
+}  // namespace dm
 
 // dtype: 0 = float32, 1 = bfloat16. x (B, Tlen, Cin), y (B, Tlen, Cout); the
 // signal is rows [sig0, sig1) of the Tlen; b and res may be null. fp32 reads w

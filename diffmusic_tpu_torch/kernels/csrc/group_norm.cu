@@ -13,8 +13,22 @@
 //     block, then re-reads its run (from L2: at most 2^20 / G elements under
 //     the JAX routing rule) to normalise, scale, shift, apply the optional
 //     SiLU and write in x's dtype. var = E[x^2] - mu^2, as the JAX kernel.
-//   - channel_moments_kernel: one block per (batch, channel) row of H*W
-//     elements writes its fp32 (sum, sum of squares) to out[b][0|1][c].
+//   - moments_bf16_kernel, the bf16 channel moments: a team of threads per
+//     (batch, channel) row of N elements, as many as the row has loads of V
+//     elements (V = 8, 16 bytes, or the largest of 4, 2, 1 dividing N, so
+//     that every load is aligned), up to 512: the UNet's short rows (N
+//     62-1000) a team of 32-128 and several rows a block, the long ones (N
+//     4000-64000) a block of 512 threads each, one to sixteen loads a
+//     thread. The plan is made per geometry by the wrapper
+//     (kernels/group_norm.py::moments_plan). On the H100 fewer loads a
+//     thread and more threads beat more loads a thread (PERF.md): a call's
+//     loads are few, so what counts is how many are in flight at once; a
+//     row split across a cluster of blocks spent its time on the cluster's
+//     barriers. Sums in fp32: each thread over its loads in order, the
+//     team's butterfly, then a butterfly over its warps' sums.
+//   - channel_moments_kernel<float>, the exact fp32 path: one block per
+//     (batch, channel) row writes its fp32 (sum, sum of squares).
+// Both write out[b][0|1][c].
 #include "common.cuh"
 
 namespace {
@@ -134,10 +148,84 @@ int run_group_norm(const void* x, const void* w, const void* b, void* y, int B, 
                     (const T*)x, (const T*)w, (const T*)b, (T*)y, C, HW, G, eps, silu);
 }
 
-template <typename T>
-int run_moments(const void* x, void* out, int B, int C, int N, cudaStream_t s) {
-  return dm::launch(channel_moments_kernel<T>, dim3(C, B), dim3(THREADS), 0, s, (const T*)x,
-                    (float*)out, C, N);
+// ------------------------------------------------------- bf16 moments
+constexpr int MOM_MAX_THREADS = 1024;   // a block
+
+template <int V> struct alignas(2 * V) Vec { bf16 e[V]; };
+
+// Rows of N elements, B * C of them; a team of `team` threads a row,
+// blockDim.x / team rows a block. Lane j of a row's team reads the loads of
+// V elements j, j + team, j + 2 team, ... and sums them in order; then the
+// team's butterfly (xor shuffles) and, for a team of several warps, a
+// butterfly over the warps' sums in the team's first warp.
+template <int V>
+__global__ void __launch_bounds__(MOM_MAX_THREADS)
+moments_bf16_kernel(const bf16* __restrict__ x, float* __restrict__ out, int C, int N, int rows,
+                    int team) {
+  __shared__ float2 warp_sums[MOM_MAX_THREADS / 32];
+  const int lane = threadIdx.x % team;
+  const int row = blockIdx.x * (blockDim.x / team) + threadIdx.x / team;
+  const int loads = N / V;
+  float s = 0.f, ss = 0.f;
+  if (row < rows) {
+    const Vec<V>* src = reinterpret_cast<const Vec<V>*>(x + (size_t)row * N);
+#pragma unroll 4
+    for (int i = lane; i < loads; i += team) {
+      const Vec<V> v = src[i];
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const float f = __bfloat162float(v.e[q]);
+        s += f;
+        ss = fmaf(f, f, ss);
+      }
+    }
+  }
+  for (int o = (team < 32 ? team : 32) / 2; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  }
+  if (team > 32) {   // the team's warps: lane w of its first warp takes warp w's sums
+    const int warp = threadIdx.x / 32, first = warp - lane / 32;
+    if (threadIdx.x % 32 == 0) warp_sums[warp] = make_float2(s, ss);
+    __syncthreads();
+    if (lane < 32) {
+      const float2 v = lane < team / 32 ? warp_sums[first + lane] : make_float2(0.f, 0.f);
+      s = v.x;
+      ss = v.y;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+        ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      }
+    }
+  }
+  if (lane == 0 && row < rows) {
+    const int b = row / C, c = row % C;
+    out[((size_t)b * 2 + 0) * C + c] = s;
+    out[((size_t)b * 2 + 1) * C + c] = ss;
+  }
+}
+
+int run_moments_bf16(const void* x, void* out, int B, int C, int N, int vec, int team,
+                     int threads, cudaStream_t s) {
+  const auto pow2 = [](int v) { return v >= 1 && (v & (v - 1)) == 0; };
+  if (!pow2(team) || !pow2(threads) || threads < 32 || threads > MOM_MAX_THREADS ||
+      team > threads || vec < 1 || N % vec != 0)
+    return (int)cudaErrorInvalidValue;
+  const int rows = B * C, per_block = threads / team;
+  const dim3 grid((rows + per_block - 1) / per_block);
+  switch (vec) {
+    case 8: moments_bf16_kernel<8><<<grid, threads, 0, s>>>((const bf16*)x, (float*)out, C, N,
+                                                            rows, team); break;
+    case 4: moments_bf16_kernel<4><<<grid, threads, 0, s>>>((const bf16*)x, (float*)out, C, N,
+                                                            rows, team); break;
+    case 2: moments_bf16_kernel<2><<<grid, threads, 0, s>>>((const bf16*)x, (float*)out, C, N,
+                                                            rows, team); break;
+    case 1: moments_bf16_kernel<1><<<grid, threads, 0, s>>>((const bf16*)x, (float*)out, C, N,
+                                                            rows, team); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -152,10 +240,12 @@ extern "C" int dm_group_norm(int dtype, const void* x, const void* w, const void
 
 extern "C" size_t dm_group_norm_smem(int cpg) { return gn_smem(cpg); }
 
-// out: (B, 2, C) float32.
+// x: (B, C, N); out: (B, 2, C) float32. bf16 takes the plan (vec, team,
+// threads) of kernels/group_norm.py::moments_plan; fp32 ignores it.
 extern "C" int dm_channel_moments(int dtype, const void* x, void* out, int B, int C, int N,
-                                  void* stream) {
+                                  int vec, int team, int threads, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1) return run_moments<bf16>(x, out, B, C, N, s);
-  return run_moments<float>(x, out, B, C, N, s);
+  if (dtype == 1) return run_moments_bf16(x, out, B, C, N, vec, team, threads, s);
+  return dm::launch(channel_moments_kernel<float>, dim3(C, B), dim3(THREADS), 0, s,
+                    (const float*)x, (float*)out, C, N);
 }

@@ -1,10 +1,10 @@
-// Whole-stage backward of a HiFi-GAN resblock stage on the canvas, one launch.
+// Whole-stage backward of a HiFi-GAN resblock stage on the canvas.
 //
 // Replaces diffmusic_tpu/pallas/stage_bwd_kernel.py::stage_resblocks_canvas
 // (_stage_bwd_pallas). The stage's forward is the chain of canvas pairs
 // y = conv2(leaky(conv1(leaky(x), d) + b1)) + b2 + x per branch, averaged over
 // the branches; it saved every pair's canvas input x_i and intermediate h_i.
-// This kernel computes the stage's input cotangent:
+// The backward computes the stage's input cotangent:
 //   dx = sum over branches of: dcur = g / n_branches, then for the branch's
 //        pairs in reverse
 //          dh   = leaky'(h_i) * conv(dcur, flip(w2)^T, 1)
@@ -14,20 +14,51 @@
 // saved tensors' dtype; each conv's operand is rounded to the weight dtype;
 // the masks, the skip sums, the branch sum and the 1/n are fp32.
 //
-// Design for Hopper (not the TPU's): the Pallas kernel keeps the stage's 4.1 MB
-// of flipped weights and 19 haloed windows in VMEM; a Hopper block has 227 KB.
-// So one block per (batch, TM output rows) keeps only the fp32 dcur of its
-// window (TM rows plus a 64-row halo each side, HALO >= the longest branch's
-// chain of pads, 60 at k = 11, d = (1, 3, 5)) and one T operand buffer in
-// shared memory, streams each weight tap (128 x 128, read transposed: the
-// adjoint needs no weight copy) from L2, where the stage's weights stay, and
-// reads the signs of x_i and h_i from device memory where each mask needs
-// them. Every conv is computed over the whole window on the tensor cores
-// (WMMA, common.cuh TileAcc); the rows near the window's edges come out wrong
-// and are never used for the centre rows. Bound: tensor-core work, 4 T C^2
-// sum(k) operations for the stage (165 GFLOP at T = 40008, C = 128); the
-// halo recomputation multiplies it by (TM + 2 HALO) / TM.
+// Bound: tensor-core work, 4 T C^2 sum(k) operations for the stage (165 GFLOP
+// at T = 40008, C = 128: 0.167 ms at 989 TFLOP/s), against about 20 canvas
+// tensors read once (0.06 ms).
+//
+// bf16, the design for Hopper: every adjoint conv is a pass over the whole
+// canvas of the conv1d kernel's TMA + wgmma core (conv1d.cu, namespace tc,
+// `stage_wgmma_kernel`, declared in stage_pass.cuh), reading tap k-1-j of the
+// weight tensor as it lies through a tensor map (the maps are made once per
+// weight tensor by the wrapper and cached, as for the canvas conv's adjoint).
+// Passes have no halo to recompute: the old one-launch kernel's 64-row tiles
+// recomputed each conv over 64 + 2 x 64 window rows (3x the work, one block
+// an SM, its weights transposed into shared memory by scalar loads). Two
+// epilogues of the core do the rest in fp32 with 16-byte loads, each reading
+// its sign tensor once:
+//   MASK      dh = leaky'(h_i) * acc, stored bf16;
+//   MASK_ACC  dcur = leaky'(x_i) * acc + dcur, stored fp32, and rounded to
+//             bf16 as the next pair's operand.
+// The intermediates go through L2 and device memory: per branch an fp32 dcur
+// and bf16 operand and dh canvases (42 MB at T 40008), which the wrapper
+// allocates from PyTorch's caching allocator. The wrapper's schedule
+// (kernels/stage_bwd.py::stage_schedule) runs one conv of pair q of every
+// branch in one launch (the branches' scratch side by side, block z the
+// branch; the branch of the largest k first, so its long blocks start
+// early): 2 launches per pair step, 939 row tiles with signal a launch at
+// T 40008 (3 x 313), about 3.6 waves of the 264 two-block slots, against
+// 1.2 waves had each branch its own launches (0.630 against 0.857 ms on an
+// H100 at 700 W, chip_smoke.py's check_stage). The first operand,
+// round(g / n) on the signal rows, is the same for every branch: a small
+// elementwise kernel writes it once per backward, rather than a scale in
+// every branch's first pass, which would rewrite each staged tile k times
+// (the first MASK_ACC reads g itself for dcur_0); a second kernel sums the
+// branches' last dcur in branch order into dx.
+//
+// fp32 is the exact scalar path, for the card-against-CPU reference runs: one
+// launch of `stage_bwd_kernel<float>`, one block per (batch, 16 output rows)
+// keeping the fp32 dcur of its window (its rows plus a 64-row halo each side,
+// HALO >= the longest branch's chain of pads, 60 at k = 11, d = (1, 3, 5)) and
+// one operand buffer in shared memory, every conv computed over the whole
+// window as scalar FMAs (common.cuh TileAcc<float>), each weight tap read
+// transposed from L2.
+#include <algorithm>
+#include <cstring>
+
 #include "common.cuh"
+#include "stage_pass.cuh"
 
 namespace {
 
@@ -40,8 +71,6 @@ constexpr int MAX_PAIRS = 16;
 constexpr int MAX_BRANCHES = 4;
 
 template <typename T> struct Cfg;
-// bf16: 64 output rows, 192-row window (~214 KB of shared memory)
-template <> struct Cfg<bf16> { static constexpr int TM = 64, BK = 32; };
 // fp32 (the exact path of the small checks): 16 output rows
 template <> struct Cfg<float> { static constexpr int TM = 16, BK = 16; };
 
@@ -77,8 +106,8 @@ template <typename T>
 using Acc = dm::TileAcc<T, Layout<T>::WIN, CH, 4, 2>;
 
 // acc = conv of the window's operand with flip(w)^T at dilation dil, every
-// window row. FROM_DCUR: the operand is T(dcur), rounded into the chunk buffer
-// A 32 (bf16) or 16 (fp32) channels at a time; else it is the full-width D.
+// window row. FROM_DCUR: the operand is T(dcur), copied into the chunk buffer
+// A 16 channels at a time; else it is the full-width D.
 template <typename T, bool FROM_DCUR>
 __device__ void adjoint_conv(Acc<T>& acc, const float* dcur, T* A, const T* D, const T* w, int k,
                              int dil, T* wt) {
@@ -192,9 +221,9 @@ stage_bwd_kernel(const T* __restrict__ g, const StageArgs<T> a, T* __restrict__ 
   }
 }
 
-template <typename T>
-int run(const void* g, const void* const* ptrs, const int* meta, void* out, int B, int Tlen,
-        int sig0, int sig1, float slope, float inv, cudaStream_t s) {
+int run_fp32(const void* g, const void* const* ptrs, const int* meta, void* out, int B,
+             int Tlen, int sig0, int sig1, float slope, float inv, cudaStream_t s) {
+  using T = float;
   StageArgs<T> a = {};
   const int npairs = meta[0];
   a.nbranch = meta[1];
@@ -214,20 +243,143 @@ int run(const void* g, const void* const* ptrs, const int* meta, void* out, int 
                     (T*)out, Tlen, sig0, sig1, slope, inv);
 }
 
+// ------------------------------------------------------------------- bf16
+constexpr int EW_THREADS = 256;
+// a slot's flags in the schedule (kernels/stage_bwd.py::stage_schedule)
+constexpr int FIRST = 1;      // the branch's first pair: MASK reads op0, MASK_ACC g
+constexpr int WRITE_OP = 2;   // MASK_ACC rounds dcur into the branch's operand
+
+// op = round(g * inv) on the signal rows, zeros elsewhere: the operand of
+// every branch's first conv. 8 channels a thread.
+__global__ void __launch_bounds__(EW_THREADS)
+first_operand_kernel(const bf16* __restrict__ g, bf16* __restrict__ op, size_t n8, int Tlen,
+                     int C, int sig0, int sig1, float inv) {
+  for (size_t i = blockIdx.x * (size_t)EW_THREADS + threadIdx.x; i < n8;
+       i += (size_t)gridDim.x * EW_THREADS) {
+    const size_t e = i * 8;
+    const int t = (int)((e / C) % Tlen);
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (t >= sig0 && t < sig1) {
+      dm::load8<bf16>(g + e, v);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] *= inv;
+    }
+    dm::store8<bf16>(op + e, v);
+  }
+}
+
+// out = round(dcur_0 + dcur_1 + ...) in branch order on the signal rows,
+// zeros elsewhere; the branches' dcur lie `stride` elements apart.
+__global__ void __launch_bounds__(EW_THREADS)
+branch_sum_kernel(const float* __restrict__ dcur, size_t stride, int nbranch,
+                  bf16* __restrict__ out, size_t n8, int Tlen, int C, int sig0, int sig1) {
+  for (size_t i = blockIdx.x * (size_t)EW_THREADS + threadIdx.x; i < n8;
+       i += (size_t)gridDim.x * EW_THREADS) {
+    const size_t e = i * 8;
+    const int t = (int)((e / C) % Tlen);
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (t >= sig0 && t < sig1) {
+      dm::load8<float>(dcur + e, v);
+      for (int br = 1; br < nbranch; ++br) {
+        float u[8];
+        dm::load8<float>(dcur + br * stride + e, u);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) v[q] += u[q];
+      }
+    }
+    dm::store8<bf16>(out + e, v);
+  }
+}
+
+int ew_grid(size_t n8) {
+  return (int)std::min<size_t>((n8 + EW_THREADS - 1) / EW_THREADS, 132 * 8);
+}
+
+// The passes, in the order of the wrapper's schedule. ptrs: x_i, h_i (n
+// each), then the host addresses of the 128-byte tensor maps over w1_i and
+// w2_i (the conv1d adjoint's, dm_conv1d_wmap), then the scratch: op0 (B, T,
+// C) bf16; dcur (nb, B, T, C) fp32; op and dh (nb, B, T, C) bf16. meta after
+// the pairs' k and dilations: the number of passes, then per pass its
+// epilogue and slot count and per slot (branch, pair, flags).
+int run_bf16(const void* g, const void* const* ptrs, const int* meta, void* out, int B,
+             int Tlen, int sig0, int sig1, float slope, float inv, cudaStream_t s) {
+  namespace sp = dm::stage_pass;
+  const int n = meta[0], nb = meta[1];
+  if (n > MAX_PAIRS || nb > sp::MAX_BRANCHES || nb < 1) return (int)cudaErrorInvalidValue;
+  const int* ks = meta + 2 + nb;
+  const int* ds = meta + 2 + nb + n;
+  const int* plan = meta + 2 + nb + 2 * n;
+  bf16* op0 = (bf16*)ptrs[4 * n];
+  float* dcur = (float*)ptrs[4 * n + 1];
+  bf16* op = (bf16*)ptrs[4 * n + 2];
+  bf16* dh = (bf16*)ptrs[4 * n + 3];
+  const size_t plane = (size_t)B * Tlen * CH, n8 = plane / 8;
+
+  alignas(64) CUtensorMap op0_map, op_map[sp::MAX_BRANCHES], dh_map[sp::MAX_BRANCHES];
+  int rc = sp::encode_rows(&op0_map, op0, B, Tlen, CH);
+  for (int br = 0; br < nb && rc == 0; ++br) {
+    rc = sp::encode_rows(&op_map[br], op + br * plane, B, Tlen, CH);
+    if (rc == 0) rc = sp::encode_rows(&dh_map[br], dh + br * plane, B, Tlen, CH);
+  }
+  if (rc != 0) return rc;
+
+  first_operand_kernel<<<ew_grid(n8), EW_THREADS, 0, s>>>((const bf16*)g, op0, n8, Tlen, CH,
+                                                          sig0, sig1, inv);
+  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  const int passes = *plan++;
+  for (int p = 0; p < passes; ++p) {
+    const int epi = *plan++, slots = *plan++;
+    if (slots < 1 || slots > sp::MAX_BRANCHES) return (int)cudaErrorInvalidValue;
+    sp::Args a;
+    a.slots = slots;
+    a.inv = inv;
+    for (int slot = 0; slot < slots; ++slot, plan += 3) {
+      const int br = plan[0], i = plan[1], flags = plan[2];
+      if (br < 0 || br >= nb || i < 0 || i >= n) return (int)cudaErrorInvalidValue;
+      a.k[slot] = ks[i];
+      if (epi == sp::MASK) {   // dh = leaky'(h_i) * conv(op, flip(w2)^T, 1)
+        a.a[slot] = flags & FIRST ? op0_map : op_map[br];
+        memcpy(&a.w[slot], ptrs[3 * n + i], sizeof(CUtensorMap));
+        a.sign[slot] = (const bf16*)ptrs[n + i];
+        a.out[slot] = dh + br * plane;
+        a.dcur[slot] = nullptr;
+        a.g[slot] = nullptr;
+        a.dil[slot] = 1;
+      } else {                 // dcur = leaky'(x_i) * conv(dh, flip(w1)^T, d) + dcur
+        a.a[slot] = dh_map[br];
+        memcpy(&a.w[slot], ptrs[2 * n + i], sizeof(CUtensorMap));
+        a.sign[slot] = (const bf16*)ptrs[i];
+        a.out[slot] = flags & WRITE_OP ? op + br * plane : nullptr;
+        a.dcur[slot] = dcur + br * plane;
+        a.g[slot] = flags & FIRST ? (const bf16*)g : nullptr;
+        a.dil[slot] = ds[i];
+      }
+    }
+    if ((rc = sp::launch(a, epi, B, Tlen, CH, slope, sig0, sig1, s)) != 0) return rc;
+  }
+  branch_sum_kernel<<<ew_grid(n8), EW_THREADS, 0, s>>>(dcur, plane, nb, (bf16*)out, n8, Tlen,
+                                                       CH, sig0, sig1);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// g, out: (B, Tlen, 128) canvases. ptrs: x_0..x_{n-1}, h_0..h_{n-1}, w1_0.., w2_0..
-// (4n device pointers, pairs branch-major). meta (host ints): n, n_branches,
-// pairs per branch, k per pair, dilation per pair. The signal is rows
-// [sig0, sig1); inv = 1 / n_branches. dtype: 0 = float32, 1 = bfloat16.
+// g, out: (B, Tlen, 128) canvases. ptrs: x_0..x_{n-1}, h_0..h_{n-1}, then w1_0..,
+// w2_0.. (pairs branch-major): fp32 the weights (k, C, C) themselves; bf16 the
+// host addresses of their 128-byte tensor maps (dm_conv1d_wmap over w as it
+// lies, the adjoint's), followed by the four scratch tensors of run_bf16.
+// meta (host ints): n, n_branches, pairs per branch, k per pair, dilation per
+// pair, and for bf16 the schedule of run_bf16. The signal is rows [sig0,
+// sig1); inv = 1 / n_branches. dtype: 0 = float32, 1 = bfloat16. Returns a
+// cudaError_t (0 = launched).
 extern "C" int dm_stage_bwd(int dtype, const void* g, const void* const* ptrs, const int* meta,
                             void* out, int B, int Tlen, int sig0, int sig1, float slope,
                             float inv, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1) return run<bf16>(g, ptrs, meta, out, B, Tlen, sig0, sig1, slope, inv, s);
-  return run<float>(g, ptrs, meta, out, B, Tlen, sig0, sig1, slope, inv, s);
+  if (dtype == 1) return run_bf16(g, ptrs, meta, out, B, Tlen, sig0, sig1, slope, inv, s);
+  return run_fp32(g, ptrs, meta, out, B, Tlen, sig0, sig1, slope, inv, s);
 }
 
 extern "C" size_t dm_stage_bwd_smem(int dtype) {
-  return dtype == 1 ? Layout<bf16>::TOTAL : Layout<float>::TOTAL;
+  return dtype == 1 ? dm::stage_pass::smem() : Layout<float>::TOTAL;
 }

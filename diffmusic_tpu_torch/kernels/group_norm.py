@@ -16,22 +16,38 @@ the group combine and the normalise stay in plain PyTorch, as in the JAX
 package. Statistics are var = E[x^2] - mu^2 in fp32, as the port's plain
 GroupNorm and the JAX package compute them (no Welford).
 
+The bf16 moments kernel follows a plan made once per geometry
+(`moments_plan`, which also checks what the kernel takes): per row of N
+elements a team of as many threads as the row has loads of `vec` elements
+(16 bytes where N allows), up to a block of `MOMENT_MAX_THREADS`, several
+short rows a block of `MOMENT_ROW_BLOCK`. Per call the wrapper reads the
+address, allocates the output and launches on the current stream's raw
+handle; where no gradient is wanted it skips the autograd function. The
+fp32 moments are the exact scalar kernel, one block a row.
+
 On a CPU tensor the wrappers run the plain versions beside them; on a CUDA
 tensor they launch the kernel or raise. Gradients: the fused GroupNorm's
 backward is a plain recompute (`_fgn_bwd`); the moments' VJP is elementwise,
 dx = ds + 2 x dss in fp32, cast to x's dtype (`_moments_bwd`).
 """
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from .device import use_plain
+from .mask import _dense
 
 # launches of each kernel since the last reset (see kernels.launch_counts)
 LAUNCHES = {"fused_group_norm": 0, "channel_moments": 0}
 
 ROW_LIMIT_ELEMS = 2 ** 20   # H*W*C per batch row (`groupnorm_kernel._ROW_LIMIT_ELEMS`)
 GN_MODES = ("plain", "fused", "stats")
+
+# the bf16 moments kernel's plan (csrc/group_norm.cu)
+MOMENT_MAX_THREADS = 512    # a block, the team of the longest rows
+MOMENT_ROW_BLOCK = 256      # the block of several short rows
 
 
 def group_norm_plain(x, weight, bias, groups: int, eps: float, use_silu: bool = False):
@@ -90,16 +106,48 @@ def _launch_fused(x, weight, bias, groups, eps, use_silu):
     return y
 
 
+def moments_geometry(n: int) -> tuple:
+    """(vec, team, threads) of the bf16 moments kernel for rows of n
+    elements: `vec` elements a load (8, 16 bytes, or the largest of 4, 2, 1
+    dividing n), a team of `team` threads a row (the least power of two
+    with a load each, at most MOMENT_MAX_THREADS), `threads` a block (the
+    team, or MOMENT_ROW_BLOCK for several shorter rows)."""
+    vec = next(v for v in (8, 4, 2, 1) if n % v == 0)
+    team = 1
+    while team < MOMENT_MAX_THREADS and team * vec < n:
+        team *= 2
+    return vec, team, max(team, MOMENT_ROW_BLOCK)
+
+
+@functools.lru_cache(maxsize=256)
+def moments_plan(shape: tuple, stride: tuple, dtype, device) -> tuple:
+    """(dtype code, B, C, N, vec, team, threads) of a moments launch on x of
+    this shape, stride, dtype and device; raises for what the kernel does
+    not take: a device other than CUDA, a dtype other than bf16 or fp32, x
+    not a contiguous (B, C, N) tensor. fp32 takes the scalar kernel (vec,
+    team and threads 1)."""
+    from . import build
+    if device.type != "cuda":
+        raise ValueError(f"channel_moments: x must be on a CUDA device, not {device}")
+    code = build.dtype_code(dtype)
+    if len(shape) != 3:
+        raise ValueError(f"channel_moments: x must be (B, C, N), not {tuple(shape)}")
+    if not _dense(shape, stride):
+        raise ValueError("channel_moments: x must be contiguous")
+    bsz, c, n = shape
+    return (code, bsz, c, n) + (moments_geometry(n) if code == 1 else (1, 1, 1))
+
+
 def _launch_moments(x3):
     from . import build
-    build.check_tensors("channel_moments", x3)
-    if x3.ndim != 3:
-        raise ValueError(f"channel_moments: x must be (B, C, N), not {tuple(x3.shape)}")
-    bsz, c, n = x3.shape
-    lib = build.library()
+    code, bsz, c, n, vec, team, threads = moments_plan(x3.shape, x3.stride(), x3.dtype,
+                                                       x3.device)
+    xp = x3.data_ptr()
+    if xp % 16:
+        raise ValueError("channel_moments: x must start 16-byte aligned")
     out = torch.empty((bsz, 2, c), dtype=torch.float32, device=x3.device)
-    rc = lib.dm_channel_moments(build.dtype_code(x3.dtype), x3.data_ptr(), out.data_ptr(),
-                                bsz, c, n, build.stream_ptr(x3.device))
+    rc = build.library().dm_channel_moments(code, xp, out.data_ptr(), bsz, c, n, vec, team,
+                                            threads, build.stream_ptr(x3.device))
     build.check(rc, "channel_moments")
     LAUNCHES["channel_moments"] += 1
     return out
@@ -147,7 +195,11 @@ def fused_group_norm(x, weight, bias, groups: int, eps: float, use_silu: bool = 
 def channel_moments(x3):
     """(sum, sum of squares) of each (batch, channel) row of (B, C, N) x in
     fp32: (B, 2, C)."""
-    return _ChannelMoments.apply(x3)
+    if x3.requires_grad and torch.is_grad_enabled():
+        return _ChannelMoments.apply(x3)
+    if use_plain(x3, "channel_moments"):
+        return moments_plain(x3)
+    return _launch_moments(x3)
 
 
 def stats_group_norm(x, weight, bias, groups: int, eps: float, use_silu: bool = False):

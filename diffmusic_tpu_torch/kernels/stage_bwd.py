@@ -4,31 +4,41 @@ Replaces `diffmusic_tpu/pallas/stage_bwd_kernel.py::stage_resblocks_canvas`.
 The forward is the chain of canvas pairs of every branch
 (`conv1d.conv1d_pair_canvas`'s kernel, one launch per pair), averaged over the
 branches; it saves each pair's canvas input x_i and intermediate h_i. The
-backward is ONE launch of the CUDA kernel of `csrc/stage_bwd.cu`, which
-computes the stage's input cotangent: per branch, dcur = g / n_branches, then
-for the pairs in reverse dh = leaky'(h_i) * conv(dcur, flip(w2)^T, 1) and
+backward is ONE call of `csrc/stage_bwd.cu`, which computes the stage's input
+cotangent: per branch, dcur = g / n_branches, then for the pairs in reverse
+dh = leaky'(h_i) * conv(dcur, flip(w2)^T, 1) and
 dcur = leaky'(x_i) * conv(dh, flip(w1)^T, d) + dcur, zeroed outside the
 signal; the branches summed.
 
 Bound on the H100: tensor-core work, 4 T C^2 sum(k) operations per stage
 (165 GFLOP at the 10-s slice's ch128 stage, T = 40008), against about 20
-canvas tensors read once. The kernel keeps one window's fp32 dcur and one
-operand buffer in shared memory, streams the weight taps from L2 and reads
-the saved signs where each mask needs them (the source says why: the TPU
-design's 4.1 MB of resident weights has no room on a Hopper block).
+canvas tensors read once. In bf16 the call runs every adjoint conv as a pass
+over the whole canvas of the conv1d kernel's TMA + wgmma core, one launch per
+conv of pair step for all branches at once, with the masks and the skip sum
+in its epilogues (the source says why: the old one-launch kernel recomputed
+every conv over a 3x halo). Each pass reads its weight as it lies through
+the tensor map that `conv1d.adjoint_weights` makes once per weight tensor
+(cached under `repack.REPACKS["conv1d_adjoint"]`, shared with the canvas
+conv's adjoint). The intermediates (per branch an fp32 dcur, a bf16 operand
+and a bf16 dh canvas, and one bf16 first operand) are allocated per call
+from PyTorch's caching allocator (`stage_scratch`). fp32 is the exact scalar
+one-launch kernel.
 
 Parameters come flattened branch-major, pair-minor: (w1, b1, w2, b2) per
 pair. Weights are frozen: the backward returns the input cotangent only. On a
 CPU tensor the forward runs the plain pair versions and the backward
-`stage_bwd_plain`; on a CUDA tensor they launch the kernels or raise.
+`stage_bwd_plain`; on a CUDA tensor they launch the kernels or raise. A
+backward counts one launch, however many CUDA kernels its call runs.
 """
 
 import ctypes
+import functools
 
 import torch
 
+from . import repack
 from .canvas import TIME_BLOCK, canvas_row_mask, canvas_rows
-from .conv1d import conv1d_plain, pair_canvas_forward, pair_plain
+from .conv1d import ADJOINT, adjoint_weights, conv1d_plain, pair_canvas_forward, pair_plain
 from .device import use_plain
 
 # launches of the kernel since the last reset (see kernels.launch_counts)
@@ -114,6 +124,44 @@ def stage_bwd_plain(g, xs, hs, w1s, w2s, t: int, kernel_sizes, dilation_sizes, s
     return (dx * rv).to(g.dtype)
 
 
+# the bf16 call's pass epilogues and slot flags (csrc/stage_pass.cuh, stage_bwd.cu)
+MASK, MASK_ACC = 1, 2
+FIRST, WRITE_OP = 1, 2
+
+
+@functools.lru_cache(maxsize=16)
+def stage_schedule(kernel_sizes, dilation_sizes) -> tuple:
+    """The bf16 call's passes in launch order: (epilogue, slots) with slots
+    ((branch, pair, flags), ...), one slot per branch in one launch. Step j
+    runs pair P_b - 1 - j of every branch b that has one (P_b its pairs,
+    branch-major pair indices): a MASK pass (dh from the branch's operand,
+    op0 at its first pair: flag FIRST), then a MASK_ACC pass (dcur from dh,
+    g / n_branches as the old dcur at the first pair: FIRST; rounded into
+    the operand where a pair follows: WRITE_OP). Within a launch the branch
+    of the largest k comes first, so its longest blocks start first."""
+    counts = [len(d) for d in dilation_sizes]
+    first = [sum(counts[:b]) for b in range(len(counts))]
+    order = sorted(range(len(counts)), key=lambda b: -kernel_sizes[b])
+    passes = []
+    for j in range(max(counts)):
+        live = [(b, first[b] + counts[b] - 1 - j) for b in order if counts[b] > j]
+        start = FIRST if j == 0 else 0
+        passes.append((MASK, tuple((b, i, start) for b, i in live)))
+        passes.append((MASK_ACC, tuple((b, i, start | (WRITE_OP if i > first[b] else 0))
+                                       for b, i in live)))
+    return tuple(passes)
+
+
+def stage_scratch(g, n_branches: int) -> tuple:
+    """The bf16 call's intermediates for the canvas cotangent g (B, T, C):
+    the first operand (B, T, C) bf16, and per branch side by side the fp32
+    dcur and the bf16 operand and dh, (n_branches, B, T, C) each."""
+    side = (n_branches,) + tuple(g.shape)
+    return (torch.empty_like(g), torch.empty(side, dtype=torch.float32, device=g.device),
+            torch.empty(side, dtype=g.dtype, device=g.device),
+            torch.empty(side, dtype=g.dtype, device=g.device))
+
+
 def _launch(g, xs, hs, w1s, w2s, t: int, kernel_sizes, dilation_sizes, slope):
     from . import build
     pairs = _pairs(kernel_sizes, dilation_sizes)
@@ -133,9 +181,20 @@ def _launch(g, xs, hs, w1s, w2s, t: int, kernel_sizes, dilation_sizes, slope):
     lib = build.library()
     code = build.dtype_code(g.dtype)
     build.check_smem("stage_resblocks_canvas", lib.dm_stage_bwd_smem(code))
-    ptrs = (ctypes.c_void_p * (4 * n))(*[a.data_ptr() for a in (*xs, *hs, *w1s, *w2s)])
+    if code == 1:   # the adjoint's tensor maps over the weights, and the scratch
+        ws = [repack.cached(ADJOINT, w, adjoint_weights) for w in (*w1s, *w2s)]
+        ws += stage_scratch(g, len(kernel_sizes))
+    else:
+        ws = [*w1s, *w2s]
+    ptrs = [a.data_ptr() for a in (*xs, *hs, *ws)]
+    ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     meta = [n, len(kernel_sizes), *(len(d) for d in dilation_sizes),
             *(k for k, _ in pairs), *(d for _, d in pairs)]
+    if code == 1:
+        schedule = stage_schedule(kernel_sizes, dilation_sizes)
+        meta += [len(schedule)]
+        for epi, slots in schedule:
+            meta += [epi, len(slots), *(v for slot in slots for v in slot)]
     meta = (ctypes.c_int * len(meta))(*meta)
     out = torch.empty_like(g)
     rc = lib.dm_stage_bwd(code, g.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p),
@@ -173,7 +232,8 @@ class _Stage(torch.autograd.Function):
 def stage_resblocks_canvas(xc, params, t: int, kernel_sizes, dilation_sizes, slope):
     """The mean over the branches of each branch's chain of resblock pairs,
     on the canvas of a t-row signal; params: (w1, b1, w2, b2) per pair,
-    branch-major, pair-minor. The backward is one kernel launch."""
+    branch-major, pair-minor. The backward is one call of the kernel
+    library."""
     kernel_sizes = tuple(kernel_sizes)
     dilation_sizes = tuple(tuple(d) for d in dilation_sizes)
     if len(params) != len(_pairs(kernel_sizes, dilation_sizes)):

@@ -87,11 +87,13 @@ def leaky_bf16(a, slope=SLOPE):
     return torch.where(a >= 0, a, slope * a).to(BF).float()
 
 
-def emulate_pass(inp, taps, bias, res, dil, sig0, sig1, slope=SLOPE, flip=False):
+def emulate_pass(inp, taps, bias, res, dil, sig0, sig1, slope=SLOPE, flip=False, raw=False):
     """One pass of the kernel's blocks on inp (B, T, Cin) and k weight
     matrices taps (k, Cout, Cin), all bf16 values held in fp32: out (B, T,
     Cout). Tap j reads matrix j, or k-1-j with `flip` (the adjoint); with
-    `slope` None there is no leaky; bias and res may be None."""
+    `slope` None there is no leaky; bias and res may be None. With `raw` the
+    fp32 sums themselves, zero off the signal, for another epilogue (the
+    stage backward's masks)."""
     bsz, rows, cin = inp.shape
     k, cout = taps.shape[:2]
     pad = (k - 1) * dil // 2
@@ -117,7 +119,8 @@ def emulate_pass(inp, taps, bias, res, dil, sig0, sig1, slope=SLOPE, flip=False)
                     acc += box(bias, (n0,), (bn,))
                 if res is not None:
                     acc += box(res[b], (t0, n0), (bm, bn))
-                acc = acc.to(BF).float()
+                if not raw:
+                    acc = acc.to(BF).float()
                 t = torch.arange(t0, t0 + bm)[:, None]
                 acc = torch.where((t >= sig0) & (t < sig1), acc, torch.zeros(()))
                 out[b, t0:r1, n0:n1] = acc[:r1 - t0, :n1 - n0]

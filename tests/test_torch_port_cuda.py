@@ -14,8 +14,12 @@ for the transformer block (one bf16 rounding of an intermediate moves a
 product by about 2^-8 relative). bf16 gradients of the vocoder kernels are
 held by norm (a leaky-ReLU mask flips where an activation rounds across
 zero differently in the two versions). Canvas outputs and gradients must be
-exactly zero outside the signal. The bf16 conv1d pair (TMA + wgmma) runs at
-each of the slice's 24 (C, k, dilation), on the canvas and off it; the bf16
+exactly zero outside the signal. The bf16 stage backward (the conv core's
+passes) runs at the slice's stage 2, the channel moments at every geometry
+of the stats route (within 1e-5 of sum |x| and sum x^2), and one
+full-width step's models count 83 moments and one stage backward. The
+bf16 conv1d pair (TMA + wgmma) runs at each of the slice's 24 (C, k,
+dilation), on the canvas and off it; the bf16
 single conv (the same pass) at the slice's 6 ch512 k11 calls and, on the
 canvas, forward and adjoint, at every resblock conv of stages 0-2. The bf16
 transformer block (mma.sync attention, a cluster per 32-row tile) runs at
@@ -559,6 +563,111 @@ def test_stage_kernel_on_card(cuda, gen, dtype, tol):
     assert torch.equal(dk, dx)
     assert norm_rel(dk, dp) <= tol
     assert outside(y, t) == 0 and outside(dx, t) == 0 and outside(dk, t) == 0
+
+
+@pytest.mark.cuda
+def test_bf16_stage_backward_at_the_slice_stage(cuda, gen):
+    """The bf16 stage backward (the conv core's passes) at the slice's stage
+    2, (1, 40008, 128), KS (3, 7, 11), dilations (1, 3, 5) x 3, against
+    `stage_bwd_plain` on the same saved tensors within 2e-2 by norm; exact
+    zeros outside the signal; one adjoint tensor map per weight tensor, made
+    in the first call and none in the second, which gives the same dx; one
+    launch counted per call."""
+    bf, tol, t, c = torch.bfloat16, 2e-2, 40008, 128
+    ks, dils = (3, 7, 11), ((1, 3, 5),) * 3
+    params = [(arr(gen, k, c, c, scale=0.05, dtype=bf), arr(gen, c, scale=0.1, dtype=bf),
+               arr(gen, k, c, c, scale=0.05, dtype=bf), arr(gen, c, scale=0.1, dtype=bf))
+              for k, ds in zip(ks, dils) for _ in ds]
+    xc, gc = canvas(gen, t, c, bf), canvas(gen, t, c, bf)
+    w1s, w2s = [p[0] for p in params], [p[2] for p in params]
+    with torch.no_grad():
+        _, xs, hs = tstage.stage_forward(xc, params, t, ks, dils, SLOPE)
+        repack.REPACKS["conv1d_adjoint"] = 0
+        kernels.reset_launch_counts()
+        dk = tstage._launch(gc, xs, hs, w1s, w2s, t, ks, dils, SLOPE)
+        assert repack.REPACKS["conv1d_adjoint"] == 18
+        dk2 = tstage._launch(gc, xs, hs, w1s, w2s, t, ks, dils, SLOPE)
+        torch.cuda.synchronize()
+        assert repack.REPACKS["conv1d_adjoint"] == 18
+        assert kernels.launch_counts()["stage_resblocks_canvas"] == 2
+        dp = tstage.stage_bwd_plain(gc, xs, hs, w1s, w2s, t, ks, dils, SLOPE)
+    assert dk.dtype == bf and torch.isfinite(dk).all() and torch.equal(dk, dk2)
+    assert norm_rel(dk, dp) <= tol
+    assert outside(dk, t) == 0
+
+
+# (B, C, H, W) of the guided step's GroupNorm inputs that take the moments
+# kernel on the stats route (UNet and VAE decoder at latents (1, 8, 250, 16);
+# tests/test_torch_port_moments_tiles.py holds them against chip_smoke.py)
+STATS_GEOMETRIES = ((1, 128, 125, 8), (1, 128, 250, 16), (1, 128, 1000, 64), (1, 256, 62, 4),
+                    (1, 256, 125, 8), (1, 256, 250, 16), (1, 256, 500, 32),
+                    (1, 256, 1000, 64), (1, 384, 31, 2), (1, 384, 62, 4), (1, 384, 125, 8),
+                    (1, 384, 250, 16), (1, 512, 125, 8), (1, 512, 250, 16),
+                    (1, 512, 500, 32), (1, 640, 31, 2), (1, 640, 62, 4), (1, 640, 125, 8),
+                    (1, 768, 62, 4), (1, 1024, 31, 2), (1, 1024, 62, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", STATS_GEOMETRIES, ids=str)
+def test_moments_at_the_stats_geometries(cuda, gen, shape, dtype, tol):
+    """The channel moments at each of the stats route's geometries against
+    `moments_plain` within 1e-5 of sum |x| and of sum x^2 per channel, with
+    and without autograd; the stats GroupNorm around them against the plain
+    GroupNorm within the route's tolerance."""
+    b, c, h, w = shape
+    x = arr(gen, *shape, scale=2.0, dtype=dtype) + 0.3
+    x3 = x.reshape(b, c, h * w)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        m = tgn.channel_moments(x3)
+    mg = tgn.channel_moments(x3.clone().requires_grad_(True))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["channel_moments"] == 2
+    xf = x3.double()
+    scale = torch.stack([xf.abs().sum(-1), (xf * xf).sum(-1)], dim=1)
+    m0 = tgn.moments_plain(x3)
+    for got in (m, mg.detach()):
+        assert got.dtype == torch.float32
+        assert float(((got.double() - m0.double()).abs() / scale).max()) <= 1e-5
+    wt = 1 + arr(gen, c, scale=0.2, dtype=dtype)
+    bt = arr(gen, c, scale=0.1, dtype=dtype)
+    assert rel(tgn.stats_group_norm(x, wt, bt, 32, 1e-5, True),
+               tgn.group_norm_plain(x, wt, bt, 32, 1e-5, True)) <= tol
+
+
+@pytest.mark.cuda
+def test_route_launches_of_a_full_width_step(cuda):
+    """The full-width bf16 models of the 10-s slice on the routes: the UNet
+    forward (no gradient) and the VAE decode (with one) on `gn_mode="stats"`
+    launch the moments 59 + 24 = 83 times, and the vocoder forward and
+    backward on the stage route launch the stage backward once."""
+    from diffmusic_tpu_torch.models.hifigan import SpeechT5HifiGan
+    from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
+    from diffmusic_tpu_torch.models.vae import AutoencoderKL
+    bf = torch.bfloat16
+    unet, vae, voc = MusicLDMPipeline._random_models(
+        [UNet2DConditionModel(UNetConfig(), gn_mode="stats"),
+         AutoencoderKL(VAEConfig(), gn_mode="stats"),
+         SpeechT5HifiGan(HiFiGANConfig(), canvas="xbwd", stage_bwd=True)], 0, cuda, bf)
+    lat = torch.randn(1, 8, 250, 16, device=cuda, dtype=bf)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        unet(lat, torch.ones(1, device=cuda), class_labels=torch.zeros(1, 512, device=cuda,
+                                                                          dtype=bf))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["channel_moments"] == 59
+    z = lat.clone().requires_grad_(True)
+    mel = vae.decode(z)
+    torch.autograd.grad(mel.float().square().sum(), z)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["channel_moments"] == 83
+    m = torch.randn(1, 1000, 64, device=cuda, dtype=bf, requires_grad=True)
+    wav = voc(m)
+    (dm,) = torch.autograd.grad(wav.float().square().sum(), m)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["stage_resblocks_canvas"] == 1 and torch.isfinite(dm).all(), counts
 
 
 @pytest.mark.cuda

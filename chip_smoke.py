@@ -15,7 +15,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      the stage backward at stage 2, the bounded-softmax block in both
      modes), plus small fp32 cases with TF32 off; the fused mel spectrogram
      in fp32 at the eval's MFCC geometry, the default geometry, an odd
-     length, a batch shape and power 1; forward and, where the
+     length, a batch shape and power 1, and on its dense path (a prime
+     n_fft) with each epilogue and mel width; forward and, where the
      kernel has a backward, the input gradient; canvas outputs exactly zero
      outside the signal; median times of the kernel, its plain version and
      the one PyTorch call that computes the same function where there is
@@ -30,7 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      at both UNet levels (against their plain versions) also each call's
      device time (torch.profiler) and host time, the masks with g in
      both layouts, and the layout of the adjoint conv's output that the
-     mask route hands them;
+     mask route hands them; the mel kernel's device and host time in turns
+     with its plain version and the cuFFT composition; the plan of each
+     fused GroupNorm call (cluster size, threads, loads) and of each mel
+     geometry (its path, split and frames a tile);
   4. reference: small fp32 MusicLDM and AudioLDM2 models (the latter from a
      text prompt, under classifier-free guidance, on both UNet routes), a
      small fp32 MusicLDM with the guided step's routes on (`gn_mode`
@@ -689,6 +693,12 @@ def check_group_norm(name, shape, eps, silu, dtype, gen, tol):
                             GN.group_norm_plain(x, wt, bt, 32, eps, silu))
         fwd = max(fwd, whole, key=lambda e: e[1])
     res = result(fwd[0], timings(kern, plain, x, dtype, library), bnd)
+    plan = ""
+    if name == "fused_group_norm":
+        vec, k, threads, loads = GN.fused_plan(x.shape, x.stride(), x.dtype, x.device, 32, (
+            wt.shape, wt.stride(), wt.dtype, wt.device, bt.shape, bt.stride(), bt.dtype,
+            bt.device))[5:]
+        plan = f"; plan k {k}, {threads} threads, {loads} loads of {vec}"
     split = ""
     if name == "fused_group_norm" and dtype == torch.bfloat16:
         # in turns with F.group_norm (and, for the +SiLU calls, F.group_norm
@@ -703,7 +713,7 @@ def check_group_norm(name, shape, eps, silu, dtype, gen, tol):
             split = "; " + describe_split(split_ms({"kernel": lambda: kern(x),
                                                     "plain": lambda: plain(x)}))
     log(f"  {name:24s} {shape} eps {eps:g}{' +silu' if silu else ''} {str(dtype)[6:]}: "
-        f"{describe(fwd, bwd, tol)}; {describe_times(res)}{split}")
+        f"{describe(fwd, bwd, tol)}; {describe_times(res)}{plan}{split}")
     if fwd[1] > tol or bwd[2] > tol:
         raise AssertionError(f"{name} disagrees with its plain version")
     return res
@@ -956,6 +966,7 @@ MEL_MFCC = dict(n_fft=400, hop_length=160, win_length=400, n_mels=64, sample_rat
                 f_min=125.0, f_max=7500.0)    # the MFCC-stack embedder's geometry
 MEL_DEFAULT = dict(n_fft=1024, hop_length=160, win_length=1024, n_mels=64,
                    sample_rate=16000, f_min=0.0, f_max=None)   # the kernel's defaults
+MEL_DENSE = dict(MEL_DEFAULT, n_fft=389, win_length=389)   # a prime n_fft: the dense path
 
 
 def mel_composition(x, kw):
@@ -1024,11 +1035,19 @@ def check_mel(shape, kw, gen, power=2.0, timed=False, grad=False):
             times = (time_ms(lambda: kern(x)), time_ms(lambda: plain(x)), None)
             comp_ms = time_ms(lambda: mel_composition(x, kw))
             comp_err = rel_err(mel_composition(x, kw), ref)
-        comp = f"; cuFFT composition {comp_ms:.3f} ms (rel {comp_err[1]:.1e})"
+            # device and host time a call, in turns with the plain version and
+            # the cuFFT composition
+            split = split_ms({"kernel": lambda: kern(x), "plain": lambda: plain(x),
+                              "cuFFT composition": lambda: mel_composition(x, kw)})
+        comp = (f"; cuFFT composition {comp_ms:.3f} ms (rel {comp_err[1]:.1e}); "
+                f"{describe_split(split)}")
     res = result(err[0], times, bnd)
+    plan = M.mel_plan(*M.mel_geometry(**kw), x.device)
+    plan = (f"factored {plan[3]} x {plan[4]}, {plan[6]} frames a tile, at most {plan[7]} blocks"
+            if plan[0] == "fft" else f"dense, {M.FRAME_TILE} frames a block")
     geometry = "mfcc" if n_fft == 400 else f"n_fft {n_fft}"
     log(f"  fused_mel_spectrogram    {shape} {geometry} hop {kw['hop_length']} mels {n_mels} "
-        f"power {power:g} fp32: {desc} (tol {TOL_FP32:.0e})"
+        f"power {power:g} fp32 ({plan}): {desc} (tol {TOL_FP32:.0e})"
         + (f"; {describe_times(res)}{comp}" if timed else
            f"; bound {max(bnd):.4g} ms"))
     if bad:
@@ -1164,13 +1183,17 @@ def phase_kernels(gen) -> dict:
     add("fused_mel_spectrogram", check_mel((64, 160000), MEL_MFCC, gen, timed=True), 0)
     add("fused_mel_spectrogram", check_mel((1, 160000), MEL_DEFAULT, gen, timed=True,
                                            grad=True), 0)
-    # every variant the wrapper takes: 64 or 128 mel columns, float4 or scalar
-    # frame reads (hop a multiple of 4 or not), the power 2, 1 and powf epilogues
+    # every variant the wrapper takes: on the factored path 64 or 128 mels, the
+    # power 2, 1 and powf epilogues, an odd length; on the dense path (n_fft
+    # 389, prime) 64 or 128 mel columns, float4 or scalar frame reads (hop a
+    # multiple of 4 or not) and each epilogue
     for shape, kw, power in (((2, 32123), MEL_DEFAULT, 2.0), ((3, 2, 4000), MEL_DEFAULT, 2.0),
                              ((2, 32123), MEL_MFCC, 1.0),
                              ((2, 32123), dict(MEL_MFCC, hop_length=100), 2.0),
                              ((1, 16000), dict(MEL_DEFAULT, n_mels=128), 2.0),
-                             ((2, 16001), dict(MEL_DEFAULT, hop_length=100, n_mels=128), 1.5)):
+                             ((2, 16001), dict(MEL_DEFAULT, hop_length=100, n_mels=128), 1.5),
+                             ((2, 32123), MEL_DENSE, 2.0), ((2, 16001), MEL_DENSE, 1.0),
+                             ((2, 16001), dict(MEL_DENSE, hop_length=100, n_mels=128), 1.5)):
         add("fused_mel_spectrogram", check_mel(shape, kw, gen, power), 0)
     return stats
 
@@ -1918,6 +1941,8 @@ def main() -> int:
                           ("stage_wgmma_kernelILi1E", lib.dm_stage_bwd_smem(1)),
                           ("stage_wgmma_kernelILi2E", lib.dm_stage_bwd_smem(1)),
                           ("moments_bf16_kernelILi8E", None),
+                          ("gn_cluster_kernelI13__nv_bfloat16Li8E", None),
+                          ("mel_fft_kernelILi32E", None), ("mel_fft_kernelILi64E", None),
                           ("block_mma_kernel", lib.dm_transformer_block_smem(1, 256)),
                           ("leaky_mask_gt_kernelI13__nv_bfloat16", None),
                           ("leaky_mask_kernelI13__nv_bfloat16", None)):

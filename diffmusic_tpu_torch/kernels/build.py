@@ -45,7 +45,7 @@ SIGNATURES = {
     "dm_transformer_block_smem": ([_I, _I], _S),
     "dm_flash_attention": ([_I, _P, _P, _P, _P, _I, _I, _I, _F, _P], _I),
     "dm_flash_attention_smem": ([_I, _I], _S),
-    "dm_group_norm": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
+    "dm_group_norm": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P], _I),
     "dm_group_norm_smem": ([_I], _S),
     "dm_channel_moments": ([_I, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
     "dm_conv2d_same": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
@@ -55,6 +55,9 @@ SIGNATURES = {
     "dm_stage_bwd_smem": ([_I], _S),
     "dm_fused_mel": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "dm_fused_mel_smem": ([_I, _I, _I], _S),
+    "dm_fused_mel_fft": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                          _P], _I),
+    "dm_fused_mel_fft_blocks": ([_I, _I, _I, _I, _I, _I, _I], _I),
 }
 
 # bytes of dynamic shared memory one block may use on the H100 (227 KB)

@@ -5,11 +5,22 @@
 // (_mel_block_kernel).
 //
 // The function's least work is an FFT's (about 2.5 n_fft log2 n_fft fp32
-// operations per frame), which leaves it bound by its bytes. This design
-// does the DFT as a dense product instead: n_fft x 2 n_freqs FMAs per frame
-// (10-20x the FFT's count) at 67 TFLOP/s outside the tensor cores; TF32
-// would miss the fp32 tolerance over a 400-1024-term sum. It keeps every
-// intermediate on the chip:
+// operations per frame), which leaves it bound by its bytes. Two paths, the
+// plan's choice per geometry (kernels/mel.py::mel_plan); both run in fp32
+// FMAs (TF32 would miss the fp32 tolerance) and keep every intermediate on
+// the chip.
+//
+// mel_fft_kernel, the factored path (n_fft = n1 * n2, both at most 64): a
+// Cooley-Tukey DFT in two stages of small products, n_fft (n1 + 2 n2) FMAs
+// a frame (24 k at n_fft 400, 98 k at 1024), only the n_fft / 2 + 1 bins;
+// each bin sums n1 + n2 terms, so it rounds no worse than the dense sum.
+// Tiles of 8 frames, so that a batch-1 clip of 1001 frames gives 126 tiles;
+// a block stages the tables once and takes tiles in turn (at most as many
+// blocks as the card holds at once); the filterbank from its nonzeros, about
+// 2 n_freqs FMAs a frame against 64 x m_pad a frequency tile. Details below.
+//
+// mel_kernel, the dense path (an n_fft without such a split): the DFT as a
+// dense product, n_fft x 2 n_freqs FMAs per frame (10-20x the FFT's count):
 //   - one block per (clip, tile of FT = 64 frames); the tile's signal span,
 //     63 * hop + n_fft_pad samples (41 KB at n_fft 400, hop 160), is staged in
 //     shared memory once, with the reflect pad done by index (16-byte loads
@@ -197,6 +208,224 @@ int run_mel(bool hop4, const float* x, const float* basis, const float* fb, floa
   return dm::launch(mel_kernel<MPW, false>, grid, dim3(THREADS), smem, s, x, basis, fb, out, a);
 }
 
+// ------------------------------------------------------ the factored path
+// n_fft = n1 * n2 (n1, n2 <= S, the kernel's size class). A frame's sample
+// n = n2 * m + b (m < n1, b < n2) and bin k = k1 + n1 * k2:
+//   stage 1: Y[b][k1] = sum_m w[n] x[n] W_n1^(m k1), n2 real DFTs of length
+//     n1 over the stride-n2 samples, as n1 real columns (cos k1 = 0..n1/2,
+//     -sin k1 = 1..(n1-1)/2): the other half is their conjugate;
+//   stage 2: X[k] = sum_b (Y[b][k1] W_n^(b k1)) W_n2^(b k2), only for the
+//     bins k <= n_fft / 2: k2 < (n_fft / 2 - k1) / n1 + 1.
+// Tables (host, float64 rounded to fp32, one buffer `tabf`): the window
+// (n_fft, zero outside win_length), the stage-1 matrix d1 (n1 rows of n1p =
+// round4(n1) columns), the twiddles tw (n2 x n1 complex), the stage-2 matrix
+// w2 (n2 x k2s complex, k2s = n2 / 2 + 1) and the filterbank's nonzeros;
+// `tabi` holds the filterbank's CSR: row_ptr (n_mels + 1), then the column
+// (bin) of each nonzero. kernels/mel.py::fft_tables builds both.
+struct FftArgs {
+  int L, T, hop, pad, n_fft, n1, n2, mels, frames, mode;
+  float power;
+  int tiles, items;                              // frame tiles a clip, B * tiles
+  int n1p, k2s, ys, ps;                          // row strides (floats / float2)
+  int off_d1, off_tw, off_w2, off_val, nf, ni;   // table layout (floats, ints)
+  int span;                                      // staged samples (floats)
+};
+
+__host__ __device__ constexpr int odd(int n) { return n | 1; }
+
+FftArgs fft_args(int L, int T, int hop, int n_fft, int n1, int n2, int mels, int nnz,
+                 int frames, int mode, float power, int B) {
+  FftArgs a{};
+  a.L = L; a.T = T; a.hop = hop; a.pad = n_fft / 2; a.n_fft = n_fft; a.n1 = n1; a.n2 = n2;
+  a.mels = mels; a.frames = frames; a.mode = mode; a.power = power;
+  a.tiles = (T + frames - 1) / frames;
+  a.items = B * a.tiles;
+  a.n1p = round4(n1);
+  a.k2s = n2 / 2 + 1;
+  a.ys = odd(n1);                 // a Y row: n1 columns, odd stride (stage 1 stores)
+  a.ps = odd(n_fft / 2 + 1);      // a power row: n_freqs bins, odd stride (filterbank reads)
+  a.off_d1 = round4(n_fft);
+  a.off_tw = a.off_d1 + n1 * a.n1p;
+  a.off_w2 = a.off_tw + 2 * n2 * n1;
+  a.off_val = a.off_w2 + 2 * n2 * a.k2s;
+  a.nf = round4(a.off_val + nnz);
+  a.ni = round4(mels + 1 + nnz);
+  a.span = round4((frames - 1) * hop + n_fft);
+  return a;
+}
+
+size_t fft_smem(const FftArgs& a) {
+  return sizeof(float) * ((size_t)a.nf + a.ni + a.span + (size_t)a.frames * a.n2 * a.ys +
+                          (size_t)a.frames * a.ps);
+}
+
+int fft_threads(const FftArgs& a) {
+  const int work = a.frames * (a.n1 > a.n2 ? a.n1 : a.n2);
+  return (work + 31) / 32 * 32;
+}
+
+constexpr int FFT_MAX_THREADS = 512;
+
+// One block takes tiles of `frames` frames of a clip in turn (items
+// blockIdx.x, blockIdx.x + gridDim.x, ...), after staging the tables once:
+// the span of the tile (reflect pad by index) -> stage 1, thread (f, b) ->
+// Y in shared memory -> stage 2, thread (f, k1), |X|^power -> the power rows
+// -> each (frame, mel) sums its nonzeros -> out (B, n_mels, T), a warp's
+// stores 32-byte runs of 8 frames of a mel.
+template <int S>
+__global__ void __launch_bounds__(FFT_MAX_THREADS)
+mel_fft_kernel(const float* __restrict__ x, const float* __restrict__ tabf,
+               const int* __restrict__ tabi, float* __restrict__ out, FftArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  float* tf = smem;
+  int* ti = reinterpret_cast<int*>(tf + a.nf);
+  float* span = reinterpret_cast<float*>(ti + a.ni);
+  float* ys = span + a.span;
+  float* ps = ys + a.frames * a.n2 * a.ys;
+  const float* win = tf;
+  const float* d1 = tf + a.off_d1;
+  const float2* tw = reinterpret_cast<const float2*>(tf + a.off_tw);
+  const float2* w2 = reinterpret_cast<const float2*>(tf + a.off_w2);
+  const float* val = tf + a.off_val;
+  const int* row = ti;
+  const int* col = ti + a.mels + 1;
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  for (int i = tid; i < a.nf / 4; i += nt)
+    reinterpret_cast<float4*>(tf)[i] = __ldg(reinterpret_cast<const float4*>(tabf) + i);
+  for (int i = tid; i < a.ni; i += nt) ti[i] = __ldg(tabi + i);
+
+  // stage 2's column of Y: k1 <= n1 / 2 reads its own columns, k1 above
+  // reads those of n1 - k1 and conjugates; sin is zero at k1 = 0 and n1 / 2
+  const int h = a.n1 / 2;
+  const int k1 = tid % a.n1, kk = k1 <= h ? k1 : a.n1 - k1;
+  const bool real_bin = kk == 0 || 2 * kk == a.n1;
+  const int cim = real_bin ? 0 : h + kk;
+  const float sim = real_bin ? 0.f : (k1 <= h ? 1.f : -1.f);
+  const int nk2 = (a.n_fft / 2 - k1) / a.n1 + 1;
+
+  for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
+    const int bi = item / a.tiles, t0 = (item % a.tiles) * a.frames;
+    const float* xr = x + (size_t)bi * a.L;
+    __syncthreads();   // the tables are staged; the last item's span, Y and P consumed
+    // the span: padded samples [t0 hop, t0 hop + span) of the reflect-padded clip
+    const long start = (long)t0 * a.hop - a.pad;
+    if (start >= 0 && start + a.span <= a.L && ((size_t)bi * a.L + start) % 4 == 0) {
+      for (int i = tid; i < a.span / 4; i += nt)
+        reinterpret_cast<float4*>(span)[i] = __ldg(reinterpret_cast<const float4*>(xr + start) + i);
+    } else {
+      for (int i = tid; i < a.span; i += nt) {
+        long s = start + i;
+        float v = 0.f;
+        if (s < (long)a.L + a.pad) {
+          if (s < 0) s = -s;
+          else if (s >= a.L) s = 2L * (a.L - 1) - s;
+          v = __ldg(xr + s);
+        }
+        span[i] = v;
+      }
+    }
+    __syncthreads();
+
+    // stage 1: thread (f, b) sums its n1 windowed samples into n1 columns
+    if (tid < a.frames * a.n2) {
+      const int f = tid / a.n2, b = tid % a.n2;
+      float acc[S];
+#pragma unroll
+      for (int c = 0; c < S; ++c) acc[c] = 0.f;
+      const float* fr = span + f * a.hop + b;
+      for (int m = 0; m < a.n1; ++m) {
+        const float v = fr[m * a.n2] * win[m * a.n2 + b];
+        const float4* drow = reinterpret_cast<const float4*>(d1 + m * a.n1p);
+#pragma unroll
+        for (int c4 = 0; c4 < S / 4; ++c4) {
+          if (4 * c4 < a.n1) {
+            const float4 d = drow[c4];
+            acc[4 * c4] = fmaf(v, d.x, acc[4 * c4]);
+            acc[4 * c4 + 1] = fmaf(v, d.y, acc[4 * c4 + 1]);
+            acc[4 * c4 + 2] = fmaf(v, d.z, acc[4 * c4 + 2]);
+            acc[4 * c4 + 3] = fmaf(v, d.w, acc[4 * c4 + 3]);
+          }
+        }
+      }
+      float* yrow = ys + (f * a.n2 + b) * a.ys;
+#pragma unroll
+      for (int c = 0; c < S; ++c)
+        if (c < a.n1) yrow[c] = acc[c];
+    }
+    __syncthreads();
+
+    // stage 2: thread (f, k1), the twiddle, then the bins k1 + n1 k2 <= n_fft / 2
+    if (tid < a.frames * a.n1) {
+      const int f = tid / a.n1;
+      float2 acc[S / 2 + 1];
+#pragma unroll
+      for (int j = 0; j < S / 2 + 1; ++j) acc[j] = make_float2(0.f, 0.f);
+      for (int b = 0; b < a.n2; ++b) {
+        const float* yrow = ys + (f * a.n2 + b) * a.ys;
+        const float yr = yrow[kk], yi = sim * yrow[cim];
+        const float2 t = tw[b * a.n1 + k1];
+        const float zr = fmaf(yr, t.x, -yi * t.y), zi = fmaf(yr, t.y, yi * t.x);
+        const float2* wrow = w2 + b * a.k2s;
+#pragma unroll
+        for (int j = 0; j < S / 2 + 1; ++j) {
+          if (j < nk2) {
+            const float2 w = wrow[j];
+            acc[j].x = fmaf(zr, w.x, fmaf(-zi, w.y, acc[j].x));
+            acc[j].y = fmaf(zr, w.y, fmaf(zi, w.x, acc[j].y));
+          }
+        }
+      }
+      float* prow = ps + f * a.ps;
+#pragma unroll
+      for (int j = 0; j < S / 2 + 1; ++j) {
+        if (j < nk2) {
+          const float m2 = fmaf(acc[j].x, acc[j].x, acc[j].y * acc[j].y);
+          prow[k1 + a.n1 * j] = a.mode == 2   ? m2
+                                : a.mode == 1 ? sqrtf(m2 + 1e-24f)
+                                              : powf(m2 + 1e-24f, 0.5f * a.power);
+        }
+      }
+    }
+    __syncthreads();
+
+    // the filterbank: (frame, mel) sums the mel's nonzero bins
+    for (int i = tid; i < a.frames * a.mels; i += nt) {
+      const int f = i % a.frames, m = i / a.frames, t = t0 + f;
+      const float* prow = ps + f * a.ps;
+      float acc = 0.f;
+      for (int j = row[m]; j < row[m + 1]; ++j) acc = fmaf(prow[col[j]], val[j], acc);
+      if (t < a.T) out[((size_t)bi * a.mels + m) * a.T + t] = acc;
+    }
+  }
+}
+
+// Lets each instantiation use all the shared memory a block may have, once
+// a process: the launch need not ask again.
+template <int S>
+int fft_opt_in() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      mel_fft_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  return (int)err;
+}
+
+template <int S>
+int run_fft(const float* x, const float* tabf, const int* tabi, float* out, const FftArgs& a,
+            int max_blocks, cudaStream_t s) {
+  const int threads = fft_threads(a);
+  if (threads > FFT_MAX_THREADS || max_blocks < 1) return (int)cudaErrorInvalidValue;
+  const int rc = fft_opt_in<S>();
+  if (rc != 0) return rc;
+  const int grid = a.items < max_blocks ? a.items : max_blocks;
+  mel_fft_kernel<S><<<grid, threads, fft_smem(a), s>>>(x, tabf, tabi, out, a);
+  return (int)cudaGetLastError();
+}
+
+int size_class(int n1, int n2) {
+  const int m = n1 > n2 ? n1 : n2;
+  return m <= 16 ? 16 : m <= 32 ? 32 : m <= 64 ? 64 : 0;
+}
+
 }  // namespace
 
 // x (B, L) fp32; basis (tiles, 128, k_pad) fp32 (per tile 64 cos then 64 sin
@@ -219,4 +448,49 @@ extern "C" int dm_fused_mel(const void* x, const void* basis, const void* fb, vo
 
 extern "C" size_t dm_fused_mel_smem(int hop, int k_pad, int m_pad) {
   return mel_smem(hop, k_pad, m_pad);
+}
+
+// The factored path. x (B, L) fp32; tabf / tabi the tables of
+// kernels/mel.py::fft_tables for n_fft = n1 * n2 (n1, n2 <= 64) and n_mels
+// mels with nnz nonzeros; out (B, n_mels, T) fp32; `frames` frames a tile;
+// at most `max_blocks` blocks, each taking tiles in turn. mode as above.
+extern "C" int dm_fused_mel_fft(const void* x, const void* tabf, const void* tabi, void* out,
+                                int B, int L, int T, int hop, int n_fft, int n1, int n2,
+                                int n_mels, int nnz, int frames, int mode, float power,
+                                int max_blocks, void* stream) {
+  if (n1 * n2 != n_fft || n1 < 2 || n2 < 2 || frames < 1) return (int)cudaErrorInvalidValue;
+  const FftArgs a = fft_args(L, T, hop, n_fft, n1, n2, n_mels, nnz, frames, mode, power, B);
+  cudaStream_t s = (cudaStream_t)stream;
+  const float *xf = (const float*)x, *tf = (const float*)tabf;
+  const int* ti = (const int*)tabi;
+  float* of = (float*)out;
+  switch (size_class(n1, n2)) {
+    case 16: return run_fft<16>(xf, tf, ti, of, a, max_blocks, s);
+    case 32: return run_fft<32>(xf, tf, ti, of, a, max_blocks, s);
+    case 64: return run_fft<64>(xf, tf, ti, of, a, max_blocks, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The blocks of the factored path an SM can hold at this geometry, for the
+// plan; 0 where none fits (more shared memory than a block may have).
+extern "C" int dm_fused_mel_fft_blocks(int hop, int n_fft, int n1, int n2, int n_mels, int nnz,
+                                       int frames) {
+  const FftArgs a = fft_args(1, 1, hop, n_fft, n1, n2, n_mels, nnz, frames, 2, 2.f, 1);
+  const size_t smem = fft_smem(a);
+  const int threads = fft_threads(a);
+  int blocks = 0;
+  cudaError_t err = cudaSuccess;
+  const auto query = [&](auto kernel, int opt_in) {
+    err = (cudaError_t)opt_in;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  };
+  switch (size_class(n1, n2)) {
+    case 16: query(mel_fft_kernel<16>, fft_opt_in<16>()); break;
+    case 32: query(mel_fft_kernel<32>, fft_opt_in<32>()); break;
+    case 64: query(mel_fft_kernel<64>, fft_opt_in<64>()); break;
+    default: return 0;
+  }
+  return err == cudaSuccess ? blocks : 0;
 }

@@ -8,9 +8,12 @@ Replace `diffmusic_tpu/pallas/groupnorm_kernel.py::fused_group_norm` and
 Bound on the H100: device memory. A GroupNorm does about ten operations per
 element it reads once and writes once, far below the card's ~295 bf16
 operations per byte. In NCHW a group (C/G channels x H*W) is contiguous, so
-the fused kernel gives each (batch, group) one block that sums x and x^2 in
-fp32 and then normalises, scales, shifts and applies the optional SiLU, in
-one read (the second pass hits L2) and one write. The moments kernel reads
+the fused kernel gives each (batch, group) one block, or a cluster of blocks
+for a long group, whose threads hold their share of it in registers: they
+sum x and x^2 in fp32, combine the sums across the cluster, then
+normalise, scale, shift and apply the optional SiLU, in one read and one
+write. It follows a plan made once per geometry (`fused_plan`, which also
+checks what the kernel takes). The moments kernel reads
 each (batch, channel) row once and writes its fp32 (sum, sum of squares);
 the group combine and the normalise stay in plain PyTorch, as in the JAX
 package. Statistics are var = E[x^2] - mu^2 in fp32, as the port's plain
@@ -22,8 +25,9 @@ elements a team of as many threads as the row has loads of `vec` elements
 (16 bytes where N allows), up to a block of `MOMENT_MAX_THREADS`, several
 short rows a block of `MOMENT_ROW_BLOCK`. Per call the wrapper reads the
 address, allocates the output and launches on the current stream's raw
-handle; where no gradient is wanted it skips the autograd function. The
-fp32 moments are the exact scalar kernel, one block a row.
+handle; where no gradient is wanted it skips the autograd function, as the
+fused GroupNorm's does. The fp32 moments are the exact scalar kernel, one
+block a row.
 
 On a CPU tensor the wrappers run the plain versions beside them; on a CUDA
 tensor they launch the kernel or raise. Gradients: the fused GroupNorm's
@@ -44,6 +48,13 @@ LAUNCHES = {"fused_group_norm": 0, "channel_moments": 0}
 
 ROW_LIMIT_ELEMS = 2 ** 20   # H*W*C per batch row (`groupnorm_kernel._ROW_LIMIT_ELEMS`)
 GN_MODES = ("plain", "fused", "stats")
+
+# the fused kernel's plan (csrc/group_norm.cu, gn_cluster_kernel)
+GN_MAX_THREADS = 512        # a block (128 registers a thread)
+GN_MAX_LOADS = 8            # loads a thread, all in registers at once
+GN_MAX_CLUSTER = 8          # blocks a group (the portable cluster size)
+GN_BLOCK_LOADS = 1024       # the most loads a group takes in one block
+GN_CLUSTER_THREADS = 128    # a block of a cluster
 
 # the bf16 moments kernel's plan (csrc/group_norm.cu)
 MOMENT_MAX_THREADS = 512    # a block, the team of the longest rows
@@ -85,22 +96,83 @@ def moments_plain(x3):
     return torch.stack([xf.sum(-1), (xf * xf).sum(-1)], dim=1)
 
 
+def fused_geometry(n: int, size: int) -> tuple:
+    """(vec, k, threads, loads) of the fused kernel for groups of n elements
+    of `size` bytes: `vec` elements a load (16 bytes, or the largest power
+    of two below dividing n); k blocks a group, 1 up to GN_BLOCK_LOADS loads
+    and GN_MAX_CLUSTER above; `threads` a block, in a lone block the least
+    power of two from 32 that gives each thread one load, up to
+    GN_MAX_THREADS, in a cluster GN_CLUSTER_THREADS, or more where a thread
+    would need more than GN_MAX_LOADS; `loads` a thread. The rule is the
+    H100's (PERF.md, row 10 of §6): up to 1024 loads a group, 512 threads
+    of one or two loads beat any cluster; above, 8 blocks of 128 threads of
+    two to four loads beat fewer or wider blocks."""
+    vec = next(v for v in (8, 4, 2, 1) if v * size <= 16 and n % v == 0)
+    n_loads = n // vec
+    if n_loads <= GN_BLOCK_LOADS:
+        k, threads = 1, 32
+        while threads < min(n_loads, GN_MAX_THREADS):
+            threads *= 2
+    else:
+        k, threads = GN_MAX_CLUSTER, GN_CLUSTER_THREADS
+    per = -(-n_loads // k)
+    while threads < GN_MAX_THREADS and threads * GN_MAX_LOADS < per:
+        threads *= 2
+    return vec, k, threads, -(-per // threads)
+
+
+@functools.lru_cache(maxsize=256)
+def fused_plan(shape: tuple, stride: tuple, dtype, device, groups: int, params: tuple) -> tuple:
+    """(dtype code, B, C, HW, G, vec, k, threads, loads) of a fused launch on
+    x of this shape, stride, dtype and device with `groups` groups; `params`
+    is (shape, stride, dtype, device) of the weight and then of the bias.
+    Raises for what the kernel does not take: a device other than CUDA, a
+    dtype other than bf16 or fp32, x not a contiguous NCHW tensor, C not a
+    multiple of the groups, a weight or bias other than a contiguous (C,)
+    tensor of x's dtype on x's device, a group of more loads than a cluster
+    holds, or more shared memory than a block may use."""
+    from . import build
+    if device.type != "cuda":
+        raise ValueError(f"fused_group_norm: x must be on a CUDA device, not {device}")
+    code = build.dtype_code(dtype)
+    if len(shape) != 4:
+        raise ValueError(f"fused_group_norm: x must be NCHW, not {tuple(shape)}")
+    if not _dense(shape, stride):
+        raise ValueError("fused_group_norm: x must be contiguous")
+    bsz, c, h, w = shape
+    if groups < 1 or c % groups:
+        raise ValueError(f"fused_group_norm: {c} channels in {groups} groups")
+    for name, (p_shape, p_stride, p_dtype, p_device) in zip(("weight", "bias"),
+                                                            (params[:4], params[4:])):
+        if p_dtype != dtype:
+            raise TypeError(f"fused_group_norm: {name} is {p_dtype}, x {dtype}")
+        if p_device != device:
+            raise ValueError(f"fused_group_norm: {name} on {p_device}, x on {device}")
+        if tuple(p_shape) != (c,) or tuple(p_stride) != (1,):
+            raise ValueError(f"fused_group_norm: {name} must be a contiguous ({c},), not "
+                             f"{tuple(p_shape)}")
+    n = c // groups * h * w
+    vec, k, threads, loads = fused_geometry(n, torch.empty((), dtype=dtype).element_size())
+    if loads > GN_MAX_LOADS:
+        raise ValueError(f"fused_group_norm: a group of {n} elements is more than a cluster "
+                         f"of {GN_MAX_CLUSTER} blocks holds")
+    build.check_smem("fused_group_norm", build.library().dm_group_norm_smem(c // groups))
+    return code, bsz, c, h * w, groups, vec, k, threads, loads
+
+
 def _launch_fused(x, weight, bias, groups, eps, use_silu):
     from . import build
-    build.check_tensors("fused_group_norm", x, weight, bias)
-    if x.ndim != 4:
-        raise ValueError(f"fused_group_norm: x must be NCHW, not {tuple(x.shape)}")
-    bsz, c, h, w = x.shape
-    if c % groups or tuple(weight.shape) != (c,) or tuple(bias.shape) != (c,):
-        raise ValueError(f"fused_group_norm: bad shapes x {tuple(x.shape)}, groups {groups}, "
-                         f"weight {tuple(weight.shape)}, bias {tuple(bias.shape)}")
-    lib = build.library()
-    code = build.dtype_code(x.dtype)
-    build.check_smem("fused_group_norm", lib.dm_group_norm_smem(c // groups))
+    code, bsz, c, hw, g, vec, k, threads, loads = fused_plan(
+        x.shape, x.stride(), x.dtype, x.device, groups,
+        (weight.shape, weight.stride(), weight.dtype, weight.device,
+         bias.shape, bias.stride(), bias.dtype, bias.device))
+    xp, wp, bp = x.data_ptr(), weight.data_ptr(), bias.data_ptr()
+    if xp % 16 or wp % 16 or bp % 16:
+        raise ValueError("fused_group_norm: x, weight and bias must start 16-byte aligned")
     y = torch.empty_like(x)
-    rc = lib.dm_group_norm(code, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                           y.data_ptr(), bsz, c, h * w, groups, float(eps), int(use_silu),
-                           build.stream_ptr(x.device))
+    rc = build.library().dm_group_norm(code, xp, wp, bp, y.data_ptr(), bsz, c, hw, g,
+                                       float(eps), int(use_silu), vec, k, threads, loads,
+                                       build.stream_ptr(x.device))
     build.check(rc, "fused_group_norm")
     LAUNCHES["fused_group_norm"] += 1
     return y
@@ -189,7 +261,12 @@ class _ChannelMoments(torch.autograd.Function):
 
 def fused_group_norm(x, weight, bias, groups: int, eps: float, use_silu: bool = False):
     """GroupNorm(+SiLU) of NCHW x in one kernel; stats in fp32, output in x.dtype."""
-    return _FusedGroupNorm.apply(x, weight, bias, groups, eps, use_silu)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return _FusedGroupNorm.apply(x, weight, bias, groups, eps, use_silu)
+    if use_plain(x, "fused_group_norm"):
+        return group_norm_plain(x, weight, bias, groups, eps, use_silu)
+    return _launch_fused(x, weight, bias, groups, eps, use_silu)
 
 
 def channel_moments(x3):

@@ -23,8 +23,11 @@ dilation), on the canvas and off it; the bf16
 single conv (the same pass) at the slice's 6 ch512 k11 calls and, on the
 canvas, forward and adjoint, at every resblock conv of stages 0-2. The bf16
 transformer block (mma.sync attention, a cluster per 32-row tile) runs at
-both slice levels in all three modes. The fused mel spectrogram is fp32
-only: 1e-4 of max |plain| forward, gradients too.
+both slice levels in all three modes. The fused GroupNorm (a cluster of
+blocks a group, on its plan) runs at each of the fused route's 20 calls in
+bf16 and fp32, and a full-width UNet forward counts its 60 launches. The
+fused mel spectrogram is fp32 only, on both of its paths: 1e-4 of max
+|plain| forward, gradients too.
 """
 
 import math
@@ -705,23 +708,38 @@ MEL_MFCC = dict(n_fft=400, hop_length=160, win_length=400, n_mels=64, sample_rat
                                       ((2, 16001), dict(hop_length=100)),
                                       ((1, 16000), dict(n_mels=128)),
                                       ((2, 16001), dict(hop_length=100, n_mels=128,
+                                                        power=1.5)),
+                                      ((1, 160000), MEL_MFCC), ((64, 160000), MEL_MFCC),
+                                      ((2, 16001), dict(MEL_MFCC, power=1.0)),
+                                      ((2, 16001), dict(MEL_MFCC, power=1.5, n_mels=128)),
+                                      ((2, 16001), dict(n_fft=262, win_length=262)),
+                                      ((2, 16001), dict(n_fft=389, win_length=300,
+                                                        n_mels=128, power=1.0)),
+                                      ((2, 16001), dict(n_fft=389, win_length=389,
                                                         power=1.5))])
 def test_fused_mel_kernel_on_card(cuda, gen, shape, kw):
     """The mel kernel and its backward against autograd through the plain
     version: the MFCC and default geometries, an odd length (not a
     multiple of 4: the span takes its scalar loads), a batch shape with
     power 1, 40 mels at hop 128, and every other variant the wrapper takes:
-    hop 100 (scalar frame reads), 128 mel columns, and the powf epilogue."""
+    hop 100 (scalar frame reads), 128 mel columns, and the powf epilogue;
+    the eval's per-clip shape and a 64-clip batch; on the dense path (n_fft
+    262 = 2 x 131 and 389, a prime: no split into factors of at most 64)
+    every epilogue and mel width (the power-2 backward, the JAX package's
+    VJP, takes an even n_fft only). The plan's path is checked."""
     x = arr(gen, *shape, scale=0.3)
     n_frames = 1 + shape[-1] // kw.get("hop_length", 160)
     g = arr(gen, *shape[:-1], kw.get("n_mels", 64), n_frames)
     kernels.reset_launch_counts()
     y, dx = grads(lambda xx: tmel.fused_mel_spectrogram(xx, **kw), x, g)
+    with torch.no_grad():
+        y_ng = tmel.fused_mel_spectrogram(x, **kw)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["fused_mel_spectrogram"] == 1
+    assert kernels.launch_counts()["fused_mel_spectrogram"] == 2
     y0, dx0 = grads(lambda xx: tmel.fused_mel_plain(xx, **kw), x, g)
-    assert y.shape == y0.shape and torch.isfinite(y).all()
+    assert y.shape == y0.shape and torch.isfinite(y).all() and torch.equal(y, y_ng)
     assert rel(y, y0) <= 1e-4 and rel(dx, dx0) <= 1e-4
+    assert (tmel.fft_split(kw.get("n_fft", 1024)) is None) == (kw.get("n_fft") in (262, 389))
 
 
 @pytest.mark.cuda
@@ -743,6 +761,68 @@ def test_mel_wrapper_rejects_what_the_kernel_does_not_take(cuda, gen):
         tmel.fused_mel_spectrogram(arr(gen, 1, 300), n_fft=1024)
     with pytest.raises(ValueError):    # more mels than the kernel's 128 columns
         tmel.fused_mel_spectrogram(arr(gen, 1, 4000), n_mels=160)
+
+
+# (shape, eps, use_silu) of every fused GroupNorm call on the fused route
+# (the UNet at latents (1, 8, 250, 16); tests/test_torch_port_gn_tiles.py
+# holds them against chip_smoke.py)
+FUSED_GN_CALLS = (((1, 128, 125, 8), 1e-05, True), ((1, 128, 250, 16), 1e-06, False),
+                  ((1, 128, 250, 16), 1e-05, True), ((1, 256, 62, 4), 1e-05, True),
+                  ((1, 256, 125, 8), 1e-06, False), ((1, 256, 125, 8), 1e-05, True),
+                  ((1, 256, 250, 16), 1e-05, True), ((1, 384, 31, 2), 1e-05, True),
+                  ((1, 384, 62, 4), 1e-06, False), ((1, 384, 62, 4), 1e-05, True),
+                  ((1, 384, 125, 8), 1e-05, True), ((1, 512, 125, 8), 1e-05, True),
+                  ((1, 640, 31, 2), 1e-06, False), ((1, 640, 31, 2), 1e-05, True),
+                  ((1, 640, 62, 4), 1e-05, True), ((1, 640, 125, 8), 1e-05, True),
+                  ((1, 768, 62, 4), 1e-05, True), ((1, 1024, 31, 2), 1e-05, True),
+                  ((1, 1024, 62, 4), 1e-05, True), ((1, 1280, 31, 2), 1e-05, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,eps,silu", FUSED_GN_CALLS, ids=str)
+def test_fused_group_norm_at_the_route_geometries(cuda, gen, shape, eps, silu, dtype, tol):
+    """The fused GroupNorm (the cluster kernel, on its plan) at each of the
+    fused route's 20 calls, forward with and without autograd and the
+    recompute backward, against the plain version; one launch a call."""
+    b, c, h, w = shape
+    x = arr(gen, *shape, scale=2.0, dtype=dtype) + 0.3
+    wt = 1 + arr(gen, c, scale=0.2, dtype=dtype)
+    bt = arr(gen, c, scale=0.1, dtype=dtype)
+    g = arr(gen, *shape, dtype=dtype)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        y_ng = tgn.fused_group_norm(x, wt, bt, 32, eps, silu)
+    y, dx = grads(lambda xx: tgn.fused_group_norm(xx, wt, bt, 32, eps, silu), x, g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_group_norm"] == 2
+    y0, dx0 = grads(lambda xx: tgn.group_norm_plain(xx, wt, bt, 32, eps, silu), x, g)
+    assert torch.equal(y_ng, y) and torch.isfinite(y).all()
+    assert rel(y, y0) <= tol and rel(dx, dx0) <= tol
+
+
+@pytest.mark.cuda
+def test_fused_group_norm_launches_of_a_full_width_step(cuda):
+    """The full-width bf16 UNet of the 10-s slice on `gn_mode="fused"`
+    launches the fused GroupNorm 60 times a forward, as chip_smoke.py's
+    expected launches say; the VAE decoder's groups fail `fused_gn_ok`."""
+    from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
+    from diffmusic_tpu_torch.models.vae import AutoencoderKL
+    bf = torch.bfloat16
+    unet, vae = MusicLDMPipeline._random_models(
+        [UNet2DConditionModel(UNetConfig(), gn_mode="fused"),
+         AutoencoderKL(VAEConfig(), gn_mode="fused")], 0, cuda, bf)
+    lat = torch.randn(1, 8, 250, 16, device=cuda, dtype=bf)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = unet(lat, torch.ones(1, device=cuda),
+                   class_labels=torch.zeros(1, 512, device=cuda, dtype=bf))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_group_norm"] == 60 and torch.isfinite(out).all()
+    z = lat.clone().requires_grad_(True)
+    torch.autograd.grad(vae.decode(z).float().square().sum(), z)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_group_norm"] == 60
 
 
 # (T, C) of the vocoder's stages 0-2 and the resblock convs of each branch k:

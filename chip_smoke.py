@@ -59,7 +59,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      `AudioLDM2Pipeline.__call__`, once on each UNet route: `fuse_cross` off
      (flash attention, the JAX default), on (the dual-cross block), and on
      with the bounded softmax; then its per-stage breakdown;
-  8. eval: in a temporary directory, EVAL_PAIRS pairs of 10-s clips (pair 0
+  8. tasks reference: the small fp32 MusicLDM of phase 4, 2 steps at eta 1
+     with the waveform loss, card against CPU from one CPU generator: MPGD
+     and DSG on box inpainting, DiffMusic on each task (super-resolution,
+     phase retrieval, dereverberation, random and periodic masks, the
+     latter's measurement under Poisson noise);
+  9. tasks: full-width MusicLDM with seeded random bf16 weights on the
+     default route, 20 steps each through `MusicLDMPipeline.__call__`: MPGD,
+     DSG and DiffMusic (configs/*.yaml's eta and rate) on the slice's box
+     inpainting, then DiffMusic on each task with run.py's settings, phase
+     retrieval with its phase-aware output (which must not move
+     |STFT(output)| away from the measurement); each run's launches are the
+     default DPS route's; ms per step, quartiles, peak memory; the
+     dereverberation filter alone, forward and backward, with TF32 off and on;
+  10. eval: in a temporary directory, EVAL_PAIRS pairs of 10-s clips (pair 0
      the slice's ground truth and the audio its default turn restored; two
      pairs as 44.1-kHz stereo) and a seeded random torchvggish-layout
      `vggish.pth`, scored by `diffmusic_tpu_torch.eval.main` on the card with
@@ -1474,23 +1487,27 @@ def phase_reference_audioldm2():
             raise AssertionError(f"fuse_cross {fuse_cross} launched the other route")
 
 
-def drive(label: str, pipe, meas, want: dict, repacks=None, **call_kw) -> tuple:
-    """One 10-s slice run through the pipeline's __call__: STEPS DPS steps,
-    eta 0, rate 2.0, seeded latents (1, 8, 250, 16); the launch counts are set
+def drive(label: str, pipe, meas, want: dict, repacks=None, eta: float = 0.0,
+          rate: float = 2.0, **call_kw) -> tuple:
+    """One 10-s slice run through the pipeline's __call__: STEPS steps of its
+    sampler (DPS unless the pipeline names another), eta 0 and rate 2.0
+    unless given, seeded latents (1, 8, 250, 16); the launch counts are set
     to 0 just before and read just after, and must equal `want`. The
     kernels' tap-major weight copies (conv2d, upsampler, conv1d pair) are
     counted per step: `repacks[kernel]` in the first (the route's weights
-    not yet seen), none after. Returns (launch counts, the restored audio (1, 160000))."""
+    not yet seen), none after. Returns (launch counts, the restored audio
+    (1, 160000), the final latents)."""
     from diffmusic_tpu_torch import kernels
     from diffmusic_tpu_torch.kernels import repack
     lat = torch.randn(LATENTS, generator=torch.Generator().manual_seed(0))
-    stamps, made = [], []
+    stamps, made, last = [], [], []
     repacks = {**dict.fromkeys(repack.REPACKS, 0), **(repacks or {})}
 
     def on_step(i, t, x):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         made.append(dict(repack.REPACKS))
+        last[:] = [x]
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1498,8 +1515,8 @@ def drive(label: str, pipe, meas, want: dict, repacks=None, **call_kw) -> tuple:
     for name in repack.REPACKS:
         repack.REPACKS[name] = 0
     start = time.perf_counter()
-    out, losses = pipe(audio_length_in_s=10.0, num_inference_steps=STEPS, eta=0.0,
-                       measurement=meas, ip_guidance_rate=2.0, latents=lat,
+    out, losses = pipe(audio_length_in_s=10.0, num_inference_steps=STEPS, eta=eta,
+                       measurement=meas, ip_guidance_rate=rate, latents=lat,
                        return_losses=True, callback=on_step, **call_kw)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
@@ -1507,8 +1524,8 @@ def drive(label: str, pipe, meas, want: dict, repacks=None, **call_kw) -> tuple:
     peak = torch.cuda.max_memory_allocated()
     audio = out.audios
     q1, med, q3 = statistics.quantiles(step_ms[1:], n=4)
-    log(f"{label}: DPS {STEPS} steps, eta 0, rate 2.0, latents {LATENTS}; "
-        f"loss first {losses[0]:.4f} last {losses[-1]:.4f}; "
+    log(f"{label}: {pipe.scheduler_name} {STEPS} steps, eta {eta}, rate {rate}, latents "
+        f"{LATENTS}; loss first {losses[0]:.4f} last {losses[-1]:.4f}; "
         f"ms/guided step after the first: median {med:.2f}, quartiles {q1:.2f}/{q3:.2f} "
         f"(first {step_ms[0]:.1f}); peak memory {peak / 2**30:.2f} GiB; "
         f"audio {audio.shape}")
@@ -1523,7 +1540,7 @@ def drive(label: str, pipe, meas, want: dict, repacks=None, **call_kw) -> tuple:
     if made[0] != repacks or any(later.values()):
         raise AssertionError(f"{label}: tap-major weight copies {made[0]} in the first step "
                              f"and {later} after it, expected {repacks} and none")
-    return counts, audio
+    return counts, audio, last[0]
 
 
 # the slice's turns: each route once each way, so that the host's drift over
@@ -1570,7 +1587,7 @@ def phase_slice(profile_dir=None) -> tuple:
     first_conv2d = next(i for i, n in enumerate(TURNS) if TURN_ROUTES[n].get("conv2d_kernel"))
     for turn, name in enumerate(TURNS):
         label = "slice" if name == "default" else f"slice route {name}"
-        c, a = drive(f"{label} (turn {turn + 1})", pipes[name], meas, turn_launches(name),
+        c, a, _ = drive(f"{label} (turn {turn + 1})", pipes[name], meas, turn_launches(name),
                      repacks={"conv2d_same": conv2d_weights if turn == first_conv2d else 0,
                               "phase_convtranspose": upsampler_weights if turn == 0 else 0,
                               "conv1d_pair": pair_weights if turn == 0 else 0,
@@ -1708,6 +1725,181 @@ def phase_breakdown(pipe, meas, lat_shape, embeds, label, profile_dir=None,
         f"{dev_us / 1e6 / wall:.3f} of the untraced wall; table in {path}")
     for line in table.splitlines()[:18]:
         log(f"  {line}")
+
+
+# ------------------------------------------------------------------ tasks
+# The paper's samplers and tasks (configs/*.yaml, run.py's build_operator):
+# (sampler, eta, rate) on the slices' box inpainting, then DiffMusic on each
+# other task. The periodic mask's measurement carries Poisson noise.
+SAMPLER_RUNS = (("mpgd", 0.0, 0.005), ("dsg", 1.0, 0.08), ("diffmusic", 1.0, 0.08))
+DIFFMUSIC = SAMPLER_RUNS[2]
+TASKS = ("super_resolution", "phase_retrieval", "dereverberation", "random_mask",
+         "periodic_mask_poisson")
+DEREVERB_IR = 5000
+# The reference's rates. MPGD takes the DPS reference's 2.0 (its config's
+# 0.005 barely moves the latents); DSG and DiffMusic their configs' 0.08.
+# Those two rescale the gradient's unit direction to the noise's radius, so
+# the card-vs-CPU difference of the gradient (fp32 kernels against cuDNN
+# and the CPU, summing in other orders) reaches the latents weighted by the
+# rate alone, not by the gradient's size: at 0.5, DSG's final latents
+# differed by 1.8e-4 of their norm on an H100, against REF_LATENT_TOL's 1e-4.
+REF_SAMPLER_RATES = {"mpgd": 2.0, "dsg": 0.08, "diffmusic": 0.08}
+
+
+def task_operator(task: str, audio_s: float):
+    """A task's operator with run.py's settings, its draws (random mask,
+    reverb impulse response) from seed 0."""
+    from diffmusic_tpu_torch import inverse_problem as ip
+    if task == "super_resolution":
+        return ip.SuperResolutionOperator(sample_rate=16000, scale=2)
+    if task == "phase_retrieval":
+        return ip.PhaseRetrievalOperator(n_fft=1024, hop_length=160, win_length=1024)
+    if task == "dereverberation":
+        return ip.MusicDereverberationOperator(ir_length=DEREVERB_IR, decay_factor=0.99,
+                                               ir_generator=torch.Generator().manual_seed(0))
+    if task == "random_mask":
+        return ip.MusicInpaintingOperator(audio_length_in_s=audio_s, mask_type="random",
+                                          mask_percentage=0.3, mask_duration_s=0.1,
+                                          mask_generator=torch.Generator().manual_seed(0))
+    if task == "periodic_mask_poisson":
+        return ip.MusicInpaintingOperator(audio_length_in_s=audio_s, mask_type="periodic",
+                                          interval_s=1.0, mask_duration_s=0.1,
+                                          noiser=ip.PoissonNoise(rate=1.0))
+    raise ValueError(task)
+
+
+def task_measurement(op, audio_s: float, device) -> torch.Tensor:
+    """The operator's measurement of the harmonic stack, made on the CPU (its
+    noise from seed 1) and moved to `device`."""
+    gt = torch.as_tensor(harmonic_stack(int(audio_s * 16000), 16000))
+    return op.forward(gt, torch.Generator().manual_seed(1)).to(device)
+
+
+def phase_reference_tasks():
+    """The small fp32 MusicLDM of `phase_reference`, 2 steps with the waveform
+    loss, card against CPU, from one CPU generator (eta 1: every draw
+    enters): MPGD and DSG on box inpainting, DiffMusic on each task."""
+    from diffmusic_tpu_torch import kernels
+    from diffmusic_tpu_torch.models.configs import UNetConfig
+    unet, vae_cfg, voc_cfg = reference_configs()
+    pipes = {dev: build_pipe(UNetConfig(**unet), vae_cfg, voc_cfg, REF_AUDIO_S, dev,
+                             torch.float32)[0] for dev in ("cuda", "cpu")}
+    box = pipes["cpu"].operator
+    lat = torch.randn((1, 8, 32, 32), generator=torch.Generator().manual_seed(9))
+    # the guidance gradient itself, card against CPU, at the initial latents
+    grads = {}
+    for dev, pipe in pipes.items():
+        x = lat.to(pipe.device).requires_grad_(True)
+        loss_fn = pipe.make_loss_fn(task_measurement(box, REF_AUDIO_S, pipe.device),
+                                    int(REF_AUDIO_S * 16000), "wav_form")
+        grads[dev] = torch.autograd.grad(loss_fn(x), x)[0].cpu().double()
+    g, c = grads["cuda"], grads["cpu"]
+    log(f"reference guidance gradient (box inpainting, wav_form loss), card against CPU: "
+        f"norm-rel {float((g - c).norm() / c.norm()):.3e}, 1 - cos "
+        f"{1 - float((g * c).sum() / (g.norm() * c.norm())):.3e}")
+    runs = [(name, "box_inpainting", box) for name in ("mpgd", "dsg")]
+    runs += [("diffmusic", task, task_operator(task, REF_AUDIO_S)) for task in TASKS]
+    for sampler, task, op in runs:
+        meas = task_measurement(op, REF_AUDIO_S, "cpu")
+        out = {}
+        for dev, pipe in pipes.items():
+            kernels.reset_launch_counts()
+            res, losses = dataclasses.replace(pipe, scheduler_name=sampler, operator=op)(
+                audio_length_in_s=REF_AUDIO_S, num_inference_steps=2, eta=1.0,
+                prompt_embeds=torch.zeros(2, 512), measurement=meas,
+                ip_guidance_rate=REF_SAMPLER_RATES[sampler], latents=lat,
+                generator=torch.Generator().manual_seed(3), output_type="latent",
+                return_losses=True, supervised_space="wav_form")
+            out[dev] = (res.audios, losses, kernels.launch_counts())
+        compare_reference(f"MusicLDM, fp32, small model, 2 {sampler} steps, eta 1, rate "
+                          f"{REF_SAMPLER_RATES[sampler]}, {task}, wav_form loss", out,
+                          REF_LATENT_TOL["wav_form"],
+                          ("fused_transformer_block",) + tuple(VOCODER_PER_STEP))
+
+
+def stft_error(audio, meas, op) -> float:
+    """|| |STFT(audio)| - measurement || / || measurement ||, phase retrieval's
+    consistency."""
+    from diffmusic_tpu_torch.ops.stft import spectrogram
+    mag = spectrogram(torch.as_tensor(audio, device=meas.device), op.n_fft, op.hop_length,
+                      op.win_length, power=1.0, use_hann=False)
+    return float(torch.linalg.vector_norm(mag - meas) / torch.linalg.vector_norm(meas))
+
+
+def time_dereverb_conv(op) -> None:
+    """The dereverberation filter alone at the slice's clip: one fp32
+    `F.conv1d` of (1, 160000) with 5000 taps, forward and forward+backward
+    (the input gradient), CUDA events; TF32 off as in the whole run, and on
+    (PyTorch's default for cuDNN), beside its bound."""
+    from diffmusic_tpu_torch.ops.filters import convolve1d
+    x = randn((1, 160000), torch.Generator().manual_seed(2), "cuda", torch.float32)
+    ir = torch.as_tensor(op.ir).to(x.device)
+    g = randn((1, 160001), torch.Generator().manual_seed(3), "cuda", torch.float32)
+
+    def fwd():
+        convolve1d(x, ir)
+
+    def fwd_bwd():
+        xx = x.detach().requires_grad_(True)
+        torch.autograd.grad(convolve1d(xx, ir), xx, g)
+
+    macs = 160001 * DEREVERB_IR
+    bound_fwd = max(2 * macs / FP32_FLOPS, 4 * (160000 + DEREVERB_IR + 160001) / HBM_BYTES)
+    times = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        times[tf32] = (time_ms(fwd), time_ms(fwd_bwd))
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"dereverberation filter (1, 160000) x {DEREVERB_IR} taps, fp32 F.conv1d, median ms "
+        f"(CUDA events): forward {times[False][0]:.3f}, forward+backward "
+        f"{times[False][1]:.3f} (TF32 off, as run); with cuDNN's TF32 on "
+        f"{times[True][0]:.3f} / {times[True][1]:.3f}; fp32 bound {1e3 * bound_fwd:.4f} "
+        f"forward, {2e3 * bound_fwd:.4f} both ({macs / 1e9:.2f} G multiply-adds each)")
+
+
+def phase_tasks() -> None:
+    """Full-width MusicLDM with seeded random bf16 weights on the default
+    route through `MusicLDMPipeline.__call__`, one pipeline whose sampler and
+    operator are swapped: MPGD, DSG and DiffMusic on the slice's box
+    inpainting, then DiffMusic on each task of TASKS (phase retrieval with
+    the phase-aware output on). Each run's launches are the default DPS
+    route's; phase retrieval's projection must not move |STFT(output)| away
+    from the measurement."""
+    from diffmusic_tpu_torch.models.configs import HiFiGANConfig, UNetConfig, VAEConfig
+    t0 = time.time()
+    pipe, box_meas = build_pipe(UNetConfig(), VAEConfig(), HiFiGANConfig(), 10.0, "cuda",
+                                torch.bfloat16)
+    log(f"tasks: full-width MusicLDM, seeded random bf16 weights, built in "
+        f"{time.time() - t0:.1f} s")
+    want = expected_launches("fused_transformer_block")
+    runs = [(sampler, eta, rate, "box_inpainting", pipe.operator, box_meas)
+            for sampler, eta, rate in SAMPLER_RUNS]
+    for task in TASKS:
+        op = task_operator(task, 10.0)
+        runs.append(DIFFMUSIC + (task, op, task_measurement(op, 10.0, "cuda")))
+    # the first run copies the new pipeline's 3 upsampler and 54 conv1d weights
+    repacks = {"phase_convtranspose": VOCODER_PER_STEP["phase_convtranspose"],
+               "conv1d_pair": 2 * VOCODER_PER_STEP["conv1d_fused_pair"]
+               + VOCODER_PER_STEP["conv1d_fused"]}
+    for i, (sampler, eta, rate, task, op, meas) in enumerate(runs):
+        run = dataclasses.replace(pipe, scheduler_name=sampler, operator=op)
+        extra = dict(phase_aware=True) if task == "phase_retrieval" else {}
+        _, audio, final = drive(f"tasks {sampler} {task}", run, meas, want,
+                                repacks if i == 0 else None, eta=eta, rate=rate,
+                                prompt_embeds=torch.zeros(2, 512),
+                                generator=torch.Generator().manual_seed(4), **extra)
+        if task == "phase_retrieval":
+            with torch.no_grad():
+                plain = run.mel_to_waveform(run.decode_mel(final))[:, :160000].float()
+            before, after = stft_error(plain, meas, op), stft_error(audio, meas, op)
+            log(f"tasks phase_retrieval: || |STFT(output)| - measurement || / || measurement "
+                f"||: vocoder output {before:.4f}, after the phase-aware projection "
+                f"{after:.4f}")
+            if not after <= before:
+                raise AssertionError("the phase-aware projection moved |STFT| away from "
+                                     "the measurement")
+        if task == "dereverberation":
+            time_dereverb_conv(op)
 
 
 # ------------------------------------------------------------------- eval
@@ -1961,6 +2153,8 @@ def main() -> int:
     phase_reference_audioldm2()
     slice_counts, restored = phase_slice(profile_dir)
     a2 = phase_audioldm2(profile_dir)
+    phase_reference_tasks()
+    phase_tasks()
     eval_counts = phase_eval(restored)
     # each kernel's launches from the path that runs it: MusicLDM's default
     # route for its four, its routes for the route kernels (the fused

@@ -1,7 +1,14 @@
-"""Degradation operators and noise models (port of `diffmusic_tpu/inverse_problem`)."""
+"""Degradation operators and noise models (port of `diffmusic_tpu/inverse_problem`,
+less `StyleGuidanceOperator`, which waits for CLAP's HTSAT audio tower)."""
 
-from .noise import BaseNoise, GaussianNoise
-from .operator import BaseOperator, IdentityOperator, MusicInpaintingOperator
+from .noise import BaseNoise, GaussianNoise, PoissonNoise, get_noiser
+from .operator import (BaseOperator, IdentityOperator, MusicDereverberationOperator,
+                       MusicInpaintingOperator, PhaseRetrievalOperator,
+                       SuperResolutionOperator)
 
-__all__ = ["BaseNoise", "GaussianNoise", "BaseOperator", "IdentityOperator",
-           "MusicInpaintingOperator"]
+__all__ = [
+    "BaseNoise", "GaussianNoise", "PoissonNoise", "get_noiser",
+    "BaseOperator", "IdentityOperator", "MusicInpaintingOperator",
+    "PhaseRetrievalOperator", "SuperResolutionOperator",
+    "MusicDereverberationOperator",
+]

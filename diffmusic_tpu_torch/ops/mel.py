@@ -1,7 +1,7 @@
 """Mel-scale transforms (torchaudio-compatible math in plain PyTorch).
 
-Port of `diffmusic_tpu/ops/mel.py` (`MelSpectrogram`, `amplitude_to_db`,
-`Wav2Mel`). The filterbank helpers are numpy, copied here because the JAX
+Port of `diffmusic_tpu/ops/mel.py` (`MelScale`, `InverseMelScale`,
+`MelSpectrogram`, `amplitude_to_db`, `Wav2Mel`). The filterbank helpers are numpy, copied here because the JAX
 module imports jax. The gradient of the mel transform is plain autograd: the
 JAX package's scatter-free VJP exists for XLA on a TPU, not for the card.
 """
@@ -84,6 +84,56 @@ def amplitude_to_db(x: torch.Tensor, stype: str = "power",
     if top_db is not None:
         db = torch.maximum(db, db.max() - top_db)
     return db
+
+
+@functools.lru_cache(maxsize=16)
+def _matrix_tensor(matrix, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """`matrix()` (a bound method of a frozen transform) as a tensor, cached
+    per transform, device and dtype."""
+    return torch.as_tensor(matrix(), dtype=dtype, device=device)
+
+
+@dataclass(frozen=True)
+class MelScale:
+    """Project a (..., n_freqs, time) spectrogram to (..., n_mels, time)."""
+    n_mels: int = 64
+    sample_rate: int = 16000
+    n_stft: int = 513
+    f_min: float = 0.0
+    f_max: Optional[float] = None
+    norm: Optional[str] = None
+    mel_scale: str = "htk"
+
+    def filterbank(self) -> np.ndarray:
+        return mel_filterbank(self.n_stft, self.n_mels, self.sample_rate,
+                              self.f_min, self.f_max, self.norm, self.mel_scale)
+
+    def __call__(self, spec: torch.Tensor) -> torch.Tensor:
+        fb = _matrix_tensor(self.filterbank, spec.device, spec.dtype)
+        return torch.einsum("...ft,fm->...mt", spec, fb)
+
+
+@dataclass(frozen=True)
+class InverseMelScale:
+    """mel -> linear spectrogram through the filterbank's pseudo-inverse (the
+    JAX package's one-matmul form, not torchaudio's iterative solver)."""
+    n_stft: int = 513
+    n_mels: int = 64
+    sample_rate: int = 16000
+    f_min: float = 0.0
+    f_max: Optional[float] = None
+    norm: Optional[str] = None
+    mel_scale: str = "htk"
+
+    def pinv(self) -> np.ndarray:
+        fb = mel_filterbank(self.n_stft, self.n_mels, self.sample_rate,
+                            self.f_min, self.f_max, self.norm, self.mel_scale)
+        return np.linalg.pinv(fb).astype(np.float32)  # (n_mels, n_freqs)
+
+    def __call__(self, mel: torch.Tensor) -> torch.Tensor:
+        """(..., n_mels, T) -> (..., n_freqs, T), clamped to >= 0."""
+        pinv = _matrix_tensor(self.pinv, mel.device, mel.dtype)
+        return torch.clamp(torch.einsum("...mt,mf->...ft", mel, pinv), min=0.0)
 
 
 @dataclass(frozen=True)

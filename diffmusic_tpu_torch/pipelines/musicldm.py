@@ -7,10 +7,12 @@ its gradient with respect to x_t, through the mel transform, HiFi-GAN and the
 VAE decoder. Weights are frozen (`requires_grad_(False)`): guidance
 differentiates activations only.
 
-Ported: the `ddim` and `dps` samplers, a text prompt through the CLAP text
-tower (`encode_prompt`, with a `tokenizer` callable returning numpy
-`(ids, mask)`) or `prompt_embeds`, the degenerate-CFG skip and the NaN retry.
-Still to be ported: the other samplers, DITTO and `optim_prompt`.
+Ported: the `ddim`, `dps`, `mpgd`, `dsg` and `diffmusic` samplers under any
+operator of `inverse_problem`, a text prompt through the CLAP text tower
+(`encode_prompt`, with a `tokenizer` callable returning numpy `(ids, mask)`)
+or `prompt_embeds`, the degenerate-CFG skip, the NaN retry, and phase
+retrieval's phase-aware output (`phase_aware`). Still to be ported: DITTO and
+`optim_prompt`.
 """
 
 from dataclasses import dataclass, field
@@ -18,16 +20,19 @@ from typing import Callable, Optional
 
 import torch
 
-from ..inverse_problem.operator import BaseOperator, IdentityOperator
+from ..inverse_problem.operator import (BaseOperator, IdentityOperator,
+                                        PhaseRetrievalOperator)
 from ..models.clap import ClapTextModelWithProjection
 from ..models.configs import HiFiGANConfig, UNetConfig, VAEConfig
 from ..models.convert import init_flax_style
 from ..models.hifigan import SpeechT5HifiGan
 from ..models.unet import UNet2DConditionModel
 from ..models.vae import AutoencoderKL
+from ..ops.stft import magphase_spectrogram
 from ..samplers import DiffusionSchedule, SamplerConfig, make_step_fn
 from .base import (AudioPipelineOutput, compute_geometry, denoise_with_nan_retry,
-                   prepare_latents, run_denoise_loop)
+                   mel_spectrogram_to_waveform_with_phase, prepare_latents,
+                   run_denoise_loop)
 
 
 def _dtype(module: torch.nn.Module) -> torch.dtype:
@@ -192,6 +197,21 @@ class MusicLDMPipeline:
             return tuple(fn(a) for a in prompt_embeds)
         return fn(prompt_embeds)
 
+    def phase_aware_output(self, audio: torch.Tensor, measurement: torch.Tensor,
+                           owl: int) -> torch.Tensor:
+        """Phase retrieval's output: the measurement is the linear |STFT|, so
+        the waveform is rebuilt from it with the phase estimated from the
+        audio, 4 alternating projections onto the magnitude-consistent set."""
+        op = self.operator
+        kw = dict(n_fft=op.n_fft, hop_length=op.hop_length, win_length=op.win_length)
+        wav = audio
+        for _ in range(4):
+            _, phase = magphase_spectrogram(wav, **kw)
+            wav = mel_spectrogram_to_waveform_with_phase(
+                None, phase, sample_rate=op.sample_rate, original_waveform_length=owl,
+                linear_magnitude=measurement, **kw)
+        return wav
+
     @torch.no_grad()
     def __call__(self,
                  prompt: Optional[str] = None,
@@ -209,7 +229,13 @@ class MusicLDMPipeline:
                  supervised_space: str = "mel_spectrogram",
                  output_type: str = "np",
                  return_losses: bool = False,
-                 callback=None):
+                 callback=None,
+                 phase_aware: Optional[bool] = None):
+        """Sample under the operator's guidance. `phase_aware` (phase retrieval
+        with a measurement only) rebuilds the output from the measured
+        |STFT| with the phase of the decoded audio, by 4 alternating
+        projections; None turns it on when the noiser's `sigma` is at most
+        1e-6 (off under Poisson noise), as the JAX package does by default."""
         device = self.device
         sr = self.vocoder_cfg.sampling_rate
         height, owl = compute_geometry(
@@ -243,9 +269,10 @@ class MusicLDMPipeline:
         if needs_guidance and measurement is None:
             raise ValueError(f"scheduler '{self.scheduler_name}' requires a measurement")
         loss_fn = None
-        if measurement is not None and needs_guidance:
+        if measurement is not None:
             measurement = torch.as_tensor(measurement, dtype=torch.float32, device=device)
-            loss_fn = self.make_loss_fn(measurement, owl, supervised_space)
+            if needs_guidance:
+                loss_fn = self.make_loss_fn(measurement, owl, supervised_space)
         step_fn = make_step_fn(self.schedule, cfg, loss_fn)
         timesteps = self.schedule.timesteps(num_inference_steps)
 
@@ -260,8 +287,14 @@ class MusicLDMPipeline:
         if output_type == "latent":
             out = AudioPipelineOutput(audios=final.cpu().numpy())
         else:
-            audio = self.mel_to_waveform(self.decode_mel(final))[:, :owl]
-            out = AudioPipelineOutput(audios=audio.float().cpu().numpy())
+            audio = self.mel_to_waveform(self.decode_mel(final))[:, :owl].float()
+            if phase_aware is None:
+                noiser = getattr(self.operator, "noiser", None)
+                phase_aware = getattr(noiser, "sigma", 1.0) <= 1e-6
+            if (phase_aware and measurement is not None
+                    and isinstance(self.operator, PhaseRetrievalOperator)):
+                audio = self.phase_aware_output(audio, measurement, owl)
+            out = AudioPipelineOutput(audios=audio.cpu().numpy())
         if return_losses:
             return out, losses.cpu().numpy()
         return out

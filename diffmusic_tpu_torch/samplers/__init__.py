@@ -1,7 +1,8 @@
 """DDIM schedule and guided step functions (port of `diffmusic_tpu/samplers`)."""
 
 from .schedule import DiffusionSchedule
-from .steps import SamplerConfig, ddim_step, dps_step, make_step_fn
+from .steps import (SamplerConfig, ddim_step, diffmusic_step, dps_step, dsg_step,
+                    make_step_fn, mpgd_step, slerp)
 
-__all__ = ["DiffusionSchedule", "SamplerConfig", "ddim_step", "dps_step",
-           "make_step_fn"]
+__all__ = ["DiffusionSchedule", "SamplerConfig", "ddim_step", "diffmusic_step",
+           "dps_step", "dsg_step", "make_step_fn", "mpgd_step", "slerp"]

@@ -1,10 +1,13 @@
-"""DDIM and DPS step functions (port of `diffmusic_tpu/samplers/steps.py`).
+"""DDIM, DPS, MPGD, DSG and DiffMusic step functions (port of
+`diffmusic_tpu/samplers/steps.py`).
 
 Each returns (prev_sample, pred_original_sample, rec_loss). `loss_fn` maps the
-pred-x0 latent to a scalar; the DPS gradient is `torch.autograd.grad` of it with
-respect to x_t, taken under `torch.enable_grad()` so that callers may run the
-UNet under `torch.no_grad()`. The other guided samplers (MPGD, DSG, DiffMusic,
-DITTO) are still to be ported.
+pred-x0 latent to a scalar; each guided gradient is `torch.autograd.grad` of it
+on a detached leaf (x_t, or x0-hat for MPGD), taken under
+`torch.enable_grad()` so that callers may run the UNet under
+`torch.no_grad()`. Norms and the slerp's weights stay device tensors: no step
+reads a value back to the host. DITTO (an outer loop over the initial
+latents) is still to be ported.
 """
 
 from dataclasses import dataclass
@@ -21,7 +24,7 @@ LossFn = Callable[[torch.Tensor], torch.Tensor]  # pred_x0 latent -> scalar
 
 @dataclass(frozen=True)
 class SamplerConfig:
-    name: str = "dps"
+    name: str = "diffmusic"
     eta: float = 1.0
     ip_guidance_rate: float = 0.08
     num_inference_steps: int = 200
@@ -40,19 +43,33 @@ def _recomposed_eps(schedule, t, sample, x0):
             / float((np.float32(1.0) - a_t) ** np.float32(0.5)))
 
 
+def _loss_and_grad_of_sample(schedule, eps, t, sample, loss_fn, scale=1.0):
+    """(loss_fn(x0(x_t)) / scale, its gradient with respect to x_t, x0)."""
+    with torch.enable_grad():
+        s = sample.detach().requires_grad_(True)
+        x0 = schedule.pred_original(eps.detach(), t, s)
+        loss = loss_fn(x0) / scale
+        (grad,) = torch.autograd.grad(loss, s)
+    return loss.detach(), grad, x0.detach()
+
+
+def _ddim_mean(a_prev, std, x0, eps):
+    """sqrt(a_prev) x0 + sqrt(1 - a_prev - std^2) eps."""
+    return (float(a_prev ** np.float32(0.5)) * x0
+            + float((np.float32(1.0) - a_prev - std * std) ** np.float32(0.5)) * eps)
+
+
 def ddim_step(schedule: DiffusionSchedule, cfg: SamplerConfig,
               eps: torch.Tensor, t: int, sample: torch.Tensor,
               generator: Optional[torch.Generator] = None,
               loss_fn: Optional[LossFn] = None):
     """Plain (unguided) DDIM: prev = sqrt(a_prev) x0 + sqrt(1 - a_prev) eps.
 
-    The loss slot is zero (the JAX step puts the timestep there)."""
+    The loss slot holds the timestep as float32, as in the JAX step."""
     a_prev, _ = _common(schedule, t, cfg.num_inference_steps)
     x0 = schedule.pred_original(eps, t, sample)
-    eps_rec = _recomposed_eps(schedule, t, sample, x0)
-    prev = (float(a_prev ** np.float32(0.5)) * x0
-            + float((np.float32(1.0) - a_prev) ** np.float32(0.5)) * eps_rec)
-    return prev, x0, torch.zeros((), dtype=torch.float32, device=sample.device)
+    prev = _ddim_mean(a_prev, np.float32(0.0), x0, _recomposed_eps(schedule, t, sample, x0))
+    return prev, x0, torch.full((), float(t), dtype=torch.float32, device=sample.device)
 
 
 def dps_step(schedule: DiffusionSchedule, cfg: SamplerConfig,
@@ -61,22 +78,91 @@ def dps_step(schedule: DiffusionSchedule, cfg: SamplerConfig,
     """DPS: prev = DDIM(x_t) - rate * d rec_loss(x0(x_t)) / d x_t."""
     a_prev, var = _common(schedule, t, cfg.num_inference_steps)
     std = np.float32(cfg.eta) * var ** np.float32(0.5)
-    eps = eps.detach()
-    with torch.enable_grad():
-        s = sample.detach().requires_grad_(True)
-        x0 = schedule.pred_original(eps, t, s)
-        loss = loss_fn(x0)
-        (grad,) = torch.autograd.grad(loss, s)
-    x0 = x0.detach()
-    eps_rec = _recomposed_eps(schedule, t, sample, x0)
-    prev = (float(a_prev ** np.float32(0.5)) * x0
-            + float((np.float32(1.0) - a_prev - std * std) ** np.float32(0.5))
-            * eps_rec)
+    loss, grad, x0 = _loss_and_grad_of_sample(schedule, eps, t, sample, loss_fn)
+    prev = _ddim_mean(a_prev, std, x0, _recomposed_eps(schedule, t, sample, x0))
     if cfg.eta > 0:
         prev = prev + float(std) * randn(sample.shape, generator, sample.dtype,
                                          sample.device)
     prev = prev - cfg.ip_guidance_rate * grad
+    return prev, x0, loss
+
+
+def slerp(x0: torch.Tensor, x1: torch.Tensor, gamma: float,
+          threshold: float = 0.9995) -> torch.Tensor:
+    """Spherical interpolation between the flattened tensors, branch-free:
+    lerp where the directions are near-(anti)parallel, chosen with
+    `torch.where` over both results as the JAX package does, so that no value
+    goes back to the host."""
+    n0 = torch.linalg.vector_norm(x0)
+    n1 = torch.linalg.vector_norm(x1)
+    cos_theta = ((x0 / n0) * (x1 / n1)).sum()
+    theta = torch.arccos(torch.clamp(cos_theta, -threshold, threshold))
+    sin_theta = torch.sin(theta)
+    w0 = torch.sin((1.0 - gamma) * theta) / sin_theta
+    w1 = torch.sin(gamma * theta) / sin_theta
+    lerp = x0 + gamma * (x1 - x0)
+    return torch.where(torch.abs(cos_theta) > threshold, lerp, w0 * x0 + w1 * x1)
+
+
+def mpgd_step(schedule: DiffusionSchedule, cfg: SamplerConfig,
+              eps: torch.Tensor, t: int, sample: torch.Tensor,
+              generator: Optional[torch.Generator], loss_fn: LossFn):
+    """MPGD: guide x0-hat directly. The gradient is taken with respect to the
+    detached x0-hat, which is updated before eps is recomposed from it."""
+    a_prev, var = _common(schedule, t, cfg.num_inference_steps)
+    std = np.float32(cfg.eta) * var ** np.float32(0.5)
+    x0 = schedule.pred_original(eps.detach(), t, sample).detach()
+    with torch.enable_grad():
+        leaf = x0.requires_grad_(True)
+        loss = loss_fn(leaf)
+        (grad,) = torch.autograd.grad(loss, leaf)
+    x0 = x0.detach() - cfg.ip_guidance_rate * grad
+    prev = _ddim_mean(a_prev, std, x0, _recomposed_eps(schedule, t, sample, x0))
+    if cfg.eta > 0:
+        prev = prev + float(std) * randn(sample.shape, generator, sample.dtype,
+                                         sample.device)
     return prev, x0, loss.detach()
+
+
+def dsg_step(schedule: DiffusionSchedule, cfg: SamplerConfig,
+             eps: torch.Tensor, t: int, sample: torch.Tensor,
+             generator: Optional[torch.Generator], loss_fn: LossFn):
+    """DSG: mix the noise and the guidance direction on the sphere of radius
+    sqrt(numel) * std. The loss is divided by 1000 inside the gradient; the
+    mean takes the raw eps; z is drawn at every step, whatever eta is, and
+    the norms run over the whole batch tensor."""
+    a_prev, var = _common(schedule, t, cfg.num_inference_steps)
+    std = np.float32(cfg.eta) * var ** np.float32(0.5)
+    scaled, grad, x0 = _loss_and_grad_of_sample(schedule, eps, t, sample, loss_fn, 1000.0)
+    mean = _ddim_mean(a_prev, std, x0, eps.detach())
+    numel = sample.numel() / sample.shape[0] if sample.ndim > 3 else sample.numel()
+    r = float(np.sqrt(np.float32(numel)) * std)
+    d_star = -r * grad / (torch.linalg.vector_norm(grad) + cfg.eps)
+    d_sample = float(std) * randn(sample.shape, generator, sample.dtype, sample.device)
+    mix = d_sample + cfg.ip_guidance_rate * (d_star - d_sample)
+    prev = mean + r * mix / (torch.linalg.vector_norm(mix) + cfg.eps)
+    return prev, x0, scaled * 1000.0
+
+
+def diffmusic_step(schedule: DiffusionSchedule, cfg: SamplerConfig,
+                   eps: torch.Tensor, t: int, sample: torch.Tensor,
+                   generator: Optional[torch.Generator], loss_fn: LossFn):
+    """DiffMusic: slerp-mix the noise z with the -gradient rescaled to |z|.
+    The loss is divided by 1000 inside the gradient; the mean takes the raw
+    eps; z is drawn at every step, whatever eta is."""
+    a_prev, var = _common(schedule, t, cfg.num_inference_steps)
+    std = np.float32(cfg.eta) * var ** np.float32(0.5)
+    scaled, grad, x0 = _loss_and_grad_of_sample(schedule, eps, t, sample, loss_fn, 1000.0)
+    mean = _ddim_mean(a_prev, std, x0, eps.detach())
+    z = randn(sample.shape, generator, sample.dtype, sample.device)
+    normalized_grad = (grad / (torch.linalg.vector_norm(grad) + cfg.eps)
+                       * torch.linalg.vector_norm(z))
+    prev = mean + float(std) * slerp(z, -normalized_grad, cfg.ip_guidance_rate)
+    return prev, x0, scaled * 1000.0
+
+
+_GUIDED = {"dps": dps_step, "mpgd": mpgd_step, "dsg": dsg_step,
+           "diffmusic": diffmusic_step}
 
 
 def make_step_fn(schedule: DiffusionSchedule, cfg: SamplerConfig,
@@ -86,11 +172,14 @@ def make_step_fn(schedule: DiffusionSchedule, cfg: SamplerConfig,
         def step(eps, t, sample, generator=None):
             return ddim_step(schedule, cfg, eps, t, sample, generator)
         return step
-    if cfg.name != "dps":
-        raise ValueError(f"Sampler {cfg.name!r} is not ported yet (ddim, dps)")
+    if cfg.name == "ditto":
+        raise ValueError("Sampler 'ditto' is not ported yet (ROADMAP Queue 1 item 4)")
+    if cfg.name not in _GUIDED:
+        raise ValueError(f"Unknown sampler {cfg.name!r}")
     if loss_fn is None:
         raise ValueError(f"Sampler '{cfg.name}' requires a loss_fn")
+    raw = _GUIDED[cfg.name]
 
     def step(eps, t, sample, generator=None):
-        return dps_step(schedule, cfg, eps, t, sample, generator, loss_fn)
+        return raw(schedule, cfg, eps, t, sample, generator, loss_fn)
     return step

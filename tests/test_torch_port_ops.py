@@ -145,7 +145,7 @@ def test_box_mask_and_inpainting_operator_match_jax(rng):
     assert rel(ty, jy) == 0.0
     assert rel(top.transform(ty), jop.transform(jy)) <= 1e-5
     with pytest.raises(ValueError):
-        MusicInpaintingOperator(mask_type="random")
+        MusicInpaintingOperator(mask_type="triangle")
 
 
 def test_identity_operator_matches_jax(rng):
@@ -174,27 +174,29 @@ def test_schedule_tables_match_jax():
         assert float(j.variance(tt, tp)) == pytest.approx(float(t.variance(tt, tp)), rel=1e-6)
 
 
-@pytest.mark.parametrize("name", ["ddim", "dps"])
+@pytest.mark.parametrize("name", ["ddim", "dps", "mpgd", "dsg", "diffmusic"])
 def test_steps_match_jax(rng, name):
+    """Each sampler at eta 0 (the draws of DSG and DiffMusic are then scaled
+    by 0), and the loss slot: the guided loss, or ddim's timestep."""
     eps = rng.standard_normal((1, 8, 6, 4)).astype(np.float32)
     x = rng.standard_normal((1, 8, 6, 4)).astype(np.float32)
     target = rng.standard_normal((1, 8, 6, 4)).astype(np.float32)
     jloss = lambda x0: jnp.sqrt(jnp.sum(jnp.square(jnp.sin(x0) - target)))
     tloss = lambda x0: (torch.sin(x0) - torch.from_numpy(target)).square().sum().sqrt()
     kw = dict(name=name, eta=0.0, ip_guidance_rate=0.3, num_inference_steps=20)
-    jstep = jmake_step_fn(JSchedule(), JSamplerConfig(**kw), jloss if name == "dps" else None)
-    tstep = make_step_fn(DiffusionSchedule(), SamplerConfig(**kw),
-                         tloss if name == "dps" else None)
+    guided = name != "ddim"
+    jstep = jmake_step_fn(JSchedule(), JSamplerConfig(**kw), jloss if guided else None)
+    tstep = make_step_fn(DiffusionSchedule(), SamplerConfig(**kw), tloss if guided else None)
     for t in (951, 501, 1):
         jprev, jx0, jl = jstep(jnp.asarray(eps), jnp.int32(t), jnp.asarray(x),
                                jax.random.key(0))
         tprev, tx0, tl = tstep(torch.from_numpy(eps), t, torch.from_numpy(x))
         assert rel(tprev, jprev) <= 1e-5
         assert rel(tx0, jx0) <= 1e-5
-        if name == "dps":   # ddim's JAX loss slot holds the timestep; the port's is 0
-            assert float(tl) == pytest.approx(float(jl), rel=1e-5)
-        else:
-            assert float(tl) == 0.0
+        assert tl.dtype == torch.float32 and tl.shape == ()
+        assert float(tl) == pytest.approx(float(jl), rel=1e-5)
+        if not guided:
+            assert float(tl) == float(t)
 
 
 def test_port_imports_no_jax():
@@ -208,7 +210,10 @@ def test_port_imports_no_jax():
             "diffmusic_tpu_torch.eval, diffmusic_tpu_torch.metrics, "
             "diffmusic_tpu_torch.metrics.vggish, diffmusic_tpu_torch.fadtk, "
             "diffmusic_tpu_torch.data, diffmusic_tpu_torch.utils, "
-            "diffmusic_tpu_torch.kernels.mel; "
+            "diffmusic_tpu_torch.kernels.mel, diffmusic_tpu_torch.samplers, "
+            "diffmusic_tpu_torch.inverse_problem, diffmusic_tpu_torch.ops, "
+            "diffmusic_tpu_torch.ops.filters, diffmusic_tpu_torch.ops.masks, "
+            "diffmusic_tpu_torch.pipelines.base; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'diffmusic_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -1,0 +1,425 @@
+"""CPU parity of the port's inverse problems against the JAX package (fp32,
+inputs from a numpy seed): the DSP they need, the masks and noise, the
+operators, the phase-aware output, and the tiny MusicLDM under the DiffMusic
+sampler on each task.
+
+Tolerances, relative to max |reference|: the STFT, its inverse, the mel
+scales and the filter within 1e-5; each operator's forward, transform and
+the gradient of its guided loss within 1e-4 (dB of near-silent bins and
+long fp32 reductions); the phase-aware waveform within 1e-4. The tiny
+pipelines run DiffMusic at eta 1 with the JAX scan's own normal draws handed
+to the port (`samplers.steps.randn`), 3 steps: per-step losses within 1e-4,
+final latents within 1e-3, audio within 1e-2 (as `test_torch_port_slice.py`).
+Where an operator draws (the random mask, the reverb impulse response), the
+port's operator is given the JAX operator's array.
+"""
+
+import dataclasses
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import test_torch_port_samplers as samplers_test
+from diffmusic_tpu.inverse_problem import (MusicDereverberationOperator as JDereverb,
+                                           MusicInpaintingOperator as JInpaint,
+                                           PhaseRetrievalOperator as JPhase,
+                                           PoissonNoise as JPoisson,
+                                           SuperResolutionOperator as JSuperRes,
+                                           get_noiser as jget_noiser)
+from diffmusic_tpu.ops.filters import convolve1d as jconvolve1d
+from diffmusic_tpu.ops.masks import periodic_mask as jperiodic_mask
+from diffmusic_tpu.ops.masks import random_mask as jrandom_mask
+from diffmusic_tpu.pipelines.base import (
+    mel_spectrogram_to_waveform_with_phase as jmel_to_wav_with_phase)
+from diffmusic_tpu_torch.inverse_problem import (GaussianNoise, MusicDereverberationOperator,
+                                                 MusicInpaintingOperator,
+                                                 PhaseRetrievalOperator, PoissonNoise,
+                                                 SuperResolutionOperator, get_noiser)
+from diffmusic_tpu_torch.ops.filters import convolve1d, generate_impulse_response
+from diffmusic_tpu_torch.ops.masks import periodic_mask, random_mask
+from diffmusic_tpu_torch.ops.mel import InverseMelScale, MelScale
+from diffmusic_tpu_torch.ops.stft import istft, magphase_spectrogram, spectrogram, stft
+from diffmusic_tpu_torch.pipelines.base import mel_spectrogram_to_waveform_with_phase
+from diffmusic_tpu_torch.pipelines.musicldm import per_clip_loss
+
+# the JAX ops package re-exports functions named `stft` and `mel` over its modules
+jstft = importlib.import_module("diffmusic_tpu.ops.stft")
+jmel = importlib.import_module("diffmusic_tpu.ops.mel")
+rel = samplers_test.rel
+AUDIO_S = samplers_test.AUDIO_S
+OWL = int(AUDIO_S * 16000)
+
+
+def wave(rng, n, batch=2):
+    return rng.standard_normal((batch, n)).astype(np.float32) * 0.3
+
+
+def fp32(fn, *args, **kw):
+    """A JAX function with fp32 matmuls, finished, as numpy."""
+    with jax.default_matmul_precision("float32"):
+        out = fn(*args, **kw)
+    return jax.tree.map(lambda a: np.array(jax.block_until_ready(a)), out)
+
+
+# ------------------------------------------------------------------- DSP
+STFT_CASES = [(1024, 160, 1024), (256, 64, 256), (256, 64, 200)]
+
+
+@pytest.mark.parametrize("length", [4000, 4321])
+@pytest.mark.parametrize("n_fft, hop, win", STFT_CASES)
+def test_stft_and_magphase_match_jax(rng, length, n_fft, hop, win):
+    x = wave(rng, length)
+    for use_hann in (False, True):
+        jre, jim = fp32(jstft.stft, jnp.asarray(x), n_fft, hop, win, True, use_hann)
+        tre, tim = stft(torch.from_numpy(x), n_fft, hop, win, True, use_hann)
+        assert tre.shape == jre.shape == (2, n_fft // 2 + 1, 1 + length // hop)
+        scale = max(np.abs(jre).max(), np.abs(jim).max())
+        assert np.abs(tre.numpy() - jre).max() <= 1e-5 * scale
+        assert np.abs(tim.numpy() - jim).max() <= 1e-5 * scale
+    jmag, jphase = fp32(jstft.magphase_spectrogram, jnp.asarray(x), n_fft, hop, win)
+    tmag, tphase = magphase_spectrogram(torch.from_numpy(x), n_fft, hop, win)
+    assert rel(tmag, jmag) <= 1e-5
+    # the phase where the magnitude is not near zero (atan2's cut elsewhere)
+    big = jmag > 1e-3 * jmag.max()
+    dphase = np.angle(np.exp(1j * (tphase.numpy() - jphase)))
+    assert np.abs(dphase[big]).max() <= 1e-4
+
+
+@pytest.mark.parametrize("n_fft, hop, win", STFT_CASES)
+@pytest.mark.parametrize("use_hann", [False, True])
+def test_istft_matches_jax_and_inverts_stft(rng, n_fft, hop, win, use_hann):
+    x = wave(rng, 4000)
+    re, im = (rng.standard_normal((2, n_fft // 2 + 1, 26)).astype(np.float32)
+              for _ in range(2))
+    for length in (None, 3000):
+        ref = fp32(jstft.istft, jnp.asarray(re), jnp.asarray(im), n_fft, hop, win,
+                   True, use_hann, length)
+        out = istft(torch.from_numpy(re), torch.from_numpy(im), n_fft, hop, win, True,
+                    use_hann, length)
+        assert out.shape == ref.shape
+        assert rel(out, ref) <= 1e-5
+    # the round trip: istft(stft(x)) == x, away from the reflect-padded ends
+    tre, tim = stft(torch.from_numpy(x), n_fft, hop, win, True, use_hann)
+    back = istft(tre, tim, n_fft, hop, win, True, use_hann, length=4000).numpy()
+    inner = slice(n_fft, 4000 - n_fft)
+    assert np.abs(back[:, inner] - x[:, inner]).max() <= 1e-5 * np.abs(x).max()
+    jback = fp32(jstft.istft, *fp32(jstft.stft, jnp.asarray(x), n_fft, hop, win, True,
+                                    use_hann), n_fft, hop, win, True, use_hann, 4000)
+    assert rel(back, jback) <= 1e-5
+
+
+def test_mel_scales_match_jax(rng):
+    spec = np.abs(rng.standard_normal((2, 513, 30))).astype(np.float32)
+    for kw in ({}, dict(n_mels=32, f_min=30.0, f_max=7000.0, norm="slaney")):
+        jscale = jmel.MelScale(**kw)
+        tscale = MelScale(**kw)
+        mel = fp32(jscale, jnp.asarray(spec))
+        tm = tscale(torch.from_numpy(spec))
+        assert tm.shape == mel.shape and rel(tm, mel) <= 1e-5
+        jinv = fp32(jmel.InverseMelScale(**kw), jnp.asarray(mel))
+        tinv = InverseMelScale(**kw)(torch.from_numpy(mel))
+        assert tinv.shape == jinv.shape == spec.shape and rel(tinv, jinv) <= 1e-5
+        assert float(tinv.min()) >= 0.0
+    assert np.array_equal(InverseMelScale().pinv(), jmel.InverseMelScale().pinv())
+
+
+@pytest.mark.parametrize("taps", [64, 63])
+def test_convolve1d_matches_jax(rng, taps):
+    x = wave(rng, 3000)
+    ir = rng.standard_normal(taps).astype(np.float32)
+    ref = fp32(jconvolve1d, jnp.asarray(x), jnp.asarray(ir))
+    out = convolve1d(torch.from_numpy(x), torch.from_numpy(ir))
+    assert out.shape == ref.shape == (2, 3000 + 2 * (taps // 2) - taps + 1)
+    assert rel(out, ref) <= 1e-5
+
+
+def test_impulse_response_rule():
+    ir = generate_impulse_response(torch.Generator().manual_seed(4), 5000, 0.99)
+    noise = torch.randn(5000, generator=torch.Generator().manual_seed(4))
+    want = torch.cumsum(noise, 0) * 0.99
+    assert torch.equal(ir, want / want.abs().max())
+    assert float(ir.abs().max()) == 1.0 and ir.shape == (5000,)
+    same = generate_impulse_response(torch.Generator().manual_seed(4), 5000, 0.99)
+    assert torch.equal(ir, same)
+
+
+# ----------------------------------------------------------- masks, noise
+def zero_runs(mask: np.ndarray) -> list:
+    """(start, length) of each run of zeros of a (1, n) 0/1 mask."""
+    m = np.concatenate([[1.0], mask[0], [1.0]])
+    edges = np.flatnonzero(np.diff(m))
+    return [(int(a), int(b - a)) for a, b in zip(edges[::2], edges[1::2])]
+
+
+@pytest.mark.parametrize("total, sr, pct, dur_s", [(160000, 16000, 0.3, 0.1),
+                                                  (8000, 16000, 0.3, 0.1),
+                                                  (5120, 16000, 0.05, 0.1),
+                                                  (44100, 44100, 0.5, 0.05)])
+def test_random_mask_rule(total, sr, pct, dur_s):
+    dur = int(dur_s * sr)
+    count = max(1, int(pct * total) // dur)
+    mask = random_mask(torch.Generator().manual_seed(1), total, sr, pct, dur_s)
+    starts = torch.randint(0, total - dur, (count,), generator=torch.Generator().manual_seed(1))
+    want = np.ones((1, total), np.float32)
+    for s in starts.tolist():
+        want[:, s:s + dur] = 0.0
+    assert mask.dtype == np.float32 and np.array_equal(mask, want)
+    jmask = np.asarray(jrandom_mask(jax.random.key(1), total, sr, pct, dur_s))
+    for m in (mask, jmask):   # both rules: count spans of dur, inside the clip
+        runs = zero_runs(m)
+        assert set(np.unique(m)) <= {0.0, 1.0} and 1 <= len(runs) <= count
+        assert all(length >= dur for _, length in runs)
+        assert dur <= int((m == 0).sum()) <= count * dur
+        assert all(s + length <= total - 1 for s, length in runs)
+
+
+@pytest.mark.parametrize("total, sr, interval_s, dur_s", [(160000, 16000, 1.0, 0.1),
+                                                         (5120, 16000, 0.1, 0.02),
+                                                         (7000, 16000, 0.2, 0.3)])
+def test_periodic_mask_matches_jax(total, sr, interval_s, dur_s):
+    mask = periodic_mask(total, sr, interval_s, dur_s)
+    assert np.array_equal(mask, np.asarray(jperiodic_mask(total, sr, interval_s, dur_s)))
+    interval, dur = int(interval_s * sr), int(dur_s * sr)
+    runs = zero_runs(mask)
+    if dur < interval:
+        assert [s for s, _ in runs] == list(range(0, total, interval))
+        assert all(length == min(dur, total - s) for s, length in runs)
+
+
+def test_inpainting_operator_builds_each_mask():
+    kw = dict(audio_length_in_s=0.5, sample_rate=16000, mask_percentage=0.3,
+              mask_duration_s=0.05, interval_s=0.1)
+    rnd = MusicInpaintingOperator(mask_type="random",
+                                  mask_generator=torch.Generator().manual_seed(2), **kw)
+    assert np.array_equal(rnd.mask, random_mask(torch.Generator().manual_seed(2), 8000,
+                                                16000, 0.3, 0.05))
+    default = MusicInpaintingOperator(mask_type="random", **kw)
+    assert np.array_equal(default.mask, random_mask(torch.Generator().manual_seed(0), 8000,
+                                                    16000, 0.3, 0.05))
+    per = MusicInpaintingOperator(mask_type="periodic", **kw)
+    assert np.array_equal(per.mask, np.asarray(JInpaint(mask_type="periodic", **kw).mask))
+    with pytest.raises(ValueError, match="Unknown mask type"):
+        MusicInpaintingOperator(mask_type="triangle")
+
+
+def test_poisson_noise():
+    data = torch.linspace(-1.2, 1.2, 4001)[None].repeat(2, 1).requires_grad_(True)
+    noiser = PoissonNoise(rate=2.0)
+    assert noiser(data) is data            # no generator: the identity
+    noisy = noiser(data, torch.Generator().manual_seed(0))
+    again = noiser(data, torch.Generator().manual_seed(0))
+    assert torch.equal(noisy, again) and not torch.equal(noisy, data)
+    # the lattice of counts / (255 rate) mapped to [-1, 1]
+    counts = (noisy.detach() + 1.0) / 2.0 * 255.0 * 2.0
+    inside = noisy.detach().abs() < 1.0
+    assert torch.allclose(counts[inside], counts[inside].round(), atol=1e-3)
+    assert float(noisy.detach().abs().max()) <= 1.0
+    # straight through: the gradient is the identity
+    g = torch.randn(data.shape, generator=torch.Generator().manual_seed(1))
+    (grad,) = torch.autograd.grad((noisy * g).sum(), data)
+    assert torch.equal(grad, g)
+    # unbiased where no clip acts: mean of many draws near the input
+    x = torch.full((200000,), 0.2)
+    draws = PoissonNoise(rate=1.0)(x, torch.Generator().manual_seed(5))
+    assert abs(float(draws.mean()) - 0.2) < 2e-3
+    # the JAX noiser's gradient is the identity too, and both factories agree
+    jg = jax.grad(lambda d: jnp.sum(JPoisson(rate=2.0)(d, jax.random.key(0)) * g.numpy()))(
+        jnp.asarray(data.detach().numpy()))
+    assert np.array_equal(np.asarray(jg), g.numpy())
+    for name, kw in (("gaussian", dict(sigma=0.1)), ("poisson", dict(rate=3.0)),
+                     ("gaussian", {})):
+        assert dataclasses.asdict(get_noiser(name, **kw)) == dataclasses.asdict(
+            jget_noiser(name, **kw))
+    assert isinstance(get_noiser("gaussian"), GaussianNoise)
+    with pytest.raises(ValueError, match="Unknown noiser"):
+        get_noiser("laplace")
+
+
+# -------------------------------------------------------------- operators
+def operator_pairs():
+    """(name, JAX operator, port operator), the port's drawn arrays set to
+    the JAX operator's."""
+    jrand = JInpaint(audio_length_in_s=AUDIO_S, mask_type="random", mask_percentage=0.3,
+                     mask_duration_s=0.05, mask_key=jax.random.key(3))
+    trand = MusicInpaintingOperator(audio_length_in_s=AUDIO_S, mask_type="random",
+                                    mask_percentage=0.3, mask_duration_s=0.05)
+    object.__setattr__(trand, "mask", np.array(jrand.mask))
+    jrev = JDereverb(ir_length=500, decay_factor=0.99, ir_key=jax.random.key(4))
+    trev = MusicDereverberationOperator(ir_length=500, decay_factor=0.99)
+    assert trev.ir.shape == jrev.ir.shape == (500,)
+    object.__setattr__(trev, "ir", np.array(jrev.ir))
+    per = dict(audio_length_in_s=AUDIO_S, mask_type="periodic", interval_s=0.1,
+               mask_duration_s=0.02)
+    phase = dict(n_fft=256, hop_length=64, win_length=256)
+    return [("random", jrand, trand), ("periodic", JInpaint(**per), MusicInpaintingOperator(**per)),
+            ("phase_retrieval", JPhase(**phase), PhaseRetrievalOperator(**phase)),
+            ("super_resolution", JSuperRes(scale=2), SuperResolutionOperator(scale=2)),
+            ("dereverberation", jrev, trev)]
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_operators_match_jax(rng, case):
+    name, jop, top = operator_pairs()[case]
+    gt = wave(rng, OWL, batch=1)
+    audio = wave(rng, OWL, batch=1)
+    jy = fp32(jop.forward, jnp.asarray(gt))
+    ty = top.forward(torch.from_numpy(gt))
+    assert ty.shape == jy.shape and rel(ty, jy) <= 1e-4, name
+    jt = fp32(jop.transform, jnp.asarray(jy))
+    tt = top.transform(torch.from_numpy(jy))
+    assert tt.shape == jt.shape and rel(tt, jt) <= 1e-4, name
+
+    # the guided loss's gradient with respect to the audio, in both spaces
+    for space in ("mel_spectrogram", "wav_form"):
+        target = jt if space == "mel_spectrogram" else jy
+
+        def jloss(a):
+            pred = jop.forward(a)
+            diff = jnp.asarray(target) - (jop.transform(pred) if space == "mel_spectrogram"
+                                          else pred)
+            return jnp.sum(jnp.sqrt(jnp.sum(jnp.square(diff.reshape(diff.shape[0], -1)), 1)))
+
+        jl, jg = fp32(jax.value_and_grad(jloss), jnp.asarray(audio))
+        a = torch.from_numpy(audio).requires_grad_(True)
+        tl = per_clip_loss(torch.from_numpy(target), top, a, space)
+        (tg,) = torch.autograd.grad(tl, a)
+        assert float(tl.detach()) == pytest.approx(float(jl), rel=1e-4), (name, space)
+        assert rel(tg, jg) <= 1e-4, (name, space, rel(tg, jg))
+
+
+def test_operator_fields_match_jax():
+    """The port's operators take the JAX constructors' fields, with the
+    generators in place of the keys."""
+    for jcls, tcls, keyed in ((JInpaint, MusicInpaintingOperator, "mask"),
+                              (JPhase, PhaseRetrievalOperator, None),
+                              (JSuperRes, SuperResolutionOperator, None),
+                              (JDereverb, MusicDereverberationOperator, "ir")):
+        jf = {f.name: f.default for f in dataclasses.fields(jcls)}
+        tf = {f.name: f.default for f in dataclasses.fields(tcls)}
+        if keyed:
+            assert jf.pop(f"{keyed}_key") is None and tf.pop(f"{keyed}_generator") is None
+        assert jf.keys() == tf.keys(), jcls.__name__
+        assert {k: v for k, v in jf.items() if k != "noiser"} == \
+            {k: v for k, v in tf.items() if k != "noiser"}
+    ir = MusicDereverberationOperator(ir_length=5000, decay_factor=0.99,
+                                      ir_generator=torch.Generator().manual_seed(9)).ir
+    assert np.array_equal(ir, generate_impulse_response(torch.Generator().manual_seed(9),
+                                                        5000, 0.99).numpy())
+    # drawn once: every forward applies the same response
+    op = MusicDereverberationOperator(ir_length=64)
+    x = torch.randn(1, 1000, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(op.forward(x), op.forward(x)) and op.forward(x).shape == (1, 1001)
+
+
+@pytest.mark.parametrize("given", [True, False])
+def test_phase_aware_waveform_matches_jax(rng, given):
+    n_fft, hop = 256, 64
+    x = wave(rng, OWL, batch=1)
+    mag, phase = fp32(jstft.magphase_spectrogram, jnp.asarray(x), n_fft, hop, n_fft)
+    mel = np.abs(rng.standard_normal((1, 1, 90, 64))).astype(np.float32)
+    kw = dict(n_fft=n_fft, hop_length=hop, win_length=n_fft, sample_rate=16000)
+    for owl in (OWL, OWL + 300, OWL - 200):
+        ref = fp32(jmel_to_wav_with_phase, jnp.asarray(mel), jnp.asarray(phase),
+                   original_waveform_length=owl,
+                   linear_magnitude=jnp.asarray(mag) if given else None, **kw)
+        out = mel_spectrogram_to_waveform_with_phase(
+            torch.from_numpy(mel), torch.from_numpy(phase), original_waveform_length=owl,
+            linear_magnitude=torch.from_numpy(mag) if given else None, **kw)
+        assert out.shape == ref.shape == (1, owl)
+        assert rel(out, ref) <= 1e-4
+    if given:   # the true magnitude and phase give the signal back
+        inner = slice(n_fft, OWL - n_fft)
+        assert rel(out[:, inner], x[:, inner]) <= 1e-4
+
+
+# -------------------------------------------------------------- pipelines
+def scan_draws(key, n: int):
+    """The keys of the n normal draws the JAX pipeline's scan makes from
+    `key` (`pipelines/musicldm.py`, `pipelines/base.py::run_denoise_scan`)."""
+    _, _, scan_key = jax.random.split(key, 3)
+    k = jax.random.fold_in(scan_key, 0)
+    subs = []
+    for _ in range(n):
+        k, sub = jax.random.split(k)
+        subs.append(sub)
+    return subs
+
+
+@pytest.fixture(scope="module")
+def pipelines():
+    _, jop, top = operator_pairs()[0]
+    return samplers_test.tiny_pipelines(jop, top, "diffmusic")
+
+
+def task_pipelines(pipelines, case):
+    """(task name, the JAX and the port pipeline with that task's operators)."""
+    name, jop, top = operator_pairs()[case]
+    return name, dataclasses.replace(pipelines[0], operator=jop), \
+        dataclasses.replace(pipelines[1], operator=top)
+
+
+def run_task(monkeypatch, jpipe, tpipe, rng, **kw):
+    """DiffMusic, eta 1, rate 0.08 on the harmonic stack's measurement; the
+    JAX scan's draws fed to the port. Returns (measurement, latents, runs)."""
+    jop = jpipe.operator
+    measurement = np.array(fp32(jop.forward, jnp.asarray(samplers_test.harmonic(OWL),
+                                                         jnp.float32)))
+    latents = rng.standard_normal((1, 8, 16, 32)).astype(np.float32)
+    key = jax.random.key(11)
+    drawn = samplers_test.feed_draws(monkeypatch, scan_draws(key, samplers_test.STEPS))
+    out = samplers_test.run_both(jpipe, tpipe, measurement, latents, eta=1.0,
+                                 ip_guidance_rate=0.08, key=key, **kw)
+    assert drawn == [latents.shape] * samplers_test.STEPS
+    return measurement, latents, out
+
+
+def assert_runs_agree(name, latents, out):
+    (jl, jlat, jaudio), (tl, tlat, taudio) = out
+    assert tl.shape == (samplers_test.STEPS,) and np.isfinite(tl).all()
+    np.testing.assert_allclose(tl, jl, rtol=1e-4, err_msg=name)
+    assert rel(tlat, jlat) <= 1e-3, (name, rel(tlat, jlat))
+    assert not np.allclose(tlat, latents)
+    assert taudio.shape == jaudio.shape == (1, OWL)
+    assert rel(taudio, jaudio) <= 1e-2, name
+
+
+@pytest.mark.parametrize("case", [0, 1, 3, 4])
+def test_diffmusic_pipeline_on_each_task_matches_jax(rng, monkeypatch, pipelines, case):
+    name, jpipe, tpipe = task_pipelines(pipelines, case)
+    _, latents, out = run_task(monkeypatch, jpipe, tpipe, rng)
+    assert_runs_agree(name, latents, out)
+
+
+def test_phase_retrieval_pipeline_and_phase_aware_output_match_jax(monkeypatch, pipelines):
+    """Phase retrieval under DiffMusic, with the projection on (the default
+    for a noiseless noiser in both packages; `DIFFMUSIC_TPU_PHASE_AWARE=1` in
+    JAX) and off (`phase_aware=False`, `=0`): each run against JAX's; the
+    port's projection of JAX's own sampled audio against JAX's projected
+    output within 1e-4 (the runs' audio differs by ~4e-5, which the
+    projection amplifies about 3x); the projection brings the output's |STFT|
+    closer to the measurement."""
+    name, jpipe, tpipe = task_pipelines(pipelines, 2)
+    runs = {}
+    for flag, env in ((None, "1"), (False, "0")):   # one JAX pipeline: one compile
+        monkeypatch.setenv("DIFFMUSIC_TPU_PHASE_AWARE", env)
+        meas, latents, out = run_task(monkeypatch, jpipe, tpipe, np.random.default_rng(0),
+                                      phase_aware=flag)
+        assert_runs_agree(name, latents, out)
+        runs[flag] = out
+    on, off = runs[None], runs[False]
+    assert np.array_equal(on[1][1], off[1][1])    # the same sampling
+    op = tpipe.operator
+    projected = tpipe.phase_aware_output(torch.from_numpy(off[0][2].copy()),
+                                         torch.from_numpy(meas), OWL)
+    assert rel(projected, on[0][2]) <= 1e-4
+
+    def mag_err(audio):
+        mag = spectrogram(torch.from_numpy(audio), op.n_fft, op.hop_length, op.win_length,
+                          power=1.0, use_hann=False)
+        return float(torch.linalg.vector_norm(mag - torch.from_numpy(meas)))
+
+    assert mag_err(on[1][2]) < 0.5 * mag_err(off[1][2])

@@ -13,7 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      VAE decoder and vocoder; the vocoder's canvas conv, forward and adjoint,
      at every resblock conv of stages 0-2, the canvas pair at every pair,
      the stage backward at stage 2, the bounded-softmax block in both
-     modes), plus small fp32 cases with TF32 off; the fused mel spectrogram
+     modes), plus small fp32 cases with TF32 off, and the block in each mode
+     at the tiny configs' 16 and 32 channels (padded to one 64-channel
+     slice) in fp32 and bf16; the fused mel spectrogram
      in fp32 at the eval's MFCC geometry, the default geometry, an odd
      length, a batch shape and power 1, and on its dense path (a prime
      n_fft) with each epilogue and mel width; forward and, where the
@@ -72,7 +74,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      |STFT(output)| away from the measurement); each run's launches are the
      default DPS route's; ms per step, quartiles, peak memory; the
      dereverberation filter alone, forward and backward, with TF32 off and on;
-  10. eval: in a temporary directory, EVAL_PAIRS pairs of 10-s clips (pair 0
+  10. DITTO and optim_prompt reference: the small fp32 models of phase 4,
+     card against CPU from one CPU generator, the waveform loss: DITTO, 2
+     steps x 2 outer iterations at eta 1, on the default route and with
+     gn_mode "fused", "stats" and the conv2d kernel alone (every step's UNet
+     under a checkpoint, so the route kernels run in the forward and the
+     recompute); DPS with optim_prompt, 4 steps, on MusicLDM and on AudioLDM2
+     (text prompt, CFG 3.5) with fuse_cross off and on; and each bound
+     against its planted fault, which it must fail: the DITTO gradient with
+     eps detached inside the checkpointed body, optim_prompt's latents with
+     the embedding step lost (lr 0);
+  11. DITTO and optim_prompt at full width (seeded random bf16 weights, the
+     default route, the slice's box inpainting): DITTO, 20 steps x 3 outer
+     iterations at ditto.yaml's eta 1 and rate 0.5, through
+     `MusicLDMPipeline.__call__` (seconds per outer iteration, peak memory,
+     the losses, the launches: each step's UNet forward twice, the loss
+     head once an iteration) and one iteration split into the chain
+     forward, the loss head and the rest; then 20 DPS steps without and with
+     optim_prompt (7 embedding steps) on MusicLDM and on AudioLDM2
+     (fuse_cross on), ms per step and launches;
+  12. checkpoint and CLI: a full-width MusicLDM snapshot (fp32, seeded, the
+     diffusers layout of `tests/test_torch_port_snapshot.py`) in a temporary
+     directory, loaded by `MusicLDMPipeline.from_pretrained` on the card
+     (seconds, MB/s), its weights and its output after 2 DPS steps equal to
+     the bit to those of the same weights handed over in memory; then
+     `diffmusic_tpu_torch.run.main --tiny` on the card for -c dps, ditto and
+     diffmusic x -m musicldm and audioldm2, 2 steps each, on a written WAV,
+     each with its UNet launches checked (`cli_launches`: the tiny configs'
+     16- and 32-channel blocks take the block kernel padded to one slice);
+  13. eval: in a temporary directory, EVAL_PAIRS pairs of 10-s clips (pair 0
      the slice's ground truth and the audio its default turn restored; two
      pairs as 44.1-kHz stereo) and a seeded random torchvggish-layout
      `vggish.pth`, scored by `diffmusic_tpu_torch.eval.main` on the card with
@@ -80,7 +110,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      finite scores, one CSV row per pair, the mel kernel's launches, the
      wall seconds and their split, peak memory; then 4 of the pairs on the
      card and on the CPU, whose scores and cached embeddings must agree.
-Then the card's nvidia-smi name and power limit, a JSON line with one entry
+Then the command's total seconds, the card's nvidia-smi name and power limit,
+a JSON line with one entry
 per kernel (the masks' entries time g as h, and give the route's form, g
 transposed, under "g_transposed"), and last {"ok": true, "device": {...}}.
 No JAX is imported.
@@ -88,10 +119,13 @@ No JAX is imported.
 
 import argparse
 import contextlib
+import copy
 import csv
 import dataclasses
+import io
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -1188,6 +1222,13 @@ def phase_kernels(gen) -> dict:
     for cross, amp in ((False, 1.0), (True, 1.0), (False, 5.0)):
         add("fused_transformer_block_bsoft",
             check_block(600, 128, f32, gen, TOL_FP32, cross=cross, bsoft=True, amp=amp))
+    log("the narrow blocks the tiny configs fuse (C 16 and 32, run padded to one 64-channel "
+        "slice; checked, not summed):")
+    for dt, tol in ((f32, TOL_FP32), (bf, TOL_BLOCK_BF16)):
+        for c in (16, 32):
+            add("fused_transformer_block", check_block(600, c, dt, gen, tol), 0)
+            add("fused_transformer_block_cross", check_block(600, c, dt, gen, tol, cross=True), 0)
+            add("fused_transformer_block_bsoft", check_block(600, c, dt, gen, tol, bsoft=True), 0)
 
     log(f"the eval's fused mel spectrogram, fp32 (the line sums the {EVAL_PAIRS}-pair eval's "
         f"{eval_mel_launches(EVAL_PAIRS)} launches at the per-clip shape (1, 160000)):")
@@ -1526,9 +1567,9 @@ def drive(label: str, pipe, meas, want: dict, repacks=None, eta: float = 0.0,
     q1, med, q3 = statistics.quantiles(step_ms[1:], n=4)
     log(f"{label}: {pipe.scheduler_name} {STEPS} steps, eta {eta}, rate {rate}, latents "
         f"{LATENTS}; loss first {losses[0]:.4f} last {losses[-1]:.4f}; "
-        f"ms/guided step after the first: median {med:.2f}, quartiles {q1:.2f}/{q3:.2f} "
-        f"(first {step_ms[0]:.1f}); peak memory {peak / 2**30:.2f} GiB; "
-        f"audio {audio.shape}")
+        f"ms/guided step after the first: median {med:.2f}, quartiles {q1:.2f}/{q3:.2f}, "
+        f"mean {statistics.mean(step_ms[1:]):.2f} (first {step_ms[0]:.1f}); peak memory "
+        f"{peak / 2**30:.2f} GiB; audio {audio.shape}")
     log(f"{label}: launches over the {STEPS} steps and the final decode {counts}")
     if not np.isfinite(losses).all() or not np.isfinite(audio).all():
         raise AssertionError(f"{label} produced non-finite losses or audio")
@@ -1902,6 +1943,479 @@ def phase_tasks() -> None:
             time_dereverb_conv(op)
 
 
+# ------------------------------------------------- DITTO and optim_prompt
+# The two paths that differentiate through the UNet. DITTO: ditto.yaml's eta
+# 1 and rate 0.5 at full width; the reference phase takes rate 0.05, where
+# the outer loop stays well-conditioned (at 0.5 on the tiny CPU model even
+# JAX's third gradient is 14 % from a float64 run: tests/test_torch_port_ditto.py).
+DITTO_ETA, DITTO_RATE, DITTO_OUTER = 1.0, 0.5, 3
+REF_DITTO_RATE = 0.05
+# the DITTO gradient card against CPU, norm-relative (and 1 - cos below its
+# square): the loss head's own gradient differs by 1.2e-3 of its norm on an
+# H100, a rotation (phase 8's reading); a backward that lost the UNet's part
+# would not
+REF_DITTO_GRAD_TOL = 1e-2
+# optim_prompt: the embedding step at every t with t % 30 == 1; 20 steps of
+# the slice's schedule (951, 901, ..., 1) take it at 7 of them, 4 steps
+# (751, 501, 251, 1) at 2
+OPTIM_PROMPT_LR = 1e-4       # configs/*.yaml
+REF_OPTIM_PROMPT_LR = 0.5    # large enough that the step moves the small models' run
+REF_PROMPT_STEPS = 4
+# optim_prompt's final latents card against CPU, norm-relative: the sound
+# runs read 1.1e-6 to 4.6e-6 on an H100, MusicLDM with its embedding step
+# lost (lr 0) 2.8e-4; between them, tighter than REF_LATENT_TOL
+REF_PROMPT_LATENT_TOL = 3e-5
+
+
+def prompt_fires(steps: int) -> int:
+    from diffmusic_tpu_torch.samplers import DiffusionSchedule
+    return sum(int(t) % 30 == 1 for t in DiffusionSchedule().timesteps(steps))
+
+
+def ditto_launches(steps: int, outer: int, blocks: str = "fused_transformer_block") -> dict:
+    """Launches of a DITTO run of `steps` x `outer` on the default route: each
+    step's UNet forward runs twice under the checkpoint (the forward, then
+    the recompute in the backward; the backwards of the block and flash
+    kernels recompute with the plain versions and launch nothing), the loss
+    head once per outer iteration (the vocoder's forward; its default
+    backward launches nothing), and the final decode's vocoder once more."""
+    want = dict.fromkeys(REPLACES, 0)
+    want[blocks] = 10 * 2 * steps * outer
+    for n, k in VOCODER_PER_STEP.items():
+        want[n] = k * (outer + 1)
+    return want
+
+
+def optim_prompt_launches(steps: int, blocks: str) -> dict:
+    """Launches of a DPS run with optim_prompt on the default route: a UNet
+    forward a step, one more (with autograd) and one more loss head at each
+    embedding step, the final decode."""
+    fires = prompt_fires(steps)
+    want = dict.fromkeys(REPLACES, 0)
+    want[blocks] = 10 * (steps + fires)
+    for n, k in VOCODER_PER_STEP.items():
+        want[n] = k * (steps + fires + 1)
+    return want
+
+
+def ditto_gradient(pipe, meas, lat, audio_s: float) -> torch.Tensor:
+    """d loss / d initial latents of a 2-step DITTO chain (eta 1, draws from
+    a CPU generator) with the waveform loss, as a float64 CPU tensor."""
+    from diffmusic_tpu_torch.samplers import SamplerConfig, ditto_draws
+    cfg = SamplerConfig(name="ditto", eta=DITTO_ETA, ip_guidance_rate=REF_DITTO_RATE,
+                        num_inference_steps=2)
+    dev = pipe.device
+    draws = ditto_draws(cfg, lat.shape, 2, torch.Generator().manual_seed(13), lat.dtype, dev)
+    objective = pipe.ditto_objective(torch.zeros(1, 512, device=dev), 1.0,
+                                     pipe.make_loss_fn(meas, int(audio_s * 16000), "wav_form"),
+                                     cfg, pipe.schedule.timesteps(2), draws)
+    with torch.enable_grad():
+        x = lat.to(dev).requires_grad_(True)
+        (grad,) = torch.autograd.grad(objective(x)[0], x)
+    return grad.cpu().double()
+
+
+def gradient_distance(g, ref) -> tuple:
+    """(||g - ref|| / ||ref||, cos(g, ref))."""
+    return (float((g - ref).norm() / ref.norm()),
+            float((g * ref).sum() / (g.norm() * ref.norm())))
+
+
+def phase_reference_ditto():
+    """The small fp32 models of phase 4, card against CPU from one CPU
+    generator, the waveform loss: DITTO (2 steps x 2 outer iterations, eta 1)
+    on the default route and with gn_mode "fused", "stats" and the conv2d
+    kernel alone; DPS with optim_prompt (4 steps, 2 embedding steps) on
+    MusicLDM and on AudioLDM2 from a text prompt under CFG 3.5 with
+    fuse_cross off and on. Each bound also meets the fault it is there to
+    catch, planted on the card, and must fail it: the DITTO gradient with
+    eps detached inside the checkpointed body (the default route), and each
+    optim_prompt run with its embedding step lost (lr 0)."""
+    from diffmusic_tpu_torch import kernels
+    from diffmusic_tpu_torch.models.configs import (ProjectionConfig, UNetConfig, VAEConfig,
+                                                    tiny_clap_text_config, tiny_gpt2_config,
+                                                    tiny_t5_config)
+    unet, vae_cfg, voc_cfg = reference_configs()
+    route_vae = VAEConfig(block_out_channels=(32, 128), layers_per_block=1, norm_num_groups=32)
+    routes = {"default": ({}, vae_cfg, REF_AUDIO_S, (1, 8, 32, 32),
+                          ("fused_transformer_block",) + tuple(VOCODER_PER_STEP)),
+              "fused": (TURN_ROUTES["fused"], route_vae, ROUTES_REF_AUDIO_S, (1, 8, 64, 32),
+                        ("fused_group_norm", "conv2d_same", "leaky_mask", "leaky_mask_add")),
+              "stats": (TURN_ROUTES["stats"], route_vae, ROUTES_REF_AUDIO_S, (1, 8, 64, 32),
+                        ("channel_moments", "conv2d_same", "leaky_mask", "leaky_mask_add")),
+              "conv2d": (dict(conv2d_kernel=True), route_vae, ROUTES_REF_AUDIO_S,
+                         (1, 8, 64, 32), ("conv2d_same",))}
+    sound = 0.0   # the largest norm-relative gradient difference of the routes
+    for name, (flags, vae, audio_s, shape, card_kernels) in routes.items():
+        lat = torch.randn(shape, generator=torch.Generator().manual_seed(12))
+        out, grads = {}, {}
+        for dev in ("cuda", "cpu"):
+            pipe, meas = build_pipe(UNetConfig(**unet), vae, voc_cfg, audio_s, dev,
+                                    torch.float32, **flags)
+            grads[dev] = ditto_gradient(pipe, meas, lat, audio_s)
+            if name == "default" and dev == "cuda":
+                # the fault the bound must catch: a UNet whose eps leaves the
+                # graph inside the checkpointed body (a kernel fast path that
+                # skipped its autograd function)
+                planted, eps_fn = copy.copy(pipe), pipe._eps
+                planted._eps = lambda *a: eps_fn(*a).detach()
+                grads["planted"] = ditto_gradient(planted, meas, lat, audio_s)
+            kernels.reset_launch_counts()
+            res, losses = dataclasses.replace(pipe, scheduler_name="ditto")(
+                audio_length_in_s=audio_s, num_inference_steps=2, eta=DITTO_ETA,
+                prompt_embeds=torch.zeros(2, 512), measurement=meas,
+                ip_guidance_rate=REF_DITTO_RATE, optim_outer_loop=2, latents=lat,
+                generator=torch.Generator().manual_seed(13), output_type="latent",
+                return_losses=True, supervised_space="wav_form")
+            out[dev] = (res.audios, losses, kernels.launch_counts())
+        compare_reference(f"MusicLDM, fp32, small model, DITTO 2 steps x 2 outer, eta "
+                          f"{DITTO_ETA}, rate {REF_DITTO_RATE}, route {name} {flags}, "
+                          f"wav_form loss", out, REF_LATENT_TOL["wav_form"], card_kernels)
+        c = grads["cpu"]
+        rel, cos = gradient_distance(grads["cuda"], c)
+        sound = max(sound, rel)
+        log(f"reference DITTO gradient at the initial latents (2 checkpointed steps and the "
+            f"loss head), route {name}, card against CPU: norm {float(c.norm()):.4e}, "
+            f"norm-rel {rel:.3e}, 1 - cos {1 - cos:.3e}")
+        if not (rel < REF_DITTO_GRAD_TOL and 1 - cos < REF_DITTO_GRAD_TOL ** 2):
+            raise AssertionError(f"the card's DITTO gradient (route {name}) disagrees with "
+                                 f"the CPU's")
+        if "planted" in grads:
+            prel, pcos = gradient_distance(grads["planted"], c)
+            log(f"reference DITTO gradient, planted fault (eps detached inside the "
+                f"checkpointed body), card against the sound CPU run: norm-rel {prel:.3e}, "
+                f"1 - cos {1 - pcos:.3e} (bounds {REF_DITTO_GRAD_TOL:.0e} and "
+                f"{REF_DITTO_GRAD_TOL ** 2:.0e})")
+            if prel < REF_DITTO_GRAD_TOL and 1 - pcos < REF_DITTO_GRAD_TOL ** 2:
+                raise AssertionError("the DITTO gradient bound lets a backward that loses "
+                                     "the UNet's part pass")
+    log(f"reference DITTO gradient bound {REF_DITTO_GRAD_TOL:.0e}: the routes' largest "
+        f"norm-rel {sound:.3e} ({REF_DITTO_GRAD_TOL / max(sound, 1e-30):.1f}x below), the planted "
+        f"fault's {prel:.3e} ({prel / REF_DITTO_GRAD_TOL:.1f}x above)")
+    kw = dict(num_inference_steps=REF_PROMPT_STEPS, eta=0.0, ip_guidance_rate=2.0,
+              optim_prompt=True, optim_prompt_learning_rate=REF_OPTIM_PROMPT_LR,
+              output_type="latent", return_losses=True, supervised_space="wav_form")
+    lat = torch.randn((1, 8, 32, 32), generator=torch.Generator().manual_seed(14))
+
+    def prompt_runs(label, build, card_kernels, **call):
+        """The optim_prompt run card against CPU, then the card's run with
+        the embedding step lost (lr 0), the fault the bound must catch."""
+        out, pipes = {}, {}
+        for dev in ("cuda", "cpu"):
+            pipe, meas = pipes[dev] = build(dev)
+            kernels.reset_launch_counts()
+            res, losses = pipe(audio_length_in_s=REF_AUDIO_S, measurement=meas, latents=lat,
+                               **call, **kw)
+            out[dev] = (res.audios, losses, kernels.launch_counts())
+        label = f"{label}, DPS with optim_prompt (lr {REF_OPTIM_PROMPT_LR}), " \
+                f"{REF_PROMPT_STEPS} steps, wav_form loss"
+        compare_reference(label, out, REF_PROMPT_LATENT_TOL, card_kernels)
+        pipe, meas = pipes["cuda"]
+        res, _ = pipe(audio_length_in_s=REF_AUDIO_S, measurement=meas, latents=lat, **call,
+                      **dict(kw, optim_prompt_learning_rate=0.0))
+        ref = out["cpu"][0]
+        lost = float(np.linalg.norm(res.audios - ref) / np.linalg.norm(ref))
+        log(f"reference ({label}), planted fault (the embedding step lost: lr 0 on the "
+            f"card) against the sound CPU run: final latents norm-rel {lost:.3e} (tol "
+            f"{REF_PROMPT_LATENT_TOL:.0e})")
+        if lost <= REF_PROMPT_LATENT_TOL:
+            raise AssertionError("optim_prompt's latents bound lets a lost embedding step pass")
+
+    prompt_runs("MusicLDM, fp32, small model",
+                lambda dev: build_pipe(UNetConfig(**unet), vae_cfg, voc_cfg, REF_AUDIO_S, dev,
+                                       torch.float32),
+                ("fused_transformer_block",) + tuple(VOCODER_PER_STEP),
+                prompt_embeds=torch.zeros(2, 512))
+    txt, t5, gpt2 = tiny_clap_text_config(), tiny_t5_config(), tiny_gpt2_config()
+    text = dict(text_cfg=txt, t5_cfg=t5, gpt2_cfg=gpt2,
+                proj_cfg=ProjectionConfig(txt.projection_dim, t5.d_model, gpt2.n_embd))
+    unet_cfg = audioldm2_unet_config(cross_attention_dims=(gpt2.n_embd, t5.d_model), **unet)
+    for fuse_cross, route in ((False, "flash_attention"),
+                              (True, "fused_transformer_block_cross")):
+        prompt_runs(f"AudioLDM2, fp32, small model, prompt 'solo piano', CFG 3.5, "
+                    f"fuse_cross {fuse_cross}",
+                    lambda dev, fc=fuse_cross: build_audioldm2(
+                        unet_cfg, vae_cfg, voc_cfg, REF_AUDIO_S, dev, torch.float32, fc, **text),
+                    (route,) + tuple(VOCODER_PER_STEP), prompt="solo piano", guidance_scale=3.5)
+
+
+def ditto_split(pipe, meas, lat, embeds) -> None:
+    """One outer DITTO iteration of the slice split by CUDA events: the chain
+    forward (STEPS checkpointed steps), the loss head forward and backward
+    alone, and the rest of the whole iteration (the recompute of every step
+    and the UNet backwards)."""
+    from diffmusic_tpu_torch.pipelines.base import run_denoise_loop
+    from diffmusic_tpu_torch.samplers import SamplerConfig, ditto_draws, make_step_fn
+    cfg = SamplerConfig(name="ditto", eta=DITTO_ETA, ip_guidance_rate=DITTO_RATE,
+                        num_inference_steps=STEPS)
+    timesteps = pipe.schedule.timesteps(STEPS)
+    draws = ditto_draws(cfg, lat.shape, STEPS, torch.Generator().manual_seed(15), lat.dtype,
+                        lat.device)
+    loss_fn = pipe.make_loss_fn(meas, 160000)
+    step_fn = make_step_fn(pipe.schedule, cfg, None)
+    objective = pipe.ditto_objective(embeds, 1.0, loss_fn, cfg, timesteps, draws)
+
+    def chain():
+        x = lat.detach().requires_grad_(True)
+        return run_denoise_loop(step_fn, lambda y, t: pipe._eps(embeds, y, t, 1.0), x,
+                                timesteps, grad=True, remat=True, draws=draws)[0]
+
+    def head():
+        with torch.enable_grad():
+            f = final.detach().requires_grad_(True)
+            torch.autograd.grad(loss_fn(f), f)
+
+    def whole():
+        with torch.enable_grad():
+            x = lat.detach().requires_grad_(True)
+            torch.autograd.grad(objective(x)[0], x)
+
+    with torch.enable_grad():
+        final = chain()
+    times = {}
+    for name, fn in (("whole iteration", whole), ("chain forward", chain),
+                     ("loss head fwd+bwd", head)):
+        with torch.enable_grad():
+            times[name] = time_ms(fn, reps=3, inner=1, warmup=1)
+    rest = times["whole iteration"] - times["chain forward"] - times["loss head fwd+bwd"]
+    log(f"ditto split of one outer iteration ({STEPS} steps, CUDA events, median of 3 ms): "
+        f"whole {times['whole iteration']:.1f}; chain forward {times['chain forward']:.1f}; "
+        f"loss head fwd+bwd {times['loss head fwd+bwd']:.1f}; recompute + UNet backwards "
+        f"(the rest) {rest:.1f}")
+
+
+def run_ditto_full(pipe, meas) -> None:
+    """DITTO through `MusicLDMPipeline.__call__` at the slice's shapes:
+    seconds per outer iteration, peak memory, losses, launches."""
+    from diffmusic_tpu_torch import kernels
+    ditto = dataclasses.replace(pipe, scheduler_name="ditto")
+    lat = torch.randn(LATENTS, generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, losses = ditto(audio_length_in_s=10.0, num_inference_steps=STEPS, eta=DITTO_ETA,
+                        measurement=meas, ip_guidance_rate=DITTO_RATE,
+                        optim_outer_loop=DITTO_OUTER, latents=lat,
+                        generator=torch.Generator().manual_seed(4),
+                        prompt_embeds=torch.zeros(2, 512), return_losses=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"ditto: {STEPS} steps x {DITTO_OUTER} outer, eta {DITTO_ETA}, rate {DITTO_RATE}, "
+        f"latents {LATENTS}: {secs:.2f} s with the final decode, "
+        f"{secs / DITTO_OUTER:.2f} s per outer iteration; losses per outer iteration "
+        f"{[round(float(v), 4) for v in losses]}; peak memory {peak / 2**30:.2f} GiB")
+    log(f"ditto: launches {counts}")
+    if not np.isfinite(losses).all() or not np.isfinite(out.audios).all():
+        raise AssertionError("ditto produced non-finite losses or audio")
+    if out.audios.shape != (1, 160000):
+        raise AssertionError(f"ditto audio shape {out.audios.shape}")
+    check_launches("ditto", counts, ditto_launches(STEPS, DITTO_OUTER))
+
+
+def phase_ditto_optim_prompt() -> None:
+    """Full width, seeded random bf16 weights, the default route, the slice's
+    10-s box inpainting: DITTO (STEPS steps x DITTO_OUTER outer iterations at
+    ditto.yaml's eta and rate) through __call__ and its split, then DPS
+    without and with optim_prompt on MusicLDM and on AudioLDM2 (fuse_cross
+    on), each with its launches checked."""
+    from diffmusic_tpu_torch.models.configs import HiFiGANConfig, UNetConfig, VAEConfig
+    pipe, meas = build_pipe(UNetConfig(), VAEConfig(), HiFiGANConfig(), 10.0, "cuda",
+                            torch.bfloat16)
+    run_ditto_full(pipe, meas)   # the pipeline's first run: its weight copies
+    embeds = torch.zeros(1, 512, device=pipe.device)
+    lat = randn(LATENTS, torch.Generator().manual_seed(16), pipe.device, torch.float32)
+    ditto_split(pipe, meas, lat, embeds)
+    for on in (False, True):
+        want = (optim_prompt_launches(STEPS, "fused_transformer_block") if on
+                else expected_launches("fused_transformer_block"))
+        drive(f"musicldm optim_prompt={on} ({prompt_fires(STEPS) if on else 0} embedding "
+              f"steps)", pipe, meas, want, prompt_embeds=torch.zeros(2, 512), optim_prompt=on,
+              optim_prompt_learning_rate=OPTIM_PROMPT_LR)
+    del pipe
+    a2, meas = build_audioldm2(audioldm2_unet_config(), VAEConfig(), HiFiGANConfig(), 10.0,
+                               "cuda", torch.bfloat16, True)
+    repacks = {"phase_convtranspose": VOCODER_PER_STEP["phase_convtranspose"],
+               "conv1d_pair": 2 * VOCODER_PER_STEP["conv1d_fused_pair"]
+               + VOCODER_PER_STEP["conv1d_fused"]}
+    for on in (False, True):
+        drive(f"audioldm2 fuse_cross=True optim_prompt={on}", a2, meas,
+              optim_prompt_launches(STEPS, "fused_transformer_block_cross") if on
+              else expected_launches("fused_transformer_block_cross"),
+              repacks if not on else None, prompt="", optim_prompt=on,
+              optim_prompt_learning_rate=OPTIM_PROMPT_LR)
+
+
+def in_memory_musicldm(modules: dict, device, dtype):
+    """A MusicLDM pipeline with a snapshot's weights handed over in memory:
+    each state dict through the port's converter and `from_flax` into the
+    modules, with no file between."""
+    from diffmusic_tpu_torch.models import checkpoint as ckpt
+    from diffmusic_tpu_torch.models.clap import ClapTextModelWithProjection
+    from diffmusic_tpu_torch.models.convert import from_flax
+    from diffmusic_tpu_torch.models.hifigan import SpeechT5HifiGan
+    from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
+    from diffmusic_tpu_torch.models.vae import AutoencoderKL
+    from diffmusic_tpu_torch.pipelines import MusicLDMPipeline
+    cfgs = {"unet": ckpt.unet_config_from_json(modules["unet"][0]),
+            "vae": ckpt.vae_config_from_json(modules["vae"][0]),
+            "vocoder": ckpt.hifigan_config_from_json(modules["vocoder"][0]),
+            "text_encoder": ckpt.clap_text_config_from_json(modules["text_encoder"][0])}
+    trees = {"unet": ckpt.convert_unet, "vae": ckpt.convert_vae,
+             "vocoder": ckpt.vocoder_tree, "text_encoder": ckpt.clap_text_tree}
+    classes = {"unet": UNet2DConditionModel, "vae": AutoencoderKL, "vocoder": SpeechT5HifiGan,
+               "text_encoder": ClapTextModelWithProjection}
+    models = {}
+    for name, cls in classes.items():
+        cfg = cfgs[name]
+        with torch.device("meta"):
+            model = cls(cfg)
+        model.load_state_dict(from_flax(trees[name](modules[name][1], cfg), cfg),
+                              assign=True, strict=True)
+        models[name] = model.to(device=device, dtype=dtype)
+    return MusicLDMPipeline(models["unet"], models["vae"], models["vocoder"],
+                            text_encoder=models["text_encoder"], scheduler_name="dps")
+
+
+CLI_AUDIO_S = 5.0                 # configs/model/{musicldm,audioldm2}.yaml
+TINY_LEVEL_BLOCKS = (3, 4)        # the tiny UNet's transformer blocks per level:
+                                  # down 1 + up 2; down 1 + mid 1 + up 2
+
+
+def cli_launches(model: str, sched: str, steps: int, outer: int, audio_s: float) -> dict:
+    """The UNet's launches of a --tiny CLI run on the default route: each UNet
+    forward launches the block kernel (MusicLDM) or flash attention
+    (AudioLDM2, fuse_cross off) once for every transformer block on a level
+    of at least 512 tokens (the latent of the tiny VAE, which halves the
+    mel's frames and 64 bins, halved again at level 1; the 16- and
+    32-channel blocks run padded to one 64-channel slice); a step takes one
+    forward, a DITTO step two (the forward and the recompute) per outer
+    iteration."""
+    from diffmusic_tpu_torch.pipelines.base import compute_geometry
+    frames, _ = compute_geometry(audio_s, 16000, 160, 2)
+    h, w = frames // 2, 64 // 2
+    blocks = sum(n for level, n in enumerate(TINY_LEVEL_BLOCKS)
+                 if -(-h // 2 ** level) * (w // 2 ** level) >= 512)
+    forwards = 2 * steps * outer if sched == "ditto" else steps
+    name = "fused_transformer_block" if model == "musicldm" else "flash_attention"
+    return {name: forwards * blocks}
+
+
+def cli_runs(root: Path, device: str) -> None:
+    """`diffmusic_tpu_torch.run.main` on the card with --tiny for -c dps,
+    ditto and diffmusic x -m musicldm and audioldm2, 2 steps each, on a WAV
+    dataset in `root` (ditto with 2 outer iterations of its config's 100);
+    each run must write its output tree and launch the UNet's kernel as
+    `cli_launches` says."""
+    from diffmusic_tpu_torch import kernels, run
+    from diffmusic_tpu_torch.data import write_wav
+    clips = root / "clips"
+    clips.mkdir(parents=True)
+    write_wav(clips / "track.wav", harmonic_stack(16000 * 16, 16000), 16000)
+    cwd = Path.cwd()
+    try:
+        os.chdir(root)
+        for model in ("musicldm", "audioldm2"):
+            for sched in ("dps", "ditto", "diffmusic"):
+                argv = ["--tiny", "-m", model, "-c", sched, "--num_inference_steps", "2",
+                        "--device", device, "-o", f"data.root={clips}"]
+                if sched == "ditto":
+                    argv += ["-o", "scheduler.optim_outer_loop=2"]
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    run.main(argv)
+                secs = time.perf_counter() - t0
+                counts = kernels.launch_counts()
+                out = root / "outputs" / model / "moises" / sched / "music_inpainting"
+                made = sorted(str(p.relative_to(out)) for p in out.rglob("*.*"))
+                log(f"cli: python -m diffmusic_tpu_torch.run {' '.join(argv)}: "
+                    f"{secs:.2f} s, wrote {made}; launches "
+                    f"{ {n: k for n, k in counts.items() if k} }")
+                if len(made) != 6:
+                    raise AssertionError(f"cli run {model} {sched} wrote {made}")
+                want = cli_launches(model, sched, 2, 2 if sched == "ditto" else 1,
+                                    CLI_AUDIO_S)
+                if device == "cuda":
+                    check_launches(f"cli {model} {sched}", {n: counts[n] for n in want}, want)
+    finally:
+        os.chdir(cwd)
+    from diffmusic_tpu_torch.pipelines import base
+    log(f"cli: matplotlib on this host: {base.have_matplotlib()} (else the 8-bit grey PNGs)")
+
+
+def phase_checkpoint_cli(device: str = "cuda") -> None:
+    """A full-width MusicLDM snapshot (fp32, seeded, the diffusers layout)
+    written to a temporary directory and loaded by `from_pretrained` on the
+    card: the load's seconds and MB/s; its 2 DPS steps from prompt embeds
+    equal, to the bit, those of the same weights handed over in memory; then
+    the CLI's runs."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_port_snapshot as snap
+    from diffmusic_tpu_torch.models.configs import (ClapTextConfig, HiFiGANConfig,
+                                                    UNetConfig, VAEConfig)
+    from diffmusic_tpu_torch.pipelines import MusicLDMPipeline
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        modules = snap.musicldm_modules(UNetConfig(), VAEConfig(), HiFiGANConfig(),
+                                        ClapTextConfig(), seed=20)
+        t1 = time.perf_counter()
+        snap.write_snapshot(root / "musicldm", modules)
+        t2 = time.perf_counter()
+        nbytes = sum(p.stat().st_size for p in (root / "musicldm").rglob("*.safetensors"))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        loaded = MusicLDMPipeline.from_pretrained(root / "musicldm", scheduler_name="dps",
+                                                  device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t3
+        log(f"checkpoint: full-width MusicLDM snapshot, {nbytes / 1e6:.1f} MB fp32 "
+            f"safetensors (values {t1 - t0:.1f} s, written {t2 - t1:.1f} s); "
+            f"from_pretrained on the card {load_s:.2f} s, {nbytes / 1e6 / load_s:.0f} MB/s")
+        memory = in_memory_musicldm(modules, device, torch.float32)
+        del modules
+        for name in ("unet", "vae", "vocoder", "text_encoder"):
+            a, b = getattr(loaded, name).state_dict(), getattr(memory, name).state_dict()
+            if sorted(a) != sorted(b) or not all(torch.equal(a[k], b[k]) for k in a):
+                raise AssertionError(f"checkpoint: the loaded {name} differs from the same "
+                                     f"weights handed over in memory")
+        op, meas = inpainting(10.0, device)
+        lat = torch.randn(LATENTS, generator=torch.Generator().manual_seed(17))
+
+        def two_steps(pipe):
+            res, losses = dataclasses.replace(pipe, operator=op)(
+                audio_length_in_s=10.0, num_inference_steps=2, eta=0.0, measurement=meas,
+                ip_guidance_rate=2.0, latents=lat, prompt_embeds=torch.zeros(2, 512),
+                return_losses=True)
+            return res.audios, losses
+
+        # deterministic algorithms where PyTorch has them (the nearest
+        # upsampling's index_add backward, cuDNN's choices), so that two runs
+        # of the same weights can agree to the bit
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            outs = [two_steps(loaded), two_steps(memory)]
+            same = all(np.array_equal(a, b) for a, b in zip(*outs))
+            again = same or all(np.array_equal(a, b) for a, b in zip(outs[1],
+                                                                      two_steps(memory)))
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+        log(f"checkpoint: 2 fp32 DPS steps of the loaded pipeline and of the in-memory one: "
+            f"losses {outs[0][1].tolist()} / {outs[1][1].tolist()}, outputs equal to the bit: "
+            f"{same}" + ("" if same else f" (the in-memory pipeline against itself: {again})"))
+        if not same or not np.isfinite(outs[0][0]).all():
+            raise AssertionError("checkpoint: the loaded pipeline's output differs from the "
+                                 "in-memory one's")
+        del loaded, memory
+        torch.cuda.empty_cache()
+        cli_runs(root / "cli", device)
+
+
 # ------------------------------------------------------------------- eval
 EVAL_CARD_CPU_PAIRS = 4          # pairs scored on the card and on the CPU
 EVAL_SCORE_TOL = 1e-3            # card vs CPU, relative, every score
@@ -2093,11 +2607,13 @@ def main() -> int:
     args = ap.parse_args()
     if args.profile and args.out is None:
         ap.error("--profile needs --out")
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if args.out is not None:
         global LOG_FILE
+        args.out = args.out.resolve()   # the CLI phase runs in another directory
         args.out.mkdir(parents=True, exist_ok=True)
         LOG_FILE = args.out / "chip_smoke.log"
         LOG_FILE.write_text("")
@@ -2155,6 +2671,9 @@ def main() -> int:
     a2 = phase_audioldm2(profile_dir)
     phase_reference_tasks()
     phase_tasks()
+    phase_reference_ditto()
+    phase_ditto_optim_prompt()
+    phase_checkpoint_cli()
     eval_counts = phase_eval(restored)
     # each kernel's launches from the path that runs it: MusicLDM's default
     # route for its four, its routes for the route kernels (the fused
@@ -2186,6 +2705,7 @@ def main() -> int:
         if "g_transposed" in s:
             kernels_line[-1]["g_transposed"] = {
                 k: s["g_transposed"][k] for k in ("ms", "plain_ms", "library_ms")}
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

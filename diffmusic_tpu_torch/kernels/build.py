@@ -41,7 +41,7 @@ SIGNATURES = {
     "dm_phase_convtranspose": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                                _I),
     "dm_phase_convtranspose_smem": ([_I, _I, _I], _S),
-    "dm_transformer_block": ([_I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P], _I),
+    "dm_transformer_block": ([_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P], _I),
     "dm_transformer_block_smem": ([_I, _I], _S),
     "dm_flash_attention": ([_I, _P, _P, _P, _P, _I, _I, _I, _F, _P], _I),
     "dm_flash_attention_smem": ([_I, _I], _S),

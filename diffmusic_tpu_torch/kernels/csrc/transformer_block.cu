@@ -127,21 +127,23 @@ __device__ void project(dm::TileAcc<T, QB, BN, 2, 4>& acc, const T* A, int lda, 
 }
 
 // LayerNorm (fp32 statistics, two-pass variance, eps 1e-6) of the fp32 rows
-// `src` into T rows `dst`; one warp per row.
+// `src` into T rows `dst`; one warp per row. The statistics are over the
+// first Cn channels, the model's; the C - Cn past them are padding, whose
+// zero scale and bias write zeros.
 template <typename T>
 __device__ void layer_norm(const float* src, int lds, T* dst, int ldd, const T* scale,
-                           const T* bias, int C) {
+                           const T* bias, int C, int Cn) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < QB; r += THREADS / 32) {
     const float* row = src + (size_t)r * lds;
     float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += row[c];
+    for (int c = lane; c < Cn; c += 32) s += row[c];
     for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float mu = s / C;
+    const float mu = s / Cn;
     float v = 0.f;
-    for (int c = lane; c < C; c += 32) v += (row[c] - mu) * (row[c] - mu);
+    for (int c = lane; c < Cn; c += 32) v += (row[c] - mu) * (row[c] - mu);
     for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    const float inv = rsqrtf(v / C + 1e-6f);
+    const float inv = rsqrtf(v / Cn + 1e-6f);
     for (int c = lane; c < C; c += 32)
       dst[(size_t)r * ldd + c] =
           dm::from_f<T>((row[c] - mu) * inv * dm::to_f(scale[c]) + dm::to_f(bias[c]));
@@ -197,7 +199,7 @@ transformer_block_kernel(const T* __restrict__ x, const T* __restrict__ kx,
                          const T* __restrict__ wi, const T* __restrict__ bi,
                          const T* __restrict__ wo2, const T* __restrict__ bo2,
                          const Cross<T> cross, const float* __restrict__ kmax,
-                         T* __restrict__ out, int Tlen, int C, float scale_log2e) {
+                         T* __restrict__ out, int Tlen, int C, int Cn, float scale_log2e) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = layout<T>(C);
   float* res = reinterpret_cast<float*>(smem + L.res);
@@ -221,7 +223,7 @@ transformer_block_kernel(const T* __restrict__ x, const T* __restrict__ kx,
     res[(size_t)r * L.ldr + c] = t < Tlen ? dm::to_f(x[base + (size_t)t * C + c]) : 0.f;
   }
   __syncthreads();
-  layer_norm<T>(res, L.ldr, abuf, L.lda, ln1_s, ln1_b, C);
+  layer_norm<T>(res, L.ldr, abuf, L.lda, ln1_s, ln1_b, C, Cn);
 
   // self-attention: q = LN1(x) @ wq, attention over all T keys, @ wo + bo;
   // kmax (B, heads), if given, bounds the softmax
@@ -231,7 +233,7 @@ transformer_block_kernel(const T* __restrict__ x, const T* __restrict__ kx,
   // cross streams, in order: res += attn(LN2_i(res) @ wq_i, K_i, V_i) @ wo_i + bo_i
   for (int i = 0; i < cross.n; ++i) {
     __syncthreads();
-    layer_norm<T>(res, L.ldr, abuf, L.lda, cross.ln_s[i], cross.ln_b[i], C);
+    layer_norm<T>(res, L.ldr, abuf, L.lda, cross.ln_s[i], cross.ln_b[i], C, Cn);
     const size_t cbase = (size_t)b * cross.tk[i];
     attention_residual<T>(abuf, qbuf, res, cross.wq[i], cross.wo[i], cross.bo[i],
                           cross.k[i] + cbase * C, cross.v[i] + cbase * C, cross.tk[i],
@@ -239,7 +241,7 @@ transformer_block_kernel(const T* __restrict__ x, const T* __restrict__ kx,
                           ks, vs, bs);
   }
   __syncthreads();
-  layer_norm<T>(res, L.ldr, abuf, L.lda, ln3_s, ln3_b, C);
+  layer_norm<T>(res, L.ldr, abuf, L.lda, ln3_s, ln3_b, C, Cn);
   __syncthreads();
   // the FF accumulates into the residual stream: start it at res1 + bo2
   for (int e = threadIdx.x; e < QB * C; e += THREADS)
@@ -319,7 +321,7 @@ struct Params {
   int n_cross;
   const float* kmax;   // (B, heads) key-norm maxima for the bounded softmax, or null
   bf16* out;
-  int T, C;
+  int T, C, Cn;        // C: whole 64-channel slices; Cn <= C: the model's channels
   float scale_log2e;   // log2(e) / sqrt(8)
 };
 
@@ -338,20 +340,21 @@ __device__ __forceinline__ P* peer(P* p, int rank) {
 }
 
 // LayerNorm (fp32 statistics, two-pass variance, eps 1e-6) of the QB fp32 rows
-// of res into bf16 rows of dst; one warp per row.
+// of res into bf16 rows of dst; one warp per row. The statistics are over the
+// first Cn channels, the padding's zero scale and bias write zeros past them.
 __device__ void layer_norm(const float* res, bf16* dst, const bf16* scale, const bf16* bias,
-                           int C) {
+                           int C, int Cn) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < QB; r += THREADS / 32) {
     const float* row = res + (size_t)r * RES_LD;
     float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += row[c];
+    for (int c = lane; c < Cn; c += 32) s += row[c];
     for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float mu = s / C;
+    const float mu = s / Cn;
     float v = 0.f;
-    for (int c = lane; c < C; c += 32) v += (row[c] - mu) * (row[c] - mu);
+    for (int c = lane; c < Cn; c += 32) v += (row[c] - mu) * (row[c] - mu);
     for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    const float inv = rsqrtf(v / C + 1e-6f);
+    const float inv = rsqrtf(v / Cn + 1e-6f);
     for (int c = lane; c < C; c += 32)
       dst[(size_t)r * A_LD + c] = __float2bfloat16_rn(
           (row[c] - mu) * inv * __bfloat162float(scale[c]) + __bfloat162float(bias[c]));
@@ -565,20 +568,20 @@ __global__ void __launch_bounds__(THREADS, 1) block_mma_kernel(const __grid_cons
     dm::store8<float>(res + (size_t)r * RES_LD + c, v);
   }
   __syncthreads();
-  layer_norm(res, abuf, p.ln1_s, p.ln1_b, C);
+  layer_norm(res, abuf, p.ln1_s, p.ln1_b, C, p.Cn);
   __syncthreads();
   attend_residual(p, res, abuf, qbuf, obuf, bs, ring, p.wq, p.wo, p.bo, p.kx + base,
                   p.vx + base, p.T, nullptr,
                   p.kmax ? p.kmax + (size_t)b * (C / 8) + rank * HEADS : nullptr, n, rank);
   for (int i = 0; i < p.n_cross; ++i) {
     const Stream& s = p.cross[i];
-    layer_norm(res, abuf, s.ln_s, s.ln_b, C);
+    layer_norm(res, abuf, s.ln_s, s.ln_b, C, p.Cn);
     __syncthreads();
     attend_residual(p, res, abuf, qbuf, obuf, bs, ring, s.wq, s.wo, s.bo,
                     s.k + (size_t)b * s.tk * C, s.v + (size_t)b * s.tk * C, s.tk,
                     s.bias + (size_t)b * s.tk, nullptr, n, rank);
   }
-  layer_norm(res, abuf, p.ln3_s, p.ln3_b, C);
+  layer_norm(res, abuf, p.ln3_s, p.ln3_b, C, p.Cn);
   __syncthreads();
   {   // a and gate of this block's hidden units, g = a * gelu(gate) -> abuf
     float acc[8][4];
@@ -646,8 +649,8 @@ int opt_in() {   // more than 48 KB of dynamic shared memory, once
   return 0;
 }
 
-int run(const void* const* a, void* out, int B, int Tlen, int C, int n_cross, const int* tk,
-        float scale_log2e, const float* kmax, cudaStream_t s) {
+int run(const void* const* a, void* out, int B, int Tlen, int C, int Cn, int n_cross,
+        const int* tk, float scale_log2e, const float* kmax, cudaStream_t s) {
   const int n = C / COLS;   // blocks per tile: 8 heads each
   if (C % COLS != 0 || n < 1 || n > C_MAX / COLS) return (int)cudaErrorInvalidValue;
   Params p = {};
@@ -676,6 +679,7 @@ int run(const void* const* a, void* out, int B, int Tlen, int C, int n_cross, co
   p.out = (bf16*)out;
   p.T = Tlen;
   p.C = C;
+  p.Cn = Cn;
   p.scale_log2e = scale_log2e;
   const int rc = opt_in();
   if (rc != 0) return rc;
@@ -698,7 +702,7 @@ int run(const void* const* a, void* out, int B, int Tlen, int C, int n_cross, co
 }  // namespace tc
 
 template <typename T>
-int run_tiled(const void* const* a, void* out, int B, int Tlen, int C, int n_cross,
+int run_tiled(const void* const* a, void* out, int B, int Tlen, int C, int Cn, int n_cross,
               const int* tk, float scale_log2e, const float* kmax, cudaStream_t s) {
   Cross<T> cross = {};
   cross.n = n_cross;
@@ -719,7 +723,7 @@ int run_tiled(const void* const* a, void* out, int B, int Tlen, int C, int n_cro
                     (const T*)a[0], (const T*)a[1], (const T*)a[2], (const T*)a[3],
                     (const T*)a[4], (const T*)a[5], (const T*)a[6], (const T*)a[7],
                     (const T*)a[8], (const T*)a[9], (const T*)a[10], (const T*)a[11],
-                    (const T*)a[12], (const T*)a[13], cross, kmax, (T*)out, Tlen, C,
+                    (const T*)a[12], (const T*)a[13], cross, kmax, (T*)out, Tlen, C, Cn,
                     scale_log2e);
 }
 
@@ -729,16 +733,21 @@ int run_tiled(const void* const* a, void* out, int B, int Tlen, int C, int n_cro
 // wo2, bo2 (14 device pointers), then per cross stream i < n_cross (at most 2):
 // k_i, v_i, bias_i (fp32), ln2_scale_i, ln2_bias_i, wq_i, wo_i, bo_i, whose
 // keys number tk0 and tk1. kmax: null, or (B, C / 8) fp32 key-norm maxima for
-// the bounded softmax. dtype: 0 = float32, 1 = bfloat16.
+// the bounded softmax. dtype: 0 = float32, 1 = bfloat16. C is a whole number
+// of 64-channel slices; a block of Cn < C channels (a multiple of 8) comes
+// zero-padded to C (kernels/transformer_block.py::widen) and its LayerNorms
+// take their statistics over the first Cn.
 extern "C" int dm_transformer_block(int dtype, const void* const* args, void* out, int B,
-                                    int Tlen, int C, int n_cross, int tk0, int tk1,
+                                    int Tlen, int C, int Cn, int n_cross, int tk0, int tk1,
                                     float scale_log2e, const void* kmax, void* stream) {
-  if (n_cross < 0 || n_cross > MAX_CROSS) return (int)cudaErrorInvalidValue;
+  if (n_cross < 0 || n_cross > MAX_CROSS || C % 64 != 0 || Cn % 8 != 0 || Cn < 8 ||
+      Cn > C || C - Cn >= 64)
+    return (int)cudaErrorInvalidValue;
   const int tk[MAX_CROSS] = {tk0, tk1};
   cudaStream_t s = (cudaStream_t)stream;
   const float* km = (const float*)kmax;
-  if (dtype == 1) return tc::run(args, out, B, Tlen, C, n_cross, tk, scale_log2e, km, s);
-  return run_tiled<float>(args, out, B, Tlen, C, n_cross, tk, scale_log2e, km, s);
+  if (dtype == 1) return tc::run(args, out, B, Tlen, C, Cn, n_cross, tk, scale_log2e, km, s);
+  return run_tiled<float>(args, out, B, Tlen, C, Cn, n_cross, tk, scale_log2e, km, s);
 }
 
 extern "C" size_t dm_transformer_block_smem(int dtype, int C) {

@@ -46,6 +46,13 @@ denominator is guarded with max(den, 1e-37). The wrapper computes max_k
 the JAX wrapper does outside its kernel. The cross streams keep the exact
 softmax. The bounded mode counts its launches apart.
 
+The kernel takes head_dim 8, C = heads * 8 up to 32 heads, and works in
+whole 64-channel slices: a block narrower than that (the tiny configs' 16
+and 32 channels, which the JAX rule fuses as it fuses every block with T >=
+512) runs zero-padded to one slice (`widen`), with its LayerNorms'
+statistics over its own C channels; the padded channels stay exactly zero
+and are cut from the output.
+
 On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA tensor
 it launches the kernel or raises. The backward recomputes through the plain
 version and returns the gradients of x and of the contexts (`_ftb_bwd`);
@@ -138,17 +145,38 @@ def transformer_block_plain(x, p, heads: int, head_dim: int, contexts=(), cross_
     return res1 + ((a * F.gelu(g)) @ p["wo2"] + p["bo2"]).to(x.dtype)
 
 
+def widen(a, name: str, c: int, cp: int):
+    """A block operand of width C zero-padded to cp channels, the kernel's
+    whole 64-channel slices: `name` is the parameter's, or "rows" for (B, T,
+    C) activations. Every channel axis grows; a and gate of `wi` / `bi` grow
+    each to 4 cp. The padded channels and hidden units stay exactly zero
+    through the block, as their LayerNorm scale and bias, weights and keys
+    are zero and the kernel takes the LayerNorm's statistics over the first
+    C channels only."""
+    g = cp - c
+    if g == 0:
+        return a
+    if name in ("wi", "bi"):
+        rows = (0, g) if name == "wi" else ()
+        return torch.cat([F.pad(h, (0, 4 * g) + rows) for h in a.chunk(2, dim=-1)], dim=-1)
+    if name == "wo2":
+        return F.pad(a, (0, g, 0, 4 * g))
+    if name.rstrip("0123456789") in ("wq", "wo", "cwq", "cwo"):
+        return F.pad(a, (0, g, 0, g))
+    return F.pad(a, (0, g))   # a vector of C, or rows
+
+
 def _launch(x, p, heads: int, head_dim: int, contexts, cross_biases, bsoft: bool):
     from . import build
     bsz, t, c = x.shape
     n = len(contexts)
     name = ("fused_transformer_block_bsoft" if bsoft else
             "fused_transformer_block_cross" if n else "fused_transformer_block")
-    if head_dim != 8 or heads * head_dim != c or c % 64 or heads > 32 or n > MAX_CROSS:
+    if head_dim != 8 or heads * head_dim != c or heads > 32 or n > MAX_CROSS:
         raise ValueError(f"fused_transformer_block: the kernel takes head_dim 8, "
-                         f"C = heads * 8, C % 64 == 0, heads <= 32 and at most "
-                         f"{MAX_CROSS} cross streams (got C {c}, heads {heads}, "
-                         f"head_dim {head_dim}, {n} streams)")
+                         f"C = heads * 8, heads <= 32 and at most {MAX_CROSS} cross "
+                         f"streams (got C {c}, heads {heads}, head_dim {head_dim}, "
+                         f"{n} streams)")
     expect = {"wq": (c, c), "wk": (c, c), "wv": (c, c), "wo": (c, c),
               "wi": (c, 8 * c), "bi": (8 * c,), "wo2": (4 * c, c)}
     for i, ctx in enumerate(contexts):
@@ -163,33 +191,37 @@ def _launch(x, p, heads: int, head_dim: int, contexts, cross_biases, bsoft: bool
         if tuple(p[k].shape) != expect.get(k, (c,)):
             raise ValueError(f"fused_transformer_block: {k} has shape {tuple(p[k].shape)}")
     build.check_tensors(name, x, *contexts, *(p[k] for k in names))
+    # a block narrower than a whole 64-channel slice (the tiny configs' 16
+    # and 32) runs padded to one, with the LayerNorms over its C channels
+    cp = -(-c // COLS_PER_BLOCK) * COLS_PER_BLOCK
+    wide = lambda a, k="rows": widen(a, k, c, cp).contiguous()
     h1 = layer_norm(x, p["ln1_scale"], p["ln1_bias"]).to(x.dtype)
-    keys = (h1 @ p["wk"]).contiguous()
-    kmax = key_norm_max(keys, heads).contiguous() if bsoft else None
-    operands = [x, keys, (h1 @ p["wv"]).contiguous(),
-                p["ln1_scale"], p["ln1_bias"], p["wq"], p["wo"], p["bo"],
-                p["ln3_scale"], p["ln3_bias"], p["wi"], p["bi"], p["wo2"], p["bo2"]]
+    keys = h1 @ p["wk"]
+    kmax = F.pad(key_norm_max(keys, heads), (0, (cp - c) // 8)).contiguous() if bsoft else None
+    operands = [wide(x), wide(keys), wide(h1 @ p["wv"])] + [
+        wide(p[k], k) for k in ("ln1_scale", "ln1_bias", "wq", "wo", "bo", "ln3_scale",
+                                "ln3_bias", "wi", "bi", "wo2", "bo2")]
     tks = [0] * MAX_CROSS
     for i, ctx in enumerate(contexts):
         bias = cross_biases[i].float().contiguous()
         build.check_tensors(name, bias)
-        operands += [(ctx @ p[f"cwk{i}"]).contiguous(), (ctx @ p[f"cwv{i}"]).contiguous(),
-                     bias, p[f"ln2{i}_scale"], p[f"ln2{i}_bias"], p[f"cwq{i}"],
-                     p[f"cwo{i}"], p[f"cbo{i}"]]
+        operands += [wide(ctx @ p[f"cwk{i}"]), wide(ctx @ p[f"cwv{i}"]), bias] + [
+            wide(p[k], k) for k in (f"ln2{i}_scale", f"ln2{i}_bias", f"cwq{i}", f"cwo{i}",
+                                    f"cbo{i}")]
         tks[i] = ctx.shape[1]
     lib = build.library()
     code = build.dtype_code(x.dtype)
-    build.check_smem(name, lib.dm_transformer_block_smem(code, c))
+    build.check_smem(name, lib.dm_transformer_block_smem(code, cp))
     ptrs = (ctypes.c_void_p * len(operands))(*[o.data_ptr() for o in operands])
-    out = torch.empty_like(x)
+    out = x.new_empty(bsz, t, cp)
     rc = lib.dm_transformer_block(code, ctypes.cast(ptrs, ctypes.c_void_p),
-                                  out.data_ptr(), bsz, t, c, n, *tks,
+                                  out.data_ptr(), bsz, t, cp, c, n, *tks,
                                   _LOG2E / math.sqrt(head_dim),
                                   kmax.data_ptr() if bsoft else None,
                                   build.stream_ptr(x.device))
     build.check(rc, name)
     LAUNCHES[name] += 1
-    return out
+    return out if cp == c else out[..., :c].contiguous()
 
 
 class _FusedBlock(torch.autograd.Function):

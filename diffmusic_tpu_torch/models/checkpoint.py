@@ -1,0 +1,541 @@
+"""Weights from a local checkpoint directory (port of
+`diffmusic_tpu/models/checkpoint.py`).
+
+A checkpoint is a directory in the HF snapshot layout:
+
+  <dir>/unet/{config.json, diffusion_pytorch_model.safetensors}
+  <dir>/vae/{config.json, diffusion_pytorch_model.safetensors}
+  <dir>/vocoder/{config.json, model.safetensors}
+  <dir>/text_encoder/{config.json, model.safetensors}      (a CLAP model)
+  + text_encoder_2/ (T5), language_model/ (GPT-2) and projection_model/ for
+  AudioLDM2; tokenizer/ and tokenizer_2/ where present.
+
+Each module's state dict goes through its converter to the JAX package's
+flax tree, then through `from_flax` to the port's state dict, so the port
+loads exactly what the JAX package loads. Every key of a state dict is
+consumed or the load raises (`TrackingStateDict`); the keys that a
+converter reads nothing from are named here: a CLAP model's audio tower
+(`audio_model.*`, `audio_projection.*`: the HTSAT tower is not ported,
+ROADMAP Queue 1 item 7) and its token-type-id buffer, T5's `encoder.embed_tokens.weight` (tied to
+`shared.weight`), GPT-2's `wte.weight` (the pipeline generates in embedding
+space) and the vocoder's `mean` / `scale` when `normalize_before` is off.
+
+Safetensors files are read here (`read_safetensors`), so loading needs
+neither the `safetensors` package nor `transformers`; a tokenizer is built
+through `transformers` when a tokenizer directory exists and the package
+imports, else it is None and a text prompt raises (pass `prompt_embeds`).
+"""
+
+import json
+import struct
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from . import convert
+from .configs import (ClapTextConfig, GPT2Config, HiFiGANConfig, ProjectionConfig,
+                      T5Config, UNetConfig, VAEConfig)
+
+# safetensors dtype tags -> torch dtypes
+_DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+           "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+           "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool}
+
+
+def read_safetensors(path) -> Dict[str, torch.Tensor]:
+    """A .safetensors file as CPU tensors: an 8-byte little-endian header
+    length, a JSON header {name: {dtype, shape, data_offsets}} (and an
+    optional "__metadata__"), then the raw little-endian buffers. The
+    tensors share one buffer read from the file."""
+    path = Path(path)
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        buf = bytearray(path.stat().st_size - 8 - n)
+        if f.readinto(buf) != len(buf):
+            raise ValueError(f"{path}: truncated safetensors file")
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _DTYPES:
+            raise ValueError(f"{path}: tensor {name} has unsupported dtype {info['dtype']}")
+        dtype = _DTYPES[info["dtype"]]
+        start, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        count = int(np.prod(shape, dtype=np.int64))
+        if end - start != count * dtype.itemsize or end > len(buf):
+            raise ValueError(f"{path}: tensor {name} has inconsistent offsets")
+        t = (torch.frombuffer(buf, dtype=dtype, count=count, offset=start) if count
+             else torch.empty(0, dtype=dtype))
+        out[name] = t.reshape(shape)
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    # numpy has no bfloat16: widen it (exactly) to float32
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _load_module_sd(module_dir: Path) -> Dict[str, np.ndarray]:
+    """A module's state dict as numpy arrays: its one weights file, or the
+    union of its shards."""
+    module_dir = Path(module_dir)
+    for name in ("diffusion_pytorch_model.safetensors", "model.safetensors",
+                 "pytorch_model.safetensors"):
+        p = module_dir / name
+        if p.exists():
+            return {k: _numpy(v) for k, v in read_safetensors(p).items()}
+    shards = sorted(module_dir.glob("*.safetensors"))
+    if not shards:
+        raise FileNotFoundError(f"no safetensors found under {module_dir}")
+    merged: Dict[str, np.ndarray] = {}
+    for shard in shards:
+        merged.update({k: _numpy(v) for k, v in read_safetensors(shard).items()})
+    return merged
+
+
+def _cfg(module_dir: Path) -> Dict:
+    with open(Path(module_dir) / "config.json") as f:
+        return json.load(f)
+
+
+class TrackingStateDict(dict):
+    """A state dict that records the keys a converter reads; a load fails
+    if a key is left unread (a weight would be silently dropped)."""
+
+    def __init__(self, sd):
+        super().__init__(sd)
+        self.consumed = set()
+
+    def __getitem__(self, k):
+        self.consumed.add(k)
+        return super().__getitem__(k)
+
+    def consume(self, *keys, prefixes=()) -> None:
+        """Mark keys that are deliberately not loaded as consumed."""
+        self.consumed.update(k for k in self if k in keys or k.startswith(tuple(prefixes)))
+
+    # torch artifacts that carry no convertible weight
+    IGNORE_SUBSTRINGS = ("num_batches_tracked", "position_ids", "rotary_emb.inv_freq",
+                         "attn.masked_bias", "attn.bias", "logit_scale")
+
+    def assert_all_consumed(self, what: str, extra_ignore=()):
+        ignore = self.IGNORE_SUBSTRINGS + tuple(extra_ignore)
+        leftover = sorted(k for k in self if k not in self.consumed
+                          and not any(s in k for s in ignore))
+        if leftover:
+            raise ValueError(
+                f"{what}: {len(leftover)} checkpoint keys were NOT consumed by the "
+                f"converter (weights would be silently dropped): "
+                f"{leftover[:12]}{' ...' if len(leftover) > 12 else ''}")
+
+
+# --------------------------------------------------------------------- configs
+
+def unet_config_from_json(c: Dict) -> UNetConfig:
+    cad = c.get("cross_attention_dim")
+    if cad is None:
+        cross_dims = ()
+    elif isinstance(cad, (list, tuple)):
+        cross_dims = tuple(d for d in cad if d is not None)
+    else:
+        cross_dims = (cad,)
+    blocks = tuple(c["block_out_channels"])
+    down_types = c.get("down_block_types",
+                       ["CrossAttnDownBlock2D"] * (len(blocks) - 1) + ["DownBlock2D"])
+    ahd = c.get("attention_head_dim", 8)
+    if isinstance(ahd, (list, tuple)):
+        ahd = ahd[0]
+    return UNetConfig(
+        sample_size=c.get("sample_size", 128),
+        in_channels=c.get("in_channels", 8),
+        out_channels=c.get("out_channels", 8),
+        block_out_channels=blocks,
+        layers_per_block=c.get("layers_per_block", 2),
+        attention_head_dim=ahd,
+        norm_num_groups=c.get("norm_num_groups", 32),
+        cross_attention_dims=cross_dims,
+        class_embed_type=c.get("class_embed_type"),
+        projection_class_embeddings_input_dim=c.get("projection_class_embeddings_input_dim"),
+        class_embeddings_concat=c.get("class_embeddings_concat", False),
+        has_attention=tuple("CrossAttn" in t or "Attn" in t for t in down_types),
+    )
+
+
+def vae_config_from_json(c: Dict) -> VAEConfig:
+    return VAEConfig(
+        in_channels=c.get("in_channels", 1),
+        out_channels=c.get("out_channels", 1),
+        latent_channels=c.get("latent_channels", 8),
+        block_out_channels=tuple(c["block_out_channels"]),
+        layers_per_block=c.get("layers_per_block", 2),
+        norm_num_groups=c.get("norm_num_groups", 32),
+        scaling_factor=c.get("scaling_factor", 0.18215),
+    )
+
+
+def hifigan_config_from_json(c: Dict) -> HiFiGANConfig:
+    return HiFiGANConfig(
+        model_in_dim=c.get("model_in_dim", 64),
+        sampling_rate=c.get("sampling_rate", 16000),
+        upsample_initial_channel=c.get("upsample_initial_channel", 1024),
+        upsample_rates=tuple(c.get("upsample_rates", (5, 4, 2, 2, 2))),
+        upsample_kernel_sizes=tuple(c.get("upsample_kernel_sizes", (16, 16, 8, 4, 4))),
+        resblock_kernel_sizes=tuple(c.get("resblock_kernel_sizes", (3, 7, 11))),
+        resblock_dilation_sizes=tuple(
+            tuple(d) for d in c.get("resblock_dilation_sizes", ((1, 3, 5),) * 3)),
+        leaky_relu_slope=c.get("leaky_relu_slope", 0.1),
+        normalize_before=c.get("normalize_before", False),
+    )
+
+
+def clap_text_config_from_json(c: Dict) -> ClapTextConfig:
+    t = c.get("text_config", c)
+    return ClapTextConfig(
+        vocab_size=t.get("vocab_size", 50265),
+        hidden_size=t.get("hidden_size", 768),
+        num_hidden_layers=t.get("num_hidden_layers", 12),
+        num_attention_heads=t.get("num_attention_heads", 12),
+        intermediate_size=t.get("intermediate_size", 3072),
+        max_position_embeddings=t.get("max_position_embeddings", 514),
+        projection_dim=c.get("projection_dim", 512))
+
+
+# ------------------------------------------------------------- UNet state dict
+
+def _conv(sd, p):
+    return {"kernel": convert.conv2d(sd[f"{p}.weight"]), "bias": sd[f"{p}.bias"]}
+
+
+def _norm(sd, p):
+    return {"scale": sd[f"{p}.weight"], "bias": sd[f"{p}.bias"]}
+
+
+def _resnet(sd, p):
+    out = {"norm1": _norm(sd, f"{p}.norm1"), "conv1": _conv(sd, f"{p}.conv1"),
+           "norm2": _norm(sd, f"{p}.norm2"), "conv2": _conv(sd, f"{p}.conv2")}
+    if f"{p}.time_emb_proj.weight" in sd:
+        out["time_emb_proj"] = {"kernel": convert.linear(sd[f"{p}.time_emb_proj.weight"]),
+                                "bias": sd[f"{p}.time_emb_proj.bias"]}
+    if f"{p}.conv_shortcut.weight" in sd:
+        out["conv_shortcut"] = _conv(sd, f"{p}.conv_shortcut")
+    return out
+
+
+def _attention(sd, p):
+    """One Attention module: to_q/k/v (+ to_out.0)."""
+    return {"to_q": {"kernel": convert.linear(sd[f"{p}.to_q.weight"])},
+            "to_k": {"kernel": convert.linear(sd[f"{p}.to_k.weight"])},
+            "to_v": {"kernel": convert.linear(sd[f"{p}.to_v.weight"])},
+            "to_out": {"kernel": convert.linear(sd[f"{p}.to_out.0.weight"]),
+                       "bias": sd[f"{p}.to_out.0.bias"]}}
+
+
+def _transformer2d(sd, p, depth, n_cross):
+    """diffusers Transformer2DModel -> the flax Transformer2DModel tree."""
+    def proj(w):   # conv 1x1 (O, I, 1, 1) or linear (O, I) -> Dense (I, O)
+        w = np.asarray(w)
+        return convert.linear(w[:, :, 0, 0] if w.ndim == 4 else w)
+
+    out = {"norm": _norm(sd, f"{p}.norm"),
+           "proj_in": {"kernel": proj(sd[f"{p}.proj_in.weight"]),
+                       "bias": sd[f"{p}.proj_in.bias"]},
+           "proj_out": {"kernel": proj(sd[f"{p}.proj_out.weight"]),
+                        "bias": sd[f"{p}.proj_out.bias"]}}
+    for d in range(depth):
+        b = f"{p}.transformer_blocks.{d}"
+        blk = {"norm1": _norm(sd, f"{b}.norm1"), "attn1": _attention(sd, f"{b}.attn1"),
+               "norm3": _norm(sd, f"{b}.norm3"),
+               "ff": {"proj_in": {"kernel": convert.linear(sd[f"{b}.ff.net.0.proj.weight"]),
+                                  "bias": sd[f"{b}.ff.net.0.proj.bias"]},
+                      "proj_out": {"kernel": convert.linear(sd[f"{b}.ff.net.2.weight"]),
+                                   "bias": sd[f"{b}.ff.net.2.bias"]}}}
+        # cross-attention streams: diffusers attn2 (and attn2_1 / norm2_1 for
+        # AudioLDM2's second stream, when present)
+        for i in range(n_cross):
+            suffix = "" if i == 0 else f"_{i}"
+            if f"{b}.attn2{suffix}.to_q.weight" not in sd:
+                continue
+            blk[f"norm2_{i}"] = _norm(sd, f"{b}.norm2{suffix}")
+            blk[f"attn2_{i}"] = _attention(sd, f"{b}.attn2{suffix}")
+        out[f"block_{d}"] = blk
+    return out
+
+
+def convert_unet(sd: Dict[str, np.ndarray], cfg: UNetConfig, strict: bool = True) -> Dict:
+    """diffusers UNet2DConditionModel / AudioLDM2UNet2DConditionModel state
+    dict -> the JAX package's UNet flax tree."""
+    sd = TrackingStateDict(sd)
+    n_cross = len(cfg.cross_attention_dims)
+    p: Dict = {
+        "conv_in": _conv(sd, "conv_in"),
+        "time_embedding": {
+            "linear_1": {"kernel": convert.linear(sd["time_embedding.linear_1.weight"]),
+                         "bias": sd["time_embedding.linear_1.bias"]},
+            "linear_2": {"kernel": convert.linear(sd["time_embedding.linear_2.weight"]),
+                         "bias": sd["time_embedding.linear_2.bias"]}},
+        "conv_norm_out": _norm(sd, "conv_norm_out"),
+        "conv_out": _conv(sd, "conv_out"),
+    }
+    if cfg.class_embed_type == "simple_projection":
+        p["class_embedding"] = {"kernel": convert.linear(sd["class_embedding.weight"]),
+                                "bias": sd["class_embedding.bias"]}
+    n_blocks = len(cfg.block_out_channels)
+    for i in range(n_blocks):
+        blk: Dict = {}
+        for j in range(cfg.layers_per_block):
+            blk[f"resnet_{j}"] = _resnet(sd, f"down_blocks.{i}.resnets.{j}")
+            if cfg.has_attention[i]:
+                blk[f"attn_{j}"] = _transformer2d(sd, f"down_blocks.{i}.attentions.{j}", 1,
+                                                  n_cross)
+        if i != n_blocks - 1:
+            blk["downsample"] = {"conv": _conv(sd, f"down_blocks.{i}.downsamplers.0.conv")}
+        p[f"down_{i}"] = blk
+    p["mid"] = {"resnet_0": _resnet(sd, "mid_block.resnets.0"),
+                "attn": _transformer2d(sd, "mid_block.attentions.0", 1, n_cross),
+                "resnet_1": _resnet(sd, "mid_block.resnets.1")}
+    for i in range(n_blocks):
+        rev_i = n_blocks - 1 - i
+        blk = {}
+        for j in range(cfg.layers_per_block + 1):
+            blk[f"resnet_{j}"] = _resnet(sd, f"up_blocks.{i}.resnets.{j}")
+            if cfg.has_attention[rev_i]:
+                blk[f"attn_{j}"] = _transformer2d(sd, f"up_blocks.{i}.attentions.{j}", 1,
+                                                  n_cross)
+        if i != n_blocks - 1:
+            blk["upsample"] = {"conv": _conv(sd, f"up_blocks.{i}.upsamplers.0.conv")}
+        p[f"up_{i}"] = blk
+    if strict:
+        sd.assert_all_consumed("convert_unet")
+    return {"params": p}
+
+
+def convert_vae(sd: Dict[str, np.ndarray], cfg: VAEConfig, strict: bool = True) -> Dict:
+    """diffusers AutoencoderKL state dict -> the JAX package's VAE flax tree
+    (encoder and decoder)."""
+    sd = TrackingStateDict(sd)
+
+    def vae_attn(pfx):
+        # newer diffusers: to_q/to_k/to_v/to_out.0; older: query/key/value/proj_attn
+        if f"{pfx}.to_q.weight" in sd:
+            attn = _attention(sd, pfx)
+        else:
+            attn = {"to_q": {"kernel": convert.linear(sd[f"{pfx}.query.weight"])},
+                    "to_k": {"kernel": convert.linear(sd[f"{pfx}.key.weight"])},
+                    "to_v": {"kernel": convert.linear(sd[f"{pfx}.value.weight"])},
+                    "to_out": {"kernel": convert.linear(sd[f"{pfx}.proj_attn.weight"]),
+                               "bias": sd[f"{pfx}.proj_attn.bias"]}}
+        return {"group_norm": _norm(sd, f"{pfx}.group_norm"), "attention": attn}
+
+    n = len(cfg.block_out_channels)
+    enc: Dict = {"conv_in": _conv(sd, "encoder.conv_in"),
+                 "conv_norm_out": _norm(sd, "encoder.conv_norm_out"),
+                 "conv_out": _conv(sd, "encoder.conv_out"),
+                 "quant_conv": _conv(sd, "quant_conv"),
+                 "mid_resnet_0": _resnet(sd, "encoder.mid_block.resnets.0"),
+                 "mid_attn": vae_attn("encoder.mid_block.attentions.0"),
+                 "mid_resnet_1": _resnet(sd, "encoder.mid_block.resnets.1")}
+    for i in range(n):
+        for j in range(cfg.layers_per_block):
+            enc[f"down_{i}_resnet_{j}"] = _resnet(sd, f"encoder.down_blocks.{i}.resnets.{j}")
+        if i != n - 1:
+            enc[f"down_{i}_downsample"] = {
+                "conv": _conv(sd, f"encoder.down_blocks.{i}.downsamplers.0.conv")}
+    dec: Dict = {"post_quant_conv": _conv(sd, "post_quant_conv"),
+                 "conv_in": _conv(sd, "decoder.conv_in"),
+                 "conv_norm_out": _norm(sd, "decoder.conv_norm_out"),
+                 "conv_out": _conv(sd, "decoder.conv_out"),
+                 "mid_resnet_0": _resnet(sd, "decoder.mid_block.resnets.0"),
+                 "mid_attn": vae_attn("decoder.mid_block.attentions.0"),
+                 "mid_resnet_1": _resnet(sd, "decoder.mid_block.resnets.1")}
+    for i in range(n):
+        for j in range(cfg.layers_per_block + 1):
+            dec[f"up_{i}_resnet_{j}"] = _resnet(sd, f"decoder.up_blocks.{i}.resnets.{j}")
+        if i != n - 1:
+            dec[f"up_{i}_upsample"] = {
+                "conv": _conv(sd, f"decoder.up_blocks.{i}.upsamplers.0.conv")}
+    if strict:
+        sd.assert_all_consumed("convert_vae")
+    return {"params": {"encoder": enc, "decoder": dec}}
+
+
+# ----------------------------------------------------------------- the models
+
+def _strict(convert_fn, sd, what, *args, consume=(), prefixes=()):
+    """Run an HF converter on a tracked state dict; the named keys are
+    consumed without being read, and any other key left unread raises."""
+    sd = TrackingStateDict(sd)
+    sd.consume(*consume, prefixes=prefixes)
+    tree = convert_fn(sd, *args)
+    sd.assert_all_consumed(what)
+    return tree
+
+
+def vocoder_tree(sd, cfg: HiFiGANConfig):
+    # transformers keeps the input statistics whether or not they are used
+    unused = () if cfg.normalize_before else ("mean", "scale")
+    return _strict(convert.convert_hifigan, sd, "convert_hifigan", cfg, consume=unused)
+
+
+def clap_text_tree(sd, cfg: ClapTextConfig):
+    """The CLAP text tower of a ClapModel (or ClapTextModelWithProjection)
+    state dict; the audio tower's keys are consumed and not loaded, and so
+    is the token-type-id buffer (zeros, no weight)."""
+    return _strict(convert.convert_clap_text, sd, "convert_clap_text", cfg,
+                   consume=("text_model.embeddings.token_type_ids",),
+                   prefixes=("audio_model.", "audio_projection."))
+
+
+def t5_tree(sd, cfg: T5Config):
+    # T5's input embedding is tied to `shared`
+    return _strict(convert.convert_t5_encoder, sd, "convert_t5_encoder", cfg,
+                   consume=("encoder.embed_tokens.weight",))
+
+
+def gpt2_tree(sd, cfg: GPT2Config):
+    """GPT-2's tree; the pipeline generates in embedding space and never reads
+    the token embedding. AudioLDM2 wraps GPT2Model under 'model.' in some
+    snapshots."""
+    sd = {k[len("model."):] if k.startswith("model.") else k: v for k, v in sd.items()}
+    return _strict(convert.convert_gpt2, sd, "convert_gpt2", cfg, consume=("wte.weight",))
+
+
+def projection_tree(sd):
+    return _strict(convert.convert_projection, sd, "convert_projection")
+
+
+def _build(module, tree, cfg, device, weight_dtype):
+    """The port's module (built on the meta device) with the flax tree's
+    weights, cast to `weight_dtype` on `device`, frozen and in eval mode."""
+    module.load_state_dict(convert.from_flax(tree, cfg), strict=True, assign=True)
+    return module.to(device=device, dtype=weight_dtype).requires_grad_(False).eval()
+
+
+def _make_hf_tokenizer(tok_dir, max_length: Optional[int] = 512):
+    """The snapshot's tokenizer through `transformers`, as a callable texts ->
+    numpy (ids, mask), padded to the model's maximum length (capped at
+    `max_length`); None where the directory or the package is missing."""
+    if not Path(tok_dir).exists():
+        return None
+    try:
+        from transformers import AutoTokenizer
+        hf_tok = AutoTokenizer.from_pretrained(str(tok_dir))
+    except Exception:
+        return None
+    length = hf_tok.model_max_length if max_length is None else min(
+        hf_tok.model_max_length, max_length)
+
+    def tokenizer(texts):
+        out = hf_tok(list(texts), padding="max_length", max_length=length, truncation=True,
+                     return_tensors="np")
+        return out["input_ids"], out["attention_mask"]
+    return tokenizer
+
+
+def _core_models(d: Path, device, weight_dtype, gn_mode: str = "plain",
+                 conv2d_kernel: bool = False, bsoft: bool = False, fuse_cross: bool = False,
+                 **vocoder_routes):
+    """UNet, VAE and vocoder of a snapshot, with the route flags of
+    `MusicLDMPipeline.random`."""
+    from .hifigan import SpeechT5HifiGan
+    from .unet import UNet2DConditionModel
+    from .vae import AutoencoderKL
+    unet_cfg = unet_config_from_json(_cfg(d / "unet"))
+    vae_cfg = vae_config_from_json(_cfg(d / "vae"))
+    voc_cfg = hifigan_config_from_json(_cfg(d / "vocoder"))
+    gn = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel)
+    with torch.device("meta"):
+        unet = UNet2DConditionModel(unet_cfg, bsoft=bsoft, fuse_cross=fuse_cross, **gn)
+        vae = AutoencoderKL(vae_cfg, **gn)
+        vocoder = SpeechT5HifiGan(voc_cfg, **vocoder_routes)
+    return (_build(unet, convert_unet(_load_module_sd(d / "unet"), unet_cfg), unet_cfg,
+                   device, weight_dtype),
+            _build(vae, convert_vae(_load_module_sd(d / "vae"), vae_cfg), vae_cfg, device,
+                   weight_dtype),
+            _build(vocoder, vocoder_tree(_load_module_sd(d / "vocoder"), voc_cfg), voc_cfg,
+                   device, weight_dtype))
+
+
+def _clap_text(d: Path, device, weight_dtype):
+    from .clap import ClapTextModelWithProjection
+    cfg = clap_text_config_from_json(_cfg(d / "text_encoder"))
+    with torch.device("meta"):
+        model = ClapTextModelWithProjection(cfg)
+    return _build(model, clap_text_tree(_load_module_sd(d / "text_encoder"), cfg), cfg,
+                  device, weight_dtype)
+
+
+def load_musicldm(checkpoint_dir, scheduler_name: str = "ddim", operator=None,
+                  schedule=None, device="cuda", weight_dtype=torch.float32, **routes):
+    """A MusicLDMPipeline from a local HF-snapshot directory, its weights cast
+    to `weight_dtype` on `device` (the card unless the caller asks for the
+    CPU); `routes` are `MusicLDMPipeline.random`'s route flags."""
+    from ..inverse_problem.operator import IdentityOperator
+    from ..pipelines.musicldm import MusicLDMPipeline
+    from ..samplers import DiffusionSchedule
+    d = Path(checkpoint_dir)
+    unet, vae, vocoder = _core_models(d, device, weight_dtype, **routes)
+    return MusicLDMPipeline(
+        unet, vae, vocoder, schedule=schedule if schedule is not None else DiffusionSchedule(),
+        scheduler_name=scheduler_name,
+        operator=operator if operator is not None else IdentityOperator(),
+        text_encoder=_clap_text(d, device, weight_dtype),
+        tokenizer=_make_hf_tokenizer(d / "tokenizer", max_length=None))
+
+
+def load_audioldm2(checkpoint_dir, scheduler_name: str = "ddim", operator=None,
+                   schedule=None, device="cuda", weight_dtype=torch.float32,
+                   fuse_cross: bool = False, **routes):
+    """An AudioLDM2Pipeline from a local HF-snapshot directory: text_encoder
+    (CLAP), text_encoder_2 (T5), projection_model, language_model (GPT-2),
+    unet (two cross streams), vae, vocoder. The TTS variant (a VITS
+    text_encoder_2) raises."""
+    from ..inverse_problem.operator import IdentityOperator
+    from ..pipelines.audioldm2 import AudioLDM2Pipeline
+    from ..samplers import DiffusionSchedule
+    from .gpt2 import GPT2Model
+    from .projection import AudioLDM2ProjectionModel
+    from .t5 import T5EncoderModel
+    d = Path(checkpoint_dir)
+    t5_json = _cfg(d / "text_encoder_2")
+    if t5_json.get("model_type") == "vits":
+        raise NotImplementedError("the AudioLDM2-TTS snapshot's VITS text encoder is not "
+                                  "ported yet (ROADMAP Queue 1 item 7)")
+    t5_cfg = T5Config(
+        vocab_size=t5_json.get("vocab_size", 32128), d_model=t5_json.get("d_model", 1024),
+        d_kv=t5_json.get("d_kv", 64), d_ff=t5_json.get("d_ff", 2816),
+        num_layers=t5_json.get("num_layers", 24), num_heads=t5_json.get("num_heads", 16),
+        is_gated_act="gated" in t5_json.get("feed_forward_proj", "gated-gelu"))
+    gpt2_json = _cfg(d / "language_model")
+    gpt2_cfg = GPT2Config(
+        vocab_size=gpt2_json.get("vocab_size", 50257),
+        n_positions=gpt2_json.get("n_positions", 1024), n_embd=gpt2_json.get("n_embd", 768),
+        n_layer=gpt2_json.get("n_layer", 12), n_head=gpt2_json.get("n_head", 12))
+    proj_json = _cfg(d / "projection_model")
+    proj_cfg = ProjectionConfig(
+        text_encoder_dim=proj_json.get("text_encoder_dim", 512),
+        text_encoder_1_dim=proj_json.get("text_encoder_1_dim", 1024),
+        langauge_model_dim=proj_json.get("langauge_model_dim", 768))
+
+    unet, vae, vocoder = _core_models(d, device, weight_dtype, fuse_cross=fuse_cross,
+                                      **routes)
+    with torch.device("meta"):
+        t5, gpt2, proj = (T5EncoderModel(t5_cfg), GPT2Model(gpt2_cfg),
+                          AudioLDM2ProjectionModel(proj_cfg))
+    return AudioLDM2Pipeline(
+        unet, vae, vocoder, schedule=schedule if schedule is not None else DiffusionSchedule(),
+        scheduler_name=scheduler_name,
+        operator=operator if operator is not None else IdentityOperator(),
+        text_encoder=_clap_text(d, device, weight_dtype),
+        tokenizer=_make_hf_tokenizer(d / "tokenizer"),
+        t5=_build(t5, t5_tree(_load_module_sd(d / "text_encoder_2"), t5_cfg), t5_cfg, device,
+                  weight_dtype),
+        gpt2=_build(gpt2, gpt2_tree(_load_module_sd(d / "language_model"), gpt2_cfg),
+                    gpt2_cfg, device, weight_dtype),
+        projection=_build(proj, projection_tree(_load_module_sd(d / "projection_model")),
+                          proj_cfg, device, weight_dtype),
+        t5_tokenizer=_make_hf_tokenizer(d / "tokenizer_2"),
+        max_new_tokens=gpt2_json.get("max_new_tokens", 8))

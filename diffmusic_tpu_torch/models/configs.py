@@ -31,6 +31,19 @@ class UNetConfig:
         return self.block_out_channels[0] * 4
 
 
+def tiny_unet_config(cross_attention_dims: Tuple[int, ...] = ()) -> UNetConfig:
+    return UNetConfig(
+        sample_size=16, in_channels=8, out_channels=8,
+        block_out_channels=(16, 32), layers_per_block=1,
+        attention_head_dim=8, norm_num_groups=8,
+        cross_attention_dims=cross_attention_dims,
+        class_embed_type="simple_projection" if not cross_attention_dims else None,
+        projection_class_embeddings_input_dim=32 if not cross_attention_dims else None,
+        class_embeddings_concat=not cross_attention_dims,
+        has_attention=(True, True),
+    )
+
+
 @dataclass(frozen=True)
 class VAEConfig:
     in_channels: int = 1
@@ -44,6 +57,11 @@ class VAEConfig:
     @property
     def scale_factor(self) -> int:
         return 2 ** (len(self.block_out_channels) - 1)
+
+
+def tiny_vae_config() -> VAEConfig:
+    return VAEConfig(block_out_channels=(16, 32), layers_per_block=1,
+                     norm_num_groups=8, latent_channels=8, scaling_factor=0.5)
 
 
 @dataclass(frozen=True)
@@ -66,6 +84,14 @@ class HiFiGANConfig:
         for r in self.upsample_rates:
             out *= r
         return out
+
+
+def tiny_hifigan_config() -> HiFiGANConfig:
+    return HiFiGANConfig(model_in_dim=64, upsample_initial_channel=32,
+                         upsample_rates=(5, 4, 2, 2, 2),
+                         upsample_kernel_sizes=(16, 16, 8, 4, 4),
+                         resblock_kernel_sizes=(3,),
+                         resblock_dilation_sizes=((1, 3),))
 
 
 @dataclass(frozen=True)

@@ -1,4 +1,5 @@
-"""Weight carry from the JAX package, and flax-style random init.
+"""Weight carry from the JAX package and from HF checkpoints, and flax-style
+random init.
 
 `from_flax(params, cfg)` turns a flax parameter tree of the JAX package's
 UNet, VAE, HiFi-GAN, CLAP text tower, T5 encoder, AudioLDM2 projection model
@@ -11,8 +12,14 @@ only the leaf names and the layouts change:
   - HiFi-GAN conv kernels stay in their (k, in, out) math layout, except the
     ConvTranspose upsamplers, whose (k, out, in) kernels swap to (k, in, out).
   - leaves of other names (T5's RMSNorm `weight`, the projection model's
-    SOS/EOS embeds) keep their names.
-The VAE encoder's leaves are skipped: only the decoder is ported.
+    SOS/EOS embeds, the vocoder's `normalize_before` mean and scale) keep
+    their names.
+
+`convert_hifigan`, `convert_clap_text`, `convert_t5_encoder`, `convert_gpt2`
+and `convert_projection` are numpy copies of the JAX package's HF -> flax
+converters (`diffmusic_tpu/models/convert.py`): a transformers / diffusers
+state dict becomes the flax tree, which `from_flax` then turns into the
+port's state dict. `models/checkpoint.py` holds the UNet's and the VAE's.
 
 `init_flax_style(model, seed)` draws random weights the way flax initialises
 them (lecun-normal kernels, zero biases, unit norm scales, embeddings normal
@@ -49,7 +56,7 @@ def _leaf(path, arr, hifigan: bool):
     key = ".".join(mods)
     if name == "bias":
         return key + ".bias", arr
-    if name in ("scale", "embedding"):
+    if name in ("scale", "embedding") and mods:
         return key + ".weight", arr
     if name != "kernel":
         return ".".join(path), arr
@@ -71,11 +78,154 @@ def from_flax(params, cfg) -> dict:
         raise TypeError(f"no port model for config {type(cfg).__name__}")
     out = {}
     for path, arr in _flatten(tree):
-        if isinstance(cfg, VAEConfig) and path[0] == "encoder":
-            continue
         key, arr = _leaf(path, arr, hifigan)
         out[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
     return out
+
+
+# ----------------------------------------------- HF state dict -> flax tree
+# torch layouts -> flax: Conv1d (O, I, K) -> (K, I, O); Conv2d (O, I, kh, kw)
+# -> (kh, kw, I, O); ConvTranspose1d (I, O, K) -> (K, O, I); Linear (O, I) -> (I, O)
+
+def conv1d(w):
+    return np.transpose(np.asarray(w), (2, 1, 0))
+
+
+def conv2d(w):
+    return np.transpose(np.asarray(w), (2, 3, 1, 0))
+
+
+def convtranspose1d(w):
+    return np.transpose(np.asarray(w), (2, 1, 0))
+
+
+def linear(w):
+    return np.transpose(np.asarray(w), (1, 0))
+
+
+def _np(t):
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def convert_hifigan(state_dict, cfg) -> dict:
+    """transformers SpeechT5HifiGan state dict -> the vocoder's flax tree."""
+    sd = state_dict
+    p = {"conv_pre": {"kernel": conv1d(_np(sd["conv_pre.weight"])),
+                      "bias": _np(sd["conv_pre.bias"])}}
+    for i in range(len(cfg.upsample_rates)):
+        p[f"upsampler_{i}"] = {"kernel": convtranspose1d(_np(sd[f"upsampler.{i}.weight"])),
+                               "bias": _np(sd[f"upsampler.{i}.bias"])}
+    nk = len(cfg.resblock_kernel_sizes)
+    for r in range(len(cfg.upsample_rates) * nk):
+        blk = {}
+        for j in range(len(cfg.resblock_dilation_sizes[r % nk])):
+            for conv in ("convs1", "convs2"):
+                blk[f"{conv}_{j}"] = {
+                    "kernel": conv1d(_np(sd[f"resblocks.{r}.{conv}.{j}.weight"])),
+                    "bias": _np(sd[f"resblocks.{r}.{conv}.{j}.bias"])}
+        p[f"resblocks_{r}"] = blk
+    p["conv_post"] = {"kernel": conv1d(_np(sd["conv_post.weight"])),
+                      "bias": _np(sd["conv_post.bias"])}
+    if cfg.normalize_before:
+        p["mean"] = _np(sd["mean"])
+        p["scale"] = _np(sd["scale"])
+    return {"params": p}
+
+
+def _dense(sd, name, bias=True):
+    out = {"kernel": linear(_np(sd[f"{name}.weight"]))}
+    if bias:
+        out["bias"] = _np(sd[f"{name}.bias"])
+    return out
+
+
+def _norm(sd, name):
+    return {"scale": _np(sd[f"{name}.weight"]), "bias": _np(sd[f"{name}.bias"])}
+
+
+def convert_clap_text(state_dict, cfg) -> dict:
+    """transformers ClapTextModelWithProjection, or the text_model /
+    text_projection part of a ClapModel -> the CLAP text tower's flax tree."""
+    sd = state_dict
+    emb = "text_model.embeddings"
+    p = {
+        "embeddings": {
+            "word_embeddings": {"embedding": _np(sd[f"{emb}.word_embeddings.weight"])},
+            "position_embeddings": {"embedding": _np(sd[f"{emb}.position_embeddings.weight"])},
+            "token_type_embeddings": {
+                "embedding": _np(sd[f"{emb}.token_type_embeddings.weight"])},
+            "LayerNorm": _norm(sd, f"{emb}.LayerNorm"),
+        },
+        "pooler": _dense(sd, "text_model.pooler.dense"),
+        "projection_linear1": _dense(sd, "text_projection.linear1"),
+        "projection_linear2": _dense(sd, "text_projection.linear2"),
+    }
+    for i in range(cfg.num_hidden_layers):
+        b = f"text_model.encoder.layer.{i}"
+        p[f"layer_{i}"] = {
+            "q": _dense(sd, f"{b}.attention.self.query"),
+            "k": _dense(sd, f"{b}.attention.self.key"),
+            "v": _dense(sd, f"{b}.attention.self.value"),
+            "attn_out": _dense(sd, f"{b}.attention.output.dense"),
+            "attn_ln": _norm(sd, f"{b}.attention.output.LayerNorm"),
+            "ff_in": _dense(sd, f"{b}.intermediate.dense"),
+            "ff_out": _dense(sd, f"{b}.output.dense"),
+            "ff_ln": _norm(sd, f"{b}.output.LayerNorm"),
+        }
+    return {"params": p}
+
+
+def convert_t5_encoder(state_dict, cfg) -> dict:
+    """transformers T5EncoderModel state dict -> the T5 encoder's flax tree."""
+    sd = state_dict
+    p = {"shared": {"embedding": _np(sd["shared.weight"])},
+         "final_layer_norm": {"weight": _np(sd["encoder.final_layer_norm.weight"])}}
+    for i in range(cfg.num_layers):
+        b = f"encoder.block.{i}"
+        attn = {n: _dense(sd, f"{b}.layer.0.SelfAttention.{n}", bias=False)
+                for n in ("q", "k", "v", "o")}
+        if i == 0:
+            attn["relative_attention_bias"] = {"embedding": _np(
+                sd[f"{b}.layer.0.SelfAttention.relative_attention_bias.weight"])}
+        blk = {"attn": attn,
+               "ln_attn": {"weight": _np(sd[f"{b}.layer.0.layer_norm.weight"])},
+               "ln_ff": {"weight": _np(sd[f"{b}.layer.1.layer_norm.weight"])}}
+        ff = f"{b}.layer.1.DenseReluDense"
+        for n in (("wi_0", "wi_1") if cfg.is_gated_act else ("wi",)) + ("wo",):
+            blk[n] = _dense(sd, f"{ff}.{n}", bias=False)
+        p[f"block_{i}"] = blk
+    return {"params": p}
+
+
+def convert_gpt2(state_dict, cfg) -> dict:
+    """transformers GPT2Model state dict -> GPT-2's flax tree. HF's Conv1D
+    keeps its weight as (in, out), flax's layout, so nothing is transposed."""
+    sd = state_dict
+
+    def conv1d_dense(name):
+        return {"kernel": _np(sd[f"{name}.weight"]), "bias": _np(sd[f"{name}.bias"])}
+
+    p = {"wpe": {"embedding": _np(sd["wpe.weight"])}, "ln_f": _norm(sd, "ln_f")}
+    for i in range(cfg.n_layer):
+        b = f"h.{i}"
+        p[f"h_{i}"] = {"ln_1": _norm(sd, f"{b}.ln_1"),
+                       "c_attn": conv1d_dense(f"{b}.attn.c_attn"),
+                       "attn_c_proj": conv1d_dense(f"{b}.attn.c_proj"),
+                       "ln_2": _norm(sd, f"{b}.ln_2"),
+                       "c_fc": conv1d_dense(f"{b}.mlp.c_fc"),
+                       "mlp_c_proj": conv1d_dense(f"{b}.mlp.c_proj")}
+    return {"params": p}
+
+
+def convert_projection(state_dict) -> dict:
+    """diffusers AudioLDM2ProjectionModel state dict -> its flax tree."""
+    sd = state_dict
+    p = {"projection": _dense(sd, "projection"), "projection_1": _dense(sd, "projection_1")}
+    for n in ("sos_embed", "eos_embed", "sos_embed_1", "eos_embed_1"):
+        p[n] = _np(sd[n])
+    return {"params": p}
 
 
 def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator):

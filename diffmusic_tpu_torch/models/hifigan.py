@@ -114,8 +114,6 @@ class SpeechT5HifiGan(nn.Module):
     def __init__(self, cfg: HiFiGANConfig, mask_kernel: bool = False, canvas: str = "off",
                  stage_bwd: bool = False):
         super().__init__()
-        if cfg.normalize_before:
-            raise ValueError("normalize_before=True is not ported yet")
         if canvas not in CANVAS_MODES:
             raise ValueError(f"canvas must be one of {CANVAS_MODES}, not {canvas!r}")
         self.cfg = cfg
@@ -131,12 +129,18 @@ class SpeechT5HifiGan(nn.Module):
                 setattr(self, f"resblocks_{i * len(cfg.resblock_kernel_sizes) + j}",
                         ResidualBlock(ch, rk, dil, cfg.leaky_relu_slope, mask_kernel))
         self.conv_post = Conv1dParams(7, uic // 2 ** len(cfg.upsample_rates), 1)
+        if cfg.normalize_before:
+            # the input mel's per-bin statistics, applied as (x - mean) / scale
+            self.mean = nn.Parameter(torch.zeros(cfg.model_in_dim))
+            self.scale = nn.Parameter(torch.ones(cfg.model_in_dim))
 
     def forward(self, spectrogram: torch.Tensor) -> torch.Tensor:
         """(B, T, model_in_dim) log-mel -> (B, T * hop_length) waveform."""
         cfg = self.cfg
         slope = cfg.leaky_relu_slope
         nk = len(cfg.resblock_kernel_sizes)
+        if cfg.normalize_before:
+            spectrogram = (spectrogram - self.mean) / self.scale
         x = conv1d_plain(spectrogram, self.conv_pre.weight, self.conv_pre.bias)
         for i, (rate, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
             up = getattr(self, f"upsampler_{i}")

@@ -1,18 +1,22 @@
-"""AutoencoderKL decoder (port of `diffmusic_tpu/models/vae.py`).
+"""AutoencoderKL (port of `diffmusic_tpu/models/vae.py`).
 
-Only the decode path, which every guided step differentiates; the encoder is
-still to be ported. The mid-block attention (T = 4000 tokens x 512 channels,
-one head, at 10 s) is plain PyTorch (`kernel="plain"`), as the JAX package
-routes it to plain XLA. `gn_mode` and `conv2d_kernel` route the GroupNorms
+The decode path is the one every guided step differentiates. The encoder is
+here because the JAX package has it and a checkpoint carries its weights; no
+pipeline calls it, so it takes no kernel route. The decoder's mid-block
+attention (T = 4000 tokens x 512 channels, one head, at 10 s) is plain
+PyTorch (`kernel="plain"`), as the JAX package routes it to plain XLA. `gn_mode` and `conv2d_kernel` route the GroupNorms
 and the 3x3 'same' convs (`models/layers.py`); the decoder keeps the NCHW
 orientation (the JAX package's `DIFFMUSIC_TPU_VAE_SWAP=0`).
 """
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
+from ..inverse_problem.noise import randn
 from .configs import VAEConfig
-from .layers import Attention, GroupNorm, ResnetBlock2D, Upsample2D, conv3x3
+from .layers import Attention, Downsample2D, GroupNorm, ResnetBlock2D, Upsample2D, conv3x3
 
 
 class VAEAttentionBlock(nn.Module):
@@ -26,6 +30,41 @@ class VAEAttentionBlock(nn.Module):
         y = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         y = self.attention(y)
         return x + y.reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+
+class Encoder(nn.Module):
+    """mel (B, C, H, W) -> (B, 2 * latent, H / s, W / s): mean, then logvar."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        g = cfg.norm_num_groups
+        boc = cfg.block_out_channels
+        self.conv_in = conv3x3(cfg.in_channels, boc[0])
+        ch = boc[0]
+        for i, out_ch in enumerate(boc):
+            for j in range(cfg.layers_per_block):
+                setattr(self, f"down_{i}_resnet_{j}", ResnetBlock2D(ch, out_ch, g))
+                ch = out_ch
+            if i != len(boc) - 1:
+                setattr(self, f"down_{i}_downsample", Downsample2D(ch))
+        self.mid_resnet_0 = ResnetBlock2D(ch, ch, g)
+        self.mid_attn = VAEAttentionBlock(ch, g)
+        self.mid_resnet_1 = ResnetBlock2D(ch, ch, g)
+        self.conv_norm_out = GroupNorm(g, ch, 1e-6, use_silu=True)
+        self.conv_out = conv3x3(ch, 2 * cfg.latent_channels)
+        self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
+
+    def forward(self, x):
+        cfg = self.cfg
+        x = self.conv_in(x)
+        for i in range(len(cfg.block_out_channels)):
+            for j in range(cfg.layers_per_block):
+                x = getattr(self, f"down_{i}_resnet_{j}")(x)
+            if i != len(cfg.block_out_channels) - 1:
+                x = getattr(self, f"down_{i}_downsample")(x)
+        x = self.mid_resnet_1(self.mid_attn(self.mid_resnet_0(x)))
+        return self.quant_conv(self.conv_out(self.conv_norm_out(x)))
 
 
 class Decoder(nn.Module):
@@ -69,6 +108,19 @@ class AutoencoderKL(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.decoder = Decoder(cfg, gn_mode, conv2d_kernel)
+        # registered after the decoder, so that a seeded init draws the
+        # decoder's weights as it did before the encoder was ported
+        self.encoder = Encoder(cfg)
+
+    def encode(self, x: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, C, H, W) mel -> (B, latent, H / s, W / s): the posterior's mean,
+        or with a generator a sample of it (logvar clipped to [-30, 20])."""
+        mean, logvar = self.encoder(x).chunk(2, dim=1)
+        if generator is None:
+            return mean
+        std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+        return mean + std * randn(mean.shape, generator, mean.dtype, mean.device)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """(B, latent, h, w) -> (B, C, H, W) mel."""

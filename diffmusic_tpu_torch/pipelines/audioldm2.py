@@ -8,44 +8,40 @@ The UNet attends to the generated states and to the T5 sequence (two
 cross-attention streams); the guided denoise loop is MusicLDM's.
 
 Ported: text prompts through the whole text stack, `prompt_embeds`, the
-degenerate-CFG skip over the stream tuple. Still to be ported:
+degenerate-CFG skip over the stream tuple, `optim_prompt` over the GPT-2
+states and the T5 sequence (the T5 mask is carried as it is), DITTO,
+`from_pretrained` and `tiny`. Still to be ported (ROADMAP Queue 1 item 7):
 `prompt_type="clap"` (CLAP audio features of the measurement through the
 HTSAT audio tower), the TTS variant (a VITS encoder of a transcription) and
-`score_waveforms`; each raises or is absent.
+`score_waveforms`; the first two raise `NotPortedError`, the last is absent.
 """
 
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..inverse_problem.operator import IdentityOperator
 from ..models.clap import ClapTextModelWithProjection
 from ..models.configs import (ClapTextConfig, GPT2Config, HiFiGANConfig, ProjectionConfig,
-                              T5Config, UNetConfig, VAEConfig)
+                              T5Config, UNetConfig, VAEConfig, tiny_clap_text_config,
+                              tiny_gpt2_config, tiny_hifigan_config, tiny_t5_config,
+                              tiny_unet_config, tiny_vae_config)
 from ..models.gpt2 import GPT2Model, generate_hidden_states
 from ..models.hifigan import SpeechT5HifiGan
 from ..models.projection import AudioLDM2ProjectionModel
 from ..models.t5 import T5EncoderModel
 from ..models.unet import UNet2DConditionModel
 from ..models.vae import AutoencoderKL
+from .base import NotPortedError, byte_tokenizer
 from .musicldm import MusicLDMPipeline, _dtype
 
 GENERATED_STATES = 8   # GPT-2 generation steps, as the JAX package's max_new_tokens
-
-
-def byte_tokenizer(texts, maxlen: int = 12):
-    """A vocabulary-free tokenizer for random-weight runs: <s> (0), the
-    prompt's UTF-8 bytes mapped into [2, 252), </s> (2), then padding (1).
-    Returns numpy (ids, attention_mask), (len(texts), maxlen) int32."""
-    ids = np.ones((len(texts), maxlen), np.int32)
-    mask = np.zeros((len(texts), maxlen), np.int32)
-    for i, t in enumerate(texts):
-        row = [0] + [2 + (c % 250) for c in t.encode("utf-8")[:maxlen - 2]] + [2]
-        ids[i, :len(row)] = row
-        mask[i, :len(row)] = 1
-    return ids, mask
+HTSAT = ("prompt_type='clap' needs the CLAP audio tower (HTSAT), which is not ported yet "
+         "(ROADMAP Queue 1 item 7): use a text prompt")
+VITS = ("a transcription needs the AudioLDM2-TTS variant (a VITS text encoder), which is "
+        "not ported yet (ROADMAP Queue 1 item 7)")
 
 
 @dataclass
@@ -56,6 +52,7 @@ class AudioLDM2Pipeline(MusicLDMPipeline):
     gpt2: Optional[GPT2Model] = None
     projection: Optional[AudioLDM2ProjectionModel] = None
     t5_tokenizer: Optional[Callable] = None
+    max_new_tokens: int = GENERATED_STATES
 
     def _models(self):
         return super()._models() + [m for m in (self.t5, self.gpt2, self.projection)
@@ -95,8 +92,7 @@ class AudioLDM2Pipeline(MusicLDMPipeline):
         """One prompt -> (generated GPT-2 states (1, 8, 768), T5 sequence
         (1, L, 1024), T5 mask (1, L))."""
         if prompt_type == "clap":
-            raise ValueError("prompt_type='clap' needs the CLAP audio tower (HTSAT), "
-                             "which is not ported yet: use a text prompt")
+            raise NotPortedError(HTSAT)
         proj_dt = _dtype(self.projection)
         clap = self._clap_text(text)[:, None].to(proj_dt)            # (1, 1, 512)
         clap_mask = torch.ones(clap.shape[:2], dtype=torch.long, device=clap.device)
@@ -104,16 +100,17 @@ class AudioLDM2Pipeline(MusicLDMPipeline):
         t5_seq = self.t5(ids, t5_mask)
         projected, proj_mask = self.projection(clap, t5_seq.to(proj_dt), clap_mask, t5_mask)
         generated = generate_hidden_states(self.gpt2, projected.to(_dtype(self.gpt2)),
-                                           proj_mask, GENERATED_STATES)
+                                           proj_mask, self.max_new_tokens)
         return generated, t5_seq, t5_mask
 
     def encode_prompt(self, prompt, negative_prompt=None, do_classifier_free_guidance=True,
                       prompt_type: Optional[str] = None, transcription: str = ""):
         """(generated, t5_seq, t5_mask), CFG-stacked [uncond; cond] with the T5
         streams padded to a common length."""
+        if prompt_type == "clap":
+            raise NotPortedError(HTSAT)
         if transcription:
-            raise ValueError("a transcription needs the AudioLDM2-TTS variant (a VITS "
-                             "text encoder), which is not ported yet")
+            raise NotPortedError(VITS)
         if self.tokenizer is None or self.t5_tokenizer is None:
             raise ValueError("no tokenizers configured: pass prompt_embeds instead of a "
                              "text prompt")
@@ -142,6 +139,12 @@ class AudioLDM2Pipeline(MusicLDMPipeline):
                          encoder_hidden_states_1=t5_seq.to(dt),
                          encoder_attention_mask_1=t5_mask).to(x_in.dtype)
 
+    def _optim_prompt_split(self, prompt_embeds):
+        """The GPT-2 states and the T5 sequence are optimized; the T5 mask is
+        carried as it is."""
+        generated, t5_seq, t5_mask = prompt_embeds
+        return (generated, t5_seq), lambda d: (d[0], d[1], t5_mask)
+
     @torch.no_grad()
     def __call__(self, prompt: Optional[str] = None, measurement=None,
                  prompt_type: Optional[str] = None, guidance_scale: float = 3.5,
@@ -153,3 +156,31 @@ class AudioLDM2Pipeline(MusicLDMPipeline):
         return super().__call__(prompt=prompt, measurement=measurement,
                                 guidance_scale=guidance_scale, negative_prompt=negative_prompt,
                                 prompt_embeds=prompt_embeds, **kwargs)
+
+    # ------------------------------------------------------------- factories
+    @classmethod
+    def from_pretrained(cls, checkpoint_dir, scheduler_name: str = "ddim", operator=None,
+                        schedule=None, device="cuda", weight_dtype=torch.float32,
+                        fuse_cross: bool = False, **routes):
+        """Load from a local HF-snapshot directory (`models/checkpoint.py`),
+        on the card unless the caller asks for the CPU."""
+        from ..models.checkpoint import load_audioldm2
+        return load_audioldm2(checkpoint_dir, scheduler_name=scheduler_name, operator=operator,
+                              schedule=schedule, device=device, weight_dtype=weight_dtype,
+                              fuse_cross=fuse_cross, **routes)
+
+    @classmethod
+    def tiny(cls, scheduler_name: str = "ddim", operator=None, seed: int = 0, device="cuda",
+             weight_dtype=torch.float32, **routes):
+        """Seeded random weights at the JAX package's tiny configs for all
+        seven models, with the byte tokenizer (12 tokens) for both text
+        encoders."""
+        txt, t5, gpt2 = tiny_clap_text_config(), tiny_t5_config(), tiny_gpt2_config()
+        return cls.random(tiny_unet_config(cross_attention_dims=(gpt2.n_embd, t5.d_model)),
+                          tiny_vae_config(), tiny_hifigan_config(), seed=seed, device=device,
+                          weight_dtype=weight_dtype, text_cfg=txt, t5_cfg=t5, gpt2_cfg=gpt2,
+                          proj_cfg=ProjectionConfig(txt.projection_dim, t5.d_model,
+                                                    gpt2.n_embd),
+                          scheduler_name=scheduler_name,
+                          operator=operator if operator is not None else IdentityOperator(),
+                          **routes)

@@ -7,14 +7,26 @@ its gradient with respect to x_t, through the mel transform, HiFi-GAN and the
 VAE decoder. Weights are frozen (`requires_grad_(False)`): guidance
 differentiates activations only.
 
-Ported: the `ddim`, `dps`, `mpgd`, `dsg` and `diffmusic` samplers under any
-operator of `inverse_problem`, a text prompt through the CLAP text tower
-(`encode_prompt`, with a `tokenizer` callable returning numpy `(ids, mask)`)
-or `prompt_embeds`, the degenerate-CFG skip, the NaN retry, and phase
-retrieval's phase-aware output (`phase_aware`). Still to be ported: DITTO and
-`optim_prompt`.
+Ported: the `ddim`, `dps`, `mpgd`, `dsg`, `diffmusic` and `ditto` samplers
+under any operator of `inverse_problem`, `optim_prompt`, a text prompt
+through the CLAP text tower (`encode_prompt`, with a `tokenizer` callable
+returning numpy `(ids, mask)`) or `prompt_embeds`, the degenerate-CFG skip,
+the NaN retry, phase retrieval's phase-aware output (`phase_aware`),
+`from_pretrained` (a local checkpoint, `models/checkpoint.py`) and `tiny`.
+
+DITTO and `optim_prompt` are the two paths that differentiate through the
+UNet. DITTO runs the DDIM chain with eta noise from the initial latents, one
+`torch.utils.checkpoint` per step, takes the guidance loss once on the final
+latents and updates the initial latents by SGD, `optim_outer_loop` times;
+its noise is drawn once a call, before the chain, and every outer
+iteration reuses it (JAX reuses one key). `optim_prompt` takes, at each
+timestep with t % 30 == 1, one SGD step on the prompt embeddings along the
+gradient of the loss of x0-hat through the UNet, then the sampler's step
+with the new embeddings. Both run under `torch.enable_grad()` inside
+`__call__`'s `torch.no_grad()`; the weights stay frozen.
 """
 
+import functools
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -23,16 +35,17 @@ import torch
 from ..inverse_problem.operator import (BaseOperator, IdentityOperator,
                                         PhaseRetrievalOperator)
 from ..models.clap import ClapTextModelWithProjection
-from ..models.configs import HiFiGANConfig, UNetConfig, VAEConfig
+from ..models.configs import (HiFiGANConfig, UNetConfig, VAEConfig, tiny_clap_text_config,
+                              tiny_hifigan_config, tiny_unet_config, tiny_vae_config)
 from ..models.convert import init_flax_style
 from ..models.hifigan import SpeechT5HifiGan
 from ..models.unet import UNet2DConditionModel
 from ..models.vae import AutoencoderKL
 from ..ops.stft import magphase_spectrogram
-from ..samplers import DiffusionSchedule, SamplerConfig, make_step_fn
-from .base import (AudioPipelineOutput, compute_geometry, denoise_with_nan_retry,
-                   mel_spectrogram_to_waveform_with_phase, prepare_latents,
-                   run_denoise_loop)
+from ..samplers import DiffusionSchedule, SamplerConfig, ditto_draws, make_step_fn
+from .base import (AudioPipelineOutput, byte_tokenizer, compute_geometry,
+                   denoise_with_nan_retry, mel_spectrogram_to_waveform_with_phase,
+                   prepare_latents, run_denoise_loop, run_ditto)
 
 
 def _dtype(module: torch.nn.Module) -> torch.dtype:
@@ -212,6 +225,53 @@ class MusicLDMPipeline:
                 linear_magnitude=measurement, **kw)
         return wav
 
+    def _optim_prompt_split(self, prompt_embeds):
+        """(the differentiable part, rebuild fn) for prompt-embedding
+        optimization."""
+        return prompt_embeds, lambda d: d
+
+    def ditto_objective(self, prompt_embeds, guidance_scale: float, loss_fn, cfg, timesteps,
+                        draws, remat: bool = True):
+        """DITTO's loss_of_init(init) -> (loss_fn(final latents), final
+        latents): the plain DDIM chain with the eta noise `draws` (one per
+        step), differentiable with respect to init, each step under a
+        checkpoint unless `remat` is off. The loss is taken once, on the final
+        latents: JAX backpropagates only the last step's loss too."""
+        step_fn = make_step_fn(self.schedule, cfg, None)
+
+        def model_fn(x, t):
+            return self._eps(prompt_embeds, x, t, guidance_scale)
+
+        def loss_of_init(init):
+            final, _ = run_denoise_loop(step_fn, model_fn, init, timesteps, grad=True,
+                                        remat=remat, draws=draws)
+            return loss_fn(final), final
+        return loss_of_init
+
+    def _optim_prompt_model_fn(self, loss_fn, prompt_embeds, guidance_scale: float,
+                               lr: float):
+        """The model_fn of prompt optimization, for one run of the denoise
+        loop: at each timestep with t % 30 == 1 it first takes one SGD step on
+        the embeddings' differentiable part along d loss_fn(x0-hat(eps(embeds),
+        t, x)) / d embeds, then returns eps with the embeddings as they stand."""
+        diff, rebuild = self._optim_prompt_split(prompt_embeds)
+        as_tuple = isinstance(diff, tuple)
+        state = {"diff": diff if as_tuple else (diff,)}
+
+        def embeds(parts):
+            return rebuild(parts if as_tuple else parts[0])
+
+        def model_fn(x, t):
+            if t % 30 == 1:
+                with torch.enable_grad():
+                    leaves = tuple(d.detach().requires_grad_(True) for d in state["diff"])
+                    eps = self._eps(embeds(leaves), x, t, guidance_scale)
+                    grads = torch.autograd.grad(
+                        loss_fn(self.schedule.pred_original(eps, t, x)), leaves)
+                state["diff"] = tuple(d - lr * g for d, g in zip(state["diff"], grads))
+            return self._eps(embeds(state["diff"]), x, t, guidance_scale)
+        return model_fn
+
     @torch.no_grad()
     def __call__(self,
                  prompt: Optional[str] = None,
@@ -226,16 +286,26 @@ class MusicLDMPipeline:
                  prompt_embeds: Optional[torch.Tensor] = None,
                  measurement: Optional[torch.Tensor] = None,
                  ip_guidance_rate: float = 1.0,
+                 optim_outer_loop: int = 1,
                  supervised_space: str = "mel_spectrogram",
                  output_type: str = "np",
                  return_losses: bool = False,
+                 optim_prompt: bool = False,
+                 optim_prompt_learning_rate: float = 1e-4,
+                 show_progress: bool = False,
                  callback=None,
-                 phase_aware: Optional[bool] = None):
-        """Sample under the operator's guidance. `phase_aware` (phase retrieval
-        with a measurement only) rebuilds the output from the measured
-        |STFT| with the phase of the decoded audio, by 4 alternating
-        projections; None turns it on when the noiser's `sigma` is at most
-        1e-6 (off under Poisson noise), as the JAX package does by default."""
+                 callback_steps: int = 1,
+                 phase_aware: Optional[bool] = None,
+                 **_ignored):
+        """Sample under the operator's guidance, with the JAX package's
+        arguments (`key` becomes `generator`; arguments the pipeline does not
+        use, such as run.py's `prompt_type` for MusicLDM, are ignored as
+        there). Under "ditto" the losses are those of each outer iteration.
+        `phase_aware` (phase retrieval with a measurement only) rebuilds the
+        output from the measured |STFT| with the phase of the decoded audio,
+        by 4 alternating projections; None turns it on when the noiser's
+        `sigma` is at most 1e-6 (off under Poisson noise), as the JAX package
+        does by default."""
         device = self.device
         sr = self.vocoder_cfg.sampling_rate
         height, owl = compute_geometry(
@@ -273,16 +343,28 @@ class MusicLDMPipeline:
             measurement = torch.as_tensor(measurement, dtype=torch.float32, device=device)
             if needs_guidance:
                 loss_fn = self.make_loss_fn(measurement, owl, supervised_space)
-        step_fn = make_step_fn(self.schedule, cfg, loss_fn)
         timesteps = self.schedule.timesteps(num_inference_steps)
 
-        def model_fn(x, t):
-            return self._eps(prompt_embeds, x, t, guidance_scale)
+        if self.scheduler_name == "ditto":
+            # one draw per step, once a call; every outer iteration reuses it
+            draws = ditto_draws(cfg, latents.shape, len(timesteps), generator, self.dtype,
+                                device)
+            objective = self.ditto_objective(prompt_embeds, guidance_scale, loss_fn, cfg,
+                                             timesteps, draws)
+            final, losses = run_ditto(objective, latents, optim_outer_loop, ip_guidance_rate)
+        else:
+            step_fn = make_step_fn(self.schedule, cfg, loss_fn)
 
-        final, losses = denoise_with_nan_retry(
-            lambda lat: run_denoise_loop(step_fn, model_fn, lat, timesteps, generator,
-                                         callback),
-            latents, generator)
+            def run(lat):
+                if needs_guidance and optim_prompt:   # embeddings fresh each run
+                    model_fn = self._optim_prompt_model_fn(
+                        loss_fn, prompt_embeds, guidance_scale, float(optim_prompt_learning_rate))
+                else:
+                    def model_fn(x, t):
+                        return self._eps(prompt_embeds, x, t, guidance_scale)
+                return run_denoise_loop(step_fn, model_fn, lat, timesteps, generator,
+                                        callback, callback_steps, show_progress)
+            final, losses = denoise_with_nan_retry(run, latents, generator)
 
         if output_type == "latent":
             out = AudioPipelineOutput(audios=final.cpu().numpy())
@@ -298,3 +380,28 @@ class MusicLDMPipeline:
         if return_losses:
             return out, losses.cpu().numpy()
         return out
+
+    # ------------------------------------------------------------- factories
+    @classmethod
+    def from_pretrained(cls, checkpoint_dir, scheduler_name: str = "ddim", operator=None,
+                        schedule=None, device="cuda", weight_dtype=torch.float32, **routes):
+        """Load from a local HF-snapshot directory (`models/checkpoint.py`),
+        on the card unless the caller asks for the CPU."""
+        from ..models.checkpoint import load_musicldm
+        return load_musicldm(checkpoint_dir, scheduler_name=scheduler_name, operator=operator,
+                             schedule=schedule, device=device, weight_dtype=weight_dtype,
+                             **routes)
+
+    @classmethod
+    def tiny(cls, scheduler_name: str = "ddim", operator=None, seed: int = 0, device="cuda",
+             weight_dtype=torch.float32, **routes):
+        """Seeded random weights at the JAX package's tiny configs, with the
+        CLAP text tower and the byte tokenizer (16 tokens): the model
+        structure at a CPU-second scale."""
+        text = init_flax_style(ClapTextModelWithProjection(tiny_clap_text_config()), seed + 3)
+        return cls.random(tiny_unet_config(), tiny_vae_config(), tiny_hifigan_config(),
+                          seed=seed, device=device, weight_dtype=weight_dtype,
+                          scheduler_name=scheduler_name,
+                          operator=operator if operator is not None else IdentityOperator(),
+                          text_encoder=text.to(device=device, dtype=weight_dtype),
+                          tokenizer=functools.partial(byte_tokenizer, maxlen=16), **routes)

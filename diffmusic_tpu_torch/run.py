@@ -1,0 +1,268 @@
+"""Inference CLI of the port: the twin of the JAX package's `run.py`.
+
+    python -m diffmusic_tpu_torch.run -c dps -t music_inpainting -d moises \
+        -m musicldm --checkpoint_dir CKPT            # on the card
+    python -m diffmusic_tpu_torch.run --device cpu --tiny --num_inference_steps 2
+
+The same flags as `run.py`, less `--mesh`, plus `--device` (default cuda);
+the same config composition over `configs/` (read from the working directory
+when it holds the scheduler's YAML file, else from beside the repo); the same
+output tree outputs/{model}/{data}/{scheduler}/{task}/{wav,mel}_{input,recon,label},
+with files that exist skipped. Draws come from one seeded `torch.Generator`
+on the device, in place of `jax.random.key(0)`.
+
+What the port does not have yet raises before any sampling, naming its
+ROADMAP item: `-m stable_audio` (Queue 1 item 9); `-t style_guidance`,
+`--prompt_type clap` and a `--transcription` with AudioLDM2, and `-nw` above
+1 (CLAP re-ranking), which need the CLAP audio tower or VITS (item 7).
+"""
+
+import os
+from argparse import ArgumentParser, Namespace
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .constants import (AUDIOLDM2, CLAP, CONFIG_PATH, DDIM, DIFFMUSIC, DITTO, DPS, DSG,
+                        MEL_SPECTROGRAM, MOISES, MPGD, MUSIC_DEREVERBERATION,
+                        MUSIC_GENERATION, MUSIC_INPAINTING, MUSICCAPS, MUSICLDM, NULL_TEXT,
+                        PHASE_RETRIEVAL, STABLE_AUDIO, STYLE_GUIDANCE, SUPER_RESOLUTION, TAG,
+                        WAV_FORM)
+from .pipelines.base import NotPortedError
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def parse_arguments(argv=None) -> Namespace:
+    parser = ArgumentParser(description="Guided music restoration with MusicLDM / AudioLDM2")
+    parser.add_argument("-c", "--config_name", type=str, default=DIFFMUSIC,
+                        choices=[DDIM, DPS, MPGD, DSG, DITTO, DIFFMUSIC])
+    parser.add_argument("-t", "--task", type=str, default=MUSIC_INPAINTING,
+                        choices=[MUSIC_GENERATION, MUSIC_INPAINTING, SUPER_RESOLUTION,
+                                 PHASE_RETRIEVAL, MUSIC_DEREVERBERATION, STYLE_GUIDANCE])
+    parser.add_argument("-d", "--datasets", type=str, default=MOISES,
+                        choices=[MOISES, MUSICCAPS])
+    parser.add_argument("-m", "--model", type=str, default=AUDIOLDM2,
+                        choices=[AUDIOLDM2, MUSICLDM, STABLE_AUDIO])
+    parser.add_argument("--mask_type", type=str, default="box",
+                        choices=["box", "random", "periodic"])
+    parser.add_argument("--supervised_space", type=str, default=MEL_SPECTROGRAM,
+                        choices=[WAV_FORM, MEL_SPECTROGRAM])
+    parser.add_argument("--prompt_type", type=str, default=NULL_TEXT,
+                        choices=[NULL_TEXT, TAG, CLAP])
+    parser.add_argument("-p", "--prompt", type=str, default="")
+    parser.add_argument("-np", "--negative_prompt", type=str, default=None)
+    parser.add_argument("--transcription", type=str, required=False, default="",
+                        help="Transcription for Text-to-Speech")
+    parser.add_argument("--show_progress", action="store_true")
+    parser.add_argument("--checkpoint_dir", type=str, default=None,
+                        help="local HF-snapshot directory of the model's weights")
+    parser.add_argument("--tiny", action="store_true",
+                        help="seeded random weights at tiny widths (a smoke run)")
+    parser.add_argument("--num_inference_steps", type=int, default=None,
+                        help="override config num_inference_steps")
+    parser.add_argument("-nw", "--num_waveforms_per_prompt", type=int, default=1,
+                        help="candidates per prompt; above 1 needs CLAP re-ranking")
+    parser.add_argument("-o", "--override", action="append", default=[],
+                        help="dotted config override, repeatable: "
+                             "-o model.pipe.audio_length_in_s=5 -o data.root=...")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device the models run on (cuda, or cpu)")
+    return parser.parse_args(argv)
+
+
+def check_supported(args) -> None:
+    """Raise for what the port does not have yet, before anything is loaded."""
+    if args.model == STABLE_AUDIO:
+        raise SystemExit("stable_audio is not ported yet (ROADMAP Queue 1 item 9)")
+    if args.task == STYLE_GUIDANCE:
+        raise NotPortedError("style_guidance needs the CLAP audio tower's frame features "
+                             "(HTSAT), which is not ported yet (ROADMAP Queue 1 item 7)")
+    if args.num_waveforms_per_prompt > 1:
+        raise NotPortedError("-nw above 1 re-ranks the candidates with the CLAP audio tower "
+                             "(HTSAT), which is not ported yet (ROADMAP Queue 1 item 7)")
+    if args.model == AUDIOLDM2:
+        from .pipelines.audioldm2 import HTSAT, VITS
+        if args.prompt_type == CLAP:
+            raise NotPortedError(HTSAT)
+        if args.transcription:
+            raise NotPortedError(VITS)
+
+
+def build_operator(args, config, noiser):
+    """Task -> (operator, downsample scale), as the JAX `run.py` builds it."""
+    from .inverse_problem import (IdentityOperator, MusicDereverberationOperator,
+                                  MusicInpaintingOperator, PhaseRetrievalOperator,
+                                  SuperResolutionOperator)
+    task = args.task
+    downsample_scale = 1
+    if task == MUSIC_GENERATION:
+        op = IdentityOperator(sample_rate=config.data.sample_rate)
+    elif task == MUSIC_INPAINTING:
+        op = MusicInpaintingOperator(
+            audio_length_in_s=config.model.pipe.audio_length_in_s,
+            sample_rate=config.data.sample_rate, mask_type=args.mask_type,
+            start_inpainting_s=config.data.start_inpainting_s - config.data.start_s,
+            end_inpainting_s=config.data.end_inpainting_s - config.data.start_s,
+            mask_percentage=0.3, interval_s=1, mask_duration_s=0.1, noiser=noiser)
+    elif task == SUPER_RESOLUTION:
+        downsample_scale = 2
+        op = SuperResolutionOperator(sample_rate=config.data.sample_rate,
+                                     scale=downsample_scale, noiser=noiser)
+    elif task == PHASE_RETRIEVAL:
+        op = PhaseRetrievalOperator(n_fft=config.data.n_fft, hop_length=config.data.hop_length,
+                                    win_length=config.data.win_length, noiser=noiser)
+    elif task == MUSIC_DEREVERBERATION:
+        op = MusicDereverberationOperator(ir_length=5000, decay_factor=0.99, noiser=noiser)
+    else:
+        raise NotPortedError(f"task {task!r} is not ported yet (ROADMAP Queue 1 item 7)")
+    return op, downsample_scale
+
+
+def load_pipeline(args, config, operator):
+    """The pipeline of `config.model.name` with the config's schedule: seeded
+    tiny weights (`--tiny`) or a local checkpoint (`--checkpoint_dir`), on
+    `--device`."""
+    from .pipelines import AudioLDM2Pipeline, MusicLDMPipeline
+    from .samplers import DiffusionSchedule
+    if config.model.name == STABLE_AUDIO:
+        raise SystemExit("stable_audio is not ported yet (ROADMAP Queue 1 item 9)")
+    cls = {MUSICLDM: MusicLDMPipeline, AUDIOLDM2: AudioLDM2Pipeline}[config.model.name]
+    sched = config.model.scheduler
+    schedule = DiffusionSchedule(
+        num_train_timesteps=sched.num_train_timesteps, beta_start=sched.beta_start,
+        beta_end=sched.beta_end, beta_schedule=sched.beta_schedule,
+        set_alpha_to_one=sched.set_alpha_to_one, steps_offset=sched.steps_offset,
+        timestep_spacing=sched.timestep_spacing)
+    if args.tiny:
+        pipe = cls.tiny(scheduler_name=config.name, operator=operator, device=args.device)
+        pipe.schedule = schedule
+        return pipe
+    if args.checkpoint_dir:
+        return cls.from_pretrained(args.checkpoint_dir, scheduler_name=config.name,
+                                   operator=operator, schedule=schedule, device=args.device)
+    raise SystemExit("pass --checkpoint_dir with a local HF-snapshot directory, or --tiny "
+                     "for the random-weights smoke mode")
+
+
+def config_root(config_name: str) -> str:
+    """configs/ of the working directory when it holds the scheduler's YAML
+    file, else the tree beside this package."""
+    if Path(CONFIG_PATH, f"{config_name}.yaml").is_file():
+        return CONFIG_PATH
+    return str(REPO / CONFIG_PATH)
+
+
+def main(argv=None) -> None:
+    args = parse_arguments(argv)
+    check_supported(args)
+    from .config import compose
+    from .data import get_dataloader, get_dataset, write_wav
+    from .inverse_problem import get_noiser
+    from .ops.mel import Wav2Mel
+    from .pipelines.base import save_mel_spectrogram
+
+    config = compose(config_name=args.config_name, overrides=[
+        f"data={args.datasets}", f"model={args.model}", *args.override],
+        config_path=config_root(args.config_name))
+    if args.num_inference_steps is not None:
+        config.model.pipe.num_inference_steps = args.num_inference_steps
+
+    output_dir = Path("outputs", config.model.name, config.data.name, args.config_name,
+                      args.task)
+    for d in ["wav_input", "wav_recon", "wav_label", "mel_input", "mel_recon", "mel_label"]:
+        os.makedirs(Path(output_dir, d), exist_ok=True)
+
+    device = torch.device(args.device)
+    noiser = get_noiser(**config.inverse_problem.noise)
+    operator, downsample_scale = build_operator(args, config, noiser)
+    pipe = load_pipeline(args, config, operator)
+
+    audio_length_in_s = config.model.pipe.audio_length_in_s
+    sr = config.data.sample_rate
+    out_sr = pipe.vocoder_cfg.sampling_rate
+    wav2mel = Wav2Mel(sample_rate=sr, n_fft=config.data.n_fft,
+                      hop_length=config.data.hop_length, win_length=config.data.win_length,
+                      n_mels=config.data.n_mels, power=config.data.power)
+
+    dataset = get_dataset(
+        name=config.data.name, type=config.data.type, root=config.data.root,
+        sample_rate=sr, audio_length_in_s=audio_length_in_s,
+        start_s=config.data.start_s, end_s=config.data.end_s, transforms=None)
+    loader = get_dataloader(dataset, batch_size=1, num_workers=0, train=False)
+
+    print("=" * 50)
+    print(f"| Model             : {config.model.name}")
+    print(f"| Data              : {config.data.name}")
+    print(f"| Task              : {args.task}")
+    print(f"| Scheduler         : {args.config_name}")
+    print(f"| Supervised Space  : {args.supervised_space}")
+    print(f"| Prompt Type       : {args.prompt_type}")
+    print(f"| Prompt            : '{args.prompt}'")
+    print(f"| Show Progress     : {args.show_progress}")
+    print(f"| Device            : {device}")
+    print(f"| Number of Samples : {len(loader)}")
+    print("=" * 50)
+
+    generator = torch.Generator(device).manual_seed(0)
+    mel_frames = int(audio_length_in_s * 100)
+
+    def mel_of(wave):
+        with torch.no_grad():
+            return wav2mel(wave).cpu().numpy()[:, :, :mel_frames]
+
+    for i, (data, file_name) in enumerate(loader, start=1):
+        print(f"=====> Inference for audio {i}")
+        recon_path = Path(output_dir, "wav_recon", file_name)
+        if recon_path.exists():
+            print(f"File {file_name} already exists. Skipping.")
+            continue
+
+        gt_wave = torch.as_tensor(data, device=device)
+        gt_mel = mel_of(gt_wave)
+        save_mel_spectrogram(gt_mel.transpose(0, 2, 1),
+                             Path(output_dir, "mel_label", file_name).with_suffix(".png"), sr)
+        measurement = operator.forward(gt_wave, generator)
+        ref_wave = None
+        if args.task != PHASE_RETRIEVAL:
+            ref_wave = measurement
+            # the ground truth's mel clamps the frequency axis, so that a
+            # downsampled input renders on the ground truth's scale
+            save_mel_spectrogram(mel_of(ref_wave).transpose(0, 2, 1),
+                                 Path(output_dir, "mel_input", file_name).with_suffix(".png"),
+                                 sr // downsample_scale,
+                                 gt_mel_spectrogram=gt_mel.transpose(0, 2, 1),
+                                 gt_sample_rate=sr)
+
+        out = pipe(
+            latents=None,
+            prompt=args.prompt,
+            negative_prompt=args.negative_prompt,
+            measurement=measurement,
+            eta=config.scheduler.eta,
+            ip_guidance_rate=config.scheduler.ip_guidance_rate,
+            optim_prompt_learning_rate=config.scheduler.optim_prompt_learning_rate,
+            generator=generator,
+            optim_prompt=config.scheduler.optim_prompt,
+            optim_outer_loop=config.scheduler.optim_outer_loop,
+            show_progress=args.show_progress,
+            prompt_type=args.prompt_type,
+            transcription=args.transcription,
+            supervised_space=args.supervised_space,
+            **config.model.pipe,
+        )
+        audio = np.asarray(out.audios)
+
+        write_wav(Path(output_dir, "wav_label", file_name), np.asarray(data)[0], sr)
+        if ref_wave is not None:
+            write_wav(Path(output_dir, "wav_input", file_name), ref_wave.cpu().numpy()[0],
+                      sr // downsample_scale)
+        pred_mel = mel_of(torch.as_tensor(audio, device=device))
+        save_mel_spectrogram(pred_mel.transpose(0, 2, 1),
+                             Path(output_dir, "mel_recon", file_name).with_suffix(".png"), sr)
+        write_wav(recon_path, audio[0], out_sr)
+
+
+if __name__ == "__main__":
+    main()

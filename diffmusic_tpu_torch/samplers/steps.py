@@ -1,4 +1,4 @@
-"""DDIM, DPS, MPGD, DSG and DiffMusic step functions (port of
+"""DDIM, DPS, MPGD, DSG, DiffMusic and DITTO step functions (port of
 `diffmusic_tpu/samplers/steps.py`).
 
 Each returns (prev_sample, pred_original_sample, rec_loss). `loss_fn` maps the
@@ -6,8 +6,15 @@ pred-x0 latent to a scalar; each guided gradient is `torch.autograd.grad` of it
 on a detached leaf (x_t, or x0-hat for MPGD), taken under
 `torch.enable_grad()` so that callers may run the UNet under
 `torch.no_grad()`. Norms and the slerp's weights stay device tensors: no step
-reads a value back to the host. DITTO (an outer loop over the initial
-latents) is still to be ported.
+reads a value back to the host.
+
+DITTO's inner step is plain DDIM with eta noise, differentiable with respect
+to the sample (the pipeline's outer loop differentiates the whole chain with
+respect to the initial latents). It takes its noise already drawn
+(`ditto_draws`), not a generator: the chain runs under
+`torch.utils.checkpoint`, which restores the global RNG in the recompute but
+not a generator passed in, so a draw inside the step would differ between
+the forward and the recompute.
 """
 
 from dataclasses import dataclass
@@ -161,19 +168,51 @@ def diffmusic_step(schedule: DiffusionSchedule, cfg: SamplerConfig,
     return prev, x0, scaled * 1000.0
 
 
+def ditto_step(schedule: DiffusionSchedule, cfg: SamplerConfig,
+               eps: torch.Tensor, t: int, sample: torch.Tensor,
+               noise: Optional[torch.Tensor] = None, loss_fn: Optional[LossFn] = None):
+    """DITTO's inner step: the DDIM mean from the recomposed eps, plus
+    std * noise at eta > 0 (`noise` drawn beforehand by `ditto_draws`, and
+    required there: JAX always draws); the loss, where a loss_fn is given, is
+    taken on prev (0 otherwise). Nothing is detached."""
+    if cfg.eta > 0 and noise is None:
+        raise ValueError(f"ditto_step: eta {cfg.eta} needs its noise (ditto_draws)")
+    a_prev, var = _common(schedule, t, cfg.num_inference_steps)
+    std = np.float32(cfg.eta) * var ** np.float32(0.5)
+    x0 = schedule.pred_original(eps, t, sample)
+    prev = _ddim_mean(a_prev, std, x0, _recomposed_eps(schedule, t, sample, x0))
+    if cfg.eta > 0:
+        prev = prev + float(std) * noise
+    loss = (loss_fn(prev) if loss_fn is not None
+            else torch.zeros((), dtype=torch.float32, device=sample.device))
+    return prev, x0, loss
+
+
+def ditto_draws(cfg: SamplerConfig, shape, n: int, generator: Optional[torch.Generator],
+                dtype, device) -> list:
+    """The n steps' noise of a DITTO chain, drawn in step order before the
+    chain runs; None for each step at eta 0 (no draw)."""
+    if cfg.eta <= 0:
+        return [None] * n
+    return [randn(shape, generator, dtype, device) for _ in range(n)]
+
+
 _GUIDED = {"dps": dps_step, "mpgd": mpgd_step, "dsg": dsg_step,
            "diffmusic": diffmusic_step}
 
 
 def make_step_fn(schedule: DiffusionSchedule, cfg: SamplerConfig,
                  loss_fn: Optional[LossFn] = None):
-    """Bind a sampler into `(eps, t, sample, generator) -> (prev, x0, loss)`."""
+    """Bind a sampler into `(eps, t, sample, generator) -> (prev, x0, loss)`;
+    DITTO's step takes its drawn noise in the generator's place."""
     if cfg.name == "ddim":
         def step(eps, t, sample, generator=None):
             return ddim_step(schedule, cfg, eps, t, sample, generator)
         return step
     if cfg.name == "ditto":
-        raise ValueError("Sampler 'ditto' is not ported yet (ROADMAP Queue 1 item 4)")
+        def step(eps, t, sample, noise=None):
+            return ditto_step(schedule, cfg, eps, t, sample, noise, loss_fn)
+        return step
     if cfg.name not in _GUIDED:
         raise ValueError(f"Unknown sampler {cfg.name!r}")
     if loss_fn is None:

@@ -28,8 +28,15 @@ rounding moves a product by ~2^-8 of its size, and the FF sums 4C of them.
 Modes: self-attention, dual-cross (8 keys of width 96, then 12 of width 64
 whose last 5 are masked), bounded at amplitude 1 and 5 (the bound's slack
 grows with the logits).
+
+The launch path, through a stand-in library that computes the fp32
+kernel's contract from the operands it is handed: a block of 16 or 32
+channels goes zero-padded to one 64-channel slice with the LayerNorms over
+its own channels, the padding stays exactly zero, and the result equals the
+plain version within 1e-5; what the kernel does not take raises.
 """
 
+import ctypes
 import math
 
 import jax.numpy as jnp
@@ -41,6 +48,7 @@ import torch.nn.functional as F
 import diffmusic_tpu.pallas.transformer_kernel as jtk
 from diffmusic_tpu_torch import kernels
 from diffmusic_tpu_torch.kernels import transformer_block as ttb
+from diffmusic_tpu_torch.kernels.attention import attention_plain
 
 TOL = 3e-2          # chip_smoke.TOL_BLOCK_BF16
 KC = 64             # keys per chunk (csrc/mma_attention.cuh)
@@ -212,3 +220,104 @@ def test_emulated_attention_is_the_softmax(rng):
     want = torch.softmax(q @ k.T / math.sqrt(8), dim=1) @ v
     assert rel(emulate_attention(q, k, v, kmax=kmax), want) <= 1e-2
 
+
+
+# ----------------------------------------------------------- the launch path
+class ContractLibrary:
+    """Stands in for the kernel library on CPU fp32 tensors: computes, from
+    the operands the wrapper hands `dm_transformer_block`, what the fp32
+    kernel computes under its contract (C whole 64-channel slices, the
+    LayerNorms' statistics over the first Cn), and keeps the padded
+    channels of its output."""
+
+    def __init__(self):
+        self.launches, self.padding = [], None
+
+    def dm_transformer_block_smem(self, code, c):
+        return 0
+
+    def dm_transformer_block(self, code, args, out, b, t, c, cn, n, tk0, tk1, scale, kmax,
+                             stream):
+        self.launches.append((code, b, t, c, cn, n, tk0, tk1))
+        addr = ctypes.cast(args, ctypes.POINTER(ctypes.c_void_p))
+
+        def view(address, *shape):
+            return np.ctypeslib.as_array(ctypes.cast(address, ctypes.POINTER(ctypes.c_float)),
+                                         shape=shape)
+
+        arr = lambda i, *shape: torch.from_numpy(view(addr[i], *shape).copy())
+        heads = c // 8
+
+        def norm(r, s, bias):
+            mu = r[..., :cn].mean(-1, keepdim=True)
+            var = (r[..., :cn] - mu).square().mean(-1, keepdim=True)
+            return (r - mu) * torch.rsqrt(var + 1e-6) * s + bias
+
+        def attend(q, k, v, bias=None, bounded=False):
+            split = lambda a: a.reshape(b, a.shape[1], heads, 8)
+            o = (ttb.bounded_attention_plain(split(q), split(k), split(v)) if bounded else
+                 attention_plain(split(q), split(k), split(v), bias))
+            return o.reshape(b, t, c)
+
+        x, kx, vx = (arr(i, b, t, c) for i in range(3))
+        if kmax is not None:
+            assert torch.equal(torch.from_numpy(view(kmax, b, heads).copy()),
+                               ttb.key_norm_max(kx, heads))
+        h1 = norm(x, arr(3, c), arr(4, c))
+        res = x + attend(h1 @ arr(5, c, c), kx, vx, bounded=kmax is not None) @ arr(6, c, c) \
+            + arr(7, c)
+        for i, tk in enumerate((tk0, tk1)[:n]):
+            o = 14 + 8 * i
+            hc = norm(res, arr(o + 3, c), arr(o + 4, c))
+            bias = arr(o + 2, b, tk)[:, None, None, :]
+            res = res + attend(hc @ arr(o + 5, c, c), arr(o, b, tk, c), arr(o + 1, b, tk, c),
+                               bias) @ arr(o + 6, c, c) + arr(o + 7, c)
+        a, g = (norm(res, arr(8, c), arr(9, c)) @ arr(10, c, 8 * c) + arr(11, 8 * c)).chunk(2, -1)
+        y = res + (a * F.gelu(g)) @ arr(12, 4 * c, c) + arr(13, c)
+        self.padding = y[..., cn:]
+        view(out, b, t, c)[...] = y.numpy()
+        return 0
+
+
+def stand_in(monkeypatch) -> ContractLibrary:
+    """The block's launch path on CPU tensors seen as on one CUDA device."""
+    from diffmusic_tpu_torch.kernels import build
+    lib = ContractLibrary()
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(build, "stream_ptr", lambda device: 7)
+    monkeypatch.setattr(build, "check_tensors", lambda name, *tensors: None)
+    monkeypatch.setattr(ttb, "use_plain", lambda x, name: False)
+    kernels.reset_launch_counts()
+    return lib
+
+
+@pytest.mark.parametrize("c,n_cross,bsoft", [
+    (16, 0, False), (32, 0, False), (16, 2, False), (32, 2, False), (16, 0, True),
+    (32, 2, True), (64, 2, False)], ids=str)
+def test_narrow_block_runs_padded_to_one_slice(rng, monkeypatch, c, n_cross, bsoft):
+    """A block narrower than a 64-channel slice (the tiny configs' 16 and 32
+    channels, which JAX fuses) reaches the kernel zero-padded to one slice,
+    with Cn = C: under the kernel's contract the padded channels stay exactly
+    zero and the block equals its plain version; a whole slice goes as it
+    is."""
+    lib = stand_in(monkeypatch)
+    x, p, ctx, biases = operands(rng, c, 100, n_cross)
+    got = ttb.fused_transformer_block(x, p, c // 8, 8, ctx, biases, bsoft)
+    name = ("fused_transformer_block_bsoft" if bsoft else
+            "fused_transformer_block_cross" if n_cross else "fused_transformer_block")
+    assert kernels.launch_counts()[name] == 1
+    tks = [a.shape[1] for a in ctx] + [0] * (2 - n_cross)
+    assert lib.launches == [(0, 1, 100, max(c, 64), c, n_cross, *tks)]
+    assert got.shape == x.shape and not bool(lib.padding.any())
+    want = ttb.transformer_block_plain(x, p, c // 8, 8, ctx, biases, bsoft)
+    assert rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("c,heads,head_dim", [(128, 8, 16), (384, 48, 8), (24, 4, 8)], ids=str)
+def test_block_kernel_refuses_what_it_does_not_take(rng, monkeypatch, c, heads, head_dim):
+    """head_dim 8 and C = heads * 8 up to 32 heads, or a ValueError."""
+    lib = stand_in(monkeypatch)
+    x, p, _, _ = operands(rng, c, 40, 0)
+    with pytest.raises(ValueError, match="the kernel takes head_dim 8"):
+        ttb.fused_transformer_block(x, p, heads, head_dim)
+    assert not lib.launches

@@ -23,7 +23,8 @@ dilation), on the canvas and off it; the bf16
 single conv (the same pass) at the slice's 6 ch512 k11 calls and, on the
 canvas, forward and adjoint, at every resblock conv of stages 0-2. The bf16
 transformer block (mma.sync attention, a cluster per 32-row tile) runs at
-both slice levels in all three modes. The fused GroupNorm (a cluster of
+both slice levels in all three modes, and, with the fp32 one, at the tiny
+configs' 16 and 32 channels, padded to one 64-channel slice. The fused GroupNorm (a cluster of
 blocks a group, on its plan) runs at each of the fused route's 20 calls in
 bf16 and fp32, and a full-width UNet forward counts its 60 launches. The
 fused mel spectrogram is fp32 only, on both of its paths: 1e-4 of max
@@ -194,6 +195,24 @@ def test_dual_cross_block_kernel_on_card(cuda, gen, dtype, tol):
     assert kernels.launch_counts()["fused_transformer_block_cross"] == 1
     assert kernels.launch_counts()["fused_transformer_block"] == 0
     assert rel(out, ttb.transformer_block_plain(x, p, c // 8, 8, ctx, biases)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("c,cross,bsoft", [(16, (), False), (32, (), False), (32, (96, 64), False),
+                                           (16, (), True)])
+def test_narrow_block_kernel_on_card(cuda, gen, dtype, tol, c, cross, bsoft):
+    """The tiny configs' 16- and 32-channel blocks run padded to one
+    64-channel slice, with the LayerNorms over their own channels."""
+    x = arr(gen, 2, 600, c, dtype=dtype)
+    p = block_params(gen, c, dtype, cross)
+    ctx = tuple(arr(gen, 2, 8, d, dtype=dtype) for d in cross)
+    biases = tuple(torch.zeros(2, 1, 8, device=cuda) for _ in cross)
+    kernels.reset_launch_counts()
+    out = ttb.fused_transformer_block(x, p, c // 8, 8, ctx, biases, bsoft)
+    torch.cuda.synchronize()
+    assert sum(kernels.launch_counts().values()) == 1 and out.shape == x.shape
+    assert rel(out, ttb.transformer_block_plain(x, p, c // 8, 8, ctx, biases, bsoft)) <= tol
 
 
 @pytest.mark.cuda

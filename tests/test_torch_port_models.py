@@ -160,8 +160,7 @@ def test_weight_carry_round_trip(which, request):
     params, model = request.getfixturevalue(which)
     cfg = {"unet": UNET, "vae": VAE, "vocoder": VOC}[which]
     state = model.state_dict()
-    leaves = {p: v for p, v in flatten_dict(params["params"]).items()
-              if not (which == "vae" and p[0] == "encoder")}
+    leaves = flatten_dict(params["params"])   # the VAE's encoder too
     assert len(leaves) == len(state)
     for path, leaf in leaves.items():
         key = ".".join(path[:-1]) + (".bias" if path[-1] == "bias" else ".weight")

@@ -200,9 +200,10 @@ def test_steps_match_jax(rng, name):
 
 
 def test_port_imports_no_jax():
-    """The port package and chip_smoke's imports leave jax and the JAX package
-    out of sys.modules."""
-    code = ("import sys, chip_smoke, diffmusic_tpu_torch.pipelines, "
+    """The port package, chip_smoke's imports and the snapshot writer leave
+    jax and the JAX package out of sys.modules."""
+    code = ("import sys; sys.path.insert(0, 'tests'); "
+            "import chip_smoke, diffmusic_tpu_torch.pipelines, "
             "diffmusic_tpu_torch.pipelines.audioldm2, diffmusic_tpu_torch.kernels.build, "
             "diffmusic_tpu_torch.kernels.attention, diffmusic_tpu_torch.models.convert, "
             "diffmusic_tpu_torch.models.clap, diffmusic_tpu_torch.models.t5, "
@@ -213,7 +214,11 @@ def test_port_imports_no_jax():
             "diffmusic_tpu_torch.kernels.mel, diffmusic_tpu_torch.samplers, "
             "diffmusic_tpu_torch.inverse_problem, diffmusic_tpu_torch.ops, "
             "diffmusic_tpu_torch.ops.filters, diffmusic_tpu_torch.ops.masks, "
-            "diffmusic_tpu_torch.pipelines.base; "
+            "diffmusic_tpu_torch.pipelines.base, diffmusic_tpu_torch.run, "
+            "diffmusic_tpu_torch.config, diffmusic_tpu_torch.constants, "
+            "diffmusic_tpu_torch.data.dataloader, diffmusic_tpu_torch.models.checkpoint, "
+            "diffmusic_tpu_torch.models.vae, diffmusic_tpu_torch.models.hifigan, "
+            "diffmusic_tpu_torch.pipelines.musicldm, test_torch_port_snapshot; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'diffmusic_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

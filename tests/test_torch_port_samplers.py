@@ -93,8 +93,17 @@ def test_sampler_config_and_step_names():
     for name in ("dps",) + SAMPLERS:
         with pytest.raises(ValueError, match="requires a loss_fn"):
             make_step_fn(DiffusionSchedule(), SamplerConfig(name=name))
-    with pytest.raises(ValueError, match="Queue 1 item 4"):
-        make_step_fn(DiffusionSchedule(), SamplerConfig(name="ditto"), lambda x: x.sum())
+    # DITTO's inner step needs no loss_fn, and takes its drawn noise
+    ditto = make_step_fn(DiffusionSchedule(), SamplerConfig(name="ditto", eta=0.0,
+                                                            num_inference_steps=20))
+    prev, x0, loss = ditto(torch.ones(1, 8, 2, 2), 501, torch.ones(1, 8, 2, 2), None)
+    assert prev.shape == x0.shape == (1, 8, 2, 2) and float(loss) == 0.0
+    # at eta > 0 it needs that noise: a chain without its draws must not
+    # quietly run noise-free
+    ditto = make_step_fn(DiffusionSchedule(), SamplerConfig(name="ditto", eta=1.0,
+                                                            num_inference_steps=20))
+    with pytest.raises(ValueError, match="needs its noise"):
+        ditto(torch.ones(1, 8, 2, 2), 501, torch.ones(1, 8, 2, 2), None)
     with pytest.raises(ValueError, match="Unknown sampler"):
         make_step_fn(DiffusionSchedule(), SamplerConfig(name="euler"), lambda x: x.sum())
 

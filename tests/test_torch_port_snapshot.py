@@ -1,0 +1,370 @@
+"""Synthetic diffusers-layout checkpoints for the port's loader, and the
+loader's own checks that need no JAX.
+
+`write_snapshot(root, modules)` writes an HF-snapshot directory: per module a
+`config.json` in the diffusers / transformers schema and the weights as
+safetensors (`write_safetensors`, a writer of its own, so that this file
+needs only torch and numpy and `chip_smoke.py` can import it). The state
+dicts carry the real key grammar: the UNet's and the VAE's come from the
+meta-device modules of `torch_ref_diffusers.py` (the keys of
+`test_checkpoint.py::_synth_diffusers_unet_sd`), the vocoder's, CLAP's, T5's,
+GPT-2's and the projection model's from the transformers / diffusers names,
+with the keys the converters leave unread (the vocoder's `mean` / `scale`,
+T5's tied `encoder.embed_tokens.weight`, GPT-2's `wte.weight`, CLAP's
+`logit_scale_a` / `_t`). Values are seeded normals: weights over
+sqrt(fan-in), norm scales near 1, biases near 0.
+
+Checks here: the safetensors reader against the `safetensors` package
+(F32, F16, BF16, I64; files written by either side; a sharded module), and
+that a load imports neither `safetensors`, `yaml` nor `transformers`.
+"""
+
+import json
+import struct
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+TESTS = Path(__file__).resolve().parent
+REPO = TESTS.parent
+
+_TAGS = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+         torch.int64: "I64", torch.int32: "I32", torch.float64: "F64"}
+
+
+def write_safetensors(path, tensors: dict, metadata=None) -> None:
+    """A .safetensors file of numpy arrays or CPU tensors: the 8-byte header
+    length, the JSON header (padded with spaces to 8 bytes), the buffers in
+    name order."""
+    header, blobs, offset = {}, [], 0
+    if metadata:
+        header["__metadata__"] = metadata
+    for name in sorted(tensors):
+        t = torch.as_tensor(tensors[name]).contiguous()
+        data = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        header[name] = {"dtype": _TAGS[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for data in blobs:
+            f.write(data)
+
+
+def _values(shapes: dict, seed: int) -> dict:
+    """Seeded float32 values for {name: shape}."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in shapes.items():
+        shape = tuple(shape)
+        x = rng.standard_normal(shape, dtype=np.float32)
+        leaf = name.rsplit(".", 1)[-1]
+        if len(shape) >= 2:
+            x *= np.float32(1.0 / np.sqrt(np.prod(shape[1:])))
+        elif leaf in ("weight", "scale"):
+            x = np.float32(1.0) + np.float32(0.1) * np.abs(x)
+        else:
+            x *= np.float32(0.1)
+        out[name] = x
+    return out
+
+
+def _meta_shapes(module) -> dict:
+    # diffusers' VAE attention keeps to_q/... under the block, not under .attn
+    return {k.replace(".attn.to_", ".to_"): tuple(v.shape)
+            for k, v in module.state_dict().items()}
+
+
+def unet_json(cfg) -> dict:
+    return {"_class_name": "UNet2DConditionModel", "sample_size": cfg.sample_size,
+            "in_channels": cfg.in_channels, "out_channels": cfg.out_channels,
+            "block_out_channels": list(cfg.block_out_channels),
+            "down_block_types": ["CrossAttnDownBlock2D" if a else "DownBlock2D"
+                                 for a in cfg.has_attention],
+            "layers_per_block": cfg.layers_per_block,
+            "attention_head_dim": cfg.attention_head_dim,
+            "norm_num_groups": cfg.norm_num_groups,
+            "cross_attention_dim": list(cfg.cross_attention_dims) or None,
+            "class_embed_type": cfg.class_embed_type,
+            "projection_class_embeddings_input_dim": cfg.projection_class_embeddings_input_dim,
+            "class_embeddings_concat": cfg.class_embeddings_concat}
+
+
+def unet_shapes(cfg) -> dict:
+    sys.path.insert(0, str(TESTS))
+    from torch_ref_diffusers import TorchUNet
+    with torch.device("meta"):
+        return _meta_shapes(TorchUNet(cfg))
+
+
+def vae_json(cfg) -> dict:
+    return {"_class_name": "AutoencoderKL", "in_channels": cfg.in_channels,
+            "out_channels": cfg.out_channels, "latent_channels": cfg.latent_channels,
+            "block_out_channels": list(cfg.block_out_channels),
+            "layers_per_block": cfg.layers_per_block, "norm_num_groups": cfg.norm_num_groups,
+            "scaling_factor": cfg.scaling_factor}
+
+
+def vae_shapes(cfg) -> dict:
+    sys.path.insert(0, str(TESTS))
+    from torch_ref_diffusers import TorchVAE
+    with torch.device("meta"):
+        return _meta_shapes(TorchVAE(cfg))
+
+
+def vocoder_json(cfg) -> dict:
+    return {"_class_name": "SpeechT5HifiGan", "model_in_dim": cfg.model_in_dim,
+            "sampling_rate": cfg.sampling_rate,
+            "upsample_initial_channel": cfg.upsample_initial_channel,
+            "upsample_rates": list(cfg.upsample_rates),
+            "upsample_kernel_sizes": list(cfg.upsample_kernel_sizes),
+            "resblock_kernel_sizes": list(cfg.resblock_kernel_sizes),
+            "resblock_dilation_sizes": [list(d) for d in cfg.resblock_dilation_sizes],
+            "leaky_relu_slope": cfg.leaky_relu_slope, "normalize_before": cfg.normalize_before}
+
+
+def vocoder_shapes(cfg) -> dict:
+    """transformers SpeechT5HifiGan's keys (its input statistics included)."""
+    uic, nk = cfg.upsample_initial_channel, len(cfg.resblock_kernel_sizes)
+    s = {"conv_pre.weight": (uic, cfg.model_in_dim, 7), "conv_pre.bias": (uic,),
+         "mean": (cfg.model_in_dim,), "scale": (cfg.model_in_dim,)}
+    for i, k in enumerate(cfg.upsample_kernel_sizes):
+        cin, ch = uic // 2 ** i, uic // 2 ** (i + 1)
+        s[f"upsampler.{i}.weight"], s[f"upsampler.{i}.bias"] = (cin, ch, k), (ch,)
+        for j, (rk, dil) in enumerate(zip(cfg.resblock_kernel_sizes,
+                                          cfg.resblock_dilation_sizes)):
+            for conv in ("convs1", "convs2"):
+                for n in range(len(dil)):
+                    p = f"resblocks.{i * nk + j}.{conv}.{n}"
+                    s[f"{p}.weight"], s[f"{p}.bias"] = (ch, ch, rk), (ch,)
+    last = uic // 2 ** len(cfg.upsample_rates)
+    s["conv_post.weight"], s["conv_post.bias"] = (1, last, 7), (1,)
+    return s
+
+
+def clap_json(cfg) -> dict:
+    return {"model_type": "clap", "projection_dim": cfg.projection_dim,
+            "text_config": {"vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+                            "num_hidden_layers": cfg.num_hidden_layers,
+                            "num_attention_heads": cfg.num_attention_heads,
+                            "intermediate_size": cfg.intermediate_size,
+                            "max_position_embeddings": cfg.max_position_embeddings}}
+
+
+def clap_text_shapes(cfg) -> dict:
+    """A ClapModel's text tower, text projection and logit scales."""
+    h, f, p = cfg.hidden_size, cfg.intermediate_size, cfg.projection_dim
+    e = "text_model.embeddings"
+    s = {f"{e}.word_embeddings.weight": (cfg.vocab_size, h),
+         f"{e}.position_embeddings.weight": (cfg.max_position_embeddings, h),
+         f"{e}.token_type_embeddings.weight": (cfg.type_vocab_size, h),
+         f"{e}.LayerNorm.weight": (h,), f"{e}.LayerNorm.bias": (h,),
+         "text_model.pooler.dense.weight": (h, h), "text_model.pooler.dense.bias": (h,),
+         "text_projection.linear1.weight": (p, h), "text_projection.linear1.bias": (p,),
+         "text_projection.linear2.weight": (p, p), "text_projection.linear2.bias": (p,),
+         "logit_scale_a": (), "logit_scale_t": ()}
+    for i in range(cfg.num_hidden_layers):
+        b = f"text_model.encoder.layer.{i}"
+        for name, shape in ((f"{b}.attention.self.query", (h, h)),
+                            (f"{b}.attention.self.key", (h, h)),
+                            (f"{b}.attention.self.value", (h, h)),
+                            (f"{b}.attention.output.dense", (h, h)),
+                            (f"{b}.intermediate.dense", (f, h)),
+                            (f"{b}.output.dense", (h, f))):
+            s[f"{name}.weight"], s[f"{name}.bias"] = shape, (shape[0],)
+        for ln in (f"{b}.attention.output.LayerNorm", f"{b}.output.LayerNorm"):
+            s[f"{ln}.weight"], s[f"{ln}.bias"] = (h,), (h,)
+    return s
+
+
+def t5_json(cfg) -> dict:
+    return {"model_type": "t5", "vocab_size": cfg.vocab_size, "d_model": cfg.d_model,
+            "d_kv": cfg.d_kv, "d_ff": cfg.d_ff, "num_layers": cfg.num_layers,
+            "num_heads": cfg.num_heads,
+            "feed_forward_proj": "gated-gelu" if cfg.is_gated_act else "relu"}
+
+
+def t5_shapes(cfg) -> dict:
+    d, inner = cfg.d_model, cfg.num_heads * cfg.d_kv
+    s = {"shared.weight": (cfg.vocab_size, d), "encoder.embed_tokens.weight": (cfg.vocab_size, d),
+         "encoder.final_layer_norm.weight": (d,)}
+    for i in range(cfg.num_layers):
+        b = f"encoder.block.{i}.layer"
+        for n in ("q", "k", "v"):
+            s[f"{b}.0.SelfAttention.{n}.weight"] = (inner, d)
+        s[f"{b}.0.SelfAttention.o.weight"] = (d, inner)
+        if i == 0:
+            s[f"{b}.0.SelfAttention.relative_attention_bias.weight"] = (
+                cfg.relative_attention_num_buckets, cfg.num_heads)
+        s[f"{b}.0.layer_norm.weight"] = s[f"{b}.1.layer_norm.weight"] = (d,)
+        for n in (("wi_0", "wi_1") if cfg.is_gated_act else ("wi",)):
+            s[f"{b}.1.DenseReluDense.{n}.weight"] = (cfg.d_ff, d)
+        s[f"{b}.1.DenseReluDense.wo.weight"] = (d, cfg.d_ff)
+    return s
+
+
+def gpt2_json(cfg) -> dict:
+    return {"model_type": "gpt2", "vocab_size": cfg.vocab_size,
+            "n_positions": cfg.n_positions, "n_embd": cfg.n_embd, "n_layer": cfg.n_layer,
+            "n_head": cfg.n_head, "max_new_tokens": 8}
+
+
+def gpt2_shapes(cfg) -> dict:
+    """transformers GPT2Model (Conv1D weights are (in, out))."""
+    n = cfg.n_embd
+    s = {"wte.weight": (cfg.vocab_size, n), "wpe.weight": (cfg.n_positions, n),
+         "ln_f.weight": (n,), "ln_f.bias": (n,)}
+    for i in range(cfg.n_layer):
+        b = f"h.{i}"
+        for name, shape in ((f"{b}.attn.c_attn", (n, 3 * n)), (f"{b}.attn.c_proj", (n, n)),
+                            (f"{b}.mlp.c_fc", (n, 4 * n)), (f"{b}.mlp.c_proj", (4 * n, n))):
+            s[f"{name}.weight"], s[f"{name}.bias"] = shape, (shape[1],)
+        for ln in ("ln_1", "ln_2"):
+            s[f"{b}.{ln}.weight"], s[f"{b}.{ln}.bias"] = (n,), (n,)
+    return s
+
+
+def projection_json(cfg) -> dict:
+    return {"_class_name": "AudioLDM2ProjectionModel", "text_encoder_dim": cfg.text_encoder_dim,
+            "text_encoder_1_dim": cfg.text_encoder_1_dim,
+            "langauge_model_dim": cfg.langauge_model_dim}
+
+
+def projection_shapes(cfg) -> dict:
+    lm = cfg.langauge_model_dim
+    s = {"projection.weight": (lm, cfg.text_encoder_dim), "projection.bias": (lm,),
+         "projection_1.weight": (lm, cfg.text_encoder_1_dim), "projection_1.bias": (lm,)}
+    s.update({n: (lm,) for n in ("sos_embed", "eos_embed", "sos_embed_1", "eos_embed_1")})
+    return s
+
+
+def musicldm_modules(unet_cfg, vae_cfg, voc_cfg, text_cfg, seed: int = 0) -> dict:
+    """{module directory: (config.json dict, state dict of float32 arrays)}
+    of a MusicLDM snapshot."""
+    return {"unet": (unet_json(unet_cfg), _values(unet_shapes(unet_cfg), seed)),
+            "vae": (vae_json(vae_cfg), _values(vae_shapes(vae_cfg), seed + 1)),
+            "vocoder": (vocoder_json(voc_cfg), _values(vocoder_shapes(voc_cfg), seed + 2)),
+            "text_encoder": (clap_json(text_cfg),
+                             _values(clap_text_shapes(text_cfg), seed + 3))}
+
+
+def audioldm2_modules(unet_cfg, vae_cfg, voc_cfg, text_cfg, t5_cfg, gpt2_cfg, proj_cfg,
+                      seed: int = 0) -> dict:
+    """The same for an AudioLDM2 snapshot (GPT-2 under 'model.', as in
+    some snapshots)."""
+    out = musicldm_modules(unet_cfg, vae_cfg, voc_cfg, text_cfg, seed)
+    gpt2 = _values(gpt2_shapes(gpt2_cfg), seed + 5)
+    out.update({"text_encoder_2": (t5_json(t5_cfg), _values(t5_shapes(t5_cfg), seed + 4)),
+                "language_model": (gpt2_json(gpt2_cfg),
+                                   {f"model.{k}": v for k, v in gpt2.items()}),
+                "projection_model": (projection_json(proj_cfg),
+                                     _values(projection_shapes(proj_cfg), seed + 6))})
+    return out
+
+
+WEIGHT_FILES = {"unet": "diffusion_pytorch_model.safetensors",
+                "vae": "diffusion_pytorch_model.safetensors"}
+
+
+def write_snapshot(root, modules: dict, shards: int = 1) -> Path:
+    """Write `modules` as an HF snapshot under `root`; with `shards` > 1 each
+    module's keys are split over that many files."""
+    root = Path(root)
+    for name, (cfg_json, sd) in modules.items():
+        d = root / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "config.json").write_text(json.dumps(cfg_json))
+        if shards == 1:
+            write_safetensors(d / WEIGHT_FILES.get(name, "model.safetensors"), sd)
+            continue
+        keys = sorted(sd)
+        for i in range(shards):
+            write_safetensors(d / f"model-{i + 1:05d}-of-{shards:05d}.safetensors",
+                              {k: sd[k] for k in keys[i::shards]})
+    (root / "model_index.json").write_text(json.dumps({n: ["", ""] for n in modules}))
+    return root
+
+
+def tiny_configs():
+    """The JAX package's tiny configs, from the port's copy."""
+    from diffmusic_tpu_torch.models import configs as c
+    return c.tiny_unet_config(), c.tiny_vae_config(), c.tiny_hifigan_config(), \
+        c.tiny_clap_text_config()
+
+
+# ------------------------------------------------------------------ checks
+def _sample(dtype, rng):
+    if dtype == torch.int64:
+        return {"a": torch.from_numpy(rng.integers(-2**40, 2**40, (3, 5))),
+                "b": torch.arange(7), "empty": torch.zeros((0, 4), dtype=torch.int64)}
+    x = torch.from_numpy(rng.standard_normal((4, 3, 5)).astype(np.float32)).to(dtype)
+    return {"a": x, "b": x[0, 0].clone(), "scalar": x[1, 1, 1].clone()}
+
+
+def test_reader_matches_safetensors_package(tmp_path):
+    import pytest
+    st = pytest.importorskip("safetensors.torch")
+    stn = pytest.importorskip("safetensors.numpy")
+    from diffmusic_tpu_torch.models.checkpoint import read_safetensors
+    rng = np.random.default_rng(0)
+    for dtype in (torch.float32, torch.float16, torch.bfloat16, torch.int64):
+        tensors = _sample(dtype, rng)
+        theirs, ours = tmp_path / "theirs.safetensors", tmp_path / "ours.safetensors"
+        st.save_file(tensors, str(theirs), metadata={"format": "pt"})
+        write_safetensors(ours, tensors, metadata={"format": "pt"})
+        for path in (theirs, ours):
+            got, want = read_safetensors(path), st.load_file(str(path))
+            assert sorted(got) == sorted(want)
+            for k in want:
+                assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+            if dtype != torch.bfloat16:   # numpy has no bfloat16
+                for k, v in stn.load_file(str(path)).items():
+                    assert np.array_equal(got[k].numpy(), v) and got[k].numpy().dtype == v.dtype
+
+
+def test_sharded_module_is_the_union_of_its_shards(tmp_path):
+    import pytest
+    stn = pytest.importorskip("safetensors.numpy")
+    from diffmusic_tpu_torch.models.checkpoint import _load_module_sd
+    unet_cfg = tiny_configs()[0]
+    modules = {"unet": (unet_json(unet_cfg), _values(unet_shapes(unet_cfg), 0))}
+    write_snapshot(tmp_path, modules, shards=3)
+    files = sorted((tmp_path / "unet").glob("*.safetensors"))
+    assert len(files) == 3
+    got = _load_module_sd(tmp_path / "unet")
+    want = {}
+    for f in files:
+        want.update(stn.load_file(str(f)))
+    assert sorted(got) == sorted(want) == sorted(modules["unet"][1])
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+
+
+def test_load_needs_no_safetensors_yaml_or_transformers(tmp_path):
+    """A snapshot loads (both pipelines, on the CPU) with none of the three
+    packages imported: the reader, the config parsers and the converters
+    are the port's own."""
+    from diffmusic_tpu_torch.models import configs as c
+    unet, vae, voc, txt = tiny_configs()
+    write_snapshot(tmp_path / "musicldm", musicldm_modules(unet, vae, voc, txt))
+    t5, gpt2 = c.tiny_t5_config(), c.tiny_gpt2_config()
+    write_snapshot(tmp_path / "audioldm2", audioldm2_modules(
+        c.tiny_unet_config((gpt2.n_embd, t5.d_model)), vae, voc, txt, t5, gpt2,
+        c.ProjectionConfig(txt.projection_dim, t5.d_model, gpt2.n_embd)))
+    code = (f"import sys\n"
+            f"from diffmusic_tpu_torch.pipelines import AudioLDM2Pipeline, MusicLDMPipeline\n"
+            f"m = MusicLDMPipeline.from_pretrained({str(tmp_path / 'musicldm')!r}, device='cpu')\n"
+            f"a = AudioLDM2Pipeline.from_pretrained({str(tmp_path / 'audioldm2')!r}, "
+            f"device='cpu')\n"
+            f"assert m.tokenizer is None and a.tokenizer is None and a.t5_tokenizer is None\n"
+            f"bad = [n for n in ('safetensors', 'yaml', 'transformers', 'jax') "
+            f"if n in sys.modules]\n"
+            f"print(bad)\nsys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

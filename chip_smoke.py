@@ -93,23 +93,47 @@ Phases, in order; any failure raises and the script exits non-zero:
      forward, the loss head and the rest; then 20 DPS steps without and with
      optim_prompt (7 embedding steps) on MusicLDM and on AudioLDM2
      (fuse_cross on), ms per step and launches;
-  12. checkpoint and CLI: a full-width MusicLDM snapshot (fp32, seeded, the
-     diffusers layout of `tests/test_torch_port_snapshot.py`) in a temporary
-     directory, loaded by `MusicLDMPipeline.from_pretrained` on the card
-     (seconds, MB/s), its weights and its output after 2 DPS steps equal to
-     the bit to those of the same weights handed over in memory; then
-     `diffmusic_tpu_torch.run.main --tiny` on the card for -c dps, ditto and
-     diffmusic x -m musicldm and audioldm2, 2 steps each, on a written WAV,
-     each with its UNet launches checked (`cli_launches`: the tiny configs'
-     16- and 32-channel blocks take the block kernel padded to one slice);
-  13. eval: in a temporary directory, EVAL_PAIRS pairs of 10-s clips (pair 0
+  12. clap: the CLAP audio tower (HTSAT), style guidance, CLAP prompts and
+     re-ranking, AudioLDM2's VITS stream (no kernel of their own). First the
+     small fp32 reference, card against CPU, each bound failing its planted
+     fault: the tiny tower's pooled and frame embeddings (F.interpolate in
+     place of JAX's bicubic resize), the style loss's gradient with respect
+     to the waveform (the gram divided by D, not T'), 3 DiffMusic steps of
+     the tiny MusicLDM under style guidance, the tiny AudioLDM2's
+     encode_prompt with prompt_type "clap" and, in its TTS variant, with a
+     transcription (VITS without its relative-position terms), and
+     score_waveforms' order on 4 candidates (the top-dB clamp per clip).
+     Then at full width with seeded random weights: MusicLDM (bf16, JAX's
+     default routes) under style guidance with the tower at
+     ClapAudioConfig's defaults (fp32), 20 DiffMusic steps at diffmusic.yaml's
+     eta and rate (ms per step, peak memory, launches the default route's),
+     the loss head's forward+backward split into the CLAP features, the
+     tower and the rest; AudioLDM2 from the measurement's CLAP embedding,
+     fuse_cross off and on; score_waveforms on 4 ten-second candidates on
+     both; AudioLDM2-TTS (VITS at VitsConfig's defaults) from a fixed id
+     sequence;
+  13. checkpoint and CLI: a full-width MusicLDM snapshot (fp32, seeded, the
+     diffusers layout of `tests/test_torch_port_snapshot.py`, its CLAP model
+     with the audio tower) in a temporary directory, loaded by
+     `MusicLDMPipeline.from_pretrained` on the card (seconds, MB/s), its
+     weights, the tower's (fp32) and its embedding, and its output after 2
+     DPS steps equal to the bit to those of the same weights handed over in
+     memory; then `diffmusic_tpu_torch.run.main --tiny` on the card for -c
+     dps, ditto and diffmusic x -m musicldm and audioldm2, 2 steps each, on a
+     written WAV, and -t style_guidance, --prompt_type clap, -nw 2 (its
+     re-ranking logged) and --transcription, each with its UNet launches
+     checked (`cli_launches`: the tiny configs' 16- and 32-channel blocks
+     take the block kernel padded to one slice);
+  14. eval: in a temporary directory, EVAL_PAIRS pairs of 10-s clips (pair 0
      the slice's ground truth and the audio its default turn restored; two
      pairs as 44.1-kHz stereo) and a seeded random torchvggish-layout
      `vggish.pth`, scored by `diffmusic_tpu_torch.eval.main` on the card with
      --embedding mfcc-stack vggish --fad_inf --individual from cold caches:
      finite scores, one CSV row per pair, the mel kernel's launches, the
      wall seconds and their split, peak memory; then 4 of the pairs on the
-     card and on the CPU, whose scores and cached embeddings must agree.
+     card and on the CPU, whose scores and cached embeddings must agree, and
+     the clap-laion embedder on them from a CLAP directory (the tower at
+     ClapAudioConfig's defaults), card against CPU.
 Then the command's total seconds, the card's nvidia-smi name and power limit,
 a JSON line with one entry
 per kernel (the masks' entries time g as h, and give the route's form, g
@@ -2248,35 +2272,411 @@ def phase_ditto_optim_prompt() -> None:
               optim_prompt_learning_rate=OPTIM_PROMPT_LR)
 
 
+# ------------------------------------------------------------------- clap
+# The CLAP audio tower (HTSAT) and AudioLDM2's VITS stream: no kernel of
+# their own, plain PyTorch around the kernels of the paths they sit on.
+# Reference bounds, card against CPU, each with the planted fault it must
+# fail: the tower's embeddings as a fraction of max (F.interpolate in place
+# of JAX's bicubic resize); the style loss's waveform gradient, norm-relative
+# (the gram divided by D instead of T'); the prompt encodings as a fraction
+# of max (VITS without its relative-position terms); the re-ranking
+# similarities (cosines) in absolute terms, with the order equal (the top-dB
+# clamp per clip instead of over the batch). On an H100 80GB HBM3 (700 W)
+# the sound readings were 1.8e-7 / 3.5e-7 (pooled / frames), 3.9e-6, 1.5e-6
+# / 5.9e-7 (clap / TTS) and 1.2e-7, the planted ones 3.2e-4 / 2.4e-3, 1.0,
+# 0.28 and 6.6e-4.
+REF_CLAP_EMBED_TOL = 1e-5
+REF_STYLE_GRAD_TOL = 1e-4
+REF_ENCODE_TOL = 1e-4
+REF_SCORE_TOL = 1e-5
+REF_STYLE_LATENT_TOL = 1e-3    # the DiffMusic run's final latents, norm-relative
+REF_STYLE_STEPS = 3
+STYLE_RATE = 0.08               # configs/diffmusic.yaml
+REF_STYLE_AUDIO_S = 1.0
+REF_DEVICES = ("cuda", "cpu")   # the card, then the CPU reference
+CLAP_DEVICE = "cuda"            # the full-width runs' device
+
+
+@contextlib.contextmanager
+def planted(owner, attr, value):
+    """owner.attr replaced by value inside the block: a fault a bound must catch."""
+    old = getattr(owner, attr)
+    setattr(owner, attr, value)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, old)
+
+
+def interpolate_resize(x, dim, n_out):
+    """The planted resize: PyTorch's bicubic (a = -0.75, no edge
+    renormalisation) in place of JAX's."""
+    size = list(x.shape[2:])
+    size[dim - 2] = n_out
+    return F.interpolate(x, size=tuple(size), mode="bicubic", align_corners=False)
+
+
+def per_clip_mel_features(wav, cfg):
+    """The planted CLAP features: the top-dB clamp against each clip's own
+    maximum instead of the batch's."""
+    from diffmusic_tpu_torch.models import clap_features as cf
+    from diffmusic_tpu_torch.ops.stft import spectrogram
+    spec = spectrogram(wav, cfg.fft_window_size, cfg.hop_length, cfg.fft_window_size,
+                       power=2.0, center=True, use_hann=True)
+    db = 10.0 * torch.log10(torch.clamp(torch.einsum(
+        "bft,fm->bmt", spec, cf._slaney_filterbank(cfg, spec.device, spec.dtype)), min=1e-10))
+    db = torch.maximum(db, db.amax(dim=(1, 2), keepdim=True) - 80.0)
+    return db.transpose(1, 2)[:, None]
+
+
+def gram_over_d(self, audio):
+    """The planted style target: the gram matrix divided by D, not T'."""
+    feats = self.clap_embed(audio)
+    return torch.einsum("btd,bte->bde", feats, feats) / feats.shape[2]
+
+
+def clap_clips(n: int, seconds: float, quiet: bool = False) -> torch.Tensor:
+    """(n, L) 16-kHz candidates: harmonic stacks of seeded fundamentals plus
+    a little noise; with `quiet` the last is 70 dB down, so that the batch's
+    top-dB clamp floors most of it."""
+    rng = np.random.default_rng(3)
+    tt = np.arange(int(seconds * 16000)) / 16000
+    clips = []
+    for i in range(n):
+        f0 = 110.0 * 2.0 ** rng.uniform(0.0, 3.0)
+        x = sum(0.25 / (h + 1) * np.sin(2 * np.pi * f0 * (h + 1) * tt) for h in range(4))
+        x = x + 0.02 * rng.standard_normal(tt.size)
+        clips.append(x * (10 ** (-70 / 20) if quiet and i == n - 1 else 1.0))
+    return torch.as_tensor(np.stack(clips), dtype=torch.float32)
+
+
+def check_bound(label: str, reading: float, tol: float, planted_reading=None) -> None:
+    """A reading within its bound; the planted fault's reading outside it."""
+    extra = "" if planted_reading is None else f"; planted fault {planted_reading:.3e}"
+    log(f"clap reference: {label} {reading:.3e} (tol {tol:.0e}){extra}")
+    if not reading <= tol:
+        raise AssertionError(f"clap reference: {label} {reading:.3e} over its bound {tol:.0e}")
+    if planted_reading is not None and not planted_reading > tol:
+        raise AssertionError(f"clap reference: {label}'s bound {tol:.0e} let its planted "
+                             f"fault pass ({planted_reading:.3e})")
+
+
+def norm_rel(a, b) -> float:
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).norm() / max(b.norm().item(), 1e-30))
+
+
+def phase_reference_clap():
+    """Small fp32 models, card against CPU (plain versions): the tiny tower's
+    pooled and frame embeddings; the style loss's gradient with respect to
+    the waveform; 3 DiffMusic steps of the tiny MusicLDM under style guidance
+    (eta 1, the CPU generator's draws); the tiny AudioLDM2's encode_prompt
+    with prompt_type "clap" and, in its TTS variant, with a transcription;
+    score_waveforms' order on 4 candidates. Each bound fails its planted
+    fault."""
+    from diffmusic_tpu_torch import kernels
+    from diffmusic_tpu_torch.inverse_problem import StyleGuidanceOperator
+    from diffmusic_tpu_torch.models import clap_features as cf
+    from diffmusic_tpu_torch.models import htsat
+    from diffmusic_tpu_torch.pipelines import AudioLDM2Pipeline, MusicLDMPipeline
+    from diffmusic_tpu_torch.pipelines.musicldm import per_clip_loss
+    devs = dict(zip(("cuda", "cpu"), REF_DEVICES))
+    card = devs["cuda"]
+    # the tiny tower at its own projection width 16, so that T' (32) != D
+    embeds = {k: cf.make_tiny_clap_audio_embeds(7, device=dev) for k, dev in devs.items()}
+    clips = clap_clips(2, 1.0)
+    for features, i in (("pooled", 0), ("frames", 1)):
+        with torch.no_grad():
+            out = {k: embeds[k][i](clips.to(dev)).cpu() for k, dev in devs.items()}
+            with planted(htsat, "bicubic_resize", interpolate_resize):
+                bad = embeds["cuda"][i](clips.to(card)).cpu()
+        check_bound(f"tiny tower {features} embeddings {tuple(out['cpu'].shape)}, max|err| / "
+                    f"max", rel_err(out["cuda"], out["cpu"])[1], REF_CLAP_EMBED_TOL,
+                    rel_err(bad, out["cpu"])[1])
+
+    target, x = clap_clips(1, 1.0), clap_clips(2, 1.0)[1:] * 0.5
+
+    def style_grad(embed, dev):
+        op = StyleGuidanceOperator(clap_embed=embed)
+        tgt = op.transform(target.to(dev)).detach()
+        xx = x.to(dev).requires_grad_(True)
+        return torch.autograd.grad(per_clip_loss(tgt, op, xx, "mel_spectrogram"), xx)[0]
+
+    grads = {k: style_grad(embeds[k][1], dev) for k, dev in devs.items()}
+    with planted(StyleGuidanceOperator, "transform", gram_over_d):
+        bad = style_grad(embeds["cuda"][1], card)
+    check_bound("style loss gradient with respect to the waveform, norm-rel",
+                norm_rel(grads["cuda"], grads["cpu"]), REF_STYLE_GRAD_TOL,
+                norm_rel(bad, grads["cpu"]))
+
+    runs = {}
+    meas = torch.as_tensor(harmonic_stack(int(REF_STYLE_AUDIO_S * 16000), 16000))
+    lat = torch.randn((1, 8, 50, 32), generator=torch.Generator().manual_seed(8))
+    for k, dev in devs.items():
+        pipe = MusicLDMPipeline.tiny("diffmusic", device=dev)
+        pipe = dataclasses.replace(pipe, operator=StyleGuidanceOperator(
+            clap_embed=pipe.clap_frame_embed))
+        kernels.reset_launch_counts()
+        res, losses = pipe(audio_length_in_s=REF_STYLE_AUDIO_S,
+                           num_inference_steps=REF_STYLE_STEPS, eta=1.0,
+                           prompt_embeds=torch.zeros(2, 32), measurement=meas,
+                           ip_guidance_rate=STYLE_RATE, latents=lat,
+                           generator=torch.Generator().manual_seed(3), output_type="latent",
+                           return_losses=True)
+        runs[k] = (res.audios, losses, kernels.launch_counts())
+    compare_reference(f"tiny MusicLDM, fp32, {REF_STYLE_STEPS} DiffMusic steps under style "
+                      f"guidance, eta 1, rate {STYLE_RATE}", runs, REF_STYLE_LATENT_TOL,
+                      ("fused_transformer_block",))
+
+    meas = clap_clips(1, 1.0)
+    enc = {}
+    for k, dev in devs.items():
+        a2 = AudioLDM2Pipeline.tiny(device=dev)
+        tts = AudioLDM2Pipeline.tiny(device=dev, tts=True)
+        enc[k] = (a2.encode_prompt("piano", "noise", True, measurement=meas.to(dev),
+                                   prompt_type="clap"),
+                  tts.encode_prompt("speech", None, True, transcription="hello there"))
+    no_rel = copy.deepcopy(tts.vits)
+    for name, p in no_rel.named_parameters():
+        if "emb_rel" in name:
+            p.data.zero_()
+    bad = dataclasses.replace(AudioLDM2Pipeline.tiny(device=card, tts=True), vits=no_rel.to(
+        card)).encode_prompt("speech", None, True, transcription="hello there")
+
+    def streams_err(got, want):
+        return max(rel_err(a.cpu(), b.cpu())[1] for a, b in zip(got, want)
+                   if a.is_floating_point())
+
+    check_bound("tiny AudioLDM2 encode_prompt, prompt_type clap (streams), max|err| / max",
+                streams_err(enc["cuda"][0], enc["cpu"][0]), REF_ENCODE_TOL)
+    check_bound("tiny AudioLDM2-TTS encode_prompt with a transcription (streams), max|err| "
+                "/ max", streams_err(enc["cuda"][1], enc["cpu"][1]), REF_ENCODE_TOL,
+                streams_err(bad, enc["cpu"][1]))
+
+    cands = clap_clips(4, 1.0, quiet=True)
+    ranked = {}
+    for k, dev in devs.items():
+        pipe = MusicLDMPipeline.tiny(device=dev)
+        ranked[k] = pipe.score_waveforms("a piano", cands.to(dev))
+    with planted(cf, "clap_mel_features", per_clip_mel_features):
+        bad = MusicLDMPipeline.tiny(device=card).score_waveforms("a piano", cands.to(card))
+    order = {k: [int(np.flatnonzero((cands.numpy() == a).all(1))[0]) for a in r[0]]
+             for k, r in ranked.items()}
+    sims = {k: torch.as_tensor(r[1]) for k, r in ranked.items()}
+    log(f"clap reference: score_waveforms order card {order['cuda']} cpu {order['cpu']}; "
+        f"similarities card {sims['cuda'].tolist()} cpu {sims['cpu'].tolist()}")
+    if order["cuda"] != order["cpu"]:
+        raise AssertionError("clap reference: score_waveforms ranks otherwise on the card")
+    check_bound("score_waveforms similarities, max|err|",
+                rel_err(sims["cuda"], sims["cpu"])[0], REF_SCORE_TOL,
+                rel_err(torch.as_tensor(bad[1]), sims["cpu"])[0])
+
+
+def full_width_clap(seed: int, device="cuda"):
+    """A seeded random tower at ClapAudioConfig's defaults (fp32) with the
+    48-kHz features: (pooled embed, frame embed)."""
+    from diffmusic_tpu_torch.models import clap_features as cf
+    from diffmusic_tpu_torch.models.htsat import ClapAudioConfig
+    return cf.random_clap_audio_embeds(ClapAudioConfig(), cf.ClapFeatureConfig(), seed, device)
+
+
+def time_rerank(label: str, pipe, cands) -> None:
+    """score_waveforms on the candidates: seconds, first call and again."""
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio, sims = pipe.score_waveforms("a piano", cands)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    log(f"clap: {label} score_waveforms of {tuple(cands.shape)} candidates: {secs[0]:.3f} s "
+        f"first, {secs[1]:.3f} s again; similarities {np.round(sims, 4).tolist()}")
+    if audio.shape != tuple(cands.shape) or not np.all(np.diff(sims) <= 0):
+        raise AssertionError(f"clap: {label} score_waveforms returned {audio.shape}, {sims}")
+
+
+def time_encode(label: str, pipe, **kw):
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embeds = pipe.encode_prompt("", None, True, **kw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    log(f"clap: {label}: {secs[0]:.3f} s first, {secs[1]:.3f} s again; streams "
+        f"{[tuple(a.shape) for a in embeds]}")
+    return embeds
+
+
+def style_split(pipe, meas) -> None:
+    """The style loss head's forward+backward at the slice's shapes (median
+    ms, CUDA events): the whole head from the latents, the CLAP features
+    alone (resample, STFT, mel, dB) and the tower alone, and the rest."""
+    from diffmusic_tpu_torch.models.clap_features import prepare_clap_input
+    gen = torch.Generator().manual_seed(11)
+    loss_fn = pipe.make_loss_fn(meas, 160000, "mel_spectrogram")
+    x = randn(LATENTS, gen, CLAP_DEVICE, torch.float32)
+    wav = randn((1, 160000), gen, CLAP_DEVICE, torch.float32, 0.1)
+    embed = pipe.clap_frame_embed
+    with torch.no_grad():
+        feats = prepare_clap_input(wav, embed.cfg)
+        frames = embed.tower(feats, features="frames")
+    g_feats = randn(feats.shape, gen, CLAP_DEVICE, torch.float32)
+    g_frames = randn(frames.shape, gen, CLAP_DEVICE, torch.float32)
+
+    def head():
+        xx = x.clone().requires_grad_(True)
+        torch.autograd.grad(loss_fn(xx), xx)
+
+    def features():
+        ww = wav.clone().requires_grad_(True)
+        torch.autograd.grad(prepare_clap_input(ww, embed.cfg), ww, g_feats)
+
+    def tower():
+        ff = feats.clone().requires_grad_(True)
+        torch.autograd.grad(embed.tower(ff, features="frames"), ff, g_frames)
+
+    times = {name: time_ms(fn, reps=5, inner=1, warmup=1)
+             for name, fn in (("loss head", head), ("CLAP features", features),
+                              ("tower", tower))}
+    rest = times["loss head"] - times["CLAP features"] - times["tower"]
+    log(f"clap: style loss head fwd+bwd (median ms, CUDA events): whole {times['loss head']:.2f}"
+        f"; CLAP features {times['CLAP features']:.2f}; tower {times['tower']:.2f}; the rest "
+        f"(VAE decode, vocoder, gram and norm) {rest:.2f}; features {tuple(feats.shape)}, "
+        f"frames {tuple(frames.shape)}")
+
+
+def phase_clap() -> None:
+    """Full width, seeded random weights: MusicLDM (bf16, JAX's default
+    routes) under style guidance with the tower at ClapAudioConfig's
+    defaults, 20 DiffMusic steps at diffmusic.yaml's eta and rate, the loss
+    head's split; AudioLDM2 from the 10-s measurement's CLAP embedding
+    (prompt_type "clap") with fuse_cross off and on; score_waveforms on 4
+    ten-second candidates on both; AudioLDM2-TTS (VITS at VitsConfig's
+    defaults in T5's place, the UNet's second stream 192 wide) from a fixed
+    id sequence. Every run's launches are its default route's."""
+    from diffmusic_tpu_torch.inverse_problem import StyleGuidanceOperator
+    from diffmusic_tpu_torch.models.clap import ClapTextModelWithProjection
+    from diffmusic_tpu_torch.models.configs import (ClapTextConfig, HiFiGANConfig,
+                                                    ProjectionConfig, UNetConfig, VAEConfig)
+    from diffmusic_tpu_torch.models.convert import init_flax_style
+    from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
+    from diffmusic_tpu_torch.models.vits import VitsConfig
+    from diffmusic_tpu_torch.pipelines.base import byte_tokenizer
+    phase_reference_clap()
+    t0 = time.time()
+    pipe, _ = build_pipe(UNetConfig(), VAEConfig(), HiFiGANConfig(), 10.0, CLAP_DEVICE,
+                         torch.bfloat16)
+    audio_embed, frame_embed = full_width_clap(30, CLAP_DEVICE)
+    text = init_flax_style(ClapTextModelWithProjection(ClapTextConfig()), 3)
+    pipe = dataclasses.replace(
+        pipe, scheduler_name="diffmusic", operator=StyleGuidanceOperator(clap_embed=frame_embed),
+        text_encoder=text.to(CLAP_DEVICE, torch.bfloat16), tokenizer=byte_tokenizer,
+        clap_audio_embed=audio_embed, clap_frame_embed=frame_embed)
+    meas = torch.as_tensor(harmonic_stack(160000, 16000), device=CLAP_DEVICE)
+    log(f"clap: full-width MusicLDM (bf16) with the HTSAT tower at ClapAudioConfig's "
+        f"defaults (fp32, {sum(p.numel() for p in frame_embed.tower.parameters()) / 1e6:.1f} M "
+        f"parameters) built in {time.time() - t0:.1f} s")
+    repacks = {"phase_convtranspose": VOCODER_PER_STEP["phase_convtranspose"],
+               "conv1d_pair": 2 * VOCODER_PER_STEP["conv1d_fused_pair"]
+               + VOCODER_PER_STEP["conv1d_fused"]}
+    drive("clap style guidance", pipe, meas, expected_launches("fused_transformer_block"),
+          repacks, eta=1.0, rate=STYLE_RATE, prompt_embeds=torch.zeros(2, 512),
+          generator=torch.Generator().manual_seed(4))
+    style_split(pipe, meas)
+    cands = clap_clips(4, 10.0).to(CLAP_DEVICE)
+    time_rerank("MusicLDM", pipe, cands)
+    del pipe, text
+    torch.cuda.empty_cache()
+
+    pipe, meas = build_audioldm2(audioldm2_unet_config(), VAEConfig(), HiFiGANConfig(), 10.0, CLAP_DEVICE,
+                                 torch.bfloat16, False)
+    audio_embed, frame_embed = full_width_clap(31, CLAP_DEVICE)
+    pipe = dataclasses.replace(pipe, clap_audio_embed=audio_embed, clap_frame_embed=frame_embed)
+    embeds = time_encode("AudioLDM2 text stack with prompt_type clap (the 10-s measurement's "
+                         "CLAP embedding; negative prompt '')", pipe, measurement=meas,
+                         prompt_type="clap")
+    drive("clap audioldm2 prompt_type clap fuse_cross=False", pipe, meas,
+          expected_launches("flash_attention"), repacks, prompt_embeds=embeds)
+    with pipe.device:
+        fused = UNet2DConditionModel(pipe.unet_cfg, fuse_cross=True)
+    fused.to(next(pipe.unet.parameters()).dtype).load_state_dict(pipe.unet.state_dict())
+    drive("clap audioldm2 prompt_type clap fuse_cross=True",
+          dataclasses.replace(pipe, unet=fused), meas,
+          expected_launches("fused_transformer_block_cross"), prompt_embeds=embeds)
+    time_rerank("AudioLDM2", pipe, cands)
+    del pipe, fused, embeds
+    torch.cuda.empty_cache()
+
+    vits_cfg = VitsConfig()
+
+    def phonemes(texts):
+        """A fixed id sequence of 48 tokens for a transcription, none for ''."""
+        ids = np.zeros((len(texts), 48), np.int64)
+        mask = np.zeros((len(texts), 48), np.int64)
+        for i, t in enumerate(texts):
+            if t:
+                ids[i] = 1 + (np.arange(48) * 7) % (vits_cfg.vocab_size - 1)
+                mask[i] = 1
+        return ids, mask
+
+    t0 = time.time()
+    pipe, meas = build_audioldm2(
+        audioldm2_unet_config(cross_attention_dims=(768, vits_cfg.hidden_size)), VAEConfig(),
+        HiFiGANConfig(), 10.0, CLAP_DEVICE, torch.bfloat16, False, vits_cfg=vits_cfg,
+        proj_cfg=ProjectionConfig(512, vits_cfg.hidden_size, 768), vits_tokenizer=phonemes)
+    log(f"clap: full-width AudioLDM2-TTS (VITS {vits_cfg.num_hidden_layers} layers x "
+        f"{vits_cfg.hidden_size}, UNet cross dims (768, {vits_cfg.hidden_size})), seeded random "
+        f"bf16 weights, built in {time.time() - t0:.1f} s")
+    embeds = time_encode("AudioLDM2-TTS text stack (CLAP, VITS of a 48-token transcription, "
+                         "projection, 8 GPT-2 steps)", pipe, transcription="a fixed line")
+    drive("clap audioldm2-tts transcription fuse_cross=False", pipe, meas,
+          expected_launches("flash_attention"), repacks, prompt_embeds=embeds)
+    del pipe, embeds
+    torch.cuda.empty_cache()
+
+
 def in_memory_musicldm(modules: dict, device, dtype):
     """A MusicLDM pipeline with a snapshot's weights handed over in memory:
     each state dict through the port's converter and `from_flax` into the
-    modules, with no file between."""
+    modules, with no file between (the CLAP model's audio tower in fp32)."""
     from diffmusic_tpu_torch.models import checkpoint as ckpt
     from diffmusic_tpu_torch.models.clap import ClapTextModelWithProjection
+    from diffmusic_tpu_torch.models.clap_features import (make_clap_audio_embed,
+                                                          make_clap_frame_embed)
     from diffmusic_tpu_torch.models.convert import from_flax
     from diffmusic_tpu_torch.models.hifigan import SpeechT5HifiGan
+    from diffmusic_tpu_torch.models.htsat import ClapAudioModelWithProjection
     from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
     from diffmusic_tpu_torch.models.vae import AutoencoderKL
     from diffmusic_tpu_torch.pipelines import MusicLDMPipeline
+    clap_json = modules["text_encoder"][0]
+    audio_cfg = ckpt.clap_audio_config_from_json(clap_json)
     cfgs = {"unet": ckpt.unet_config_from_json(modules["unet"][0]),
             "vae": ckpt.vae_config_from_json(modules["vae"][0]),
             "vocoder": ckpt.hifigan_config_from_json(modules["vocoder"][0]),
-            "text_encoder": ckpt.clap_text_config_from_json(modules["text_encoder"][0])}
-    trees = {"unet": ckpt.convert_unet, "vae": ckpt.convert_vae,
-             "vocoder": ckpt.vocoder_tree, "text_encoder": ckpt.clap_text_tree}
+            "text_encoder": ckpt.clap_text_config_from_json(clap_json), "tower": audio_cfg}
+    text_tree, audio_tree = ckpt.clap_trees(modules["text_encoder"][1], cfgs["text_encoder"],
+                                            audio_cfg)
+    trees = {"unet": ckpt.convert_unet(modules["unet"][1], cfgs["unet"]),
+             "vae": ckpt.convert_vae(modules["vae"][1], cfgs["vae"]),
+             "vocoder": ckpt.vocoder_tree(modules["vocoder"][1], cfgs["vocoder"]),
+             "text_encoder": text_tree, "tower": audio_tree}
     classes = {"unet": UNet2DConditionModel, "vae": AutoencoderKL, "vocoder": SpeechT5HifiGan,
-               "text_encoder": ClapTextModelWithProjection}
+               "text_encoder": ClapTextModelWithProjection,
+               "tower": ClapAudioModelWithProjection}
     models = {}
     for name, cls in classes.items():
         cfg = cfgs[name]
         with torch.device("meta"):
             model = cls(cfg)
-        model.load_state_dict(from_flax(trees[name](modules[name][1], cfg), cfg),
-                              assign=True, strict=True)
-        models[name] = model.to(device=device, dtype=dtype)
+        model.load_state_dict(from_flax(trees[name], cfg), assign=True, strict=True)
+        models[name] = model.to(device=device,
+                                dtype=torch.float32 if name == "tower" else dtype)
     return MusicLDMPipeline(models["unet"], models["vae"], models["vocoder"],
-                            text_encoder=models["text_encoder"], scheduler_name="dps")
+                            text_encoder=models["text_encoder"], scheduler_name="dps",
+                            clap_audio_embed=make_clap_audio_embed(models["tower"]),
+                            clap_frame_embed=make_clap_frame_embed(models["tower"]))
 
 
 CLI_AUDIO_S = 5.0                 # configs/model/{musicldm,audioldm2}.yaml
@@ -2303,45 +2703,73 @@ def cli_launches(model: str, sched: str, steps: int, outer: int, audio_s: float)
     return {name: forwards * blocks}
 
 
+# the CLAP and TTS paths of the CLI: (model, extra flags), each -c dps in its
+# own directory
+CLI_CLAP_RUNS = (("musicldm", ["-t", "style_guidance"]),
+                 ("audioldm2", ["--prompt_type", "clap"]),
+                 ("musicldm", ["-nw", "2"]),
+                 ("audioldm2", ["--transcription", "hello there"]))
+
+
+def cli_run(root: Path, clips: Path, device: str, model: str, sched: str, extra=()) -> tuple:
+    """One `diffmusic_tpu_torch.run.main --tiny` run, 2 steps, in `root`:
+    (seconds, files written under its task directory, launch counts, its
+    standard output)."""
+    from diffmusic_tpu_torch import kernels, run
+    argv = ["--tiny", "-m", model, "-c", sched, "--num_inference_steps", "2",
+            "--device", device, "-o", f"data.root={clips}", *extra]
+    if sched == "ditto":
+        argv += ["-o", "scheduler.optim_outer_loop=2"]
+    cwd = Path.cwd()
+    os.chdir(root)
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            run.main(argv)
+        secs = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    counts = kernels.launch_counts()
+    task = "style_guidance" if "style_guidance" in extra else "music_inpainting"
+    done = root / "outputs" / model / "moises" / sched / task
+    made = sorted(str(p.relative_to(done)) for p in done.rglob("*.*"))
+    log(f"cli: python -m diffmusic_tpu_torch.run {' '.join(argv)}: {secs:.2f} s, wrote "
+        f"{made}; launches { {n: k for n, k in counts.items() if k} }")
+    if len(made) != 6:
+        raise AssertionError(f"cli run {model} {sched} {extra} wrote {made}")
+    if device == "cuda":
+        want = cli_launches(model, sched, 2, 2 if sched == "ditto" else 1, CLI_AUDIO_S)
+        check_launches(f"cli {model} {sched} {' '.join(extra)}",
+                       {n: counts[n] for n in want}, want)
+    return secs, made, counts, out.getvalue()
+
+
 def cli_runs(root: Path, device: str) -> None:
     """`diffmusic_tpu_torch.run.main` on the card with --tiny for -c dps,
     ditto and diffmusic x -m musicldm and audioldm2, 2 steps each, on a WAV
-    dataset in `root` (ditto with 2 outer iterations of its config's 100);
-    each run must write its output tree and launch the UNet's kernel as
-    `cli_launches` says."""
-    from diffmusic_tpu_torch import kernels, run
+    dataset in `root` (ditto with 2 outer iterations of its config's 100),
+    then CLI_CLAP_RUNS, each in a directory of its own; each run must write
+    its output tree and launch the UNet's kernel as `cli_launches` says, and
+    -nw 2 must log its CLAP re-ranking, best first."""
     from diffmusic_tpu_torch.data import write_wav
     clips = root / "clips"
     clips.mkdir(parents=True)
     write_wav(clips / "track.wav", harmonic_stack(16000 * 16, 16000), 16000)
-    cwd = Path.cwd()
-    try:
-        os.chdir(root)
-        for model in ("musicldm", "audioldm2"):
-            for sched in ("dps", "ditto", "diffmusic"):
-                argv = ["--tiny", "-m", model, "-c", sched, "--num_inference_steps", "2",
-                        "--device", device, "-o", f"data.root={clips}"]
-                if sched == "ditto":
-                    argv += ["-o", "scheduler.optim_outer_loop=2"]
-                kernels.reset_launch_counts()
-                t0 = time.perf_counter()
-                with contextlib.redirect_stdout(io.StringIO()):
-                    run.main(argv)
-                secs = time.perf_counter() - t0
-                counts = kernels.launch_counts()
-                out = root / "outputs" / model / "moises" / sched / "music_inpainting"
-                made = sorted(str(p.relative_to(out)) for p in out.rglob("*.*"))
-                log(f"cli: python -m diffmusic_tpu_torch.run {' '.join(argv)}: "
-                    f"{secs:.2f} s, wrote {made}; launches "
-                    f"{ {n: k for n, k in counts.items() if k} }")
-                if len(made) != 6:
-                    raise AssertionError(f"cli run {model} {sched} wrote {made}")
-                want = cli_launches(model, sched, 2, 2 if sched == "ditto" else 1,
-                                    CLI_AUDIO_S)
-                if device == "cuda":
-                    check_launches(f"cli {model} {sched}", {n: counts[n] for n in want}, want)
-    finally:
-        os.chdir(cwd)
+    for model in ("musicldm", "audioldm2"):
+        for sched in ("dps", "ditto", "diffmusic"):
+            cli_run(root, clips, device, model, sched)
+    for i, (model, extra) in enumerate(CLI_CLAP_RUNS):
+        (root / f"clap_{i}").mkdir()
+        stdout = cli_run(root / f"clap_{i}", clips, device, model, "dps", extra)[3]
+        ranked = [ln for ln in stdout.splitlines() if ln.startswith("CLAP re-ranking")]
+        if "-nw" in extra:
+            sims = [float(v) for v in ranked[0].split("[")[1].rstrip("]").split()]
+            log(f"cli: -nw 2 logged {ranked[0]!r}")
+            if len(sims) != 2 or sims[0] < sims[1]:
+                raise AssertionError(f"cli -nw 2: re-ranking logged {ranked}")
+        elif ranked:
+            raise AssertionError(f"cli {extra}: re-ranked one candidate")
     from diffmusic_tpu_torch.pipelines import base
     log(f"cli: matplotlib on this host: {base.have_matplotlib()} (else the 8-bit grey PNGs)")
 
@@ -2356,12 +2784,13 @@ def phase_checkpoint_cli(device: str = "cuda") -> None:
     import test_torch_port_snapshot as snap
     from diffmusic_tpu_torch.models.configs import (ClapTextConfig, HiFiGANConfig,
                                                     UNetConfig, VAEConfig)
+    from diffmusic_tpu_torch.models.htsat import ClapAudioConfig
     from diffmusic_tpu_torch.pipelines import MusicLDMPipeline
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
         modules = snap.musicldm_modules(UNetConfig(), VAEConfig(), HiFiGANConfig(),
-                                        ClapTextConfig(), seed=20)
+                                        ClapTextConfig(), seed=20, audio_cfg=ClapAudioConfig())
         t1 = time.perf_counter()
         snap.write_snapshot(root / "musicldm", modules)
         t2 = time.perf_counter()
@@ -2377,11 +2806,17 @@ def phase_checkpoint_cli(device: str = "cuda") -> None:
             f"from_pretrained on the card {load_s:.2f} s, {nbytes / 1e6 / load_s:.0f} MB/s")
         memory = in_memory_musicldm(modules, device, torch.float32)
         del modules
-        for name in ("unet", "vae", "vocoder", "text_encoder"):
-            a, b = getattr(loaded, name).state_dict(), getattr(memory, name).state_dict()
+        towers = [p.clap_audio_embed.tower for p in (loaded, memory)]
+        for name, (a, b) in [(n, (getattr(loaded, n), getattr(memory, n)))
+                             for n in ("unet", "vae", "vocoder", "text_encoder")] + [
+                                 ("CLAP audio tower", towers)]:
+            a, b = a.state_dict(), b.state_dict()
             if sorted(a) != sorted(b) or not all(torch.equal(a[k], b[k]) for k in a):
                 raise AssertionError(f"checkpoint: the loaded {name} differs from the same "
                                      f"weights handed over in memory")
+        if not all(p.dtype == torch.float32 for p in towers[0].parameters()):
+            raise AssertionError("checkpoint: the CLAP audio tower did not load in fp32")
+        wav = torch.as_tensor(harmonic_stack(160000, 16000), device=device)
         op, meas = inpainting(10.0, device)
         lat = torch.randn(LATENTS, generator=torch.Generator().manual_seed(17))
 
@@ -2402,6 +2837,8 @@ def phase_checkpoint_cli(device: str = "cuda") -> None:
             same = all(np.array_equal(a, b) for a, b in zip(*outs))
             again = same or all(np.array_equal(a, b) for a, b in zip(outs[1],
                                                                       two_steps(memory)))
+            with torch.no_grad():
+                pooled = [p.clap_audio_embed(wav) for p in (loaded, memory)]
         finally:
             torch.use_deterministic_algorithms(False)
             torch.backends.cudnn.deterministic = False
@@ -2411,6 +2848,12 @@ def phase_checkpoint_cli(device: str = "cuda") -> None:
         if not same or not np.isfinite(outs[0][0]).all():
             raise AssertionError("checkpoint: the loaded pipeline's output differs from the "
                                  "in-memory one's")
+        n_tower = sum(p.numel() for p in towers[0].parameters())
+        log(f"checkpoint: the snapshot's CLAP audio tower ({n_tower / 1e6:.1f} M parameters, "
+            f"fp32) loaded equal to the bit; its pooled embedding of the 10-s harmonic stack "
+            f"equal to the in-memory tower's: {torch.equal(*pooled)}")
+        if not torch.equal(*pooled) or not torch.isfinite(pooled[0]).all():
+            raise AssertionError("checkpoint: the loaded tower's embedding differs")
         del loaded, memory
         torch.cuda.empty_cache()
         cli_runs(root / "cli", device)
@@ -2541,6 +2984,45 @@ def compare_eval_card_cpu(root: Path, ckpt: Path) -> None:
         raise AssertionError("the eval on the card disagrees with the eval on the CPU")
 
 
+CLAP_LAION_TOL = 1e-3           # clap-laion embeddings, card vs CPU, fraction of max
+
+
+def compare_clap_laion(root: Path, ckpt: Path) -> None:
+    """clap-laion-audio from a CLAP directory in the checkpoint root (a
+    ClapModel's audio tower and projection at ClapAudioConfig's defaults,
+    seeded, in transformers' names) on the first EVAL_CARD_CPU_PAIRS pairs,
+    card against CPU: each file's embeddings (10-s chunks at a 1-s hop, one
+    batch through the tower) within CLAP_LAION_TOL of max."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_port_snapshot as snap
+    from diffmusic_tpu_torch.fadtk import get_model
+    from diffmusic_tpu_torch.models.configs import ClapTextConfig
+    from diffmusic_tpu_torch.models.htsat import ClapAudioConfig
+    cfg = ClapAudioConfig()
+    snap.write_snapshot(ckpt, {"clap": (snap.clap_json(ClapTextConfig(), cfg),
+                                        snap.clap_audio_values(cfg, 40))})
+    files = [f for d in ("gt", "recon") for f in sorted((root / d).glob("*.wav"))
+             [:EVAL_CARD_CPU_PAIRS]]
+    emb, secs = {}, {}
+    for key, dev in zip(("cuda", "cpu"), REF_DEVICES):
+        model = get_model("clap-laion-audio", ckpt, dev)
+        wavs = [model.load_wav(f) for f in files]
+        model.get_embedding(wavs[0][:16000])     # loads the tower
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb[key] = [model.get_embedding(w) for w in wavs]
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+    err = max(rel_err(torch.from_numpy(a), torch.from_numpy(b))[1]
+              for a, b in zip(emb["cuda"], emb["cpu"]))
+    log(f"eval clap-laion-audio (HTSAT at ClapAudioConfig's defaults, fp32) on "
+        f"{len(files)} files of {EVAL_CARD_CPU_PAIRS} pairs, {[e.shape for e in emb['cuda']][0]} "
+        f"each: card {secs['cuda']:.2f} s, CPU {secs['cpu']:.2f} s; card vs CPU max|err| / max "
+        f"{err:.2e} (tol {CLAP_LAION_TOL:.0e})")
+    if not err <= CLAP_LAION_TOL or not all(np.isfinite(e).all() for e in emb["cuda"]):
+        raise AssertionError("the clap-laion embeddings on the card disagree with the CPU's")
+
+
 def phase_eval(restored: np.ndarray) -> dict:
     """The port's eval CLI on the card over EVAL_PAIRS pairs of 10-s clips
     from cold caches, then card against CPU; returns the launch counts of the
@@ -2582,6 +3064,7 @@ def phase_eval(restored: np.ndarray) -> dict:
         want["fused_mel_spectrogram"] = eval_mel_launches(EVAL_PAIRS)
         check_launches("eval", counts, want)
         compare_eval_card_cpu(root, ckpt)
+        compare_clap_laion(root, ckpt)
     return counts
 
 
@@ -2673,6 +3156,7 @@ def main() -> int:
     phase_tasks()
     phase_reference_ditto()
     phase_ditto_optim_prompt()
+    phase_clap()
     phase_checkpoint_cli()
     eval_counts = phase_eval(restored)
     # each kernel's launches from the path that runs it: MusicLDM's default

@@ -8,7 +8,8 @@ under each directory), KL (re-embedding every clip with the first model),
 LSD and MSE between a ground-truth directory and a reconstruction directory,
 and prints the score table (reference eval.py:150-163). It runs on the card
 unless `--device cpu` is given. VGGish reads a torchvggish state dict from
-`<checkpoint_dir>/vggish/` (or `$DIFFMUSIC_TPU_CHECKPOINTS/vggish/`).
+`<checkpoint_dir>/vggish/` (or `$DIFFMUSIC_TPU_CHECKPOINTS/vggish/`),
+clap-laion-audio / clap-laion-music a CLAP model from `<checkpoint_dir>/clap/`.
 """
 
 import contextlib
@@ -28,7 +29,7 @@ def parse_arguments(argv=None):
     p.add_argument("-r", "--recon_dir", type=str, required=True)
     p.add_argument("--embedding", type=str, nargs="+", default=["mfcc-stack"],
                    help="embedding model(s) for FAD/KL; ported: mfcc-stack (default, "
-                        "no weights) and vggish")
+                        "no weights), vggish, clap-laion-audio and clap-laion-music")
     p.add_argument("--fad_inf", action="store_true",
                    help="also compute FAD-inf extrapolation")
     p.add_argument("--individual", type=str, default=None,

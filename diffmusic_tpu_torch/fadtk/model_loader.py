@@ -4,9 +4,12 @@
 Every loader has `name`, `sr`, `load_model()` and `get_embedding(audio) ->
 (frames, dim)`, the registry surface of the vendored fadtk the reference
 evaluates with (fadtk/model_loader.py:21-86). Ported: `mfcc-stack` (no
-weights) and `vggish` (the native network from a local torchvggish state
-dict). Weights come from a local checkpoint directory (`checkpoint_dir`, else
-the `DIFFMUSIC_TPU_CHECKPOINTS` environment variable); a missing checkpoint
+weights), `vggish` (the native network from a local torchvggish state dict)
+and `clap-laion-audio` / `clap-laion-music` (the port's HTSAT tower from a
+local CLAP directory, `<checkpoints>/clap/`, fed 16 kHz audio that it
+resamples to 48 kHz itself, as the JAX package's loader does: PARITY.md).
+Weights come from a local checkpoint directory (`checkpoint_dir`, else the
+`DIFFMUSIC_TPU_CHECKPOINTS` environment variable); a missing checkpoint
 raises naming the expected path. Every other embedder of the JAX package's
 zoo raises `NotImplementedError`; none falls back to another embedder.
 """
@@ -17,9 +20,11 @@ from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
+import torch
 
-# the JAX package's zoo beyond the ported loaders (ROADMAP.md, Queue 1 item 12)
-NOT_PORTED = ("clap-laion", "encodec-emb", "MERT-v1-95M", "w2v2-", "hubert-", "wavlm-",
+PORTED = "mfcc-stack, vggish, clap-laion-audio, clap-laion-music"
+# the JAX package's zoo beyond the ported loaders (ROADMAP.md, Queue 1 item 8)
+NOT_PORTED = ("encodec-emb", "MERT-v1-95M", "w2v2-", "hubert-", "wavlm-",
               "whisper-", "dac-44kHz", "cdpam-", "clap-2023")
 
 
@@ -85,15 +90,13 @@ class MFCCStackLoader(ModelLoader):
         return self.model(audio)
 
 
-class VGGishModel(ModelLoader):
-    """VGGish (reference diffmusic/metrics/fad.py:59 pulls it from torch.hub):
-    the native network (metrics/vggish.py) from `vggish.pth`, `vggish.npz`
-    or `weights.pth`, a torchvggish state dict, under `<checkpoints>/vggish/`."""
+class _LocalCheckpointLoader(ModelLoader):
+    """A loader whose weights live under `<checkpoints>/<subdir>`."""
 
-    subdir = "vggish"
+    subdir = ""
 
-    def __init__(self, checkpoint_dir=None, device="cuda"):
-        super().__init__("vggish", 128, 16000, device=device)
+    def __init__(self, name, num_features, sr, checkpoint_dir=None, device="cuda"):
+        super().__init__(name, num_features, sr, device=device)
         self.checkpoint_dir = checkpoint_dir
 
     def _resolve(self) -> Path:
@@ -108,6 +111,17 @@ class VGGishModel(ModelLoader):
             raise FileNotFoundError(
                 f"Embedding model '{self.name}': expected checkpoint at {path}")
         return path
+
+
+class VGGishModel(_LocalCheckpointLoader):
+    """VGGish (reference diffmusic/metrics/fad.py:59 pulls it from torch.hub):
+    the native network (metrics/vggish.py) from `vggish.pth`, `vggish.npz`
+    or `weights.pth`, a torchvggish state dict, under `<checkpoints>/vggish/`."""
+
+    subdir = "vggish"
+
+    def __init__(self, checkpoint_dir=None, device="cuda"):
+        super().__init__("vggish", 128, 16000, checkpoint_dir, device)
 
     def load_model(self):
         path = self._resolve()
@@ -124,9 +138,49 @@ class VGGishModel(ModelLoader):
         return vggish_embedding(self.model, self.pca, np.asarray(audio, np.float32))
 
 
+class CLAPLaionModel(_LocalCheckpointLoader):
+    """LAION-CLAP audio embeddings through the port's HTSAT tower, read from
+    a local CLAP directory (`<checkpoints>/clap/`: a ClapModel or
+    ClapAudioModelWithProjection config.json and safetensors). The declared
+    rate is 16 kHz: `prepare_clap_input` resamples to 48 kHz itself (the
+    reference's laion_clap takes 48 kHz directly)."""
+
+    subdir = "clap"
+
+    def __init__(self, type: str = "audio", checkpoint_dir=None, device="cuda"):
+        super().__init__(f"clap-laion-{type}", 512, 16000, checkpoint_dir, device)
+        self.type = type
+
+    def load_model(self):
+        from ..models import checkpoint as ckpt
+        from ..models.clap_features import make_clap_audio_embed
+        from ..models.htsat import ClapAudioModelWithProjection
+        path = self._resolve()
+        cfg = ckpt.clap_audio_config_from_json(ckpt._cfg(path))
+        tree = ckpt.clap_audio_tree(ckpt._load_module_sd(path), cfg)
+        with torch.device("meta"):
+            tower = ClapAudioModelWithProjection(cfg)
+        self.model = make_clap_audio_embed(ckpt._build(tower, tree, cfg, self.device,
+                                                       torch.float32))
+
+    @torch.no_grad()
+    def _get_embedding(self, audio):
+        # the reference's frame contract (fadtk/model_loader.py:391-412): the
+        # int16 round trip, 10-s chunks at a 1-s hop (the tail zero-padded),
+        # one embedding a chunk; the chunks go through the tower as one batch
+        x = np.asarray(audio, np.float32)
+        x = (np.clip(x, -1.0, 1.0) * 32767.0).astype(np.int16) / 32767.0
+        chunk, hop = 10 * self.sr, self.sr
+        rows = [np.pad(x[i:i + chunk], (0, max(chunk - len(x[i:i + chunk]), 0)))
+                for i in range(0, max(len(x), 1), hop)]
+        return self.model(torch.from_numpy(np.stack(rows).astype(np.float32))).cpu().numpy()
+
+
 def get_all_models(checkpoint_dir=None, device="cuda") -> List[ModelLoader]:
     """The ported loaders. Lazy: enumeration never touches disk."""
-    return [MFCCStackLoader(device), VGGishModel(checkpoint_dir, device)]
+    return [MFCCStackLoader(device), VGGishModel(checkpoint_dir, device),
+            CLAPLaionModel("audio", checkpoint_dir, device),
+            CLAPLaionModel("music", checkpoint_dir, device)]
 
 
 def get_model(name: str, checkpoint_dir=None, device="cuda") -> ModelLoader:
@@ -136,5 +190,5 @@ def get_model(name: str, checkpoint_dir=None, device="cuda") -> ModelLoader:
     if name.startswith(NOT_PORTED):
         raise NotImplementedError(
             f"Embedding model '{name}' is not ported to PyTorch yet (ROADMAP.md, Queue 1 "
-            f"item 12); ported: mfcc-stack, vggish")
-    raise ValueError(f"Unknown embedding model '{name}'. Ported: mfcc-stack, vggish")
+            f"item 8); ported: {PORTED}")
+    raise ValueError(f"Unknown embedding model '{name}'. Ported: {PORTED}")

@@ -1,14 +1,13 @@
-"""Degradation operators and noise models (port of `diffmusic_tpu/inverse_problem`,
-less `StyleGuidanceOperator`, which waits for CLAP's HTSAT audio tower)."""
+"""Degradation operators and noise models (port of `diffmusic_tpu/inverse_problem`)."""
 
 from .noise import BaseNoise, GaussianNoise, PoissonNoise, get_noiser
 from .operator import (BaseOperator, IdentityOperator, MusicDereverberationOperator,
                        MusicInpaintingOperator, PhaseRetrievalOperator,
-                       SuperResolutionOperator)
+                       StyleGuidanceOperator, SuperResolutionOperator)
 
 __all__ = [
     "BaseNoise", "GaussianNoise", "PoissonNoise", "get_noiser",
     "BaseOperator", "IdentityOperator", "MusicInpaintingOperator",
     "PhaseRetrievalOperator", "SuperResolutionOperator",
-    "MusicDereverberationOperator",
+    "MusicDereverberationOperator", "StyleGuidanceOperator",
 ]

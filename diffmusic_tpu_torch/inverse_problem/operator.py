@@ -6,10 +6,10 @@ Interface:
   - inverse_transform(mel, vocoder): latent mel -> waveform via the vocoder
 
 Ported: identity, inpainting (box, random and periodic masks), phase
-retrieval, super-resolution and dereverberation. The random mask and the
-reverb impulse response are drawn once, at construction, from a
-`torch.Generator` (`mask_generator`, `ir_generator`) in place of the JAX
-package's keys. `StyleGuidanceOperator` waits for CLAP's HTSAT audio tower.
+retrieval, super-resolution, dereverberation and style guidance (the gram
+matrix of CLAP frame features). The random mask and the reverb impulse
+response are drawn once, at construction, from a `torch.Generator`
+(`mask_generator`, `ir_generator`) in place of the JAX package's keys.
 """
 
 from dataclasses import dataclass, field
@@ -176,3 +176,21 @@ class MusicDereverberationOperator(BaseOperator):
     def forward(self, data, generator=None):
         ir = torch.as_tensor(self.ir, dtype=data.dtype, device=data.device)
         return self.noiser(convolve1d(data, ir), generator)
+
+
+@dataclass(frozen=True)
+class StyleGuidanceOperator(BaseOperator):
+    """A(x) = x; transform = the gram matrix of the CLAP frame features,
+    einsum("btd,bte->bde") / T'. `clap_embed` maps a 16-kHz waveform to
+    (B, T', D) frame features (a pipeline's `clap_frame_embed`)."""
+    clap_embed: Optional[Callable] = None
+    noiser: BaseNoise = field(default_factory=GaussianNoise)
+
+    def transform(self, audio: torch.Tensor) -> torch.Tensor:
+        if self.clap_embed is None:
+            raise ValueError("StyleGuidanceOperator requires a clap_embed callable")
+        feats = self.clap_embed(audio)
+        return torch.einsum("btd,bte->bde", feats, feats) / feats.shape[1]
+
+    def forward(self, data, generator=None):
+        return data

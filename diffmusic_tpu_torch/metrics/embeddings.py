@@ -70,9 +70,9 @@ class MFCCStackEmbedding:
 
 
 def get_embedding_model(name: str = "mfcc-stack", checkpoint_dir=None, device="cuda"):
-    """'mfcc-stack' needs no weights; 'vggish' runs from a local torchvggish
-    state dict (`fadtk/model_loader.py::VGGishModel`); no other embedder is
-    ported yet."""
+    """'mfcc-stack' needs no weights; 'vggish' and 'clap-laion-*' run from
+    local weights (`fadtk/model_loader.py`); no other embedder is ported
+    yet."""
     if name == "mfcc-stack":
         return MFCCStackEmbedding(device)
     from ..fadtk.model_loader import get_model

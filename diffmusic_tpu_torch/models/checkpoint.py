@@ -14,11 +14,16 @@ Each module's state dict goes through its converter to the JAX package's
 flax tree, then through `from_flax` to the port's state dict, so the port
 loads exactly what the JAX package loads. Every key of a state dict is
 consumed or the load raises (`TrackingStateDict`); the keys that a
-converter reads nothing from are named here: a CLAP model's audio tower
-(`audio_model.*`, `audio_projection.*`: the HTSAT tower is not ported,
-ROADMAP Queue 1 item 7) and its token-type-id buffer, T5's `encoder.embed_tokens.weight` (tied to
-`shared.weight`), GPT-2's `wte.weight` (the pipeline generates in embedding
-space) and the vocoder's `mean` / `scale` when `normalize_before` is off.
+converter reads nothing from are named here: a CLAP model's token-type-id
+buffer and its BatchNorm's `num_batches_tracked`, T5's
+`encoder.embed_tokens.weight` (tied to `shared.weight`), GPT-2's
+`wte.weight` (the pipeline generates in embedding space), the vocoder's
+`mean` / `scale` when `normalize_before` is off, and the parts of a VITS
+model other than its text encoder (AudioLDM2-TTS conditions on the text
+encoder's hidden states only). A CLAP model's audio tower (`audio_model.*`,
+`audio_projection.*`) loads into the HTSAT tower, kept in fp32 whatever
+`weight_dtype` is (it sits in the guided loss head, as JAX's does), and
+gives the pipeline its `clap_audio_embed` and `clap_frame_embed`.
 
 Safetensors files are read here (`read_safetensors`), so loading needs
 neither the `safetensors` package nor `transformers`; a tokenizer is built
@@ -37,6 +42,8 @@ import torch
 from . import convert
 from .configs import (ClapTextConfig, GPT2Config, HiFiGANConfig, ProjectionConfig,
                       T5Config, UNetConfig, VAEConfig)
+from .htsat import ClapAudioConfig
+from .vits import VitsConfig
 
 # safetensors dtype tags -> torch dtypes
 _DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
@@ -202,6 +209,26 @@ def clap_text_config_from_json(c: Dict) -> ClapTextConfig:
         intermediate_size=t.get("intermediate_size", 3072),
         max_position_embeddings=t.get("max_position_embeddings", 514),
         projection_dim=c.get("projection_dim", 512))
+
+
+def clap_audio_config_from_json(c: Dict) -> ClapAudioConfig:
+    a = c.get("audio_config", {})
+    return ClapAudioConfig(
+        spec_size=a.get("spec_size", 256), patch_size=a.get("patch_size", 4),
+        patch_stride=tuple(a.get("patch_stride", (4, 4))),
+        num_mel_bins=a.get("num_mel_bins", 64), window_size=a.get("window_size", 8),
+        depths=tuple(a.get("depths", (2, 2, 6, 2))),
+        num_attention_heads=tuple(a.get("num_attention_heads", (4, 8, 16, 32))),
+        patch_embeds_hidden_size=a.get("patch_embeds_hidden_size", 96),
+        projection_dim=c.get("projection_dim", 512))
+
+
+def vits_config_from_json(c: Dict) -> VitsConfig:
+    return VitsConfig(
+        vocab_size=c.get("vocab_size", 38), hidden_size=c.get("hidden_size", 192),
+        num_hidden_layers=c.get("num_hidden_layers", 6),
+        num_attention_heads=c.get("num_attention_heads", 2), ffn_dim=c.get("ffn_dim", 768),
+        ffn_kernel_size=c.get("ffn_kernel_size", 3), window_size=c.get("window_size", 4))
 
 
 # ------------------------------------------------------------- UNet state dict
@@ -380,13 +407,49 @@ def vocoder_tree(sd, cfg: HiFiGANConfig):
     return _strict(convert.convert_hifigan, sd, "convert_hifigan", cfg, consume=unused)
 
 
-def clap_text_tree(sd, cfg: ClapTextConfig):
-    """The CLAP text tower of a ClapModel (or ClapTextModelWithProjection)
-    state dict; the audio tower's keys are consumed and not loaded, and so
-    is the token-type-id buffer (zeros, no weight)."""
-    return _strict(convert.convert_clap_text, sd, "convert_clap_text", cfg,
-                   consume=("text_model.embeddings.token_type_ids",),
-                   prefixes=("audio_model.", "audio_projection."))
+def _audio_buffers(sd):
+    """The audio tower's keys that carry no weight: each block's
+    relative-position index (the tower builds its own) and the BatchNorm's
+    batch count."""
+    return [k for k in sd if k.endswith((".attention.self.relative_position_index",
+                                         "batch_norm.num_batches_tracked"))]
+
+
+def clap_trees(sd, cfg: ClapTextConfig, audio_cfg: Optional[ClapAudioConfig] = None):
+    """(text tree, audio variables or None) of a ClapModel (or
+    ClapTextModelWithProjection) state dict: the text tower, and the audio
+    tower where the state dict carries one. The token-type-id buffer (zeros)
+    and `_audio_buffers` carry no weight."""
+    sd = TrackingStateDict(sd)
+    sd.consume("text_model.embeddings.token_type_ids", *_audio_buffers(sd))
+    text = convert.convert_clap_text(sd, cfg)
+    audio = None
+    if any(k.startswith("audio_model.") for k in sd):
+        audio = convert.convert_clap_audio(sd, audio_cfg or ClapAudioConfig())
+    sd.assert_all_consumed("convert_clap_text / convert_clap_audio")
+    return text, audio
+
+
+def clap_audio_tree(sd, cfg: ClapAudioConfig):
+    """The HTSAT tower's variables of a ClapAudioModelWithProjection or
+    ClapModel state dict (keys with or without 'audio_model.'), as a local
+    CLAP directory holds it for the clap-laion embedder: a ClapModel's text
+    tower is named and not loaded (the embedder is the audio tower's)."""
+    return _strict(convert.convert_clap_audio, sd, "convert_clap_audio", cfg,
+                   consume=_audio_buffers(sd), prefixes=("text_model.", "text_projection."))
+
+
+# the parts of a transformers VitsModel that AudioLDM2-TTS does not run
+VITS_UNUSED = ("text_encoder.project.", "flow.", "decoder.", "duration_predictor.",
+               "posterior_encoder.")
+
+
+def vits_tree(sd, cfg: VitsConfig):
+    """The VITS text encoder's tree of a VitsModel state dict; its prior
+    projection, flow, decoder, duration predictor and posterior encoder
+    (speech synthesis, not conditioning) are named and not loaded."""
+    return _strict(convert.convert_vits_text_encoder, sd, "convert_vits_text_encoder", cfg,
+                   prefixes=VITS_UNUSED)
 
 
 def t5_tree(sd, cfg: T5Config):
@@ -459,13 +522,24 @@ def _core_models(d: Path, device, weight_dtype, gn_mode: str = "plain",
                    device, weight_dtype))
 
 
-def _clap_text(d: Path, device, weight_dtype):
+def _clap(d: Path, device, weight_dtype):
+    """(CLAP text tower, pooled audio embed, frame embed) of a snapshot's
+    text_encoder; the embeds are None without an audio tower. The tower
+    stays fp32."""
     from .clap import ClapTextModelWithProjection
-    cfg = clap_text_config_from_json(_cfg(d / "text_encoder"))
+    from .clap_features import make_clap_audio_embed, make_clap_frame_embed
+    from .htsat import ClapAudioModelWithProjection
+    c = _cfg(d / "text_encoder")
+    cfg, audio_cfg = clap_text_config_from_json(c), clap_audio_config_from_json(c)
+    text_tree, audio_tree = clap_trees(_load_module_sd(d / "text_encoder"), cfg, audio_cfg)
     with torch.device("meta"):
         model = ClapTextModelWithProjection(cfg)
-    return _build(model, clap_text_tree(_load_module_sd(d / "text_encoder"), cfg), cfg,
-                  device, weight_dtype)
+        tower = ClapAudioModelWithProjection(audio_cfg) if audio_tree is not None else None
+    text = _build(model, text_tree, cfg, device, weight_dtype)
+    if tower is None:
+        return text, None, None
+    tower = _build(tower, audio_tree, audio_cfg, device, torch.float32)
+    return text, make_clap_audio_embed(tower), make_clap_frame_embed(tower)
 
 
 def load_musicldm(checkpoint_dir, scheduler_name: str = "ddim", operator=None,
@@ -478,37 +552,32 @@ def load_musicldm(checkpoint_dir, scheduler_name: str = "ddim", operator=None,
     from ..samplers import DiffusionSchedule
     d = Path(checkpoint_dir)
     unet, vae, vocoder = _core_models(d, device, weight_dtype, **routes)
+    text, audio_embed, frame_embed = _clap(d, device, weight_dtype)
     return MusicLDMPipeline(
         unet, vae, vocoder, schedule=schedule if schedule is not None else DiffusionSchedule(),
         scheduler_name=scheduler_name,
         operator=operator if operator is not None else IdentityOperator(),
-        text_encoder=_clap_text(d, device, weight_dtype),
-        tokenizer=_make_hf_tokenizer(d / "tokenizer", max_length=None))
+        text_encoder=text, tokenizer=_make_hf_tokenizer(d / "tokenizer", max_length=None),
+        clap_audio_embed=audio_embed, clap_frame_embed=frame_embed)
 
 
 def load_audioldm2(checkpoint_dir, scheduler_name: str = "ddim", operator=None,
                    schedule=None, device="cuda", weight_dtype=torch.float32,
                    fuse_cross: bool = False, **routes):
     """An AudioLDM2Pipeline from a local HF-snapshot directory: text_encoder
-    (CLAP), text_encoder_2 (T5), projection_model, language_model (GPT-2),
-    unet (two cross streams), vae, vocoder. The TTS variant (a VITS
-    text_encoder_2) raises."""
+    (CLAP, with its audio tower where present), text_encoder_2 (T5, or the
+    TTS variant's VITS, which then encodes the transcription),
+    projection_model, language_model (GPT-2), unet (two cross streams), vae,
+    vocoder."""
     from ..inverse_problem.operator import IdentityOperator
     from ..pipelines.audioldm2 import AudioLDM2Pipeline
     from ..samplers import DiffusionSchedule
     from .gpt2 import GPT2Model
     from .projection import AudioLDM2ProjectionModel
     from .t5 import T5EncoderModel
+    from .vits import VitsTextEncoder
     d = Path(checkpoint_dir)
     t5_json = _cfg(d / "text_encoder_2")
-    if t5_json.get("model_type") == "vits":
-        raise NotImplementedError("the AudioLDM2-TTS snapshot's VITS text encoder is not "
-                                  "ported yet (ROADMAP Queue 1 item 7)")
-    t5_cfg = T5Config(
-        vocab_size=t5_json.get("vocab_size", 32128), d_model=t5_json.get("d_model", 1024),
-        d_kv=t5_json.get("d_kv", 64), d_ff=t5_json.get("d_ff", 2816),
-        num_layers=t5_json.get("num_layers", 24), num_heads=t5_json.get("num_heads", 16),
-        is_gated_act="gated" in t5_json.get("feed_forward_proj", "gated-gelu"))
     gpt2_json = _cfg(d / "language_model")
     gpt2_cfg = GPT2Config(
         vocab_size=gpt2_json.get("vocab_size", 50257),
@@ -522,17 +591,34 @@ def load_audioldm2(checkpoint_dir, scheduler_name: str = "ddim", operator=None,
 
     unet, vae, vocoder = _core_models(d, device, weight_dtype, fuse_cross=fuse_cross,
                                       **routes)
+    text, audio_embed, frame_embed = _clap(d, device, weight_dtype)
+    second = {}
+    if t5_json.get("model_type") == "vits":
+        # the TTS variant: VITS encodes the transcription into the second stream
+        vits_cfg = vits_config_from_json(t5_json)
+        with torch.device("meta"):
+            vits = VitsTextEncoder(vits_cfg)
+        second["vits"] = _build(vits, vits_tree(_load_module_sd(d / "text_encoder_2"), vits_cfg),
+                                vits_cfg, device, weight_dtype)
+        second["vits_tokenizer"] = _make_hf_tokenizer(d / "tokenizer_2")
+    else:
+        t5_cfg = T5Config(
+            vocab_size=t5_json.get("vocab_size", 32128), d_model=t5_json.get("d_model", 1024),
+            d_kv=t5_json.get("d_kv", 64), d_ff=t5_json.get("d_ff", 2816),
+            num_layers=t5_json.get("num_layers", 24), num_heads=t5_json.get("num_heads", 16),
+            is_gated_act="gated" in t5_json.get("feed_forward_proj", "gated-gelu"))
+        with torch.device("meta"):
+            t5 = T5EncoderModel(t5_cfg)
+        second["t5"] = _build(t5, t5_tree(_load_module_sd(d / "text_encoder_2"), t5_cfg),
+                              t5_cfg, device, weight_dtype)
     with torch.device("meta"):
-        t5, gpt2, proj = (T5EncoderModel(t5_cfg), GPT2Model(gpt2_cfg),
-                          AudioLDM2ProjectionModel(proj_cfg))
+        gpt2, proj = GPT2Model(gpt2_cfg), AudioLDM2ProjectionModel(proj_cfg)
     return AudioLDM2Pipeline(
         unet, vae, vocoder, schedule=schedule if schedule is not None else DiffusionSchedule(),
         scheduler_name=scheduler_name,
         operator=operator if operator is not None else IdentityOperator(),
-        text_encoder=_clap_text(d, device, weight_dtype),
-        tokenizer=_make_hf_tokenizer(d / "tokenizer"),
-        t5=_build(t5, t5_tree(_load_module_sd(d / "text_encoder_2"), t5_cfg), t5_cfg, device,
-                  weight_dtype),
+        text_encoder=text, tokenizer=_make_hf_tokenizer(d / "tokenizer"),
+        clap_audio_embed=audio_embed, clap_frame_embed=frame_embed, **second,
         gpt2=_build(gpt2, gpt2_tree(_load_module_sd(d / "language_model"), gpt2_cfg),
                     gpt2_cfg, device, weight_dtype),
         projection=_build(proj, projection_tree(_load_module_sd(d / "projection_model")),

@@ -2,21 +2,24 @@
 random init.
 
 `from_flax(params, cfg)` turns a flax parameter tree of the JAX package's
-UNet, VAE, HiFi-GAN, CLAP text tower, T5 encoder, AudioLDM2 projection model
-or GPT-2 (arrays of any kind numpy can read) into the matching port module's
-`state_dict`. The port's module and parameter names follow the flax tree, so
+UNet, VAE, HiFi-GAN, CLAP text tower, CLAP audio tower (HTSAT, with its
+BatchNorm's `batch_stats`), T5 encoder, VITS text encoder, AudioLDM2
+projection model or GPT-2 (arrays of any kind numpy can read) into the
+matching port module's `state_dict`. The port's module and parameter names follow the flax tree, so
 only the leaf names and the layouts change:
   - norm `scale` -> `weight`; Embed `embedding` (num, dim) -> `weight`;
   - Dense `kernel` (in, out) stays (in, out): the port's `Dense` keeps it so;
-  - Conv `kernel` (kh, kw, in, out) -> Conv2d `weight` (out, in, kh, kw);
+  - Conv `kernel` (kh, kw, in, out) -> Conv2d `weight` (out, in, kh, kw),
+    and (k, in, out) -> Conv1d `weight` (out, in, k);
   - HiFi-GAN conv kernels stay in their (k, in, out) math layout, except the
     ConvTranspose upsamplers, whose (k, out, in) kernels swap to (k, in, out).
   - leaves of other names (T5's RMSNorm `weight`, the projection model's
-    SOS/EOS embeds, the vocoder's `normalize_before` mean and scale) keep
-    their names.
+    SOS/EOS embeds, the vocoder's `normalize_before` mean and scale, HTSAT's
+    `bn_*` and bias tables, VITS's relative embeddings) keep their names.
 
-`convert_hifigan`, `convert_clap_text`, `convert_t5_encoder`, `convert_gpt2`
-and `convert_projection` are numpy copies of the JAX package's HF -> flax
+`convert_hifigan`, `convert_clap_text`, `convert_clap_audio`,
+`convert_t5_encoder`, `convert_vits_text_encoder`, `convert_gpt2` and
+`convert_projection` are numpy copies of the JAX package's HF -> flax
 converters (`diffmusic_tpu/models/convert.py`): a transformers / diffusers
 state dict becomes the flax tree, which `from_flax` then turns into the
 port's state dict. `models/checkpoint.py` holds the UNet's and the VAE's.
@@ -34,12 +37,14 @@ import torch.nn as nn
 from .configs import (ClapTextConfig, GPT2Config, HiFiGANConfig, ProjectionConfig,
                       T5Config, UNetConfig, VAEConfig)
 from .hifigan import Conv1dParams
+from .htsat import ClapAudioConfig
 from .layers import Dense, GroupNorm
 from .projection import AudioLDM2ProjectionModel
 from .t5 import RMSNorm
+from .vits import VitsAttention, VitsConfig
 
-CONFIGS = (UNetConfig, VAEConfig, HiFiGANConfig, ClapTextConfig, T5Config, ProjectionConfig,
-           GPT2Config)
+CONFIGS = (UNetConfig, VAEConfig, HiFiGANConfig, ClapTextConfig, ClapAudioConfig, T5Config,
+           VitsConfig, ProjectionConfig, GPT2Config)
 
 
 def _flatten(tree, prefix=()):
@@ -64,6 +69,8 @@ def _leaf(path, arr, hifigan: bool):
         return key + ".weight", arr.swapaxes(1, 2) if mods[-1].startswith("upsampler_") else arr
     if arr.ndim == 2:
         return key + ".weight", arr
+    if arr.ndim == 3:
+        return key + ".weight", arr.transpose(2, 1, 0)
     if arr.ndim == 4:
         return key + ".weight", arr.transpose(3, 2, 0, 1)
     raise ValueError(f"unexpected kernel rank {arr.ndim} at {'/'.join(path)}")
@@ -71,13 +78,17 @@ def _leaf(path, arr, hifigan: bool):
 
 def from_flax(params, cfg) -> dict:
     """State dict of the port's model for `cfg` from the JAX package's
-    variables (`{"params": ...}` or the bare tree)."""
+    variables (`{"params": ...}` or the bare tree; `batch_stats` leaves, the
+    HTSAT BatchNorm's running statistics, become buffers of the same name)."""
     tree = params.get("params", params)
     hifigan = isinstance(cfg, HiFiGANConfig)
     if not isinstance(cfg, CONFIGS):
         raise TypeError(f"no port model for config {type(cfg).__name__}")
     out = {}
-    for path, arr in _flatten(tree):
+    leaves = list(_flatten(tree))
+    if "params" in params:
+        leaves += list(_flatten(params.get("batch_stats", {})))
+    for path, arr in leaves:
         key, arr = _leaf(path, arr, hifigan)
         out[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
     return out
@@ -177,6 +188,90 @@ def convert_clap_text(state_dict, cfg) -> dict:
     return {"params": p}
 
 
+def convert_clap_audio(state_dict, cfg) -> dict:
+    """transformers ClapAudioModelWithProjection, or the audio_model /
+    audio_projection part of a ClapModel (keys with or without the
+    'audio_model.' prefix) -> the HTSAT tower's flax variables."""
+    sd = state_dict
+    strip = {k[len("audio_model."):]: k for k in sd if k.startswith("audio_model.")}
+
+    def get(name):
+        return _np(sd[strip.get(name, name)])
+
+    def dense(name, bias=True):
+        out = {"kernel": linear(get(f"{name}.weight"))}
+        if bias:
+            out["bias"] = get(f"{name}.bias")
+        return out
+
+    def norm(name):
+        return {"scale": get(f"{name}.weight"), "bias": get(f"{name}.bias")}
+
+    enc = "audio_encoder"
+    p = {"patch_embed_proj": {"kernel": conv2d(get(f"{enc}.patch_embed.proj.weight")),
+                              "bias": get(f"{enc}.patch_embed.proj.bias")},
+         "patch_embed_norm": norm(f"{enc}.patch_embed.norm"),
+         "norm": norm(f"{enc}.norm"),
+         "bn_scale": get(f"{enc}.batch_norm.weight"),
+         "bn_bias": get(f"{enc}.batch_norm.bias"),
+         "projection_linear1": dense("audio_projection.linear1"),
+         "projection_linear2": dense("audio_projection.linear2")}
+    for i, depth in enumerate(cfg.depths):
+        for d in range(depth):
+            b = f"{enc}.layers.{i}.blocks.{d}"
+            attn = {n: dense(f"{b}.attention.self.{n}") for n in ("query", "key", "value")}
+            attn["output_dense"] = dense(f"{b}.attention.output.dense")
+            attn["relative_position_bias_table"] = get(
+                f"{b}.attention.self.relative_position_bias_table")
+            p[f"stage_{i}_block_{d}"] = {
+                "layernorm_before": norm(f"{b}.layernorm_before"),
+                "layernorm_after": norm(f"{b}.layernorm_after"),
+                "attention": attn,
+                "intermediate_dense": dense(f"{b}.intermediate.dense"),
+                "output_dense": dense(f"{b}.output.dense")}
+        if i < len(cfg.depths) - 1:
+            p[f"stage_{i}_downsample"] = {
+                "norm": norm(f"{enc}.layers.{i}.downsample.norm"),
+                "reduction": dense(f"{enc}.layers.{i}.downsample.reduction", bias=False)}
+    mean, var = f"{enc}.batch_norm.running_mean", f"{enc}.batch_norm.running_var"
+    stats = {"bn_mean": get(mean) if strip.get(mean, mean) in sd
+             else np.zeros(cfg.num_mel_bins, np.float32),
+             "bn_var": get(var) if strip.get(var, var) in sd
+             else np.ones(cfg.num_mel_bins, np.float32)}
+    return {"params": p, "batch_stats": stats}
+
+
+def convert_vits_text_encoder(state_dict, cfg) -> dict:
+    """transformers VitsModel's text_encoder state dict (keys with or without
+    the 'text_encoder.' prefix) -> the VITS text encoder's flax tree."""
+    sd = state_dict
+    pre = "text_encoder." if any(k.startswith("text_encoder.") for k in sd) else ""
+
+    def get(name):
+        return _np(sd[pre + name])
+
+    def dense(name):
+        return {"kernel": linear(get(f"{name}.weight")), "bias": get(f"{name}.bias")}
+
+    def norm(name):
+        return {"scale": get(f"{name}.weight"), "bias": get(f"{name}.bias")}
+
+    p = {"embed_tokens": {"embedding": get("embed_tokens.weight")}}
+    for i in range(cfg.num_hidden_layers):
+        b = f"encoder.layers.{i}"
+        attn = {n: dense(f"{b}.attention.{n}") for n in ("q_proj", "k_proj", "v_proj",
+                                                          "out_proj")}
+        attn["emb_rel_k"] = get(f"{b}.attention.emb_rel_k")
+        attn["emb_rel_v"] = get(f"{b}.attention.emb_rel_v")
+        p[f"layers_{i}_attention"] = attn
+        p[f"layers_{i}_layer_norm"] = norm(f"{b}.layer_norm")
+        p[f"layers_{i}_feed_forward"] = {
+            n: {"kernel": conv1d(get(f"{b}.feed_forward.{n}.weight")),
+                "bias": get(f"{b}.feed_forward.{n}.bias")} for n in ("conv_1", "conv_2")}
+        p[f"layers_{i}_final_layer_norm"] = norm(f"{b}.final_layer_norm")
+    return {"params": p}
+
+
 def convert_t5_encoder(state_dict, cfg) -> dict:
     """transformers T5EncoderModel state dict -> the T5 encoder's flax tree."""
     sd = state_dict
@@ -239,11 +334,11 @@ def init_flax_style(model: nn.Module, seed: int) -> nn.Module:
     """Random flax-style init in place (on the model's device, drawn on the CPU)."""
     g = torch.Generator().manual_seed(seed)
     for mod in model.modules():
-        if isinstance(mod, (Dense, nn.Conv2d, Conv1dParams)):
+        if isinstance(mod, (Dense, nn.Conv2d, nn.Conv1d, Conv1dParams)):
             if isinstance(mod, Dense):
                 fan_in = mod.weight.shape[0]
-            elif isinstance(mod, nn.Conv2d):
-                fan_in = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
+            elif isinstance(mod, (nn.Conv2d, nn.Conv1d)):
+                fan_in = mod.in_channels * int(np.prod(mod.kernel_size))
             else:
                 fan_in = mod.fan_in
             w = torch.empty(mod.weight.shape)
@@ -260,6 +355,10 @@ def init_flax_style(model: nn.Module, seed: int) -> nn.Module:
             # flax Embed: variance_scaling(1, fan_in, normal) over the feature axis
             mod.weight.copy_(torch.randn(mod.weight.shape, generator=g)
                              / mod.weight.shape[1] ** 0.5)
+        elif isinstance(mod, VitsAttention):
+            # flax normal(head_dim ** -0.5) for the relative embeddings
+            for p in (mod.emb_rel_k, mod.emb_rel_v):
+                p.copy_(torch.randn(p.shape, generator=g) * p.shape[-1] ** -0.5)
         elif isinstance(mod, AudioLDM2ProjectionModel):
             for name in ("sos_embed", "eos_embed", "sos_embed_1", "eos_embed_1"):
                 p = getattr(mod, name)

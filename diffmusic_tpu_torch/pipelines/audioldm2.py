@@ -7,13 +7,15 @@ tokens, and GPT-2 generates 8 hidden states from them in embedding space.
 The UNet attends to the generated states and to the T5 sequence (two
 cross-attention streams); the guided denoise loop is MusicLDM's.
 
-Ported: text prompts through the whole text stack, `prompt_embeds`, the
-degenerate-CFG skip over the stream tuple, `optim_prompt` over the GPT-2
-states and the T5 sequence (the T5 mask is carried as it is), DITTO,
-`from_pretrained` and `tiny`. Still to be ported (ROADMAP Queue 1 item 7):
-`prompt_type="clap"` (CLAP audio features of the measurement through the
-HTSAT audio tower), the TTS variant (a VITS encoder of a transcription) and
-`score_waveforms`; the first two raise `NotPortedError`, the last is absent.
+Ported: text prompts through the whole text stack, `prompt_type="clap"`
+(the measurement's pooled CLAP audio embedding, through the HTSAT tower, in
+the CLAP text embedding's place), the TTS variant (the VITS encoding of the
+transcription in T5's place: the second stream is always VITS's, the
+transcription's for the prompt and the empty one's for the negative
+prompt), `prompt_embeds`, the degenerate-CFG skip over the stream tuple,
+`optim_prompt` over the GPT-2 states and the second stream (its mask is
+carried as it is), DITTO, `score_waveforms` (MusicLDM's), `from_pretrained`
+and `tiny`.
 """
 
 from dataclasses import dataclass
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 
 from ..inverse_problem.operator import IdentityOperator
 from ..models.clap import ClapTextModelWithProjection
+from ..models.clap_features import make_tiny_clap_audio_embeds
 from ..models.configs import (ClapTextConfig, GPT2Config, HiFiGANConfig, ProjectionConfig,
                               T5Config, UNetConfig, VAEConfig, tiny_clap_text_config,
                               tiny_gpt2_config, tiny_hifigan_config, tiny_t5_config,
@@ -34,28 +37,28 @@ from ..models.projection import AudioLDM2ProjectionModel
 from ..models.t5 import T5EncoderModel
 from ..models.unet import UNet2DConditionModel
 from ..models.vae import AutoencoderKL
-from .base import NotPortedError, byte_tokenizer
+from ..models.vits import VitsConfig, VitsTextEncoder
+from .base import byte_tokenizer
 from .musicldm import MusicLDMPipeline, _dtype
 
 GENERATED_STATES = 8   # GPT-2 generation steps, as the JAX package's max_new_tokens
-HTSAT = ("prompt_type='clap' needs the CLAP audio tower (HTSAT), which is not ported yet "
-         "(ROADMAP Queue 1 item 7): use a text prompt")
-VITS = ("a transcription needs the AudioLDM2-TTS variant (a VITS text encoder), which is "
-        "not ported yet (ROADMAP Queue 1 item 7)")
 
 
 @dataclass
 class AudioLDM2Pipeline(MusicLDMPipeline):
     """MusicLDM's geometry, loss and guided loop; AudioLDM2's prompt encoding
-    and UNet conditioning. `text_encoder` is the CLAP text tower."""
+    and UNet conditioning. `text_encoder` is the CLAP text tower; `vits`
+    (the TTS variant) takes T5's place."""
     t5: Optional[T5EncoderModel] = None
     gpt2: Optional[GPT2Model] = None
     projection: Optional[AudioLDM2ProjectionModel] = None
     t5_tokenizer: Optional[Callable] = None
     max_new_tokens: int = GENERATED_STATES
+    vits: Optional[VitsTextEncoder] = None
+    vits_tokenizer: Optional[Callable] = None
 
     def _models(self):
-        return super()._models() + [m for m in (self.t5, self.gpt2, self.projection)
+        return super()._models() + [m for m in (self.t5, self.vits, self.gpt2, self.projection)
                                     if m is not None]
 
     @classmethod
@@ -65,56 +68,76 @@ class AudioLDM2Pipeline(MusicLDMPipeline):
                gpt2_cfg: GPT2Config = GPT2Config(),
                proj_cfg: ProjectionConfig = ProjectionConfig(), fuse_cross: bool = False,
                gn_mode: str = "plain", conv2d_kernel: bool = False, mask_kernel: bool = False,
-               bsoft: bool = False, canvas: str = "off", stage_bwd: bool = False, **kwargs):
+               bsoft: bool = False, canvas: str = "off", stage_bwd: bool = False,
+               vits_cfg: Optional[VitsConfig] = None, **kwargs):
         """Seeded flax-style random weights for all seven models, cast to
         `weight_dtype` on `device` (the card unless the caller asks for the
         CPU), with the byte tokenizer for both text encoders unless
-        `tokenizer` / `t5_tokenizer` are given. `fuse_cross` routes the UNet's
-        long dual-cross blocks to the fused block kernel; `gn_mode`,
-        `conv2d_kernel`, `mask_kernel`, `bsoft`, `canvas` and `stage_bwd` are
-        `MusicLDMPipeline.random`'s route flags."""
+        `tokenizer` / `t5_tokenizer` are given. With `vits_cfg` the second
+        text encoder is the TTS variant's VITS in T5's place. `fuse_cross`
+        routes the UNet's long dual-cross blocks to the fused block kernel;
+        `gn_mode`, `conv2d_kernel`, `mask_kernel`, `bsoft`, `canvas` and
+        `stage_bwd` are `MusicLDMPipeline.random`'s route flags."""
         routes = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel)
+        second = VitsTextEncoder(vits_cfg) if vits_cfg is not None else T5EncoderModel(t5_cfg)
         models = cls._random_models(
             [UNet2DConditionModel(unet_cfg, fuse_cross=fuse_cross, bsoft=bsoft, **routes),
              AutoencoderKL(vae_cfg, **routes),
              SpeechT5HifiGan(vocoder_cfg, mask_kernel=mask_kernel, canvas=canvas,
                              stage_bwd=stage_bwd),
              ClapTextModelWithProjection(text_cfg),
-             T5EncoderModel(t5_cfg), GPT2Model(gpt2_cfg), AudioLDM2ProjectionModel(proj_cfg)],
+             second, GPT2Model(gpt2_cfg), AudioLDM2ProjectionModel(proj_cfg)],
             seed, device, weight_dtype)
         kwargs.setdefault("tokenizer", byte_tokenizer)
         kwargs.setdefault("t5_tokenizer", byte_tokenizer)
-        return cls(*models[:3], text_encoder=models[3], t5=models[4], gpt2=models[5],
+        kwargs["vits" if vits_cfg is not None else "t5"] = models[4]
+        return cls(*models[:3], text_encoder=models[3], gpt2=models[5],
                    projection=models[6], **kwargs)
 
     # ------------------------------------------------------------------ text
-    def _encode_one(self, text: str, prompt_type: Optional[str] = None):
-        """One prompt -> (generated GPT-2 states (1, 8, 768), T5 sequence
-        (1, L, 1024), T5 mask (1, L))."""
+    def _encode_one(self, text: str, measurement: Optional[torch.Tensor] = None,
+                    prompt_type: Optional[str] = None, transcription: str = ""):
+        """One prompt -> (generated GPT-2 states (1, 8, 768), second stream
+        (1, L, width), its mask (1, L)). The first stream is the prompt's
+        normalised CLAP text embedding, or with prompt_type "clap" the
+        measurement's CLAP audio embedding; the second is T5's encoding of
+        the prompt, or VITS's of the transcription in the TTS variant."""
         if prompt_type == "clap":
-            raise NotPortedError(HTSAT)
+            if self.clap_audio_embed is None:
+                raise ValueError("prompt_type='clap' requires a CLAP audio tower "
+                                 "(clap_audio_embed); load one via from_pretrained")
+            clap = self.clap_audio_embed(measurement).float()
+        else:
+            clap = self._clap_text(text)
         proj_dt = _dtype(self.projection)
-        clap = self._clap_text(text)[:, None].to(proj_dt)            # (1, 1, 512)
+        clap = clap[:, None].to(proj_dt)                                 # (1, 1, 512)
         clap_mask = torch.ones(clap.shape[:2], dtype=torch.long, device=clap.device)
-        ids, t5_mask = self._tokens([text], self.t5_tokenizer)
-        t5_seq = self.t5(ids, t5_mask)
-        projected, proj_mask = self.projection(clap, t5_seq.to(proj_dt), clap_mask, t5_mask)
+        if transcription and self.vits is None:
+            raise ValueError("transcription (TTS) requires the AudioLDM2-TTS variant with a "
+                             "VITS text encoder; load one via from_pretrained")
+        if self.vits is not None:
+            ids, mask = self._tokens([transcription], self.vits_tokenizer or self.t5_tokenizer)
+            seq = self.vits(ids, mask)
+        else:
+            ids, mask = self._tokens([text], self.t5_tokenizer)
+            seq = self.t5(ids, mask)
+        projected, proj_mask = self.projection(clap, seq.to(proj_dt), clap_mask, mask)
         generated = generate_hidden_states(self.gpt2, projected.to(_dtype(self.gpt2)),
                                            proj_mask, self.max_new_tokens)
-        return generated, t5_seq, t5_mask
+        return generated, seq, mask
 
     def encode_prompt(self, prompt, negative_prompt=None, do_classifier_free_guidance=True,
+                      measurement: Optional[torch.Tensor] = None,
                       prompt_type: Optional[str] = None, transcription: str = ""):
-        """(generated, t5_seq, t5_mask), CFG-stacked [uncond; cond] with the T5
-        streams padded to a common length."""
-        if prompt_type == "clap":
-            raise NotPortedError(HTSAT)
-        if transcription:
-            raise NotPortedError(VITS)
-        if self.tokenizer is None or self.t5_tokenizer is None:
+        """(generated, second stream, its mask), CFG-stacked [uncond; cond]
+        with the second streams padded to a common length; the negative
+        prompt is always text (and, in the TTS variant, the empty
+        transcription)."""
+        if (self.tokenizer is None and (prompt_type != "clap" or do_classifier_free_guidance)
+                or (self.vits_tokenizer or self.t5_tokenizer) is None):
             raise ValueError("no tokenizers configured: pass prompt_embeds instead of a "
                              "text prompt")
-        cond = self._encode_one(prompt or "", prompt_type)
+        cond = self._encode_one(prompt or "", measurement, prompt_type, transcription)
         if not do_classifier_free_guidance:
             return cond
         uncond = self._encode_one(negative_prompt or "")
@@ -151,8 +174,11 @@ class AudioLDM2Pipeline(MusicLDMPipeline):
                  negative_prompt: Optional[str] = None, prompt_embeds=None,
                  transcription: str = "", **kwargs):
         if prompt_embeds is None:
+            if measurement is not None:
+                measurement = torch.as_tensor(measurement, dtype=torch.float32,
+                                              device=self.device)
             prompt_embeds = self.encode_prompt(prompt, negative_prompt, guidance_scale > 1.0,
-                                               prompt_type, transcription)
+                                               measurement, prompt_type, transcription)
         return super().__call__(prompt=prompt, measurement=measurement,
                                 guidance_scale=guidance_scale, negative_prompt=negative_prompt,
                                 prompt_embeds=prompt_embeds, **kwargs)
@@ -171,16 +197,22 @@ class AudioLDM2Pipeline(MusicLDMPipeline):
 
     @classmethod
     def tiny(cls, scheduler_name: str = "ddim", operator=None, seed: int = 0, device="cuda",
-             weight_dtype=torch.float32, **routes):
+             weight_dtype=torch.float32, tts: bool = False, **routes):
         """Seeded random weights at the JAX package's tiny configs for all
-        seven models, with the byte tokenizer (12 tokens) for both text
-        encoders."""
+        seven models and the tiny CLAP audio tower, with the byte tokenizer
+        (12 tokens) for both text encoders. `tts` builds the TTS variant: a
+        2-layer VITS of T5's width (its vocabulary the byte tokenizer's 256)
+        in T5's place."""
         txt, t5, gpt2 = tiny_clap_text_config(), tiny_t5_config(), tiny_gpt2_config()
+        audio_embed, frame_embed = make_tiny_clap_audio_embeds(seed + 99, txt.projection_dim,
+                                                               device)
+        vits_cfg = VitsConfig(vocab_size=256, hidden_size=t5.d_model, num_hidden_layers=2,
+                              num_attention_heads=2, ffn_dim=32) if tts else None
         return cls.random(tiny_unet_config(cross_attention_dims=(gpt2.n_embd, t5.d_model)),
                           tiny_vae_config(), tiny_hifigan_config(), seed=seed, device=device,
                           weight_dtype=weight_dtype, text_cfg=txt, t5_cfg=t5, gpt2_cfg=gpt2,
                           proj_cfg=ProjectionConfig(txt.projection_dim, t5.d_model,
                                                     gpt2.n_embd),
-                          scheduler_name=scheduler_name,
+                          vits_cfg=vits_cfg, scheduler_name=scheduler_name,
                           operator=operator if operator is not None else IdentityOperator(),
-                          **routes)
+                          clap_audio_embed=audio_embed, clap_frame_embed=frame_embed, **routes)

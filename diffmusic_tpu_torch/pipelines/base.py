@@ -30,11 +30,6 @@ class AudioPipelineOutput:
     audios: np.ndarray
 
 
-class NotPortedError(NotImplementedError, ValueError):
-    """A feature of the JAX package that the port does not have yet; raised
-    before any sampling, naming its ROADMAP item."""
-
-
 def byte_tokenizer(texts, maxlen: int = 12):
     """A vocabulary-free tokenizer for random-weight runs (the JAX tiny
     pipelines' own): <s> (0), the prompt's UTF-8 bytes mapped into

@@ -12,7 +12,10 @@ under any operator of `inverse_problem`, `optim_prompt`, a text prompt
 through the CLAP text tower (`encode_prompt`, with a `tokenizer` callable
 returning numpy `(ids, mask)`) or `prompt_embeds`, the degenerate-CFG skip,
 the NaN retry, phase retrieval's phase-aware output (`phase_aware`),
-`from_pretrained` (a local checkpoint, `models/checkpoint.py`) and `tiny`.
+`from_pretrained` (a local checkpoint, `models/checkpoint.py`), `tiny`, and
+with a CLAP audio tower (`clap_audio_embed`, `clap_frame_embed`:
+`models/clap_features.py`) the style-guidance operator's frame features and
+`score_waveforms`, the CLAP text-audio re-ranking of candidates.
 
 DITTO and `optim_prompt` are the two paths that differentiate through the
 UNet. DITTO runs the DDIM chain with eta noise from the initial latents, one
@@ -35,6 +38,7 @@ import torch
 from ..inverse_problem.operator import (BaseOperator, IdentityOperator,
                                         PhaseRetrievalOperator)
 from ..models.clap import ClapTextModelWithProjection
+from ..models.clap_features import make_tiny_clap_audio_embeds
 from ..models.configs import (HiFiGANConfig, UNetConfig, VAEConfig, tiny_clap_text_config,
                               tiny_hifigan_config, tiny_unet_config, tiny_vae_config)
 from ..models.convert import init_flax_style
@@ -71,6 +75,9 @@ class MusicLDMPipeline:
     dtype: torch.dtype = torch.float32   # latents and guidance algebra
     text_encoder: Optional[ClapTextModelWithProjection] = None
     tokenizer: Optional[Callable] = None   # texts -> numpy (ids, attention_mask)
+    clap_audio_embed: Optional[Callable] = None   # waveform -> pooled (B, D), normalised
+    # waveform -> per-frame CLAP features (B, T', D), StyleGuidanceOperator's input
+    clap_frame_embed: Optional[Callable] = None
 
     def __post_init__(self):
         for m in self._models():
@@ -82,8 +89,10 @@ class MusicLDMPipeline:
         self.vae_scale_factor = self.vae_cfg.scale_factor
 
     def _models(self):
-        return [m for m in (self.unet, self.vae, self.vocoder, self.text_encoder)
-                if m is not None]
+        towers = {id(e.tower): e.tower for e in (self.clap_audio_embed, self.clap_frame_embed)
+                  if hasattr(e, "tower")}
+        return [m for m in (self.unet, self.vae, self.vocoder, self.text_encoder,
+                            *towers.values()) if m is not None]
 
     @property
     def device(self) -> torch.device:
@@ -138,6 +147,23 @@ class MusicLDMPipeline:
         if not do_classifier_free_guidance:
             return emb
         return torch.cat([self._clap_text(negative_prompt or ""), emb], dim=0)
+
+    # -------------------------------------------------------------- ranking
+    @torch.no_grad()
+    def score_waveforms(self, text: str, audio, num_waveforms_per_prompt=None):
+        """Candidates (N, L) at 16 kHz ranked by the cosine of their CLAP
+        audio embeddings with the text's, best first, then the best
+        `num_waveforms_per_prompt` kept: (audio, similarities) as numpy."""
+        if self.clap_audio_embed is None:
+            raise ValueError("score_waveforms requires a CLAP audio tower (clap_audio_embed); "
+                             "load one via from_pretrained")
+        audio = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
+        text_feat = self._clap_text(text or "")
+        sim = (self.clap_audio_embed(audio) @ text_feat.T.float())[:, 0]
+        order = torch.argsort(-sim, stable=True)
+        if num_waveforms_per_prompt is not None:
+            order = order[:num_waveforms_per_prompt]
+        return audio[order].cpu().numpy(), sim[order].cpu().numpy()
 
     # ----------------------------------------------------------------- audio
     def decode_mel(self, latents: torch.Tensor) -> torch.Tensor:
@@ -396,12 +422,16 @@ class MusicLDMPipeline:
     def tiny(cls, scheduler_name: str = "ddim", operator=None, seed: int = 0, device="cuda",
              weight_dtype=torch.float32, **routes):
         """Seeded random weights at the JAX package's tiny configs, with the
-        CLAP text tower and the byte tokenizer (16 tokens): the model
-        structure at a CPU-second scale."""
-        text = init_flax_style(ClapTextModelWithProjection(tiny_clap_text_config()), seed + 3)
+        CLAP text tower, the byte tokenizer (16 tokens) and the tiny CLAP
+        audio tower (fp32): the model structure at a CPU-second scale."""
+        text_cfg = tiny_clap_text_config()
+        text = init_flax_style(ClapTextModelWithProjection(text_cfg), seed + 3)
+        audio_embed, frame_embed = make_tiny_clap_audio_embeds(
+            seed + 99, text_cfg.projection_dim, device)
         return cls.random(tiny_unet_config(), tiny_vae_config(), tiny_hifigan_config(),
                           seed=seed, device=device, weight_dtype=weight_dtype,
                           scheduler_name=scheduler_name,
                           operator=operator if operator is not None else IdentityOperator(),
                           text_encoder=text.to(device=device, dtype=weight_dtype),
-                          tokenizer=functools.partial(byte_tokenizer, maxlen=16), **routes)
+                          tokenizer=functools.partial(byte_tokenizer, maxlen=16),
+                          clap_audio_embed=audio_embed, clap_frame_embed=frame_embed, **routes)

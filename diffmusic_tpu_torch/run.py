@@ -11,10 +11,12 @@ output tree outputs/{model}/{data}/{scheduler}/{task}/{wav,mel}_{input,recon,lab
 with files that exist skipped. Draws come from one seeded `torch.Generator`
 on the device, in place of `jax.random.key(0)`.
 
+`-t style_guidance` binds the pipeline's CLAP frame features to the style
+operator (`bind_style_guidance`); `-nw` above 1 samples that many
+candidates and, with a CLAP audio tower, writes them re-ranked by CLAP
+text-audio similarity, best first (`score_waveforms`, the order logged).
 What the port does not have yet raises before any sampling, naming its
-ROADMAP item: `-m stable_audio` (Queue 1 item 9); `-t style_guidance`,
-`--prompt_type clap` and a `--transcription` with AudioLDM2, and `-nw` above
-1 (CLAP re-ranking), which need the CLAP audio tower or VITS (item 7).
+ROADMAP item: `-m stable_audio` (Queue 1 item 9).
 """
 
 import os
@@ -29,7 +31,6 @@ from .constants import (AUDIOLDM2, CLAP, CONFIG_PATH, DDIM, DIFFMUSIC, DITTO, DP
                         MUSIC_GENERATION, MUSIC_INPAINTING, MUSICCAPS, MUSICLDM, NULL_TEXT,
                         PHASE_RETRIEVAL, STABLE_AUDIO, STYLE_GUIDANCE, SUPER_RESOLUTION, TAG,
                         WAV_FORM)
-from .pipelines.base import NotPortedError
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -63,7 +64,7 @@ def parse_arguments(argv=None) -> Namespace:
     parser.add_argument("--num_inference_steps", type=int, default=None,
                         help="override config num_inference_steps")
     parser.add_argument("-nw", "--num_waveforms_per_prompt", type=int, default=1,
-                        help="candidates per prompt; above 1 needs CLAP re-ranking")
+                        help="candidates per prompt, re-ranked by CLAP when above 1")
     parser.add_argument("-o", "--override", action="append", default=[],
                         help="dotted config override, repeatable: "
                              "-o model.pipe.audio_length_in_s=5 -o data.root=...")
@@ -76,25 +77,13 @@ def check_supported(args) -> None:
     """Raise for what the port does not have yet, before anything is loaded."""
     if args.model == STABLE_AUDIO:
         raise SystemExit("stable_audio is not ported yet (ROADMAP Queue 1 item 9)")
-    if args.task == STYLE_GUIDANCE:
-        raise NotPortedError("style_guidance needs the CLAP audio tower's frame features "
-                             "(HTSAT), which is not ported yet (ROADMAP Queue 1 item 7)")
-    if args.num_waveforms_per_prompt > 1:
-        raise NotPortedError("-nw above 1 re-ranks the candidates with the CLAP audio tower "
-                             "(HTSAT), which is not ported yet (ROADMAP Queue 1 item 7)")
-    if args.model == AUDIOLDM2:
-        from .pipelines.audioldm2 import HTSAT, VITS
-        if args.prompt_type == CLAP:
-            raise NotPortedError(HTSAT)
-        if args.transcription:
-            raise NotPortedError(VITS)
 
 
 def build_operator(args, config, noiser):
     """Task -> (operator, downsample scale), as the JAX `run.py` builds it."""
     from .inverse_problem import (IdentityOperator, MusicDereverberationOperator,
                                   MusicInpaintingOperator, PhaseRetrievalOperator,
-                                  SuperResolutionOperator)
+                                  StyleGuidanceOperator, SuperResolutionOperator)
     task = args.task
     downsample_scale = 1
     if task == MUSIC_GENERATION:
@@ -115,15 +104,31 @@ def build_operator(args, config, noiser):
                                     win_length=config.data.win_length, noiser=noiser)
     elif task == MUSIC_DEREVERBERATION:
         op = MusicDereverberationOperator(ir_length=5000, decay_factor=0.99, noiser=noiser)
+    elif task == STYLE_GUIDANCE:
+        # clap_embed is bound once the pipeline is loaded (bind_style_guidance)
+        op = StyleGuidanceOperator(noiser=noiser)
     else:
-        raise NotPortedError(f"task {task!r} is not ported yet (ROADMAP Queue 1 item 7)")
+        raise ValueError(f"Unknown task: {task}")
     return op, downsample_scale
+
+
+def bind_style_guidance(pipe, operator):
+    """The style operator with the pipeline's CLAP frame features as its
+    `clap_embed`, set on the pipeline too: the guided loss is then the gram
+    matrices' distance."""
+    from dataclasses import replace
+    if getattr(pipe, "clap_frame_embed", None) is None:
+        raise SystemExit("style_guidance needs a CLAP audio tower: this checkpoint's "
+                         "text_encoder has no audio_model weights")
+    operator = replace(operator, clap_embed=pipe.clap_frame_embed)
+    pipe.operator = operator
+    return operator
 
 
 def load_pipeline(args, config, operator):
     """The pipeline of `config.model.name` with the config's schedule: seeded
-    tiny weights (`--tiny`) or a local checkpoint (`--checkpoint_dir`), on
-    `--device`."""
+    tiny weights (`--tiny`; AudioLDM2's TTS variant with a `--transcription`)
+    or a local checkpoint (`--checkpoint_dir`), on `--device`."""
     from .pipelines import AudioLDM2Pipeline, MusicLDMPipeline
     from .samplers import DiffusionSchedule
     if config.model.name == STABLE_AUDIO:
@@ -136,7 +141,10 @@ def load_pipeline(args, config, operator):
         set_alpha_to_one=sched.set_alpha_to_one, steps_offset=sched.steps_offset,
         timestep_spacing=sched.timestep_spacing)
     if args.tiny:
-        pipe = cls.tiny(scheduler_name=config.name, operator=operator, device=args.device)
+        # a transcription takes AudioLDM2's TTS variant (VITS in T5's place)
+        tts = {"tts": True} if args.transcription and cls is AudioLDM2Pipeline else {}
+        pipe = cls.tiny(scheduler_name=config.name, operator=operator, device=args.device,
+                        **tts)
         pipe.schedule = schedule
         return pipe
     if args.checkpoint_dir:
@@ -168,6 +176,8 @@ def main(argv=None) -> None:
         config_path=config_root(args.config_name))
     if args.num_inference_steps is not None:
         config.model.pipe.num_inference_steps = args.num_inference_steps
+    if args.num_waveforms_per_prompt != 1:
+        config.model.pipe.num_waveforms_per_prompt = args.num_waveforms_per_prompt
 
     output_dir = Path("outputs", config.model.name, config.data.name, args.config_name,
                       args.task)
@@ -178,6 +188,8 @@ def main(argv=None) -> None:
     noiser = get_noiser(**config.inverse_problem.noise)
     operator, downsample_scale = build_operator(args, config, noiser)
     pipe = load_pipeline(args, config, operator)
+    if args.task == STYLE_GUIDANCE:
+        operator = bind_style_guidance(pipe, operator)
 
     audio_length_in_s = config.model.pipe.audio_length_in_s
     sr = config.data.sample_rate
@@ -253,6 +265,15 @@ def main(argv=None) -> None:
             **config.model.pipe,
         )
         audio = np.asarray(out.audios)
+        if config.model.pipe.num_waveforms_per_prompt > 1:
+            # CLAP re-ranking: the best text match is written first
+            if getattr(pipe, "clap_audio_embed", None) is not None:
+                audio, sims = pipe.score_waveforms(args.prompt, audio,
+                                                   config.model.pipe.num_waveforms_per_prompt)
+                print(f"CLAP re-ranking similarities: {np.round(sims, 4)}")
+            else:
+                print("num_waveforms_per_prompt > 1 but no CLAP audio tower loaded; keeping "
+                      "generation order")
 
         write_wav(Path(output_dir, "wav_label", file_name), np.asarray(data)[0], sr)
         if ref_wave is not None:

@@ -9,21 +9,33 @@ The tiny UNet at latent (1, 8, 16, 32) has T = 512 tokens at level 0, so its
 3 level-0 blocks take the flash attention route (plain version on the CPU).
 Tolerances, as in `test_torch_port_slice.py`: per-step losses 1e-4 relative,
 final latents 1e-3 of max |reference|, waveform 1e-2; prompt encodings 1e-4
-(8 GPT-2 generation steps).
+(8 GPT-2 generation steps). The same JAX tiny pipeline also holds the prompt
+encodings with prompt_type="clap" (the measurement through its tiny CLAP
+audio tower) and with a transcription (a tiny VITS in T5's place, added to
+copies of both pipelines), and `score_waveforms`' order and similarities
+(1e-5) on 4 candidates.
 """
 
+import dataclasses
+import inspect
+
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from diffmusic_tpu.inverse_problem import MusicInpaintingOperator as JInpaint
+from diffmusic_tpu.models import vits as jvits
 from diffmusic_tpu.pipelines.audioldm2 import AudioLDM2Pipeline as JAudioLDM2
 from diffmusic_tpu.pipelines.musicldm import MusicLDMPipeline as JMusicLDM
 from diffmusic_tpu_torch import kernels
 from diffmusic_tpu_torch.inverse_problem import MusicInpaintingOperator
 from diffmusic_tpu_torch.models import configs as tcfg
 from diffmusic_tpu_torch.models import layers as tlayers
+from diffmusic_tpu_torch.models import clap_features as tcf
+from diffmusic_tpu_torch.models import htsat, vits
 from diffmusic_tpu_torch.models.clap import ClapTextModelWithProjection
 from diffmusic_tpu_torch.models.convert import from_flax
 from diffmusic_tpu_torch.models.gpt2 import GPT2Model
@@ -52,6 +64,18 @@ def port(model_cls, params, cfg):
     return model
 
 
+def port_tower(jembed):
+    """The port's tower and feature config from a JAX embed closure's own
+    variables."""
+    cells = inspect.getclosurevars(jembed).nonlocals
+    jcfg_ = cells["htsat_model"].cfg
+    cfg = htsat.ClapAudioConfig(**dataclasses.asdict(jcfg_))
+    tower = htsat.ClapAudioModelWithProjection(cfg)
+    tower.load_state_dict(from_flax(cells["htsat_params"], cfg), strict=True)
+    return tower.requires_grad_(False), tcf.ClapFeatureConfig(
+        **dataclasses.asdict(cells["cfg"]))
+
+
 def operators():
     kw = dict(audio_length_in_s=AUDIO_S, sample_rate=16000, mask_type="box",
               start_inpainting_s=AUDIO_S * 0.4, end_inpainting_s=AUDIO_S * 0.6)
@@ -72,6 +96,9 @@ def pipelines():
         gpt2=port(GPT2Model, j.gpt2_params, j.gpt2_cfg),
         projection=port(AudioLDM2ProjectionModel, j.proj_params, j.proj_cfg),
         t5_tokenizer=j.t5_tokenizer)
+    tower, f_cfg = port_tower(j.clap_audio_embed)
+    t.clap_audio_embed = tcf.make_clap_audio_embed(tower, f_cfg)
+    t.clap_frame_embed = tcf.make_clap_frame_embed(tower, f_cfg)
     return j, t
 
 
@@ -121,12 +148,73 @@ def test_audioldm2_dps_matches_jax(rng, pipelines, monkeypatch, prompt):
     assert rel(tout.audios, jout.audios) <= 1e-2
 
 
-def test_unported_prompt_routes_raise(pipelines):
-    _, t = pipelines
-    with pytest.raises(ValueError, match="HTSAT"):
-        t.encode_prompt("x", None, True, prompt_type="clap")
+def assert_same_encoding(out, ref):
+    assert [tuple(a.shape) for a in out] == [a.shape for a in ref]
+    assert rel(out[0], ref[0]) <= 1e-4      # generated GPT-2 states
+    assert rel(out[1], ref[1]) <= 1e-5      # the second stream
+    assert np.array_equal(out[2].numpy(), np.asarray(ref[2]))
+
+
+def test_clap_prompt_encoding_matches_jax(rng, pipelines):
+    j, t = pipelines
+    meas = (rng.standard_normal((1, 12000)) * 0.3).astype(np.float32)
+    ref = j.encode_prompt("piano", "noise", True, measurement=jnp.asarray(meas),
+                          prompt_type="clap")
+    out = t.encode_prompt("piano", "noise", True, measurement=torch.from_numpy(meas),
+                          prompt_type="clap")
+    assert_same_encoding(out, ref)
+    text = t.encode_prompt("piano", "noise", True)
+    assert rel(out[0][1:], text[0][1:]) > 1e-3      # the audio took the text's place
+    assert torch.equal(out[1], text[1])
+    with pytest.raises(ValueError, match="clap_audio_embed"):
+        dataclasses.replace(t, clap_audio_embed=None).encode_prompt(
+            "x", None, True, measurement=torch.from_numpy(meas), prompt_type="clap")
+
+
+def vits_tokenizer(texts, maxlen=10):
+    ids = np.zeros((len(texts), maxlen), np.int32)
+    mask = np.zeros((len(texts), maxlen), np.int32)
+    for i, text in enumerate(texts):
+        b = [1 + (c % 60) for c in text.encode()][:maxlen]
+        ids[i, :len(b)] = b
+        mask[i, :len(b)] = 1
+    return ids, mask
+
+
+def test_transcription_encoding_matches_jax(pipelines):
+    """A tiny VITS of T5's width in both pipelines' second stream: the
+    transcription's encoding for the prompt, the empty one's for the
+    negative prompt."""
+    j, t = pipelines
     with pytest.raises(ValueError, match="VITS"):
         t.encode_prompt("x", None, True, transcription="hello")
+    cfg = jvits.VitsConfig(vocab_size=64, hidden_size=j.t5_cfg.d_model, num_hidden_layers=2,
+                           num_attention_heads=2, ffn_dim=32)
+    params = jvits.VitsTextEncoder(cfg).init(jax.random.key(0), jnp.zeros((1, 8), jnp.int32))
+    jt = dataclasses.replace(j, vits_cfg=cfg, vits_params=params,
+                             vits_tokenizer=vits_tokenizer)
+    model = vits.VitsTextEncoder(vits.VitsConfig(**dataclasses.asdict(cfg)))
+    model.load_state_dict(from_flax(params, model.cfg), strict=True)
+    tt = dataclasses.replace(t, vits=model, vits_tokenizer=vits_tokenizer)
+    for args in (("speech", "noise", True), ("speech", None, False)):
+        ref = jt.encode_prompt(*args, transcription="hello there")
+        out = tt.encode_prompt(*args, transcription="hello there")
+        assert_same_encoding(out, ref)
+    assert out[1].shape == (1, 10, j.t5_cfg.d_model)
+
+
+def test_score_waveforms_matches_jax(rng, pipelines):
+    j, t = pipelines
+    tt = np.arange(16000) / 16000
+    audio = np.stack([np.sin(2 * np.pi * f * tt) * a for f, a in
+                      ((220, 0.3), (1500, 0.2), (440, 0.5), (5000, 0.1))]).astype(np.float32)
+    audio += (0.01 * rng.standard_normal(audio.shape)).astype(np.float32)
+    for keep in (None, 2):
+        jaudio, jsim = j.score_waveforms("a piano", jnp.asarray(audio), keep)
+        taudio, tsim = t.score_waveforms("a piano", torch.from_numpy(audio), keep)
+        assert np.array_equal(taudio, jaudio)      # the same order
+        assert rel(tsim, jsim) <= 1e-5
+    assert np.all(np.diff(tsim) <= 0) and taudio.shape == (2, 16000)
 
 
 def test_musicldm_text_prompt_matches_jax():

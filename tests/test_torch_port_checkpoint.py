@@ -1,20 +1,24 @@
 """CPU parity of the port's checkpoint loading against the JAX package's.
 
-- Tiny diffusers-layout MusicLDM and AudioLDM2 snapshots
-  (`test_torch_port_snapshot.py`) loaded by the JAX `load_musicldm` /
-  `load_audioldm2` and by the port's `from_pretrained(..., device="cpu")`:
-  the configs are equal and every state dict equals `from_flax` of the JAX
-  parameters to the bit.
-- A key no converter reads raises; the CLAP audio tower's keys are consumed
-  and not loaded; the config parsers equal JAX's on the same dicts.
-- The full-width key manifests are all consumed: the UNets and the VAE from
-  the meta-device modules of `torch_ref_diffusers.py`, the vocoder, CLAP,
-  T5 and GPT-2 from the transformers models on the meta device.
+- Tiny diffusers-layout MusicLDM, AudioLDM2 and AudioLDM2-TTS snapshots
+  (`test_torch_port_snapshot.py`, each CLAP model with its audio tower)
+  loaded by the JAX `load_musicldm` / `load_audioldm2` and by the port's
+  `from_pretrained(..., device="cpu")`: the configs are equal and every
+  state dict, the HTSAT tower's and VITS's included, equals `from_flax` of
+  the JAX parameters to the bit.
+- A key no converter reads raises; the CLAP audio tower's keys load into
+  the tower (its weightless buffers named); the config parsers equal JAX's
+  on the same dicts.
+- The full-width key manifests are all loaded or named: the UNets and the
+  VAE from the meta-device modules of `torch_ref_diffusers.py`, the
+  vocoder, CLAP (text and audio towers), T5, GPT-2 and VITS from the
+  transformers models on the meta device.
 - The VAE encoder and a `normalize_before` vocoder against JAX, 1e-4 of
   max |reference|.
 """
 
 import dataclasses
+import inspect
 import os
 
 import jax
@@ -31,6 +35,7 @@ from diffmusic_tpu.models.hifigan import SpeechT5HifiGan as JHifiGan
 from diffmusic_tpu.models.vae import AutoencoderKL as JVAE
 from diffmusic_tpu_torch.models import checkpoint as ckpt
 from diffmusic_tpu_torch.models import configs as tcfg
+from diffmusic_tpu_torch.models import htsat, vits
 from diffmusic_tpu_torch.models.convert import from_flax
 from diffmusic_tpu_torch.models.hifigan import SpeechT5HifiGan
 from diffmusic_tpu_torch.models.vae import AutoencoderKL
@@ -44,7 +49,9 @@ def relerr(a, b) -> float:
 
 
 def port_cfg(cfg):
-    return getattr(tcfg, type(cfg).__name__)(**dataclasses.asdict(cfg))
+    for mod in (tcfg, htsat, vits):
+        if hasattr(mod, type(cfg).__name__):
+            return getattr(mod, type(cfg).__name__)(**dataclasses.asdict(cfg))
 
 
 def text_cfgs():
@@ -52,16 +59,32 @@ def text_cfgs():
     return txt, t5, gpt2, tcfg.ProjectionConfig(txt.projection_dim, t5.d_model, gpt2.n_embd)
 
 
+# a narrow tower that takes the 48-kHz CLAP features (64 mel bins, 1001
+# frames) as the full one does
+AUDIO = htsat.ClapAudioConfig(depths=(1, 1), num_attention_heads=(2, 2),
+                              patch_embeds_hidden_size=8, projection_dim=32)
+VITS = vits.VitsConfig(vocab_size=64, hidden_size=32, num_hidden_layers=2,
+                       num_attention_heads=2, ffn_dim=32)   # T5's width
+
+
 @pytest.fixture(scope="module")
 def snapshots(tmp_path_factory):
     root = tmp_path_factory.mktemp("snapshots")
     unet, vae, voc, txt = snap.tiny_configs()
     _, t5, gpt2, proj = text_cfgs()
-    snap.write_snapshot(root / "musicldm", snap.musicldm_modules(unet, vae, voc, txt, seed=1))
-    snap.write_snapshot(root / "audioldm2", snap.audioldm2_modules(
-        tcfg.tiny_unet_config((gpt2.n_embd, t5.d_model)), vae, voc, txt, t5, gpt2, proj,
-        seed=11))
+    snap.write_snapshot(root / "musicldm", snap.musicldm_modules(unet, vae, voc, txt, seed=1,
+                                                                 audio_cfg=AUDIO))
+    for name, seed, vits_cfg in (("audioldm2", 11, None), ("audioldm2_tts", 21, VITS)):
+        snap.write_snapshot(root / name, snap.audioldm2_modules(
+            tcfg.tiny_unet_config((gpt2.n_embd, t5.d_model)), vae, voc, txt, t5, gpt2, proj,
+            seed=seed, audio_cfg=AUDIO, vits_cfg=vits_cfg))
     return root
+
+
+def jax_tower(jembed):
+    """(variables, config) of a JAX CLAP embed closure."""
+    cells = inspect.getclosurevars(jembed).nonlocals
+    return cells["htsat_params"], cells["htsat_model"].cfg
 
 
 def assert_same_load(module, jparams, jcfg):
@@ -72,7 +95,7 @@ def assert_same_load(module, jparams, jcfg):
         assert got[k].dtype == torch.float32 and torch.equal(got[k], v), k
 
 
-@pytest.mark.parametrize("model", ["musicldm", "audioldm2"])
+@pytest.mark.parametrize("model", ["musicldm", "audioldm2", "audioldm2_tts"])
 def test_snapshot_loads_as_jax_does(snapshots, model):
     d = snapshots / model
     if model == "musicldm":
@@ -81,11 +104,18 @@ def test_snapshot_loads_as_jax_does(snapshots, model):
         j, t = jckpt.load_audioldm2(d), AudioLDM2Pipeline.from_pretrained(d, device="cpu")
     pairs = [(t.unet, j.unet_params, j.unet_cfg), (t.vae, j.vae_params, j.vae_cfg),
              (t.vocoder, j.vocoder_params, j.vocoder_cfg),
-             (t.text_encoder, j.text_params, j.text_cfg)]
-    if model == "audioldm2":
-        pairs += [(t.t5, j.t5_params, j.t5_cfg), (t.gpt2, j.gpt2_params, j.gpt2_cfg),
-                  (t.projection, j.proj_params, j.proj_cfg)]
+             (t.text_encoder, j.text_params, j.text_cfg),
+             (t.clap_audio_embed.tower, *jax_tower(j.clap_audio_embed))]
+    assert t.clap_frame_embed.tower is t.clap_audio_embed.tower
+    if model.startswith("audioldm2"):
+        pairs += [(t.gpt2, j.gpt2_params, j.gpt2_cfg), (t.projection, j.proj_params, j.proj_cfg)]
         assert t.max_new_tokens == j.max_new_tokens == 8
+    if model == "audioldm2":
+        pairs.append((t.t5, j.t5_params, j.t5_cfg))
+        assert t.vits is None
+    elif model == "audioldm2_tts":
+        pairs.append((t.vits, j.vits_params, j.vits_cfg))
+        assert t.t5 is None and t.vits_tokenizer is None
     for module, jparams, jcfg in pairs:
         if hasattr(module, "cfg"):   # the projection model keeps no config
             assert dataclasses.asdict(module.cfg) == dataclasses.asdict(jcfg)
@@ -105,7 +135,7 @@ def tiny_module(name):
         "vocoder": (snap._values(snap.vocoder_shapes(voc), 0),
                     lambda sd: ckpt.vocoder_tree(sd, voc)),
         "text_encoder": (snap._values(snap.clap_text_shapes(txt), 0),
-                         lambda sd: ckpt.clap_text_tree(sd, txt)),
+                         lambda sd: ckpt.clap_trees(sd, txt)[0]),
         "text_encoder_2": (snap._values(snap.t5_shapes(t5), 0),
                            lambda sd: ckpt.t5_tree(sd, t5)),
         "language_model": (snap._values(snap.gpt2_shapes(gpt2), 0),
@@ -125,17 +155,26 @@ def test_unmapped_key_raises(name):
 
 
 def test_clap_audio_tower_keys_are_consumed_not_loaded():
+    """Since the tower is ported the audio keys are no longer consumed
+    unread: they load into the tower (equal to the JAX converter's
+    variables), its weightless buffers are named, and the text tree is the
+    same with or without the tower."""
     sd, tree = tiny_module("text_encoder")
-    extra = {"audio_model.audio_encoder.patch_embed.proj.weight": np.ones((4, 1, 2, 2),
-                                                                          np.float32),
-             "audio_model.audio_encoder.batch_norm.num_batches_tracked": np.zeros((), np.int64),
-             "audio_projection.linear1.weight": np.ones((8, 4), np.float32),
-             "text_model.embeddings.token_type_ids": np.zeros((1, 16), np.int64)}
-    with_tower, without = tree({**sd, **extra}), tree(dict(sd))
-    assert jax.tree.all(jax.tree.map(np.array_equal, with_tower, without))
-    # and the JAX converter's tree, leaf for leaf
-    jtree = jconvert.convert_clap_text(sd, snap.tiny_configs()[3])
-    assert jax.tree.all(jax.tree.map(np.array_equal, without, jtree))
+    txt = snap.tiny_configs()[3]
+    tower = snap.clap_audio_values(AUDIO, 5)
+    extra = {"text_model.embeddings.token_type_ids": np.zeros((1, 16), np.int64)}
+    text, audio = ckpt.clap_trees({**sd, **tower, **extra}, txt, AUDIO)
+    assert jax.tree.all(jax.tree.map(np.array_equal, text, tree(dict(sd))))
+    assert ckpt.clap_trees(dict(sd), txt)[1] is None
+    jtree = jconvert.convert_clap_text(sd, txt)
+    assert jax.tree.all(jax.tree.map(np.array_equal, text, jtree))
+    from diffmusic_tpu.models import htsat as jhtsat
+    jaudio = jconvert.convert_clap_audio(tower, jhtsat.ClapAudioConfig(
+        **dataclasses.asdict(AUDIO)))
+    assert jax.tree.all(jax.tree.map(np.array_equal, audio, jaudio))
+    with pytest.raises(ValueError, match="NOT consumed"):   # an audio key nothing reads
+        ckpt.clap_trees({**sd, **tower, "audio_model.extra.weight": np.ones(3, np.float32)},
+                        txt, AUDIO)
 
 
 PARSER_CASES = [
@@ -179,15 +218,17 @@ def _hf_manifest(name):
                 d_model=1024, d_kv=64, d_ff=2816, num_layers=24, num_heads=16,
                 feed_forward_proj="gated-gelu")),
             "gpt2": lambda: tf.GPT2Model(tf.GPT2Config()),
+            "vits": lambda: tf.VitsModel(tf.VitsConfig()),
         }[name]()
     return {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 
 @pytest.mark.parametrize("name", ["unet_musicldm", "unet_audioldm2", "vae", "vocoder", "clap",
-                                  "t5", "gpt2"])
+                                  "t5", "gpt2", "vits"])
 def test_full_width_manifests_are_consumed(name):
     """Every key of a full-width state dict of the real module grammar is
-    read by the port's converter (each raises on a key left unread)."""
+    read by the port's converter or named (each raises on a key left
+    unread); a ClapModel's audio keys load into the tower."""
     if name.startswith("unet"):
         cfg = ckpt.unet_config_from_json(contact.MUSICLDM_UNET_JSON if name == "unet_musicldm"
                                           else contact.AUDIOLDM2_UNET_JSON)
@@ -203,28 +244,40 @@ def test_full_width_manifests_are_consumed(name):
         sd = _zeros(_hf_manifest(name))
         tree = {"vocoder": lambda: ckpt.vocoder_tree(
                     sd, ckpt.hifigan_config_from_json(contact.VOCODER_JSON)),
-                "clap": lambda: ckpt.clap_text_tree(sd, tcfg.ClapTextConfig()),
+                "clap": lambda: ckpt.clap_trees(sd, tcfg.ClapTextConfig(),
+                                                htsat.ClapAudioConfig()),
                 "t5": lambda: ckpt.t5_tree(sd, tcfg.T5Config()),
-                "gpt2": lambda: ckpt.gpt2_tree(sd, tcfg.GPT2Config())}[name]()
-        # the hand-written tiny manifests of the snapshot writer name the same keys
-        tiny = {"vocoder": snap.vocoder_shapes(tcfg.HiFiGANConfig()),
-                "clap": snap.clap_text_shapes(tcfg.ClapTextConfig()),
-                "t5": snap.t5_shapes(tcfg.T5Config()),
-                "gpt2": snap.gpt2_shapes(tcfg.GPT2Config())}[name]
-        real = {k: s for k, s in _hf_manifest(name).items()
-                if not k.startswith(("audio_model.", "audio_projection."))
-                and k not in ("text_model.embeddings.position_ids",
-                              "text_model.embeddings.token_type_ids")}
-        assert tiny == real
+                "gpt2": lambda: ckpt.gpt2_tree(sd, tcfg.GPT2Config()),
+                "vits": lambda: ckpt.vits_tree(sd, vits.VitsConfig())}[name]()
+        if name == "clap":
+            assert tree[1] is not None
+            # one leaf per audio key but the index buffers and the batch count
+            weights = [k for k in sd if k.startswith(("audio_model.", "audio_projection."))
+                       and not k.endswith(("relative_position_index", "num_batches_tracked"))]
+            assert len(jax.tree.leaves(tree[1])) == len(weights) == 227
+        if name != "vits":   # the writer names one key of each VITS part it does not load
+            # the hand-written tiny manifests of the snapshot writer name the same keys
+            tiny = {"vocoder": snap.vocoder_shapes(tcfg.HiFiGANConfig()),
+                    "clap": {**snap.clap_text_shapes(tcfg.ClapTextConfig()),
+                             **snap.clap_audio_shapes(htsat.ClapAudioConfig())},
+                    "t5": snap.t5_shapes(tcfg.T5Config()),
+                    "gpt2": snap.gpt2_shapes(tcfg.GPT2Config())}[name]
+            real = {k: s for k, s in _hf_manifest(name).items()
+                    if k not in ("text_model.embeddings.position_ids",
+                                 "text_model.embeddings.token_type_ids")}
+            assert tiny == real
     assert len(jax.tree.leaves(tree)) > 10
 
 
 def test_unported_snapshots_raise(snapshots, tmp_path):
+    """The TTS variant is ported: a snapshot whose text_encoder_2 says VITS
+    but holds T5's weights raises on the first VITS key it lacks, rather
+    than loading anything."""
     import shutil
     d = tmp_path / "tts"
     shutil.copytree(snapshots / "audioldm2", d)
     (d / "text_encoder_2" / "config.json").write_text('{"model_type": "vits"}')
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(KeyError, match="embed_tokens"):
         AudioLDM2Pipeline.from_pretrained(d, device="cpu")
 
 

@@ -9,18 +9,21 @@ construction, the mel PNG, the refusals, and one whole CLI run.
 - The WAV/MP3/Opus dataset registry; `WAVDataset` equals the JAX one on
   written WAVs (mono mix, resampling from 44.1 and 8 kHz, the crop to
   [start_s, end_s), zero padding, names), to the bit.
-- `build_operator` builds JAX's operator for every task it ports (the same
+- `build_operator` builds JAX's operator for every task (the same
   type and fields; the masks of the box and periodic modes equal; the
   random mask and the reverb impulse response are drawn from each package's
   own generator, so only their shapes are compared).
 - What the port lacks raises before anything is loaded, naming its ROADMAP
-  item: stable_audio, style_guidance, --prompt_type clap and a
-  transcription with AudioLDM2, -nw 2.
+  item: stable_audio.
 - Without matplotlib `save_mel_spectrogram` writes an 8-bit grey PNG of the
   dB mel clipped to [-80, 80].
 - One `python -m diffmusic_tpu_torch.run --device cpu --tiny
   --num_inference_steps 2` run writes the output tree; a second run skips
   the file. (A JAX CLI run takes minutes on the CPU: it is not run here.)
+- In-process --tiny runs whose UNet route calls equal
+  `chip_smoke.cli_launches`: DITTO and DPS, and the CLAP and TTS paths
+  (-t style_guidance, --prompt_type clap and --transcription with AudioLDM2,
+  -nw 2 with its re-ranking logged best first).
 """
 
 import dataclasses
@@ -32,6 +35,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 import yaml
 
 import run as jrun
@@ -46,6 +50,17 @@ from diffmusic_tpu_torch.pipelines import base
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIGS = sorted((REPO / "configs").rglob("*.yaml"))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the in-process tiny CLI runs: under the test
+    run's parallel workers torch's default thread pool oversubscribes the
+    cores (a run took ~45 s there against ~1 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: str(p.relative_to(REPO / "configs")))
@@ -135,7 +150,7 @@ def test_wav_dataset_matches_jax(tmp_path, rng, start_s, end_s, length_s):
 
 
 TASKS = ["music_generation", "music_inpainting", "super_resolution", "phase_retrieval",
-         "music_dereverberation"]
+         "music_dereverberation", "style_guidance"]
 
 
 @pytest.mark.parametrize("task, mask_type", [(t, "box") for t in TASKS] + [
@@ -164,10 +179,6 @@ def test_build_operator_matches_jax(task, mask_type):
 
 @pytest.mark.parametrize("argv, match", [
     (["-m", "stable_audio", "-t", "music_generation"], "ROADMAP Queue 1 item 9"),
-    (["-m", "musicldm", "-t", "style_guidance"], "HTSAT"),
-    (["-m", "audioldm2", "--prompt_type", "clap"], "HTSAT"),
-    (["-m", "audioldm2", "--transcription", "hello"], "VITS"),
-    (["-m", "musicldm", "-nw", "2"], "re-ranks"),
 ])
 def test_unported_features_raise_before_loading(argv, match, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
@@ -249,6 +260,66 @@ def test_cli_run_writes_the_output_tree(tmp_path):
     assert again.returncode == 0 and "already exists. Skipping." in again.stdout
 
 
+def counted_unet_calls(monkeypatch) -> dict:
+    """Counts of the UNet's kernel route calls (the block and flash
+    attention), the plain versions taken on the CPU."""
+    from diffmusic_tpu_torch.models import layers
+    calls = dict.fromkeys(("fused_transformer_block", "flash_attention"), 0)
+    for name in calls:
+        fn = getattr(layers, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(layers, name, counted)
+    return calls
+
+
+def cli_clips(tmp_path) -> Path:
+    clips = tmp_path / "clips"
+    clips.mkdir()
+    t = np.arange(16000 * 16) / 16000
+    write_wav(clips / "track.wav", (0.3 * np.sin(2 * np.pi * 220 * t))[None].astype(np.float32),
+              16000)
+    return clips
+
+
+@pytest.mark.parametrize("extra", [["-m", "musicldm", "-t", "style_guidance"],
+                                   ["-m", "audioldm2", "--prompt_type", "clap"],
+                                   ["-m", "musicldm", "-nw", "2"],
+                                   ["-m", "audioldm2", "--transcription", "hello there"]],
+                         ids=lambda a: " ".join(a[1:]))
+def test_cli_clap_and_tts_runs(tmp_path, monkeypatch, capsys, extra):
+    """The CLAP and TTS paths of the CLI on the tiny configs: style guidance
+    with the tiny tower's frame features, AudioLDM2 conditioned on the
+    measurement's CLAP embedding, two candidates re-ranked by CLAP (logged,
+    best first), and AudioLDM2's TTS variant encoding a transcription; each
+    writes its output tree and makes `chip_smoke.cli_launches`' UNet calls."""
+    import chip_smoke
+    calls = counted_unet_calls(monkeypatch)
+    clips = cli_clips(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    run.main(["--device", "cpu", "--tiny", "-c", "dps", "--num_inference_steps", "2",
+              "-o", f"data.root={clips}", "-o", "model.pipe.audio_length_in_s=1",
+              "-o", "data.start_inpainting_s=10.3", "-o", "data.end_inpainting_s=10.6",
+              *extra])
+    model = extra[1]
+    task = "style_guidance" if "style_guidance" in extra else "music_inpainting"
+    out = tmp_path / "outputs" / model / "moises" / "dps" / task
+    assert sorted(str(p.relative_to(out)) for p in out.rglob("*.*")) == [
+        "mel_input/track.png", "mel_label/track.png", "mel_recon/track.png",
+        "wav_input/track.wav", "wav_label/track.wav", "wav_recon/track.wav"]
+    assert {n: k for n, k in calls.items() if k} == chip_smoke.cli_launches(
+        model, "dps", 2, 1, 1.0)
+    logged = capsys.readouterr().out
+    if "-nw" in extra:
+        line = [ln for ln in logged.splitlines() if ln.startswith("CLAP re-ranking")][0]
+        sims = [float(v) for v in line.split("[")[1].rstrip("]").split()]
+        assert len(sims) == 2 and sims[0] >= sims[1]
+    else:
+        assert "CLAP re-ranking" not in logged
+
+
 @pytest.mark.parametrize("model,sched,audio_s", [("musicldm", "ditto", 1.28),
                                                  ("audioldm2", "dps", 1.0)], ids=str)
 def test_cli_unet_calls_match_chip_smoke(tmp_path, monkeypatch, model, sched, audio_s):
@@ -259,20 +330,8 @@ def test_cli_unet_calls_match_chip_smoke(tmp_path, monkeypatch, model, sched, au
     forward; a DITTO step's forward runs twice under its checkpoint. At 1.28
     s both levels have 512 tokens or more, at 1 s only level 0."""
     import chip_smoke
-    from diffmusic_tpu_torch.models import layers
-    calls = dict.fromkeys(("fused_transformer_block", "flash_attention"), 0)
-    for name in calls:
-        fn = getattr(layers, name)
-
-        def counted(*a, _fn=fn, _name=name, **k):
-            calls[_name] += 1
-            return _fn(*a, **k)
-        monkeypatch.setattr(layers, name, counted)
-    clips = tmp_path / "clips"
-    clips.mkdir()
-    t = np.arange(16000 * 16) / 16000
-    write_wav(clips / "track.wav", (0.3 * np.sin(2 * np.pi * 220 * t))[None].astype(np.float32),
-              16000)
+    calls = counted_unet_calls(monkeypatch)
+    clips = cli_clips(tmp_path)
     monkeypatch.chdir(tmp_path)
     argv = ["--device", "cpu", "--tiny", "-m", model, "-c", sched, "--num_inference_steps",
             "2", "-o", f"data.root={clips}", "-o", f"model.pipe.audio_length_in_s={audio_s}",

@@ -139,15 +139,42 @@ def test_vggish_from_flax_is_the_torchvggish_layout():
 
 
 def test_model_registry_raises_for_what_is_not_ported():
-    assert get_model("vggish", device="cpu").name == "vggish"
-    assert get_model("mfcc-stack", device="cpu").name == "mfcc-stack"
-    for name in ("clap-laion-audio", "w2v2-base", "MERT-v1-95M", "encodec-emb"):
+    for name in ("vggish", "mfcc-stack", "clap-laion-audio", "clap-laion-music"):
+        assert get_model(name, device="cpu").name == name
+    for name in ("w2v2-base", "MERT-v1-95M", "encodec-emb"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_model(name, device="cpu")
     with pytest.raises(ValueError):
         get_model("no-such-model", device="cpu")
     with pytest.raises(FileNotFoundError):
         get_model("vggish", checkpoint_dir="/nonexistent", device="cpu").load_model()
+
+
+def test_clap_laion_matches_jax(tmp_path, monkeypatch):
+    """clap-laion-audio from a local CLAP directory (a tiny ClapModel of the
+    snapshot writer, its audio tower narrow but taking the 48-kHz features
+    at their full shape): the port's loader on the CPU against JAX's on
+    the same files, 1e-4 of max; a ClapModel's text keys are named, an
+    unknown key raises."""
+    import test_torch_port_checkpoint as ckpt_test
+    import test_torch_port_snapshot as snap
+    from diffmusic_tpu.fadtk.model_loader import CLAPLaionModel as JCLAPLaion
+    txt = snap.tiny_configs()[3]
+    sd = {**snap._values(snap.clap_text_shapes(txt), 3),
+          **snap.clap_audio_values(ckpt_test.AUDIO, 4)}
+    snap.write_snapshot(tmp_path, {"clap": (snap.clap_json(txt, ckpt_test.AUDIO), sd)})
+    jmodel, model = JCLAPLaion("audio", tmp_path), get_model("clap-laion-audio", tmp_path,
+                                                              "cpu")
+    for seconds, seed in ((2.5, 5), (0.7, 6)):
+        wav = harmonic(np.random.default_rng(seed), seconds)
+        ref, out = jmodel.get_embedding(wav), model.get_embedding(wav)
+        assert out.shape == ref.shape == (int(np.ceil(seconds)), 32)
+        assert rel(out, ref) <= 1e-4, f"port vs JAX: {rel(out, ref):.2e} of max"
+    assert model.sr == 16000 and model.model.tower.bn_var.dtype == torch.float32
+    snap.write_snapshot(tmp_path / "bad", {"clap": (snap.clap_json(txt, ckpt_test.AUDIO),
+                                                    {**sd, "extra.weight": sd["logit_scale_a"]})})
+    with pytest.raises(ValueError, match="NOT consumed"):
+        get_model("clap-laion-audio", tmp_path / "bad", "cpu").load_model()
 
 
 # ----------------------------------------------------------------- metrics

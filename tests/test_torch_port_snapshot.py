@@ -7,12 +7,16 @@ safetensors (`write_safetensors`, a writer of its own, so that this file
 needs only torch and numpy and `chip_smoke.py` can import it). The state
 dicts carry the real key grammar: the UNet's and the VAE's come from the
 meta-device modules of `torch_ref_diffusers.py` (the keys of
-`test_checkpoint.py::_synth_diffusers_unet_sd`), the vocoder's, CLAP's, T5's,
+`test_checkpoint.py::_synth_diffusers_unet_sd`), the vocoder's, CLAP's
+(with its HTSAT audio tower where `audio_cfg` is given), T5's or VITS's,
 GPT-2's and the projection model's from the transformers / diffusers names,
 with the keys the converters leave unread (the vocoder's `mean` / `scale`,
 T5's tied `encoder.embed_tokens.weight`, GPT-2's `wte.weight`, CLAP's
-`logit_scale_a` / `_t`). Values are seeded normals: weights over
-sqrt(fan-in), norm scales near 1, biases near 0.
+`logit_scale_a` / `_t`, the audio tower's `relative_position_index` buffers
+and batch count, VITS's prior projection, flow, decoder, duration predictor
+and posterior encoder). Values are seeded normals: weights over
+sqrt(fan-in), norm scales near 1, biases near 0, the BatchNorm's running
+variance above 1.
 
 Checks here: the safetensors reader against the `safetensors` package
 (F32, F16, BF16, I64; files written by either side; a sharded module), and
@@ -148,13 +152,72 @@ def vocoder_shapes(cfg) -> dict:
     return s
 
 
-def clap_json(cfg) -> dict:
-    return {"model_type": "clap", "projection_dim": cfg.projection_dim,
-            "text_config": {"vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
-                            "num_hidden_layers": cfg.num_hidden_layers,
-                            "num_attention_heads": cfg.num_attention_heads,
-                            "intermediate_size": cfg.intermediate_size,
-                            "max_position_embeddings": cfg.max_position_embeddings}}
+def clap_json(cfg, audio_cfg=None) -> dict:
+    out = {"model_type": "clap", "projection_dim": cfg.projection_dim,
+           "text_config": {"vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+                           "num_hidden_layers": cfg.num_hidden_layers,
+                           "num_attention_heads": cfg.num_attention_heads,
+                           "intermediate_size": cfg.intermediate_size,
+                           "max_position_embeddings": cfg.max_position_embeddings}}
+    if audio_cfg is not None:
+        a = audio_cfg
+        out["audio_config"] = {
+            "spec_size": a.spec_size, "patch_size": a.patch_size,
+            "patch_stride": list(a.patch_stride), "num_mel_bins": a.num_mel_bins,
+            "window_size": a.window_size, "depths": list(a.depths),
+            "num_attention_heads": list(a.num_attention_heads),
+            "patch_embeds_hidden_size": a.patch_embeds_hidden_size,
+            "hidden_size": a.num_features, "enable_fusion": False}
+    return out
+
+
+def clap_audio_shapes(cfg) -> dict:
+    """A ClapModel's audio tower and audio projection (transformers' names;
+    every bias table sized by the config's window, as transformers sizes it)."""
+    e, d, ws = "audio_model.audio_encoder", cfg.patch_embeds_hidden_size, cfg.window_size
+    s = {f"{e}.patch_embed.proj.weight": (d, 1, cfg.patch_size, cfg.patch_size),
+         f"{e}.patch_embed.proj.bias": (d,), f"{e}.patch_embed.norm.weight": (d,),
+         f"{e}.patch_embed.norm.bias": (d,)}
+    for i, depth in enumerate(cfg.depths):
+        dim, heads = d * 2 ** i, cfg.num_attention_heads[i]
+        for j in range(depth):
+            b = f"{e}.layers.{i}.blocks.{j}"
+            s[f"{b}.layernorm_before.weight"] = s[f"{b}.layernorm_before.bias"] = (dim,)
+            s[f"{b}.attention.self.relative_position_bias_table"] = ((2 * ws - 1) ** 2, heads)
+            s[f"{b}.attention.self.relative_position_index"] = (ws * ws, ws * ws)
+            for n in ("self.query", "self.key", "self.value", "output.dense"):
+                s[f"{b}.attention.{n}.weight"], s[f"{b}.attention.{n}.bias"] = (dim, dim), (dim,)
+            s[f"{b}.layernorm_after.weight"] = s[f"{b}.layernorm_after.bias"] = (dim,)
+            s[f"{b}.intermediate.dense.weight"] = (4 * dim, dim)
+            s[f"{b}.intermediate.dense.bias"] = (4 * dim,)
+            s[f"{b}.output.dense.weight"], s[f"{b}.output.dense.bias"] = (dim, 4 * dim), (dim,)
+        if i < len(cfg.depths) - 1:
+            s[f"{e}.layers.{i}.downsample.reduction.weight"] = (2 * dim, 4 * dim)
+            s[f"{e}.layers.{i}.downsample.norm.weight"] = (4 * dim,)
+            s[f"{e}.layers.{i}.downsample.norm.bias"] = (4 * dim,)
+    m, n, p = cfg.num_mel_bins, cfg.num_features, cfg.projection_dim
+    for leaf in ("weight", "bias", "running_mean", "running_var"):
+        s[f"{e}.batch_norm.{leaf}"] = (m,)
+    s[f"{e}.batch_norm.num_batches_tracked"] = ()
+    s[f"{e}.norm.weight"] = s[f"{e}.norm.bias"] = (n,)
+    s.update({"audio_projection.linear1.weight": (p, n), "audio_projection.linear1.bias": (p,),
+              "audio_projection.linear2.weight": (p, p), "audio_projection.linear2.bias": (p,)})
+    return s
+
+
+def clap_audio_values(cfg, seed: int) -> dict:
+    """`_values` of `clap_audio_shapes`, with the integer buffers as
+    transformers holds them and a positive running variance."""
+    from diffmusic_tpu_torch.models.htsat import _relative_position_index
+    out = _values(clap_audio_shapes(cfg), seed)
+    for k in out:
+        if k.endswith("relative_position_index"):
+            out[k] = _relative_position_index(cfg.window_size).astype(np.int64)
+        elif k.endswith("num_batches_tracked"):
+            out[k] = np.array(1000, np.int64)
+        elif k.endswith("running_var"):
+            out[k] = np.float32(1.0) + np.abs(out[k])
+    return out
 
 
 def clap_text_shapes(cfg) -> dict:
@@ -244,23 +307,62 @@ def projection_shapes(cfg) -> dict:
     return s
 
 
-def musicldm_modules(unet_cfg, vae_cfg, voc_cfg, text_cfg, seed: int = 0) -> dict:
-    """{module directory: (config.json dict, state dict of float32 arrays)}
-    of a MusicLDM snapshot."""
+def vits_json(cfg) -> dict:
+    return {"model_type": "vits", "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "num_hidden_layers": cfg.num_hidden_layers,
+            "num_attention_heads": cfg.num_attention_heads, "ffn_dim": cfg.ffn_dim,
+            "ffn_kernel_size": cfg.ffn_kernel_size, "window_size": cfg.window_size}
+
+
+def vits_shapes(cfg) -> dict:
+    """A transformers VitsModel's text encoder, and one key of each part
+    AudioLDM2-TTS does not run (the loader names those parts)."""
+    h, f, k = cfg.hidden_size, cfg.ffn_dim, cfg.ffn_kernel_size
+    hd, w = h // cfg.num_attention_heads, cfg.window_size
+    s = {"text_encoder.embed_tokens.weight": (cfg.vocab_size, h),
+         "text_encoder.project.weight": (2 * h, h, 1), "text_encoder.project.bias": (2 * h,),
+         "flow.flows.0.conv_pre.weight": (h, h // 2, 1),
+         "decoder.conv_pre.weight": (h, h, 7),
+         "duration_predictor.conv_pre.weight": (h, h, 1),
+         "posterior_encoder.conv_pre.weight": (h, h, 1)}
+    for i in range(cfg.num_hidden_layers):
+        b = f"text_encoder.encoder.layers.{i}"
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            s[f"{b}.attention.{n}.weight"], s[f"{b}.attention.{n}.bias"] = (h, h), (h,)
+        s[f"{b}.attention.emb_rel_k"] = s[f"{b}.attention.emb_rel_v"] = (1, 2 * w + 1, hd)
+        for ln in ("layer_norm", "final_layer_norm"):
+            s[f"{b}.{ln}.weight"], s[f"{b}.{ln}.bias"] = (h,), (h,)
+        s[f"{b}.feed_forward.conv_1.weight"] = (f, h, k)
+        s[f"{b}.feed_forward.conv_1.bias"] = (f,)
+        s[f"{b}.feed_forward.conv_2.weight"] = (h, f, k)
+        s[f"{b}.feed_forward.conv_2.bias"] = (h,)
+    return s
+
+
+def musicldm_modules(unet_cfg, vae_cfg, voc_cfg, text_cfg, seed: int = 0,
+                     audio_cfg=None) -> dict:
+    """{module directory: (config.json dict, state dict of arrays)} of a
+    MusicLDM snapshot; with `audio_cfg` its CLAP model carries the audio
+    tower."""
+    clap = _values(clap_text_shapes(text_cfg), seed + 3)
+    if audio_cfg is not None:
+        clap.update(clap_audio_values(audio_cfg, seed + 7))
     return {"unet": (unet_json(unet_cfg), _values(unet_shapes(unet_cfg), seed)),
             "vae": (vae_json(vae_cfg), _values(vae_shapes(vae_cfg), seed + 1)),
             "vocoder": (vocoder_json(voc_cfg), _values(vocoder_shapes(voc_cfg), seed + 2)),
-            "text_encoder": (clap_json(text_cfg),
-                             _values(clap_text_shapes(text_cfg), seed + 3))}
+            "text_encoder": (clap_json(text_cfg, audio_cfg), clap)}
 
 
 def audioldm2_modules(unet_cfg, vae_cfg, voc_cfg, text_cfg, t5_cfg, gpt2_cfg, proj_cfg,
-                      seed: int = 0) -> dict:
+                      seed: int = 0, audio_cfg=None, vits_cfg=None) -> dict:
     """The same for an AudioLDM2 snapshot (GPT-2 under 'model.', as in
-    some snapshots)."""
-    out = musicldm_modules(unet_cfg, vae_cfg, voc_cfg, text_cfg, seed)
+    some snapshots); with `vits_cfg` the TTS variant, a VITS model as
+    text_encoder_2."""
+    out = musicldm_modules(unet_cfg, vae_cfg, voc_cfg, text_cfg, seed, audio_cfg)
     gpt2 = _values(gpt2_shapes(gpt2_cfg), seed + 5)
-    out.update({"text_encoder_2": (t5_json(t5_cfg), _values(t5_shapes(t5_cfg), seed + 4)),
+    second = ((vits_json(vits_cfg), _values(vits_shapes(vits_cfg), seed + 4))
+              if vits_cfg is not None else (t5_json(t5_cfg), _values(t5_shapes(t5_cfg), seed + 4)))
+    out.update({"text_encoder_2": second,
                 "language_model": (gpt2_json(gpt2_cfg),
                                    {f"model.{k}": v for k, v in gpt2.items()}),
                 "projection_model": (projection_json(proj_cfg),

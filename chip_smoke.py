@@ -49,7 +49,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      `MusicLDMPipeline.__call__`, with the launch counts of every kernel, on
      the default route and on each route setting (TURN_ROUTES), each once
      in each direction of TURNS (one card, one host: the turns keep the
-     host's drift out of the comparison);
+     host's drift out of the comparison); then `tracing.trace` around two
+     default-route steps, whose Chrome trace must hold each step's
+     "unet_forward" and "guided_step" ranges;
   6. breakdown: each stage of one guided step timed alone at the slice's
      shapes, for the default route and each route setting (the vocoder
      alone for its routes, the UNet alone for bsoft); with --profile also a
@@ -112,7 +114,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      fuse_cross off and on; score_waveforms on 4 ten-second candidates on
      both; AudioLDM2-TTS (VITS at VitsConfig's defaults) from a fixed id
      sequence;
-  13. checkpoint and CLI: a full-width MusicLDM snapshot (fp32, seeded, the
+  13. stable_audio: StableAudio (the Oobleck VAE, the rotary-GQA DiT, EDM
+     DPM-Solver++ 2M; no kernel of its own). First the tiny fp32 pipeline
+     on the card and on the CPU with the same weights, each bound failing
+     its planted faults: the DiT forward (KV heads tiled, rope on every
+     channel), Oobleck's encode and decode (the snake's scales read as
+     linear), 10 EDM steps at CFG 7 of 3 waveforms with the decoded audio
+     (the CFG conditioning tiled, a second-order first step). Then
+     stable-audio-open-1.0's widths with seeded random bf16 weights drawn on
+     the card at stable_audio.yaml's settings (10 s, 3 waveforms, CFG 7, the
+     empty prompt padded to 512 T5 tokens), 20 of its 200 EDM steps: ms per
+     step, the text stack's seconds, Oobleck's decode of the 3 clips, peak
+     memory, finite audio (3, 2, 441000); then `diffmusic_tpu_torch.run -m
+     stable_audio -t music_generation --tiny` on the card; the launch counts
+     must not move across the phase;
+  14. checkpoint and CLI: a full-width MusicLDM snapshot (fp32, seeded, the
      diffusers layout of `tests/test_torch_port_snapshot.py`, its CLAP model
      with the audio tower) in a temporary directory, loaded by
      `MusicLDMPipeline.from_pretrained` on the card (seconds, MB/s), its
@@ -124,16 +140,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      re-ranking logged) and --transcription, each with its UNet launches
      checked (`cli_launches`: the tiny configs' 16- and 32-channel blocks
      take the block kernel padded to one slice);
-  14. eval: in a temporary directory, EVAL_PAIRS pairs of 10-s clips (pair 0
+  15. eval: in a temporary directory, EVAL_PAIRS pairs of 10-s clips (pair 0
      the slice's ground truth and the audio its default turn restored; two
      pairs as 44.1-kHz stereo) and a seeded random torchvggish-layout
      `vggish.pth`, scored by `diffmusic_tpu_torch.eval.main` on the card with
      --embedding mfcc-stack vggish --fad_inf --individual from cold caches:
      finite scores, one CSV row per pair, the mel kernel's launches, the
      wall seconds and their split, peak memory; then 4 of the pairs on the
-     card and on the CPU, whose scores and cached embeddings must agree, and
-     the clap-laion embedder on them from a CLAP directory (the tower at
-     ClapAudioConfig's defaults), card against CPU.
+     card and on the CPU, whose scores and cached embeddings must agree; the
+     fadtk command lines on fresh copies of those 4 pairs on the card
+     (`fadtk`'s FAD and FAD-inf equal to the eval's, `fadtk.embeds` with 2
+     spawn workers, `fadtk.package`'s bundle as a baseline, `fadtk.test`'s
+     golden gate exiting 0); and the clap-laion embedder on them from a CLAP
+     directory (the tower at ClapAudioConfig's defaults), card against CPU.
 Then the command's total seconds, the card's nvidia-smi name and power limit,
 a JSON line with one entry
 per kernel (the masks' entries time g as h, and give the route's form, g
@@ -281,6 +300,7 @@ def eval_mel_launches(n_pairs: int) -> int:
 
 
 LOG_FILE = None   # with --out, every line also goes to OUT_DIR/chip_smoke.log
+CARD = ""         # nvidia-smi's name and power limit, beside the phases' own numbers
 
 
 def log(msg: str) -> None:
@@ -1608,6 +1628,36 @@ def drive(label: str, pipe, meas, want: dict, repacks=None, eta: float = 0.0,
     return counts, audio, last[0]
 
 
+def trace_two_steps(pipe, meas) -> None:
+    """`tracing.trace` around two DPS steps of the slice's default route: the
+    Chrome trace must hold each step's "unet_forward" and "guided_step"
+    ranges (the host's, and the card's where the profiler records them)."""
+    from diffmusic_tpu_torch import tracing
+    lat = torch.randn(LATENTS, generator=torch.Generator().manual_seed(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tracing.trace(tmp):
+            pipe(audio_length_in_s=10.0, num_inference_steps=2, measurement=meas,
+                 ip_guidance_rate=2.0, latents=lat, prompt_embeds=torch.zeros(2, 512))
+        secs = time.perf_counter() - t0
+        (path,) = Path(tmp).glob("trace_*.json")
+        events = json.loads(path.read_text())["traceEvents"]
+        size = path.stat().st_size
+    ranges = {n: Counter(e.get("cat") for e in events if e.get("name") == n)
+              for n in ("unet_forward", "guided_step")}
+    host_ms = {n: [round(e["dur"] / 1e3, 2) for e in events
+                   if e.get("name") == n and e.get("cat") == "user_annotation"]
+               for n in ranges}
+    log(f"trace: tracing.trace around 2 DPS steps of the slice's default route: {secs:.2f} s "
+        f"with the trace written ({size / 1e6:.1f} MB, {len(events)} events); ranges by "
+        f"category {({n: dict(c) for n, c in ranges.items()})}; host ms {host_ms}; "
+        f"device_memory_stats {tracing.device_memory_stats()}")
+    if any(c["user_annotation"] != 2 for c in ranges.values()):
+        raise AssertionError(f"trace: expected 2 unet_forward and 2 guided_step ranges, got "
+                             f"{ranges}")
+
+
 # the slice's turns: each route once each way, so that the host's drift over
 # the call falls on every route alike
 TURNS = ("default", "stats", "fused", "xbwd", "kernel", "stage", "bsoft",
@@ -1660,6 +1710,7 @@ def phase_slice(profile_dir=None) -> tuple:
                      prompt_embeds=torch.zeros(2, 512))
         counts.setdefault(name, c)
         audio.setdefault(name, a)
+    trace_two_steps(pipe, meas)
     for name, p in pipes.items():
         parts = (None if name in ("default", "stats", "fused") else
                  ("unet fwd (no grad)",) if name == "bsoft" else ("vocoder fwd+bwd",))
@@ -2350,15 +2401,20 @@ def clap_clips(n: int, seconds: float, quiet: bool = False) -> torch.Tensor:
     return torch.as_tensor(np.stack(clips), dtype=torch.float32)
 
 
-def check_bound(label: str, reading: float, tol: float, planted_reading=None) -> None:
-    """A reading within its bound; the planted fault's reading outside it."""
-    extra = "" if planted_reading is None else f"; planted fault {planted_reading:.3e}"
-    log(f"clap reference: {label} {reading:.3e} (tol {tol:.0e}){extra}")
+def check_bound(label: str, reading: float, tol: float, planted_reading=None,
+                phase: str = "clap reference") -> None:
+    """A reading within its bound; the planted fault's reading outside it
+    (`planted_reading` a number, or {fault: reading} for several faults)."""
+    faults = ({} if planted_reading is None else planted_reading
+              if isinstance(planted_reading, dict) else {"planted fault": planted_reading})
+    extra = "".join(f"; {name} {r:.3e}" for name, r in faults.items())
+    log(f"{phase}: {label} {reading:.3e} (tol {tol:.0e}){extra}")
     if not reading <= tol:
-        raise AssertionError(f"clap reference: {label} {reading:.3e} over its bound {tol:.0e}")
-    if planted_reading is not None and not planted_reading > tol:
-        raise AssertionError(f"clap reference: {label}'s bound {tol:.0e} let its planted "
-                             f"fault pass ({planted_reading:.3e})")
+        raise AssertionError(f"{phase}: {label} {reading:.3e} over its bound {tol:.0e}")
+    for name, r in faults.items():
+        if not r > tol:
+            raise AssertionError(f"{phase}: {label}'s bound {tol:.0e} let its {name} pass "
+                                 f"({r:.3e})")
 
 
 def norm_rel(a, b) -> float:
@@ -2634,6 +2690,301 @@ def phase_clap() -> None:
           expected_launches("flash_attention"), repacks, prompt_embeds=embeds)
     del pipe, embeds
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- stable_audio
+REF_SA_MODULE_TOL = 1e-4   # tiny fp32 DiT and Oobleck, card against CPU, max|err| / max
+# the tiny pipeline's final latents after 10 EDM steps at CFG 7: fp32 against
+# float64 on the CPU reads 1.3e-5 of max, the card against the CPU 3.8e-5
+REF_SA_LATENT_TOL = 3e-4
+# its decoded audio: the tiny decoder (random snake scales) amplifies the
+# latents' last digits; fp32 against float64 on the CPU reads 2.5e-4 of max
+REF_SA_AUDIO_TOL = 2e-3
+REF_SA_STEPS = 10
+REF_SA_FRAMES = 24         # latent frames of the tiny reference (hop 8)
+SA_STEPS = 20              # of stable_audio.yaml's 200: every step does the same work
+SA_SECONDS = 10.0          # stable_audio.yaml's audio_end_in_s
+SA_WAVES = 3               # its num_waveforms_per_prompt
+SA_GUIDANCE = 7.0          # the pipeline's default guidance scale
+SA_TEXT_TOKENS = 512       # the T5 tokenizer's padded length
+SA_DEVICE = "cuda"         # the full-width runs' device
+
+
+def snake_without_exp(self, x):
+    """The planted snake: alpha and beta read as linear scales, not log."""
+    xf = x.float()
+    return (xf + (1.0 / (self.beta.float() + 1e-9))
+            * torch.sin(self.alpha.float() * xf).square()).to(x.dtype)
+
+
+def tiled_kv_heads(kv, rep):
+    """The planted GQA expansion: the KV heads tiled ([h0, h1, h0, h1])."""
+    return kv.repeat(1, 1, rep, 1)
+
+
+def tiled_rows(a, batch):
+    """The planted CFG conditioning: the rows tiled ([u, c, u, c, u, c])."""
+    return a.repeat(batch, *([1] * (a.ndim - 1)))
+
+
+def second_order_first_step(x0, x0_prev, r, first):
+    """The planted solver: the 2M formula at the first step too (r = 1, the
+    zero history)."""
+    return (1.0 + 1.0 / (2.0 * r)) * x0 - (1.0 / (2.0 * r)) * x0_prev
+
+
+def tiny_stable_audio(device):
+    """The tiny fp32 StableAudio pipeline (its weights drawn on the CPU, so
+    equal on every device) with Snake's alpha and beta moved off zero."""
+    from diffmusic_tpu_torch.models.oobleck import Snake1d
+    from diffmusic_tpu_torch.pipelines import StableAudioPipeline
+    pipe = StableAudioPipeline.tiny(device=device)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for m in pipe.vae.modules():
+            if isinstance(m, Snake1d):
+                m.alpha.copy_(0.3 * torch.randn(m.alpha.shape, generator=gen))
+                m.beta.copy_(0.3 * torch.randn(m.beta.shape, generator=gen))
+    return pipe
+
+
+def phase_reference_stable_audio():
+    """The tiny fp32 pipeline on the card and on the CPU with the same
+    weights: the DiT forward (CFG batch of 3 waveforms), Oobleck's encode
+    and decode, and REF_SA_STEPS EDM steps at CFG 7 from the same latents
+    and prompt_embeds with the decoded audio; each bound fails its planted
+    faults (run on the card): the KV heads and rope on every channel in the
+    DiT, the snake's scales read as linear in Oobleck, the CFG conditioning
+    tiled and a second-order first step in the sampler."""
+    from diffmusic_tpu_torch.models import oobleck
+    from diffmusic_tpu_torch.models import stable_audio_dit as sad
+    from diffmusic_tpu_torch.pipelines import stable_audio as psa
+    from diffmusic_tpu_torch.samplers import edm
+    devs = dict(zip(("cuda", "cpu"), REF_DEVICES))
+    pipes = {k: tiny_stable_audio(dev) for k, dev in devs.items()}
+    card = pipes["cuda"]
+    cfg, vcfg = card.dit_cfg, card.vae_cfg
+    gen = torch.Generator().manual_seed(21)
+    n = 2 * SA_WAVES
+    x = torch.randn((n, cfg.in_channels, REF_SA_FRAMES), generator=gen)
+    c_noise = torch.as_tensor(np.repeat(edm.EDMDPMSolverMultistepSchedule().timesteps(
+        REF_SA_STEPS)[[0, 5]], SA_WAVES))
+    ctx = torch.randn((n, 12, cfg.cross_attention_input_dim), generator=gen)
+    glob = torch.randn((n, cfg.global_states_input_dim), generator=gen)
+
+    @torch.no_grad()
+    def dit(key):
+        dev = devs[key]
+        return pipes[key].dit(x.to(dev), c_noise.to(dev), ctx.to(dev), glob.to(dev)).cpu()
+
+    want = dit("cpu")
+    faults = {}
+    for name, owner, attr, fault in (
+            ("KV heads tiled", sad, "expand_kv_heads", tiled_kv_heads),
+            ("rope on every channel", sad, "apply_partial_rotary",
+             lambda q, cos, sin, rd, real=sad.apply_partial_rotary: real(
+                 q, *sad.rotary_tables(q.shape[-1], q.shape[1], device=q.device),
+                 q.shape[-1]))):
+        with planted(owner, attr, fault):
+            faults[name] = rel_err(dit("cuda"), want)[1]
+    check_bound(f"tiny DiT forward {tuple(want.shape)} (GQA {cfg.num_attention_heads} over "
+                f"{cfg.num_key_value_attention_heads} heads, rotary {cfg.rotary_dim} of "
+                f"{cfg.attention_head_dim}), max|err| / max", rel_err(dit("cuda"), want)[1],
+                REF_SA_MODULE_TOL, faults, phase="stable_audio reference")
+
+    wav = 0.5 * torch.randn((2, vcfg.audio_channels, vcfg.hop_length * REF_SA_FRAMES),
+                            generator=gen)
+    z = torch.randn((2, vcfg.decoder_input_channels, REF_SA_FRAMES), generator=gen)
+
+    @torch.no_grad()
+    def vae(key):
+        dev = devs[key]
+        mean, std = pipes[key].vae.encode(wav.to(dev))
+        return mean.cpu(), std.cpu(), pipes[key].vae.decode(z.to(dev)).cpu()
+
+    want = vae("cpu")
+
+    def vae_err():
+        return max(rel_err(a, b)[1] for a, b in zip(vae("cuda"), want))
+
+    reading = vae_err()
+    with planted(oobleck.Snake1d, "forward", snake_without_exp):
+        bad = vae_err()
+    check_bound(f"tiny Oobleck encode (mean, std {tuple(want[0].shape)}) and decode "
+                f"{tuple(want[2].shape)}, max|err| / max", reading, REF_SA_MODULE_TOL,
+                {"snake scales linear": bad}, phase="stable_audio reference")
+
+    hop, sr = vcfg.hop_length, vcfg.sampling_rate
+    kw = dict(audio_end_in_s=REF_SA_FRAMES * hop / sr, num_inference_steps=REF_SA_STEPS,
+              guidance_scale=SA_GUIDANCE, num_waveforms_per_prompt=SA_WAVES,
+              latents=torch.randn((SA_WAVES, cfg.in_channels, REF_SA_FRAMES), generator=gen),
+              prompt_embeds=torch.randn((2, 12, card.text_cfg.d_model), generator=gen))
+    runs = {k: (p(**kw, output_type="latent").audios, p(**kw).audios) for k, p in pipes.items()}
+
+    def chain_err(got):
+        return [rel_err(torch.from_numpy(a), torch.from_numpy(b))[1]
+                for a, b in zip(got, runs["cpu"])]
+
+    faults = {}
+    for name, owner, attr, fault in (("CFG conditioning tiled", psa, "repeat_rows", tiled_rows),
+                                     ("second-order first step", edm, "dpm_solver_d",
+                                      second_order_first_step)):
+        with planted(owner, attr, fault):
+            faults[name] = chain_err((card(**kw, output_type="latent").audios,
+                                      card(**kw).audios))
+    for i, (what, tol) in enumerate(((f"final latents {runs['cpu'][0].shape}",
+                                      REF_SA_LATENT_TOL),
+                                     (f"decoded audio {runs['cpu'][1].shape}",
+                                      REF_SA_AUDIO_TOL))):
+        check_bound(f"tiny pipeline, {REF_SA_STEPS} EDM steps at CFG {SA_GUIDANCE} of "
+                    f"{SA_WAVES} waveforms: {what}, max|err| / max", chain_err(runs["cuda"])[i],
+                    tol, {k: v[i] for k, v in faults.items()}, phase="stable_audio reference")
+
+
+def full_width_stable_audio():
+    """stabilityai/stable-audio-open-1.0's published widths with seeded
+    random bf16 weights drawn on the card: the DiT (24 x 1536, 24 query and
+    12 KV heads of 64, rotary 32), Oobleck (128 x (1, 2, 4, 8, 16), ratios
+    (2, 4, 4, 8, 8), 44.1-kHz stereo), T5-base (12 x 768, d_ff 3072, ReLU)
+    and the projection (768, seconds 0-512); the byte tokenizer padded to
+    SA_TEXT_TOKENS, as the real tokenizer pads."""
+    import functools
+    from diffmusic_tpu_torch.models.configs import (OobleckConfig, StableAudioDiTConfig,
+                                                    StableAudioProjectionConfig, T5Config)
+    from diffmusic_tpu_torch.pipelines import StableAudioPipeline
+    from diffmusic_tpu_torch.pipelines.stable_audio import stable_audio_byte_tokenizer
+    t5 = T5Config(vocab_size=32128, d_model=768, d_kv=64, d_ff=3072, num_layers=12,
+                  num_heads=12, is_gated_act=False)
+    return StableAudioPipeline.random(
+        StableAudioDiTConfig(), OobleckConfig(), t5, StableAudioProjectionConfig(), seed=50,
+        device=SA_DEVICE, weight_dtype=torch.bfloat16, draw_on_device=True,
+        tokenizer=functools.partial(stable_audio_byte_tokenizer, maxlen=SA_TEXT_TOKENS))
+
+
+def stable_audio_cli(root: Path, device: str = "cuda") -> None:
+    """`diffmusic_tpu_torch.run.main -m stable_audio -t music_generation
+    --tiny` on the card, 2 steps, a 1-s clip (stable_audio.yaml's 3
+    waveforms): the output tree, a stereo wav at the tiny Oobleck's 16 kHz,
+    the generation order kept (no CLAP tower)."""
+    from diffmusic_tpu_torch import run
+    from diffmusic_tpu_torch.data import read_wav, write_wav
+    clips = root / "clips"
+    clips.mkdir(parents=True)
+    write_wav(clips / "track.wav", harmonic_stack(16000 * 16, 16000), 16000)
+    argv = ["-m", "stable_audio", "-t", "music_generation", "-c", "ddim", "--tiny",
+            "--num_inference_steps", "2", "-o", f"data.root={clips}",
+            "-o", "model.pipe.audio_end_in_s=1", "--device", device]
+    cwd = Path.cwd()
+    os.chdir(root)
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            run.main(argv)
+        secs = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    done = root / "outputs" / "stable_audio" / "moises" / "ddim" / "music_generation"
+    made = sorted(str(p.relative_to(done)) for p in done.rglob("*.*"))
+    wav, sr = read_wav(done / "wav_recon" / "track.wav")
+    kept = "keeping generation order" in out.getvalue()
+    log(f"stable_audio cli: python -m diffmusic_tpu_torch.run {' '.join(argv)}: {secs:.2f} s, "
+        f"wrote {made}; wav_recon {wav.shape} at {sr} Hz; generation order kept: {kept}")
+    if len(made) != 6 or wav.shape != (2, 16000) or sr != 16000 or not np.isfinite(wav).all():
+        raise AssertionError(f"stable_audio cli wrote {made}, wav {wav.shape} at {sr} Hz")
+    if not kept:
+        raise AssertionError("stable_audio cli: -nw 3 without a CLAP tower did not log "
+                             "'keeping generation order'")
+
+
+def phase_stable_audio() -> None:
+    """The reference half, then full width (`full_width_stable_audio`) at
+    stable_audio.yaml's settings: a 10-s clip (216 latent frames and the
+    global token), 3 waveforms at CFG 7 (the DiT's batch 6), the empty prompt
+    through T5 padded to 512 tokens; SA_STEPS EDM steps (ms per step from
+    CUDA events at each DiT call), the text stack's seconds, Oobleck's
+    decode of the 3 clips alone, peak memory; then the CLI's tiny run. No
+    ported kernel is on this path: the launch counts must not move."""
+    from diffmusic_tpu_torch import kernels
+    before = kernels.launch_counts()
+    phase_reference_stable_audio()
+    t0 = time.time()
+    pipe = full_width_stable_audio()
+    torch.cuda.synchronize()
+    sizes = {n: sum(p.numel() for p in getattr(pipe, n).parameters()) / 1e6
+             for n in ("dit", "vae", "text_encoder", "projection")}
+    log(f"stable_audio: full-width stable-audio-open-1.0 widths, seeded random bf16 weights "
+        f"drawn on the card, built in {time.time() - t0:.1f} s; M parameters "
+        f"{ {k: round(v, 1) for k, v in sizes.items()} }")
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            embeds = pipe.encode_prompt("", None, True)
+            seconds = (torch.zeros(2, device=SA_DEVICE),
+                       torch.full((2,), SA_SECONDS, device=SA_DEVICE))
+            cond = pipe._conditioning(embeds, *seconds)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    log(f"stable_audio: text stack (T5-base over {tuple(embeds.shape)} tokens of the empty "
+        f"prompt and negative prompt, the projection and duration conditioners) "
+        f"{secs[0]:.3f} s first, {secs[1]:.3f} s again; conditioning "
+        f"{[tuple(c.shape) for c in cond]} ({CARD})")
+
+    stamps = []
+
+    def stamp(*_):
+        stamps.append(torch.cuda.Event(enable_timing=True))
+        stamps[-1].record()
+
+    hook = pipe.dit.register_forward_pre_hook(stamp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        audio = pipe(prompt="", audio_end_in_s=SA_SECONDS, num_inference_steps=SA_STEPS,
+                     guidance_scale=SA_GUIDANCE, num_waveforms_per_prompt=SA_WAVES,
+                     generator=torch.Generator(SA_DEVICE).manual_seed(0)).audios
+    finally:
+        hook.remove()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in zip(stamps, stamps[1:])]
+    q1, med, q3 = statistics.quantiles(step_ms[1:], n=4)
+    hop = pipe.vae_cfg.hop_length
+    frames = math.ceil(int(SA_SECONDS * pipe.vae_cfg.sampling_rate) / hop)
+    log(f"stable_audio: {SA_STEPS} EDM DPM-Solver++ 2M steps of stable_audio.yaml's 200 (every "
+        f"step does the same work: one DiT call on the CFG batch {2 * SA_WAVES} x "
+        f"({frames} latent frames + the global token), cross-attention to "
+        f"{SA_TEXT_TOKENS} tokens), {SA_WAVES} waveforms of {SA_SECONDS:g} s: ms per step "
+        f"(DiT call to DiT call, CUDA events, after the first) median {med:.2f}, quartiles "
+        f"{q1:.2f}/{q3:.2f} (first {step_ms[0]:.1f}); the call {wall:.2f} s wall with the "
+        f"text stack and the decode; peak memory {peak / 2**30:.2f} GiB; audio {audio.shape} "
+        f"({CARD})")
+    if audio.shape != (SA_WAVES, 2, int(SA_SECONDS * 44100)) or not np.isfinite(audio).all():
+        raise AssertionError(f"stable_audio: audio {audio.shape}, finite "
+                             f"{np.isfinite(audio).all()}; expected ({SA_WAVES}, 2, 441000)")
+
+    z = randn((SA_WAVES, pipe.vae_cfg.decoder_input_channels, frames),
+              torch.Generator().manual_seed(51), SA_DEVICE, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        decode_ms = time_ms(lambda: pipe.vae.decode(z), reps=3, inner=1, warmup=1)
+    log(f"stable_audio: Oobleck decode of {tuple(z.shape)} latents ({SA_WAVES} x "
+        f"{SA_SECONDS:g} s, {frames * hop} samples a channel before the cut): {decode_ms:.2f} ms "
+        f"(median of 3, CUDA events); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB ({CARD})")
+    del pipe, embeds, cond, z
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        stable_audio_cli(Path(tmp), SA_DEVICE)
+    after = kernels.launch_counts()
+    log(f"stable_audio: kernel launches across the phase {after == before} (none of the "
+        f"ported kernels is on this path)")
+    if after != before:
+        raise AssertionError(f"stable_audio: the launch counts moved: {before} -> {after}")
+
 
 
 def in_memory_musicldm(modules: dict, device, dtype):
@@ -2941,7 +3292,7 @@ def run_eval(root: Path, ckpt: Path, device: str) -> dict:
                    "--checkpoint_dir", str(ckpt)])
 
 
-def compare_eval_card_cpu(root: Path, ckpt: Path) -> None:
+def compare_eval_card_cpu(root: Path, ckpt: Path) -> dict:
     """The first EVAL_CARD_CPU_PAIRS pairs copied into fresh directories and
     scored on the card and on the CPU: every score within EVAL_SCORE_TOL
     relative; the cached mfcc-stack embeddings within TOL_FP32 of max; the
@@ -2982,6 +3333,91 @@ def compare_eval_card_cpu(root: Path, ckpt: Path) -> None:
     if (max(errs.values()) > EVAL_SCORE_TOL or mfcc[1] > TOL_FP32 or levels.max() > 1
             or flips > EVAL_LEVEL_FLIPS or pre_err[1] > TOL_FP32):
         raise AssertionError("the eval on the card disagrees with the eval on the CPU")
+    return scores["cuda"]
+
+
+FADTK_SCORE_TOL = 1e-6   # the fadtk CLI's FAD against the eval's, relative
+
+
+def fadtk_call(fn, argv) -> tuple:
+    """(return value, standard output, seconds) of a fadtk command line's main."""
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        value = fn(argv)
+    return value, out.getvalue(), time.perf_counter() - t0
+
+
+def fadtk_command_lines(root: Path, card_scores: dict, device: str = "cuda") -> None:
+    """The four fadtk command lines on the card, on fresh copies of the
+    card-vs-CPU directories (EVAL_CARD_CPU_PAIRS pairs, two of them 44.1-kHz
+    stereo): `fadtk` MODEL GT RECON (and --inf) must give the in-process
+    eval's FAD (and FAD-inf) from cold caches; `fadtk.embeds` with 2 spawn
+    workers on the card must cache what `fadtk` cached for the 16-kHz files
+    (the loaders resample 44.1 kHz with scipy, the eval with ops/resample);
+    `fadtk.package`'s bundle as the baseline must give the FAD of its
+    directory; `fadtk.test`, the golden gate, must exit 0."""
+    from diffmusic_tpu_torch.fadtk import __main__ as fadtk_main
+    from diffmusic_tpu_torch.fadtk import embeds, package
+    from diffmusic_tpu_torch.fadtk.test import __main__ as gate
+    src = root / "card_cpu_cuda"
+    copies = {}
+    for name in ("main", "embeds"):
+        copies[name] = root / f"fadtk_{name}"
+        for sub in ("gt", "recon"):
+            (copies[name] / sub).mkdir(parents=True)
+            for f in sorted((src / sub).glob("*.wav")):
+                shutil.copy(f, copies[name] / sub / f.name)
+    d = copies["main"]
+    fad, out, secs = fadtk_call(fadtk_main.main, ["mfcc-stack", str(d / "gt"),
+                                                  str(d / "recon"), "--device", device])
+    fad_inf, out_inf, _ = fadtk_call(fadtk_main.main, ["mfcc-stack", str(d / "gt"),
+                                                       str(d / "recon"), "--inf",
+                                                       "--device", device])
+    want, want_inf = card_scores["FAD (mfcc-stack)"], card_scores["FAD-inf (mfcc-stack)"]
+    errs = [abs(fad - want) / abs(want), abs(fad_inf - want_inf) / abs(want_inf)]
+    log(f"fadtk: python -m diffmusic_tpu_torch.fadtk mfcc-stack GT RECON on "
+        f"{EVAL_CARD_CPU_PAIRS} pairs from cold caches, {secs:.2f} s: {out.strip()!r}, and "
+        f"--inf {out_inf.strip()!r}; the eval's FAD {want:.6f}, FAD-inf {want_inf:.6f}; rel "
+        f"diff {errs[0]:.1e}, {errs[1]:.1e} (tol {FADTK_SCORE_TOL:.0e})")
+    if max(errs) > FADTK_SCORE_TOL:
+        raise AssertionError("fadtk: the command line's FAD differs from the eval's")
+
+    e = copies["embeds"]
+    _, out, secs = fadtk_call(embeds.main, ["-m", "mfcc-stack", "-d", str(e / "gt"),
+                                            str(e / "recon"), "-w", "2", "--device", device])
+    sixteen = {f"{i:03d}" for i in range(EVAL_CARD_CPU_PAIRS) if i not in (1, 2)}
+    diffs = {}
+    for sub in ("gt", "recon"):
+        for f in sorted((e / sub / "embeddings" / "mfcc-stack").glob("*.npy")):
+            a, b = np.load(f), np.load(d / sub / "embeddings" / "mfcc-stack" / f.name)
+            diffs[f"{sub}/{f.stem}"] = (rel_err(torch.from_numpy(a), torch.from_numpy(b))[1]
+                                        if a.shape == b.shape else float("inf"))
+    log(f"fadtk: python -m diffmusic_tpu_torch.fadtk.embeds -w 2 (spawn workers on the card), "
+        f"{secs:.2f} s: {out.strip().splitlines()}; caches against fadtk's, max|err| / max "
+        f"{({k: f'{v:.1e}' for k, v in diffs.items()})} (16-kHz files within {TOL_FP32:.0e})")
+    if len(diffs) != 2 * EVAL_CARD_CPU_PAIRS or any(
+            v > TOL_FP32 for k, v in diffs.items() if k.split("/")[1] in sixteen):
+        raise AssertionError("fadtk.embeds: the workers' caches differ from fadtk's")
+
+    _, out, secs = fadtk_call(package.main, ["-m", "mfcc-stack", "-d", str(e / "gt"),
+                                             "-o", str(e / "bundles"), "--device", device])
+    from_bundle, _, _ = fadtk_call(fadtk_main.main, ["mfcc-stack",
+                                                     str(e / "bundles" / "mfcc-stack.npz"),
+                                                     str(e / "recon"), "--device", device])
+    from_dir, _, _ = fadtk_call(fadtk_main.main, ["mfcc-stack", str(e / "gt"),
+                                                  str(e / "recon"), "--device", device])
+    rel = abs(from_bundle - from_dir) / abs(from_dir)
+    log(f"fadtk: python -m diffmusic_tpu_torch.fadtk.package, {secs:.2f} s: {out.strip()!r}; "
+        f"FAD from the bundle {from_bundle:.6f}, from its directory {from_dir:.6f}, rel diff "
+        f"{rel:.1e}")
+    if not rel <= FADTK_SCORE_TOL:
+        raise AssertionError("fadtk.package: the bundle's FAD differs from its directory's")
+
+    code, out, secs = fadtk_call(gate.main, ["--device", device])
+    log(f"fadtk: python -m diffmusic_tpu_torch.fadtk.test on the card, {secs:.2f} s: exit "
+        f"{code}; {out.strip().splitlines()}")
+    if code != 0:
+        raise AssertionError(f"fadtk.test exited {code}")
 
 
 CLAP_LAION_TOL = 1e-3           # clap-laion embeddings, card vs CPU, fraction of max
@@ -3063,7 +3499,8 @@ def phase_eval(restored: np.ndarray) -> dict:
         want = dict.fromkeys(REPLACES, 0)
         want["fused_mel_spectrogram"] = eval_mel_launches(EVAL_PAIRS)
         check_launches("eval", counts, want)
-        compare_eval_card_cpu(root, ckpt)
+        card_scores = compare_eval_card_cpu(root, ckpt)
+        fadtk_command_lines(root, card_scores)
         compare_clap_laion(root, ckpt)
     return counts
 
@@ -3109,6 +3546,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
+    global CARD
+    CARD = smi
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
 
@@ -3157,6 +3596,7 @@ def main() -> int:
     phase_reference_ditto()
     phase_ditto_optim_prompt()
     phase_clap()
+    phase_stable_audio()
     phase_checkpoint_cli()
     eval_counts = phase_eval(restored)
     # each kernel's launches from the path that runs it: MusicLDM's default

@@ -17,9 +17,8 @@ from argparse import ArgumentParser
 
 import torch
 
-from .fadtk import FADEngine, get_model
-from .metrics import (KullbackLeiblerDivergence, LogSpectralDistance, MeanSquaredError,
-                      get_embedding_model)
+from .fadtk import make_engine
+from .metrics import KullbackLeiblerDivergence, LogSpectralDistance, MeanSquaredError
 from .utils import load_audio_files
 
 
@@ -89,12 +88,8 @@ def score_dirs(args) -> dict:
     scores = {}
     first_model = None
     for name in args.embedding:  # per-model FAD loop (reference eval.py:56-73)
-        # the JAX eval.py's choice of loader: mfcc-stack has no load_wav, so
-        # the engine resamples with ops/resample.py; vggish with scipy's
-        model = (get_embedding_model(name, device=args.device) if name == "mfcc-stack"
-                 else get_model(name, args.checkpoint_dir, args.device))
-        first_model = first_model or model
-        engine = FADEngine(model=model)
+        engine = make_engine(name, args.checkpoint_dir, args.device)
+        first_model = first_model or engine.model
         scores[f"FAD ({name})"] = engine.score(args.ground_truth_dir, args.recon_dir)
         if args.fad_inf:
             fad_inf, _slope = engine.score_inf(args.ground_truth_dir, args.recon_dir)

@@ -136,3 +136,15 @@ class FADEngine:
         with open(csv_out, "w", newline="") as fh:
             csv.writer(fh).writerows(rows)
         return csv_out
+
+
+def make_engine(model_name: str, checkpoint_dir=None, device="cuda") -> FADEngine:
+    """The JAX package's `FADEngine(model_name=...)`: mfcc-stack is the
+    metrics embedder (no `load_wav`, so the engine resamples with
+    `ops/resample.py`), any other name its loader (`model_loader.get_model`,
+    which resamples with scipy's polyphase filter)."""
+    if model_name == "mfcc-stack":
+        from ..metrics import get_embedding_model
+        return FADEngine(get_embedding_model(model_name, device=device))
+    from .model_loader import get_model
+    return FADEngine(get_model(model_name, checkpoint_dir, device))

@@ -10,6 +10,10 @@ A checkpoint is a directory in the HF snapshot layout:
   + text_encoder_2/ (T5), language_model/ (GPT-2) and projection_model/ for
   AudioLDM2; tokenizer/ and tokenizer_2/ where present.
 
+StableAudio's snapshot (stabilityai/stable-audio-open-1.0) is another layout:
+transformer/ (the DiT), vae/ (Oobleck), text_encoder/ (T5), projection_model/,
+scheduler/scheduler_config.json and tokenizer/ (`load_stable_audio`).
+
 Each module's state dict goes through its converter to the JAX package's
 flax tree, then through `from_flax` to the port's state dict, so the port
 loads exactly what the JAX package loads. Every key of a state dict is
@@ -625,3 +629,86 @@ def load_audioldm2(checkpoint_dir, scheduler_name: str = "ddim", operator=None,
                           proj_cfg, device, weight_dtype),
         t5_tokenizer=_make_hf_tokenizer(d / "tokenizer_2"),
         max_new_tokens=gpt2_json.get("max_new_tokens", 8))
+
+
+def stable_audio_configs(d: Path):
+    """(DiT, Oobleck, T5, projection) configs of a StableAudio snapshot, with
+    the JAX package's defaults for missing keys."""
+    from .configs import OobleckConfig, StableAudioDiTConfig, StableAudioProjectionConfig
+    c = _cfg(d / "transformer")
+    dit = StableAudioDiTConfig(
+        sample_size=c.get("sample_size", 1024), in_channels=c.get("in_channels", 64),
+        num_layers=c.get("num_layers", 24), attention_head_dim=c.get("attention_head_dim", 64),
+        num_attention_heads=c.get("num_attention_heads", 24),
+        num_key_value_attention_heads=c.get("num_key_value_attention_heads", 12),
+        out_channels=c.get("out_channels", 64),
+        cross_attention_dim=c.get("cross_attention_dim", 768),
+        time_proj_dim=c.get("time_proj_dim", 256),
+        global_states_input_dim=c.get("global_states_input_dim", 1536),
+        cross_attention_input_dim=c.get("cross_attention_input_dim", 768))
+    c = _cfg(d / "vae")
+    vae = OobleckConfig(
+        encoder_hidden_size=c.get("encoder_hidden_size", 128),
+        downsampling_ratios=tuple(c.get("downsampling_ratios", (2, 4, 4, 8, 8))),
+        channel_multiples=tuple(c.get("channel_multiples", (1, 2, 4, 8, 16))),
+        decoder_channels=c.get("decoder_channels", 128),
+        decoder_input_channels=c.get("decoder_input_channels", 64),
+        audio_channels=c.get("audio_channels", 2), sampling_rate=c.get("sampling_rate", 44100))
+    c = _cfg(d / "text_encoder")
+    t5 = T5Config(
+        vocab_size=c.get("vocab_size", 32128), d_model=c.get("d_model", 768),
+        d_kv=c.get("d_kv", 64), d_ff=c.get("d_ff", 2048), num_layers=c.get("num_layers", 12),
+        num_heads=c.get("num_heads", 12),
+        is_gated_act="gated" in c.get("feed_forward_proj", "gated-gelu"))
+    c = _cfg(d / "projection_model")
+    proj = StableAudioProjectionConfig(
+        text_encoder_dim=c.get("text_encoder_dim", 768),
+        conditioning_dim=c.get("conditioning_dim", 768), min_value=c.get("min_value", 0.0),
+        max_value=c.get("max_value", 512.0))
+    return dit, vae, t5, proj
+
+
+def edm_schedule_from_snapshot(d: Path):
+    """The EDM schedule of scheduler/scheduler_config.json, JAX's defaults
+    for missing keys (or for a missing file)."""
+    from ..samplers.edm import EDMDPMSolverMultistepSchedule
+    f = d / "scheduler" / "scheduler_config.json"
+    c = json.loads(f.read_text()) if f.exists() else {}
+    return EDMDPMSolverMultistepSchedule(
+        sigma_min=c.get("sigma_min", 0.3), sigma_max=c.get("sigma_max", 500.0),
+        sigma_data=c.get("sigma_data", 1.0), rho=c.get("rho", 7.0),
+        solver_order=c.get("solver_order", 2),
+        prediction_type=c.get("prediction_type", "v_prediction"))
+
+
+def load_stable_audio(checkpoint_dir, schedule=None, device="cuda",
+                      weight_dtype=torch.float32, **_):
+    """A StableAudioPipeline from a local HF-snapshot directory: transformer/
+    (the DiT), vae/ (Oobleck, weight-normed convs fused), text_encoder/ (T5;
+    t5-base's ReLU feed-forward when its feed_forward_proj is not gated),
+    projection_model/, scheduler/ (the EDM schedule unless `schedule` is
+    given) and tokenizer/. Weights cast to `weight_dtype` on `device` (the
+    card unless the caller asks for the CPU); every key of every state dict
+    is read or the load raises."""
+    from ..pipelines.stable_audio import StableAudioPipeline
+    from .oobleck import AutoencoderOobleck
+    from .stable_audio_dit import StableAudioDiTModel, StableAudioProjectionModel
+    from .t5 import T5EncoderModel
+    d = Path(checkpoint_dir)
+    dit_cfg, vae_cfg, t5_cfg, proj_cfg = stable_audio_configs(d)
+    with torch.device("meta"):
+        dit, vae = StableAudioDiTModel(dit_cfg), AutoencoderOobleck(vae_cfg)
+        t5, proj = T5EncoderModel(t5_cfg), StableAudioProjectionModel(proj_cfg)
+    trees = (_strict(convert.convert_stable_audio_dit, _load_module_sd(d / "transformer"),
+                     "convert_stable_audio_dit", dit_cfg),
+             _strict(convert.convert_oobleck, _load_module_sd(d / "vae"), "convert_oobleck",
+                     vae_cfg),
+             t5_tree(_load_module_sd(d / "text_encoder"), t5_cfg),
+             _strict(convert.convert_stable_audio_projection,
+                     _load_module_sd(d / "projection_model"),
+                     "convert_stable_audio_projection"))
+    models = [_build(m, tree, cfg, device, weight_dtype) for m, tree, cfg in
+              zip((dit, vae, t5, proj), trees, (dit_cfg, vae_cfg, t5_cfg, proj_cfg))]
+    return StableAudioPipeline(
+        *models, schedule=schedule if schedule is not None else edm_schedule_from_snapshot(d),
+        tokenizer=_make_hf_tokenizer(d / "tokenizer"))

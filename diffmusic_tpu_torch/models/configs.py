@@ -1,4 +1,4 @@
-"""Model configs of the MusicLDM and AudioLDM2 slices.
+"""Model configs of the MusicLDM, AudioLDM2 and StableAudio slices.
 
 Field for field the dataclasses of `diffmusic_tpu/models/configs.py`, copied so
 that this package never imports the JAX package; a JAX config converts with
@@ -148,6 +148,80 @@ class GPT2Config:
 def tiny_gpt2_config() -> GPT2Config:
     return GPT2Config(vocab_size=256, n_positions=64, n_embd=32, n_layer=2,
                       n_head=4)
+
+
+@dataclass(frozen=True)
+class OobleckConfig:
+    """AutoencoderOobleck (stable-audio-open waveform VAE) config; field names
+    mirror diffusers' autoencoder_oobleck.py config.json keys."""
+    encoder_hidden_size: int = 128
+    downsampling_ratios: Tuple[int, ...] = (2, 4, 4, 8, 8)
+    channel_multiples: Tuple[int, ...] = (1, 2, 4, 8, 16)
+    decoder_channels: int = 128
+    decoder_input_channels: int = 64
+    audio_channels: int = 2
+    sampling_rate: int = 44100
+
+    @property
+    def hop_length(self) -> int:
+        out = 1
+        for r in self.downsampling_ratios:
+            out *= r
+        return out
+
+
+def tiny_oobleck_config() -> OobleckConfig:
+    return OobleckConfig(encoder_hidden_size=8, downsampling_ratios=(2, 4),
+                         channel_multiples=(1, 2), decoder_channels=8,
+                         decoder_input_channels=4, audio_channels=2,
+                         sampling_rate=16000)
+
+
+@dataclass(frozen=True)
+class StableAudioDiTConfig:
+    """StableAudioDiTModel config (diffusers stable_audio_transformer.py keys)."""
+    sample_size: int = 1024
+    in_channels: int = 64
+    num_layers: int = 24
+    attention_head_dim: int = 64
+    num_attention_heads: int = 24
+    num_key_value_attention_heads: int = 12
+    out_channels: int = 64
+    cross_attention_dim: int = 768
+    time_proj_dim: int = 256
+    global_states_input_dim: int = 1536
+    cross_attention_input_dim: int = 768
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+    @property
+    def rotary_dim(self) -> int:
+        return self.attention_head_dim // 2
+
+
+def tiny_stable_audio_dit_config() -> StableAudioDiTConfig:
+    return StableAudioDiTConfig(
+        sample_size=32, in_channels=4, num_layers=2, attention_head_dim=8,
+        num_attention_heads=4, num_key_value_attention_heads=2, out_channels=4,
+        cross_attention_dim=16, time_proj_dim=8, global_states_input_dim=32,
+        cross_attention_input_dim=16)
+
+
+@dataclass(frozen=True)
+class StableAudioProjectionConfig:
+    """StableAudioProjectionModel: T5 text projection + two learned
+    number-conditioners for seconds_start / seconds_total."""
+    text_encoder_dim: int = 768
+    conditioning_dim: int = 768
+    min_value: float = 0.0
+    max_value: float = 512.0
+
+
+def tiny_stable_audio_projection_config() -> StableAudioProjectionConfig:
+    return StableAudioProjectionConfig(text_encoder_dim=16, conditioning_dim=16,
+                                       max_value=64.0)
 
 
 @dataclass(frozen=True)

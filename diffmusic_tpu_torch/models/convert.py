@@ -4,8 +4,9 @@ random init.
 `from_flax(params, cfg)` turns a flax parameter tree of the JAX package's
 UNet, VAE, HiFi-GAN, CLAP text tower, CLAP audio tower (HTSAT, with its
 BatchNorm's `batch_stats`), T5 encoder, VITS text encoder, AudioLDM2
-projection model or GPT-2 (arrays of any kind numpy can read) into the
-matching port module's `state_dict`. The port's module and parameter names follow the flax tree, so
+projection model, GPT-2, Oobleck VAE, StableAudio DiT or StableAudio
+projection model (arrays of any kind numpy can read) into the matching port
+module's `state_dict`. The port's module and parameter names follow the flax tree, so
 only the leaf names and the layouts change:
   - norm `scale` -> `weight`; Embed `embedding` (num, dim) -> `weight`;
   - Dense `kernel` (in, out) stays (in, out): the port's `Dense` keeps it so;
@@ -13,38 +14,48 @@ only the leaf names and the layouts change:
     and (k, in, out) -> Conv1d `weight` (out, in, k);
   - HiFi-GAN conv kernels stay in their (k, in, out) math layout, except the
     ConvTranspose upsamplers, whose (k, out, in) kernels swap to (k, in, out).
+    Oobleck's convs are `nn.Conv1d` / `nn.ConvTranspose1d`: its ConvTranspose
+    kernel, (k, out, in) under `transpose_kernel=True`, goes by the same rule
+    as a conv's to torch's (in, out, k); Snake's alpha and beta, (1, 1, C) in
+    flax, become (1, C, 1).
   - leaves of other names (T5's RMSNorm `weight`, the projection model's
     SOS/EOS embeds, the vocoder's `normalize_before` mean and scale, HTSAT's
     `bn_*` and bias tables, VITS's relative embeddings) keep their names.
 
 `convert_hifigan`, `convert_clap_text`, `convert_clap_audio`,
-`convert_t5_encoder`, `convert_vits_text_encoder`, `convert_gpt2` and
-`convert_projection` are numpy copies of the JAX package's HF -> flax
+`convert_t5_encoder`, `convert_vits_text_encoder`, `convert_gpt2`,
+`convert_projection`, `convert_oobleck`, `convert_stable_audio_dit` and
+`convert_stable_audio_projection` are numpy copies of the JAX package's HF -> flax
 converters (`diffmusic_tpu/models/convert.py`): a transformers / diffusers
 state dict becomes the flax tree, which `from_flax` then turns into the
 port's state dict. `models/checkpoint.py` holds the UNet's and the VAE's.
 
 `init_flax_style(model, seed)` draws random weights the way flax initialises
 them (lecun-normal kernels, zero biases, unit norm scales, embeddings normal
-with variance 1/dim, SOS/EOS embeds normal with std 0.02), so bf16
-activations of a random full-width model behave as in the JAX package.
+with variance 1/dim, SOS/EOS embeds normal with std 0.02, the Fourier and
+number-conditioner weights normal(1.0), Snake's alpha and beta zeros), so
+bf16 activations of a random full-width model behave as in the JAX package.
 """
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from .configs import (ClapTextConfig, GPT2Config, HiFiGANConfig, ProjectionConfig,
+from .configs import (ClapTextConfig, GPT2Config, HiFiGANConfig, OobleckConfig,
+                      ProjectionConfig, StableAudioDiTConfig, StableAudioProjectionConfig,
                       T5Config, UNetConfig, VAEConfig)
 from .hifigan import Conv1dParams
 from .htsat import ClapAudioConfig
 from .layers import Dense, GroupNorm
+from .oobleck import Snake1d
 from .projection import AudioLDM2ProjectionModel
+from .stable_audio_dit import GaussianFourierProjection, NumberConditioner
 from .t5 import RMSNorm
 from .vits import VitsAttention, VitsConfig
 
 CONFIGS = (UNetConfig, VAEConfig, HiFiGANConfig, ClapTextConfig, ClapAudioConfig, T5Config,
-           VitsConfig, ProjectionConfig, GPT2Config)
+           VitsConfig, ProjectionConfig, GPT2Config, OobleckConfig, StableAudioDiTConfig,
+           StableAudioProjectionConfig)
 
 
 def _flatten(tree, prefix=()):
@@ -55,10 +66,12 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), np.asarray(v, dtype=np.float32)
 
 
-def _leaf(path, arr, hifigan: bool):
+def _leaf(path, arr, hifigan: bool, oobleck: bool = False):
     """(port key, array in the port's layout) for one flax leaf."""
     *mods, name = path
     key = ".".join(mods)
+    if oobleck and name in ("alpha", "beta"):
+        return ".".join(path), arr.swapaxes(1, 2)   # Snake: (1, 1, C) -> (1, C, 1)
     if name == "bias":
         return key + ".bias", arr
     if name in ("scale", "embedding") and mods:
@@ -89,7 +102,7 @@ def from_flax(params, cfg) -> dict:
     if "params" in params:
         leaves += list(_flatten(params.get("batch_stats", {})))
     for path, arr in leaves:
-        key, arr = _leaf(path, arr, hifigan)
+        key, arr = _leaf(path, arr, hifigan, isinstance(cfg, OobleckConfig))
         out[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
     return out
 
@@ -323,6 +336,122 @@ def convert_projection(state_dict) -> dict:
     return {"params": p}
 
 
+# --------------------------------------------------------------- StableAudio
+
+def _wn_weight(sd, prefix: str):
+    """A conv weight that may be weight-normed: the fused `weight`, the
+    legacy `weight_g` / `weight_v`, or torch >= 2.1's
+    `parametrizations.weight.original0` / `original1`."""
+    if f"{prefix}.weight" in sd:
+        return _np(sd[f"{prefix}.weight"])
+    if f"{prefix}.weight_g" in sd:
+        g, v = _np(sd[f"{prefix}.weight_g"]), _np(sd[f"{prefix}.weight_v"])
+    else:
+        g = _np(sd[f"{prefix}.parametrizations.weight.original0"])
+        v = _np(sd[f"{prefix}.parametrizations.weight.original1"])
+    norm = np.sqrt((v ** 2).sum(axis=tuple(range(1, v.ndim)), keepdims=True))
+    return g * v / np.maximum(norm, 1e-12)
+
+
+def _snake(sd, prefix: str) -> dict:
+    """diffusers Snake1d alpha / beta (1, C, 1) -> flax (1, 1, C)."""
+    return {"alpha": np.transpose(_np(sd[f"{prefix}.alpha"]), (0, 2, 1)),
+            "beta": np.transpose(_np(sd[f"{prefix}.beta"]), (0, 2, 1))}
+
+
+def _wn_conv(sd, prefix: str, bias: bool = True) -> dict:
+    # a ConvTranspose1d's (in, out, k) takes the same transpose as a conv's
+    # (out, in, k), to flax's transpose_kernel layout (k, out, in)
+    out = {"kernel": conv1d(_wn_weight(sd, prefix))}
+    if bias:
+        out["bias"] = _np(sd[f"{prefix}.bias"])
+    return out
+
+
+def _oobleck_res_unit(sd, p: str) -> dict:
+    return {"snake1": _snake(sd, f"{p}.snake1"), "conv1": _wn_conv(sd, f"{p}.conv1"),
+            "snake2": _snake(sd, f"{p}.snake2"), "conv2": _wn_conv(sd, f"{p}.conv2")}
+
+
+def convert_oobleck(state_dict, cfg) -> dict:
+    """diffusers AutoencoderOobleck state dict -> the Oobleck VAE's flax tree."""
+    sd = state_dict
+    enc = {"conv1": _wn_conv(sd, "encoder.conv1"), "snake1": _snake(sd, "encoder.snake1"),
+           "conv2": _wn_conv(sd, "encoder.conv2")}
+    for i in range(len(cfg.downsampling_ratios)):
+        b = f"encoder.block.{i}"
+        enc[f"block_{i}"] = {**{f"res_unit{r}": _oobleck_res_unit(sd, f"{b}.res_unit{r}")
+                                for r in (1, 2, 3)},
+                             "snake1": _snake(sd, f"{b}.snake1"),
+                             "conv1": _wn_conv(sd, f"{b}.conv1")}
+    dec = {"conv1": _wn_conv(sd, "decoder.conv1"), "snake1": _snake(sd, "decoder.snake1"),
+           "conv2": _wn_conv(sd, "decoder.conv2", bias=False)}
+    for i in range(len(cfg.downsampling_ratios)):
+        b = f"decoder.block.{i}"
+        dec[f"block_{i}"] = {"snake1": _snake(sd, f"{b}.snake1"),
+                             "conv_t1": _wn_conv(sd, f"{b}.conv_t1"),
+                             **{f"res_unit{r}": _oobleck_res_unit(sd, f"{b}.res_unit{r}")
+                                for r in (1, 2, 3)}}
+    return {"params": {"encoder": enc, "decoder": dec}}
+
+
+def convert_stable_audio_dit(state_dict, cfg) -> dict:
+    """diffusers StableAudioDiTModel state dict -> the DiT's flax tree (its
+    1x1 pre/postprocess convs are token-wise Dense layers)."""
+    sd = state_dict
+
+    def dense(key, bias=True):
+        out = {"kernel": linear(_np(sd[f"{key}.weight"]))}
+        if bias and f"{key}.bias" in sd:
+            out["bias"] = _np(sd[f"{key}.bias"])
+        return out
+
+    def conv1x1(key):
+        return {"kernel": linear(_np(sd[f"{key}.weight"])[:, :, 0])}
+
+    p = {"time_proj": {"weight": _np(sd["time_proj.weight"])},
+         "timestep_proj_1": dense("timestep_proj.0"),
+         "timestep_proj_2": dense("timestep_proj.2"),
+         "global_proj_1": dense("global_proj.0", bias=False),
+         "global_proj_2": dense("global_proj.2", bias=False),
+         "cross_attention_proj_1": dense("cross_attention_proj.0", bias=False),
+         "cross_attention_proj_2": dense("cross_attention_proj.2", bias=False),
+         "preprocess_conv": conv1x1("preprocess_conv"),
+         "proj_in": dense("proj_in", bias=False),
+         "proj_out": dense("proj_out", bias=False),
+         "postprocess_conv": conv1x1("postprocess_conv")}
+    for i in range(cfg.num_layers):
+        b = f"transformer_blocks.{i}"
+
+        def attn(name):
+            return {n: dense(f"{b}.{name}.{m}", bias=False)
+                    for n, m in (("to_q", "to_q"), ("to_k", "to_k"), ("to_v", "to_v"),
+                                 ("to_out", "to_out.0"))}
+
+        p[f"block_{i}"] = {
+            **{n: {"scale": _np(sd[f"{b}.{n}.weight"]), "bias": _np(sd[f"{b}.{n}.bias"])}
+               for n in ("norm1", "norm2", "norm3")},
+            "attn1": attn("attn1"), "attn2": attn("attn2"),
+            "ff": {"proj_in": dense(f"{b}.ff.net.0.proj"), "proj_out": dense(f"{b}.ff.net.2")}}
+    return {"params": p}
+
+
+def convert_stable_audio_projection(state_dict) -> dict:
+    """diffusers StableAudioProjectionModel state dict -> its flax tree."""
+    sd = state_dict
+
+    def number_conditioner(p):
+        return {"weight": _np(sd[f"{p}.time_positional_embedding.0.weights"]),
+                "proj": {"kernel": linear(_np(sd[f"{p}.time_positional_embedding.1.weight"])),
+                         "bias": _np(sd[f"{p}.time_positional_embedding.1.bias"])}}
+
+    return {"params": {
+        "text_projection": {"kernel": linear(_np(sd["text_projection.weight"])),
+                            "bias": _np(sd["text_projection.bias"])},
+        "start_number_conditioner": number_conditioner("start_number_conditioner"),
+        "end_number_conditioner": number_conditioner("end_number_conditioner")}}
+
+
 def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator):
     # flax lecun_normal: truncated normal at +-2 std, rescaled to variance 1/fan_in
     std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
@@ -330,18 +459,28 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator):
 
 
 @torch.no_grad()
-def init_flax_style(model: nn.Module, seed: int) -> nn.Module:
-    """Random flax-style init in place (on the model's device, drawn on the CPU)."""
-    g = torch.Generator().manual_seed(seed)
+def init_flax_style(model: nn.Module, seed: int, on_device: bool = False) -> nn.Module:
+    """Random flax-style init in place, on the model's device, drawn on the
+    CPU (a seed gives the same weights on every device) or, `on_device`, by
+    a generator on the model's device (fast at full width)."""
+    dev = next(model.parameters()).device if on_device else torch.device("cpu")
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def normal(shape):
+        return torch.randn(shape, generator=g, device=dev)
+
     for mod in model.modules():
-        if isinstance(mod, (Dense, nn.Conv2d, nn.Conv1d, Conv1dParams)):
+        if isinstance(mod, (Dense, nn.Conv2d, nn.Conv1d, nn.ConvTranspose1d, Conv1dParams)):
             if isinstance(mod, Dense):
                 fan_in = mod.weight.shape[0]
+            elif isinstance(mod, nn.ConvTranspose1d):
+                # flax's transpose_kernel layout (k, out, in): fan-in k * out
+                fan_in = mod.out_channels * int(np.prod(mod.kernel_size))
             elif isinstance(mod, (nn.Conv2d, nn.Conv1d)):
                 fan_in = mod.in_channels * int(np.prod(mod.kernel_size))
             else:
                 fan_in = mod.fan_in
-            w = torch.empty(mod.weight.shape)
+            w = torch.empty(mod.weight.shape, device=dev)
             _lecun_normal_(w, fan_in, g)
             mod.weight.copy_(w)
             if mod.bias is not None:
@@ -353,14 +492,18 @@ def init_flax_style(model: nn.Module, seed: int) -> nn.Module:
             mod.weight.fill_(1.0)
         elif isinstance(mod, nn.Embedding):
             # flax Embed: variance_scaling(1, fan_in, normal) over the feature axis
-            mod.weight.copy_(torch.randn(mod.weight.shape, generator=g)
-                             / mod.weight.shape[1] ** 0.5)
+            mod.weight.copy_(normal(mod.weight.shape) / mod.weight.shape[1] ** 0.5)
         elif isinstance(mod, VitsAttention):
             # flax normal(head_dim ** -0.5) for the relative embeddings
             for p in (mod.emb_rel_k, mod.emb_rel_v):
-                p.copy_(torch.randn(p.shape, generator=g) * p.shape[-1] ** -0.5)
+                p.copy_(normal(p.shape) * p.shape[-1] ** -0.5)
         elif isinstance(mod, AudioLDM2ProjectionModel):
             for name in ("sos_embed", "eos_embed", "sos_embed_1", "eos_embed_1"):
                 p = getattr(mod, name)
-                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+                p.copy_(0.02 * normal(p.shape))
+        elif isinstance(mod, (GaussianFourierProjection, NumberConditioner)):
+            mod.weight.copy_(normal(mod.weight.shape))   # flax normal(1.0)
+        elif isinstance(mod, Snake1d):
+            mod.alpha.zero_()
+            mod.beta.zero_()
     return model

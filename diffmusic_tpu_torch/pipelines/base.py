@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from ..inverse_problem.noise import randn
 from ..ops.mel import InverseMelScale
 from ..ops.stft import istft
+from ..tracing import annotate
 
 
 @dataclass
@@ -82,6 +83,9 @@ def run_denoise_loop(step_fn, model_fn, latents: torch.Tensor, timesteps,
     its steps' draws made beforehand: `draws[i]` goes to step i in the
     generator's place.
 
+    Each step's model call is a "unet_forward" range and its step a
+    "guided_step" range (`tracing.annotate`), as in the JAX package.
+
     `progress` prints each step's timestep and loss (a host read a step);
     callback(step_index, timestep, latents), if given, runs after every
     `callback_steps`-th step."""
@@ -96,15 +100,19 @@ def run_denoise_loop(step_fn, model_fn, latents: torch.Tensor, timesteps,
         arg = draws[i] if draws is not None else generator
         if grad:
             def body(x_in, arg_in, t=t):
-                prev, _x0, loss = step_fn(model_fn(x_in, t), t, x_in, arg_in)
+                with annotate("unet_forward"):
+                    eps = model_fn(x_in, t)
+                with annotate("guided_step"):
+                    prev, _x0, loss = step_fn(eps, t, x_in, arg_in)
                 return prev, loss
             with torch.enable_grad():
                 x, loss = (checkpoint(body, x, arg, use_reentrant=False) if remat
                            else body(x, arg))
         else:
-            with torch.no_grad():
+            with torch.no_grad(), annotate("unet_forward"):
                 eps = model_fn(x, t)
-            x, _x0, loss = step_fn(eps, t, x, arg)
+            with annotate("guided_step"):
+                x, _x0, loss = step_fn(eps, t, x, arg)
         losses.append(loss.detach().float())
         if progress:
             _progress_print(t, loss)

@@ -3,6 +3,7 @@
     python -m diffmusic_tpu_torch.run -c dps -t music_inpainting -d moises \
         -m musicldm --checkpoint_dir CKPT            # on the card
     python -m diffmusic_tpu_torch.run --device cpu --tiny --num_inference_steps 2
+    python -m diffmusic_tpu_torch.run -m stable_audio -t music_generation --tiny
 
 The same flags as `run.py`, less `--mesh`, plus `--device` (default cuda);
 the same config composition over `configs/` (read from the working directory
@@ -14,9 +15,12 @@ on the device, in place of `jax.random.key(0)`.
 `-t style_guidance` binds the pipeline's CLAP frame features to the style
 operator (`bind_style_guidance`); `-nw` above 1 samples that many
 candidates and, with a CLAP audio tower, writes them re-ranked by CLAP
-text-audio similarity, best first (`score_waveforms`, the order logged).
-What the port does not have yet raises before any sampling, naming its
-ROADMAP item: `-m stable_audio` (Queue 1 item 9).
+text-audio similarity, best first (`score_waveforms`, the order logged),
+else in generation order. `-m stable_audio` generates music only (any
+other task raises before anything is written): its EDM sampler is inside
+the pipeline, its clip length is the model config's `audio_end_in_s`, and
+its stereo audio is written at the Oobleck VAE's rate, downmixed and
+resampled to the data's rate for the mel PNG only.
 """
 
 import os
@@ -74,9 +78,13 @@ def parse_arguments(argv=None) -> Namespace:
 
 
 def check_supported(args) -> None:
-    """Raise for what the port does not have yet, before anything is loaded."""
-    if args.model == STABLE_AUDIO:
-        raise SystemExit("stable_audio is not ported yet (ROADMAP Queue 1 item 9)")
+    """Raise for what no pipeline supports, before anything is loaded or
+    written."""
+    if args.model == STABLE_AUDIO and args.task != MUSIC_GENERATION:
+        raise SystemExit(
+            "stable_audio supports music_generation only: its latent space is the "
+            "waveform VAE's (Oobleck), and no measurement or guidance path is defined "
+            "for it")
 
 
 def build_operator(args, config, noiser):
@@ -128,11 +136,18 @@ def bind_style_guidance(pipe, operator):
 def load_pipeline(args, config, operator):
     """The pipeline of `config.model.name` with the config's schedule: seeded
     tiny weights (`--tiny`; AudioLDM2's TTS variant with a `--transcription`)
-    or a local checkpoint (`--checkpoint_dir`), on `--device`."""
-    from .pipelines import AudioLDM2Pipeline, MusicLDMPipeline
+    or a local checkpoint (`--checkpoint_dir`), on `--device`. StableAudio's
+    EDM schedule is the pipeline's own (or the snapshot's): the DDIM block of
+    stable_audio.yaml is not used."""
+    from .pipelines import AudioLDM2Pipeline, MusicLDMPipeline, StableAudioPipeline
     from .samplers import DiffusionSchedule
     if config.model.name == STABLE_AUDIO:
-        raise SystemExit("stable_audio is not ported yet (ROADMAP Queue 1 item 9)")
+        if args.tiny:
+            return StableAudioPipeline.tiny(device=args.device)
+        if args.checkpoint_dir:
+            return StableAudioPipeline.from_pretrained(args.checkpoint_dir, device=args.device)
+        raise SystemExit("pass --checkpoint_dir with a local HF-snapshot directory, or --tiny "
+                         "for the random-weights smoke mode")
     cls = {MUSICLDM: MusicLDMPipeline, AUDIOLDM2: AudioLDM2Pipeline}[config.model.name]
     sched = config.model.scheduler
     schedule = DiffusionSchedule(
@@ -169,6 +184,7 @@ def main(argv=None) -> None:
     from .data import get_dataloader, get_dataset, write_wav
     from .inverse_problem import get_noiser
     from .ops.mel import Wav2Mel
+    from .ops.resample import resample
     from .pipelines.base import save_mel_spectrogram
 
     config = compose(config_name=args.config_name, overrides=[
@@ -191,9 +207,14 @@ def main(argv=None) -> None:
     if args.task == STYLE_GUIDANCE:
         operator = bind_style_guidance(pipe, operator)
 
-    audio_length_in_s = config.model.pipe.audio_length_in_s
+    # stable_audio.yaml keys the clip length as audio_end_in_s
+    audio_length_in_s = config.model.pipe.get("audio_length_in_s",
+                                              config.model.pipe.get("audio_end_in_s"))
     sr = config.data.sample_rate
-    out_sr = pipe.vocoder_cfg.sampling_rate
+    # generated audio is written at the generator's rate: the vocoder's, or
+    # the Oobleck VAE's where the pipeline has no vocoder
+    out_sr = (pipe.vocoder_cfg.sampling_rate if hasattr(pipe, "vocoder_cfg")
+              else pipe.vae_cfg.sampling_rate)
     wav2mel = Wav2Mel(sample_rate=sr, n_fft=config.data.n_fft,
                       hop_length=config.data.hop_length, win_length=config.data.win_length,
                       n_mels=config.data.n_mels, power=config.data.power)
@@ -279,7 +300,13 @@ def main(argv=None) -> None:
         if ref_wave is not None:
             write_wav(Path(output_dir, "wav_input", file_name), ref_wave.cpu().numpy()[0],
                       sr // downsample_scale)
-        pred_mel = mel_of(torch.as_tensor(audio, device=device))
+        audio_mono = torch.as_tensor(audio, device=device)
+        if audio_mono.ndim == 3:   # stable_audio's stereo (B, C, T): downmixed for the PNG
+            audio_mono = audio_mono.mean(dim=1)
+        if out_sr != sr:           # Wav2Mel runs at the data's rate
+            with torch.no_grad():
+                audio_mono = resample(audio_mono, out_sr, sr)
+        pred_mel = mel_of(audio_mono)
         save_mel_spectrogram(pred_mel.transpose(0, 2, 1),
                              Path(output_dir, "mel_recon", file_name).with_suffix(".png"), sr)
         write_wav(recon_path, audio[0], out_sr)

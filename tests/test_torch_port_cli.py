@@ -13,8 +13,9 @@ construction, the mel PNG, the refusals, and one whole CLI run.
   type and fields; the masks of the box and periodic modes equal; the
   random mask and the reverb impulse response are drawn from each package's
   own generator, so only their shapes are compared).
-- What the port lacks raises before anything is loaded, naming its ROADMAP
-  item: stable_audio.
+- `-m stable_audio -t music_generation --tiny` writes JAX's output tree
+  and a stereo wav; any other task raises "music_generation only" before
+  anything is written.
 - Without matplotlib `save_mel_spectrogram` writes an 8-bit grey PNG of the
   dB mel clipped to [-80, 80].
 - One `python -m diffmusic_tpu_torch.run --device cpu --tiny
@@ -177,15 +178,57 @@ def test_build_operator_matches_jax(task, mask_type):
             assert a == b, name
 
 
-@pytest.mark.parametrize("argv, match", [
-    (["-m", "stable_audio", "-t", "music_generation"], "ROADMAP Queue 1 item 9"),
-])
-def test_unported_features_raise_before_loading(argv, match, tmp_path, monkeypatch):
+@pytest.mark.parametrize("task", ["music_inpainting", "super_resolution", "style_guidance"])
+def test_unported_features_raise_before_loading(task, tmp_path, monkeypatch):
+    """stable_audio generates music only: any other task raises JAX's
+    "music_generation only" before anything is loaded or written."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises((NotImplementedError, SystemExit), match=match) as info:
-        run.main(argv + ["--device", "cpu", "--tiny"])
-    assert "Queue 1 item" in str(info.value)
+    with pytest.raises(SystemExit, match="music_generation only"):
+        run.main(["-m", "stable_audio", "-t", task, "--device", "cpu", "--tiny",
+                  "-o", f"data.root={tmp_path}"])
     assert not (tmp_path / "outputs").exists()   # raised before anything was made
+
+
+def test_cli_stable_audio_music_generation(tmp_path, monkeypatch, capsys):
+    """`-m stable_audio -t music_generation --tiny` writes what the JAX
+    `run.py` writes (tests/test_run_cli.py): the output tree, the mel PNG and
+    a stereo wav of audio_end_in_s at the tiny Oobleck's 16 kHz; with -nw 2
+    and no CLAP tower it keeps the generation order."""
+    clips = tmp_path / "data_src"
+    clips.mkdir()
+    tt = np.arange(8000) / 16000
+    write_wav(clips / "track.wav", (0.3 * np.sin(2 * np.pi * 440 * tt)).astype(np.float32),
+              16000)
+    monkeypatch.chdir(tmp_path)
+    argv = ["-c", "ddim", "-t", "music_generation", "-m", "stable_audio", "--tiny",
+            "--num_inference_steps", "2", "--device", "cpu", "-o", f"data.root={clips}",
+            "-o", "data.start_s=0", "-o", "data.end_s=0.4",
+            "-o", "model.pipe.audio_end_in_s=0.2"]
+    run.main(argv + ["-o", "model.pipe.num_waveforms_per_prompt=1"])
+    out = tmp_path / "outputs" / "stable_audio" / "moises" / "ddim" / "music_generation"
+    for d in ["wav_input", "wav_recon", "wav_label", "mel_input", "mel_recon", "mel_label"]:
+        assert (out / d).is_dir(), d
+    assert (out / "mel_recon" / "track.png").stat().st_size > 0
+    from diffmusic_tpu_torch.data import read_wav
+    recon, sr = read_wav(out / "wav_recon" / "track.wav")
+    assert sr == 16000 and recon.shape == (2, 3200) and np.isfinite(recon).all()
+    assert "keeping generation order" not in capsys.readouterr().out
+    (out / "wav_recon" / "track.wav").unlink()
+    run.main(argv + ["-nw", "2"])
+    assert "keeping generation order" in capsys.readouterr().out
+    assert read_wav(out / "wav_recon" / "track.wav")[0].shape == (2, 3200)
+
+
+def test_stable_audio_tiny_matches_jax_configs():
+    from diffmusic_tpu.models import configs as jc
+    from diffmusic_tpu_torch.pipelines import StableAudioPipeline
+    p = StableAudioPipeline.tiny(device="cpu")
+    for got, want in ((p.dit_cfg, jc.tiny_stable_audio_dit_config()),
+                      (p.vae_cfg, jc.tiny_oobleck_config()), (p.text_cfg, jc.tiny_t5_config()),
+                      (p.proj_cfg, jc.StableAudioProjectionConfig(32, 16, max_value=64.0))):
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert p.vae_cfg.hop_length == jc.tiny_oobleck_config().hop_length == 8
+    assert p.tokenizer(["hi"])[0].shape == (1, 12) and p.device.type == "cpu"
 
 
 def read_grey_png(path: Path) -> np.ndarray:

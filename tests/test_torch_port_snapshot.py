@@ -10,7 +10,9 @@ meta-device modules of `torch_ref_diffusers.py` (the keys of
 `test_checkpoint.py::_synth_diffusers_unet_sd`), the vocoder's, CLAP's
 (with its HTSAT audio tower where `audio_cfg` is given), T5's or VITS's,
 GPT-2's and the projection model's from the transformers / diffusers names,
-with the keys the converters leave unread (the vocoder's `mean` / `scale`,
+a StableAudio snapshot's DiT, Oobleck VAE (its convs weight-normed in
+any of the three forms a snapshot holds), T5 and projection model from
+diffusers' names, with the keys the converters leave unread (the vocoder's `mean` / `scale`,
 T5's tied `encoder.embed_tokens.weight`, GPT-2's `wte.weight`, CLAP's
 `logit_scale_a` / `_t`, the audio tower's `relative_position_index` buffers
 and batch count, VITS's prior projection, flow, decoder, duration predictor
@@ -368,6 +370,148 @@ def audioldm2_modules(unet_cfg, vae_cfg, voc_cfg, text_cfg, t5_cfg, gpt2_cfg, pr
                 "projection_model": (projection_json(proj_cfg),
                                      _values(projection_shapes(proj_cfg), seed + 6))})
     return out
+
+
+def stable_audio_dit_json(cfg) -> dict:
+    keys = ("sample_size", "in_channels", "num_layers", "attention_head_dim",
+            "num_attention_heads", "num_key_value_attention_heads", "out_channels",
+            "cross_attention_dim", "time_proj_dim", "global_states_input_dim",
+            "cross_attention_input_dim")
+    return {"_class_name": "StableAudioDiTModel", **{k: getattr(cfg, k) for k in keys}}
+
+
+def stable_audio_dit_shapes(cfg) -> dict:
+    """diffusers StableAudioDiTModel (the 1x1 pre/postprocess convs are
+    Conv1d weights (C, C, 1))."""
+    inner = cfg.inner_dim
+    kv = cfg.num_key_value_attention_heads * cfg.attention_head_dim
+    s = {"time_proj.weight": (cfg.time_proj_dim // 2,),
+         "timestep_proj.0.weight": (inner, cfg.time_proj_dim), "timestep_proj.0.bias": (inner,),
+         "timestep_proj.2.weight": (inner, inner), "timestep_proj.2.bias": (inner,),
+         "global_proj.0.weight": (inner, cfg.global_states_input_dim),
+         "global_proj.2.weight": (inner, inner),
+         "cross_attention_proj.0.weight": (cfg.cross_attention_dim,
+                                           cfg.cross_attention_input_dim),
+         "cross_attention_proj.2.weight": (cfg.cross_attention_dim, cfg.cross_attention_dim),
+         "preprocess_conv.weight": (cfg.in_channels, cfg.in_channels, 1),
+         "proj_in.weight": (inner, cfg.in_channels), "proj_out.weight": (cfg.out_channels, inner),
+         "postprocess_conv.weight": (cfg.out_channels, cfg.out_channels, 1)}
+    for i in range(cfg.num_layers):
+        b = f"transformer_blocks.{i}"
+        for n in ("norm1", "norm2", "norm3"):
+            s[f"{b}.{n}.weight"] = s[f"{b}.{n}.bias"] = (inner,)
+        for attn, ctx in (("attn1", inner), ("attn2", cfg.cross_attention_dim)):
+            s[f"{b}.{attn}.to_q.weight"] = (inner, inner)
+            s[f"{b}.{attn}.to_k.weight"] = s[f"{b}.{attn}.to_v.weight"] = (kv, ctx)
+            s[f"{b}.{attn}.to_out.0.weight"] = (inner, inner)
+        s[f"{b}.ff.net.0.proj.weight"], s[f"{b}.ff.net.0.proj.bias"] = (8 * inner, inner), (
+            8 * inner,)
+        s[f"{b}.ff.net.2.weight"], s[f"{b}.ff.net.2.bias"] = (inner, 4 * inner), (inner,)
+    return s
+
+
+def oobleck_json(cfg) -> dict:
+    return {"_class_name": "AutoencoderOobleck", "encoder_hidden_size": cfg.encoder_hidden_size,
+            "downsampling_ratios": list(cfg.downsampling_ratios),
+            "channel_multiples": list(cfg.channel_multiples),
+            "decoder_channels": cfg.decoder_channels,
+            "decoder_input_channels": cfg.decoder_input_channels,
+            "audio_channels": cfg.audio_channels, "sampling_rate": cfg.sampling_rate}
+
+
+# the three forms of a weight-normed conv weight a diffusers Oobleck snapshot holds
+WN_FORMS = {"fused": ("weight",), "weight_g": ("weight_g", "weight_v"),
+            "parametrizations": ("parametrizations.weight.original0",
+                                 "parametrizations.weight.original1")}
+
+
+def oobleck_shapes(cfg, wn: str = "weight_g") -> dict:
+    """diffusers AutoencoderOobleck with its convs weight-normed in the form
+    `wn` (WN_FORMS; g has one norm per output channel of a conv, per input
+    channel of a ConvTranspose: dim 0 of the weight)."""
+    s = {}
+
+    def conv(name, shape, bias=True):
+        g_name, *v_name = WN_FORMS[wn]
+        if v_name:
+            s[f"{name}.{g_name}"] = (shape[0],) + (1,) * (len(shape) - 1)
+            s[f"{name}.{v_name[0]}"] = shape
+        else:
+            s[f"{name}.{g_name}"] = shape
+        if bias:
+            s[f"{name}.bias"] = (shape[1],) if name.endswith("conv_t1") else (shape[0],)
+
+    def snake(name, c):
+        s[f"{name}.alpha"] = s[f"{name}.beta"] = (1, c, 1)
+
+    def res_unit(p, c):
+        snake(f"{p}.snake1", c)
+        conv(f"{p}.conv1", (c, c, 7))
+        snake(f"{p}.snake2", c)
+        conv(f"{p}.conv2", (c, c, 1))
+
+    hs, mults = cfg.encoder_hidden_size, (1,) + tuple(cfg.channel_multiples)
+    conv("encoder.conv1", (hs, cfg.audio_channels, 7))
+    for i, stride in enumerate(cfg.downsampling_ratios):
+        cin, cout = hs * mults[i], hs * mults[i + 1]
+        for r in (1, 2, 3):
+            res_unit(f"encoder.block.{i}.res_unit{r}", cin)
+        snake(f"encoder.block.{i}.snake1", cin)
+        conv(f"encoder.block.{i}.conv1", (cout, cin, 2 * stride))
+    snake("encoder.snake1", hs * mults[-1])
+    conv("encoder.conv2", (2 * cfg.decoder_input_channels, hs * mults[-1], 3))
+    dc, ratios = cfg.decoder_channels, tuple(reversed(cfg.downsampling_ratios))
+    conv("decoder.conv1", (dc * mults[-1], cfg.decoder_input_channels, 7))
+    for i, stride in enumerate(ratios):
+        cin, cout = dc * mults[len(ratios) - i], dc * mults[len(ratios) - i - 1]
+        snake(f"decoder.block.{i}.snake1", cin)
+        conv(f"decoder.block.{i}.conv_t1", (cin, cout, 2 * stride))
+        for r in (1, 2, 3):
+            res_unit(f"decoder.block.{i}.res_unit{r}", cout)
+    snake("decoder.snake1", dc)
+    conv("decoder.conv2", (cfg.audio_channels, dc, 7), bias=False)
+    return s
+
+
+def stable_audio_projection_json(cfg) -> dict:
+    return {"_class_name": "StableAudioProjectionModel",
+            "text_encoder_dim": cfg.text_encoder_dim, "conditioning_dim": cfg.conditioning_dim,
+            "min_value": cfg.min_value, "max_value": cfg.max_value}
+
+
+def stable_audio_projection_shapes(cfg) -> dict:
+    d = cfg.conditioning_dim
+    s = {"text_projection.weight": (d, cfg.text_encoder_dim), "text_projection.bias": (d,)}
+    for n in ("start_number_conditioner", "end_number_conditioner"):
+        p = f"{n}.time_positional_embedding"
+        s[f"{p}.0.weights"] = (d // 2,)
+        s[f"{p}.1.weight"], s[f"{p}.1.bias"] = (d, 2 * (d // 2) + 1), (d,)
+    return s
+
+
+EDM_SCHEDULER_JSON = {"_class_name": "EDMDPMSolverMultistepScheduler", "sigma_min": 0.3,
+                      "sigma_max": 500.0, "sigma_data": 1.0, "rho": 7.0, "solver_order": 2,
+                      "prediction_type": "v_prediction"}
+
+
+def stable_audio_modules(dit_cfg, vae_cfg, t5_cfg, proj_cfg, seed: int = 0,
+                         wn: str = "weight_g") -> dict:
+    """{module directory: (config.json dict, state dict of arrays)} of a
+    stable-audio-open snapshot (the scheduler's config written apart by
+    `write_stable_audio_snapshot`)."""
+    return {"transformer": (stable_audio_dit_json(dit_cfg),
+                            _values(stable_audio_dit_shapes(dit_cfg), seed)),
+            "vae": (oobleck_json(vae_cfg), _values(oobleck_shapes(vae_cfg, wn), seed + 1)),
+            "text_encoder": (t5_json(t5_cfg), _values(t5_shapes(t5_cfg), seed + 2)),
+            "projection_model": (stable_audio_projection_json(proj_cfg),
+                                 _values(stable_audio_projection_shapes(proj_cfg), seed + 3))}
+
+
+def write_stable_audio_snapshot(root, modules: dict, scheduler: dict = EDM_SCHEDULER_JSON):
+    root = write_snapshot(root, modules)
+    (root / "scheduler").mkdir(exist_ok=True)
+    (root / "scheduler" / "scheduler_config.json").write_text(json.dumps(scheduler))
+    return root
 
 
 WEIGHT_FILES = {"unet": "diffusion_pytorch_model.safetensors",

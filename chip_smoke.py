@@ -139,7 +139,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      written WAV, and -t style_guidance, --prompt_type clap, -nw 2 (its
      re-ranking logged) and --transcription, each with its UNet launches
      checked (`cli_launches`: the tiny configs' 16- and 32-channel blocks
-     take the block kernel padded to one slice);
+     take the block kernel padded to one slice); the snapshot carries a
+     small RoBERTa tokenizer (vocab.json, merges.txt) written here, which the
+     port's own reader encodes a prompt with (the line says whether
+     transformers is importable; the reader does not use it), as it does a
+     T5 tokenizer.json;
   15. eval: in a temporary directory, EVAL_PAIRS pairs of 10-s clips (pair 0
      the slice's ground truth and the audio its default turn restored; two
      pairs as 44.1-kHz stereo) and a seeded random torchvggish-layout
@@ -152,7 +156,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      (`fadtk`'s FAD and FAD-inf equal to the eval's, `fadtk.embeds` with 2
      spawn workers, `fadtk.package`'s bundle as a baseline, `fadtk.test`'s
      golden gate exiting 0); and the clap-laion embedder on them from a CLAP
-     directory (the tower at ClapAudioConfig's defaults), card against CPU.
+     directory (the tower at ClapAudioConfig's defaults), card against CPU;
+  16. eval_embedders: the eval's wav2vec2 / HuBERT / WavLM, Whisper and
+     EnCodec embedders (no kernel of their own; TF32 off). First tiny fp32
+     models of each family with seeded weights, card against CPU, each
+     bound failing its planted fault (the pre-LN encoder's last state taken
+     before its LayerNorm, WavLM's gated bias handed on, Whisper's frames
+     shifted by one, EnCodec's causal padding split); then w2v2-base,
+     WavLM-large, Whisper-large's encoder and EnCodec 24 kHz at their
+     published widths with seeded random fp32 weights, through the loaders'
+     `get_embedding` on one 10-s clip: parameters, ms per clip, peak memory,
+     the embedding's shape, finite.
 Then the command's total seconds, the card's nvidia-smi name and power limit,
 a JSON line with one entry
 per kernel (the masks' entries time g as h, and give the route's form, g
@@ -3144,6 +3158,7 @@ def phase_checkpoint_cli(device: str = "cuda") -> None:
                                         ClapTextConfig(), seed=20, audio_cfg=ClapAudioConfig())
         t1 = time.perf_counter()
         snap.write_snapshot(root / "musicldm", modules)
+        snap.write_roberta_tokenizer(root / "musicldm" / "tokenizer")
         t2 = time.perf_counter()
         nbytes = sum(p.stat().st_size for p in (root / "musicldm").rglob("*.safetensors"))
         torch.cuda.synchronize()
@@ -3205,9 +3220,38 @@ def phase_checkpoint_cli(device: str = "cuda") -> None:
             f"equal to the in-memory tower's: {torch.equal(*pooled)}")
         if not torch.equal(*pooled) or not torch.isfinite(pooled[0]).all():
             raise AssertionError("checkpoint: the loaded tower's embedding differs")
+        check_tokenizers(loaded, root)
         del loaded, memory
         torch.cuda.empty_cache()
         cli_runs(root / "cli", device)
+
+
+TOKENIZER_PROMPT = "A calm piano with soft jazz drums, slow beat"
+
+
+def check_tokenizers(pipe, root: Path) -> None:
+    """The snapshot's RoBERTa tokenizer and a T5 tokenizer.json, both read by
+    the port's own readers on a host that may lack transformers: a prompt's
+    ids, and the loaded pipeline's CLAP text embedding of it."""
+    import importlib.util
+    from diffmusic_tpu_torch.models.checkpoint import _make_hf_tokenizer
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_port_snapshot as snap
+    t5 = _make_hf_tokenizer(snap.write_t5_tokenizer_json(root / "t5_tokenizer"))
+    for label, tok in (("the snapshot's tokenizer/", pipe.tokenizer), ("a T5 tokenizer.json", t5)):
+        ids, mask = tok([TOKENIZER_PROMPT])
+        n = int(mask.sum())
+        log(f"checkpoint: {label} read by {tok.reader}; transformers importable here: "
+            f"{importlib.util.find_spec('transformers') is not None}; {TOKENIZER_PROMPT!r} -> "
+            f"{n} ids {ids[0, :n].tolist()} padded to {ids.shape[1]}")
+        if n < 3 or not (ids[0, n:] == ids[0, -1]).all():
+            raise AssertionError(f"checkpoint: {label} encoded {ids[0].tolist()}")
+    with torch.no_grad():
+        emb = pipe.encode_prompt(TOKENIZER_PROMPT, do_classifier_free_guidance=False)
+    log(f"checkpoint: the loaded pipeline's CLAP text embedding of the prompt "
+        f"{tuple(emb.shape)}, norm {emb.norm().item():.6f}")
+    if emb.shape != (1, 512) or not torch.isfinite(emb).all() or abs(emb.norm().item() - 1) > 1e-4:
+        raise AssertionError("checkpoint: the prompt's CLAP embedding")
 
 
 # ------------------------------------------------------------------- eval
@@ -3505,6 +3549,138 @@ def phase_eval(restored: np.ndarray) -> dict:
     return counts
 
 
+# ---------------------------------------------------------- eval embedders
+EMBED_TOL = 1e-4      # tiny fp32 embedders, card against CPU, max |err| / max |CPU|, TF32 off
+EMBED_DEVICE = "cuda"  # the full-width runs' device
+EMBED_REPS = 5        # timed clips per full-width embedder, after one warm-up
+
+
+def tiny_embedders() -> dict:
+    """family -> (config, sample rate, planted fault (owner, attr, value) or
+    None) of the reference's tiny models."""
+    from diffmusic_tpu_torch.models import encodec, wav2vec2, whisper
+    small = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+                 intermediate_size=64, conv_dim=(16,) * 7)
+    return {
+        "w2v2 (pre-LN)": (wav2vec2.Wav2Vec2Config(do_stable_layer_norm=True,
+                                                  feat_extract_norm="layer", conv_bias=True,
+                                                  **small), 16000,
+                          (wav2vec2, "stable_last", lambda pre, post: pre)),
+        "hubert": (wav2vec2.Wav2Vec2Config(model_type="hubert", **small), 16000, None),
+        "wavlm": (wav2vec2.Wav2Vec2Config(model_type="wavlm", num_buckets=16,
+                                          max_bucket_distance=40, **small), 16000,
+                  (wav2vec2, "pass_on_bias", lambda bias, gated: gated)),
+        "whisper": (whisper.WhisperEncoderConfig(d_model=32, encoder_layers=2,
+                                                 encoder_attention_heads=2,
+                                                 encoder_ffn_dim=64), 16000,
+                    (whisper, "drop_last_frame", lambda power: power[..., 1:])),
+        "encodec 24k": (encodec.EncodecConfig(hidden_size=16, num_filters=4), 24000,
+                        (encodec, "conv_padding",
+                         lambda total, extra, causal: (total - total // 2, total // 2 + extra))),
+    }
+
+
+def embedder(cfg, device):
+    """(module, clip -> embedding tensor) of a config on `device`, its
+    weights the module's default init under a fixed seed."""
+    from diffmusic_tpu_torch.fadtk.model_loader import full_fp32
+    from diffmusic_tpu_torch.models import encodec, wav2vec2, whisper
+    torch.manual_seed(0)
+    with torch.device(device):
+        if isinstance(cfg, wav2vec2.Wav2Vec2Config):
+            model = wav2vec2.Wav2Vec2Model(cfg)
+            run = lambda x: model(x[None])[-1][0]  # noqa: E731
+        elif isinstance(cfg, whisper.WhisperEncoderConfig):
+            model, feats = whisper.WhisperEncoder(cfg), whisper.WhisperFeatureConfig()
+            run = lambda x: model(whisper.log_mel_features(x[None], feats))[0]  # noqa: E731
+        else:
+            model = encodec.EncodecEncoder(cfg)
+            run = lambda x: model(x[None, None])[0].T  # noqa: E731
+    model.eval().requires_grad_(False)
+
+    def embed(x):
+        with torch.no_grad(), full_fp32():
+            return run(x.to(device))
+    return model, embed
+
+
+def phase_eval_embedders() -> None:
+    """The eval's transformers-family embedders: the tiny reference card
+    against CPU with each family's planted fault, then the full-width models
+    on one 10-s clip."""
+    for family, (cfg, sr, fault) in tiny_embedders().items():
+        clip = torch.from_numpy(0.1 * np.random.default_rng(5).standard_normal(sr)).float()
+        cpu_model, cpu_embed = embedder(cfg, "cpu")
+        card_model, card_embed = embedder(cfg, REF_DEVICES[0])
+        card_model.load_state_dict(cpu_model.state_dict())
+        ref = cpu_embed(clip)
+        err = rel_err(card_embed(clip).cpu(), ref)[1]
+        faults = None
+        if fault is not None:
+            with planted(*fault):
+                faults = rel_err(card_embed(clip).cpu(), ref)[1]
+        check_bound(f"{family} {tuple(ref.shape)} card against CPU", err, EMBED_TOL, faults,
+                    phase="eval_embedders reference")
+    full_width_embedders()
+
+
+def full_width_configs() -> tuple:
+    """(name, loader, config) of the full-width runs: w2v2-base (768 x 12,
+    group-norm extractor, post-LN), WavLM-large (1024 x 24, layer-norm
+    extractor, pre-LN, buckets 320 / 800), Whisper-large's encoder (1280 x
+    32, 20 heads, FF 5120, 80 mels), EnCodec 24 kHz (EncodecConfig's
+    defaults)."""
+    from diffmusic_tpu_torch.fadtk import model_loader as ml
+    from diffmusic_tpu_torch.models import encodec, wav2vec2, whisper
+    return (
+        ("w2v2-base", ml.W2V2Model("base", device=EMBED_DEVICE), wav2vec2.Wav2Vec2Config()),
+        ("wavlm-large", ml.WavLMModel("large", device=EMBED_DEVICE), wav2vec2.Wav2Vec2Config(
+            model_type="wavlm", hidden_size=1024, num_hidden_layers=24, num_attention_heads=16,
+            intermediate_size=4096, feat_extract_norm="layer", do_stable_layer_norm=True)),
+        ("whisper-large", ml.WhisperModel("large", device=EMBED_DEVICE),
+         whisper.WhisperEncoderConfig(d_model=1280, encoder_layers=32,
+                                      encoder_attention_heads=20, encoder_ffn_dim=5120)),
+        ("encodec-emb", ml.EncodecEmbModel("24k", device=EMBED_DEVICE), encodec.EncodecConfig()),
+    )
+
+
+def full_width_embedders() -> None:
+    from diffmusic_tpu_torch.models import encodec, wav2vec2, whisper
+    for name, loader, cfg in full_width_configs():
+        torch.manual_seed(1)
+        with torch.device(EMBED_DEVICE):
+            model = (wav2vec2.Wav2Vec2Model if isinstance(cfg, wav2vec2.Wav2Vec2Config) else
+                     whisper.WhisperEncoder if isinstance(cfg, whisper.WhisperEncoderConfig)
+                     else encodec.EncodecEncoder)(cfg)
+        loader.model, loader.loaded = model.eval().requires_grad_(False), True
+        if isinstance(cfg, wav2vec2.Wav2Vec2Config):
+            loader.layer = cfg.num_hidden_layers
+        if isinstance(cfg, whisper.WhisperEncoderConfig):
+            loader.features = whisper.WhisperFeatureConfig()
+        clip = (0.1 * np.random.default_rng(6).standard_normal(10 * loader.sr)).astype(np.float32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        emb = loader.get_embedding(clip)
+        times = []
+        for _ in range(EMBED_REPS):
+            t0 = time.perf_counter()
+            loader.get_embedding(clip)   # ends in a copy to the host
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"eval_embedders: {name} at its published widths, seeded random fp32 weights "
+            f"({n_params / 1e6:.1f} M parameters), one 10-s clip at {loader.sr} Hz through "
+            f"get_embedding: {statistics.median(times):.2f} ms per clip (median of "
+            f"{EMBED_REPS}; {min(times):.2f}-{max(times):.2f}), peak {peak:.3f} GiB, "
+            f"embedding {emb.shape}, finite {bool(np.isfinite(emb).all())}; {CARD}")
+        want_dim = loader.num_features
+        if emb.ndim != 2 or emb.shape[1] != want_dim or not np.isfinite(emb).all():
+            raise AssertionError(f"eval_embedders: {name} gave {emb.shape}")
+        loader.model = None   # one model on the card at a time: each peak is its own
+        del model
+        torch.cuda.empty_cache()
+
+
 def ptxas_summary(build_log: str, kernel: str) -> str:
     """Registers, shared memory and spills that `nvcc -Xptxas -v` reported
     for the kernel whose mangled name contains `kernel`."""
@@ -3599,6 +3775,7 @@ def main() -> int:
     phase_stable_audio()
     phase_checkpoint_cli()
     eval_counts = phase_eval(restored)
+    phase_eval_embedders()
     # each kernel's launches from the path that runs it: MusicLDM's default
     # route for its four, its routes for the route kernels (the fused
     # GroupNorm from gn_mode "fused", the others from "stats"; the canvas

@@ -12,8 +12,7 @@ MUSICCAPS = "music_data"
 # models
 AUDIOLDM2 = "audioldm2"
 MUSICLDM = "musicldm"
-# a choice of -m as in the JAX package; the port raises for it until its
-# pipeline is ported (ROADMAP Queue 1 item 9)
+# StableAudio: text-to-music only (-t music_generation)
 STABLE_AUDIO = "stable_audio"
 
 # tasks

@@ -27,8 +27,9 @@ def parse_arguments(argv=None):
     p.add_argument("-gt", "--ground_truth_dir", type=str, required=True)
     p.add_argument("-r", "--recon_dir", type=str, required=True)
     p.add_argument("--embedding", type=str, nargs="+", default=["mfcc-stack"],
-                   help="embedding model(s) for FAD/KL; ported: mfcc-stack (default, "
-                        "no weights), vggish, clap-laion-audio and clap-laion-music")
+                   help="embedding model(s) for FAD/KL: mfcc-stack (default, no "
+                        "weights) or any name of fadtk.get_all_models(), from "
+                        "--checkpoint_dir")
     p.add_argument("--fad_inf", action="store_true",
                    help="also compute FAD-inf extrapolation")
     p.add_argument("--individual", type=str, default=None,

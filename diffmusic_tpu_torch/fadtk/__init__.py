@@ -1,6 +1,6 @@
 """fadtk-equivalent FAD engine and embedding loaders (port of
 `diffmusic_tpu/fadtk`: the engine, the cache layout, the stats helpers, the
-`mfcc-stack`, `vggish` and `clap-laion` loaders, and the command lines
+embedder registry, and the command lines
 `python -m diffmusic_tpu_torch.fadtk`, `.fadtk.embeds`, `.fadtk.package`
 and `.fadtk.test`)."""
 

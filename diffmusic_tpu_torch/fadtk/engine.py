@@ -17,6 +17,7 @@ import torch
 from ..data import read_audio
 from ..metrics.frechet import _stats, frechet_distance
 from ..ops.resample import resample
+from .utils import get_cache_embedding_path
 
 # formats the engine scores directly (wav, and compressed audio through the
 # native decoders of data/codecs.py)
@@ -29,10 +30,8 @@ def _audio_files(directory: Path):
 
 
 def cache_path(audio_path: Path, model_name: str) -> Path:
-    """fadtk cache convention: <dir>/embeddings/<model>/<stem>.npy
-    (fadtk/utils.py:60-68)."""
-    audio_path = Path(audio_path)
-    return audio_path.parent / "embeddings" / model_name / (audio_path.stem + ".npy")
+    """The embedding cache of a file (`utils.get_cache_embedding_path`)."""
+    return get_cache_embedding_path(audio_path, model_name)
 
 
 def _load_16k(path) -> np.ndarray:

@@ -4,8 +4,7 @@
 uses to combine per-file embedding stats without concatenating all embeddings in
 memory (fadtk/utils.py:19-46, Chan et al. parallel-variance formulas).
 
-A copy of `diffmusic_tpu/fadtk/utils.py` (numpy only); its cache-path helper
-is `engine.cache_path` here.
+A copy of `diffmusic_tpu/fadtk/utils.py` (numpy only).
 """
 
 from pathlib import Path
@@ -52,3 +51,10 @@ def stats_from_npy_dir(directory) -> Tuple[np.ndarray, np.ndarray]:
     files = sorted(Path(directory).glob("*.npy"))
     return merge_stats(np.load(f) for f in files)
 
+
+
+def get_cache_embedding_path(audio_path, model_name: str) -> Path:
+    """fadtk cache convention <dir>/embeddings/<model>/<stem>.npy
+    (fadtk/utils.py:60-68)."""
+    audio_path = Path(audio_path)
+    return audio_path.parent / "embeddings" / model_name / (audio_path.stem + ".npy")

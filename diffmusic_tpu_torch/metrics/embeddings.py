@@ -70,9 +70,8 @@ class MFCCStackEmbedding:
 
 
 def get_embedding_model(name: str = "mfcc-stack", checkpoint_dir=None, device="cuda"):
-    """'mfcc-stack' needs no weights; 'vggish' and 'clap-laion-*' run from
-    local weights (`fadtk/model_loader.py`); no other embedder is ported
-    yet."""
+    """'mfcc-stack' needs no weights; every other name of the registry runs
+    from local weights (`fadtk/model_loader.py`)."""
     if name == "mfcc-stack":
         return MFCCStackEmbedding(device)
     from ..fadtk.model_loader import get_model

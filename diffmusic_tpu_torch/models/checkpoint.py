@@ -29,10 +29,17 @@ encoder's hidden states only). A CLAP model's audio tower (`audio_model.*`,
 `weight_dtype` is (it sits in the guided loss head, as JAX's does), and
 gives the pipeline its `clap_audio_embed` and `clap_frame_embed`.
 
-Safetensors files are read here (`read_safetensors`), so loading needs
-neither the `safetensors` package nor `transformers`; a tokenizer is built
-through `transformers` when a tokenizer directory exists and the package
-imports, else it is None and a text prompt raises (pass `prompt_embeds`).
+Safetensors files are read here (`read_safetensors`), and tokenizers by the
+port's own readers (`models/tokenizers.py`), so loading needs neither the
+`safetensors` package nor `transformers`; a snapshot without a tokenizer
+directory has no tokenizer, and a text prompt then raises (pass
+`prompt_embeds`).
+
+The eval's embedders read transformers' torch snapshots (`config.json` and
+`model.safetensors` or `pytorch_model.bin`): `load_wav2vec2`,
+`load_whisper_encoder`, `load_encodec_encoder`, each weight-normed weight
+folded at load (`fold_weight_norm`, both spellings), every key loaded or
+named.
 """
 
 import json
@@ -142,6 +149,133 @@ class TrackingStateDict(dict):
                 f"{what}: {len(leftover)} checkpoint keys were NOT consumed by the "
                 f"converter (weights would be silently dropped): "
                 f"{leftover[:12]}{' ...' if len(leftover) > 12 else ''}")
+
+
+# ------------------------------------------------- transformers' torch models
+
+def load_hf_torch_state_dict(module_dir) -> Dict[str, torch.Tensor]:
+    """A transformers torch model's state dict as CPU tensors:
+    `model.safetensors` (or its shards) through `read_safetensors`, else
+    `pytorch_model.bin` through `torch.load(weights_only=True)`."""
+    module_dir = Path(module_dir)
+    shards = ([module_dir / "model.safetensors"] if (module_dir / "model.safetensors").exists()
+              else sorted(module_dir.glob("*.safetensors")))
+    if shards:
+        sd: Dict[str, torch.Tensor] = {}
+        for shard in shards:
+            sd.update(read_safetensors(shard))
+        return sd
+    if (module_dir / "pytorch_model.bin").exists():
+        return torch.load(module_dir / "pytorch_model.bin", map_location="cpu",
+                          weights_only=True)
+    raise FileNotFoundError(f"no model.safetensors or pytorch_model.bin under {module_dir}")
+
+
+# the two spellings of a weight-normed weight: the old weight_g / weight_v and
+# torch.nn.utils.parametrizations' original0 / original1
+WEIGHT_NORM = ((".weight_g", ".weight_v"),
+               (".parametrizations.weight.original0", ".parametrizations.weight.original1"))
+
+
+def fold_weight_norm(sd: Dict[str, torch.Tensor], dim_of) -> Dict[str, torch.Tensor]:
+    """The state dict with each weight-normed weight, in either spelling,
+    folded into `<prefix>.weight` = g v / |v| (torch's `_weight_norm`: the
+    norm over every dim but `dim_of(prefix)`); g's shape must be that of a
+    norm over that dim."""
+    out = dict(sd)
+    for g_suffix, v_suffix in WEIGHT_NORM:
+        for key in [k for k in sd if k.endswith(g_suffix)]:
+            prefix = key[:-len(g_suffix)]
+            g, v = out.pop(key), out.pop(prefix + v_suffix)
+            dim = dim_of(prefix)
+            want = [n if i == dim else 1 for i, n in enumerate(v.shape)]
+            if list(g.shape) != want:
+                raise ValueError(f"{key}: shape {tuple(g.shape)} is not a weight norm over "
+                                 f"dim {dim} of a weight {tuple(v.shape)}")
+            out[prefix + ".weight"] = torch._weight_norm(v.float(), g.float(), dim)
+    return out
+
+
+def load_hf_module(module: torch.nn.Module, sd: Dict[str, torch.Tensor], what: str, device,
+                   unused_prefixes=()) -> torch.nn.Module:
+    """`module` (built on the meta device) with the state dict's weights in
+    fp32 on `device`, frozen and in eval mode. The keys under
+    `unused_prefixes` are named and not loaded; a key of the module missing
+    from the state dict, or one left over, raises."""
+    sd = TrackingStateDict(sd)
+    sd.consume(prefixes=unused_prefixes)
+    want = module.state_dict()
+    missing = sorted(k for k in want if k not in sd)
+    if missing:
+        raise ValueError(f"{what}: {len(missing)} weights missing from the checkpoint: "
+                         f"{missing[:12]}{' ...' if len(missing) > 12 else ''}")
+    state = {k: sd[k].float() if sd[k].is_floating_point() else sd[k] for k in want}
+    sd.assert_all_consumed(what)
+    module.load_state_dict(state, strict=True, assign=True)
+    return module.to(device).requires_grad_(False).eval()
+
+
+def load_wav2vec2(path, device="cuda"):
+    """A wav2vec2 / HuBERT / WavLM snapshot (`config.json` and weights, the
+    bare model or under a task head's `wav2vec2.` / `hubert.` / `wavlm.`
+    prefix) as the port's `Wav2Vec2Model` on `device`. The positional conv's
+    weight norm is over dim 2; `masked_spec_embed` (training-time masking),
+    a CTC head's and a pre-training model's projections and quantizer are
+    named and not loaded."""
+    from .wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
+    path = Path(path)
+    c = _cfg(path)
+    if c.get("model_type") == "mert_model":
+        raise NotImplementedError(
+            f"{path}: model_type 'mert_model' (MERT's own remote-code model) is not "
+            f"supported; the JAX package's AutoModel cannot load it either. A MERT "
+            f"checkpoint saved as model_type 'hubert' loads.")
+    cfg = Wav2Vec2Config.from_json(c)
+    sd = load_hf_torch_state_dict(path)
+    base = f"{cfg.model_type}."
+    sd = {k[len(base):] if k.startswith(base) else k: v for k, v in sd.items()}
+    sd = fold_weight_norm(sd, lambda prefix: 2)
+    with torch.device("meta"):
+        model = Wav2Vec2Model(cfg)
+    return load_hf_module(model, sd, f"{cfg.model_type} encoder", device, unused_prefixes=(
+        "masked_spec_embed", "lm_head.", "project_q.", "project_hid.", "quantizer."))
+
+
+def load_whisper_encoder(path, device="cuda"):
+    """(encoder, feature config) of a Whisper snapshot: `config.json`,
+    `preprocessor_config.json` and the weights of a WhisperModel (or, under
+    `model.`, a WhisperForConditionalGeneration). The decoder and the output
+    projection are named and not loaded."""
+    from .whisper import WhisperEncoder, WhisperEncoderConfig, WhisperFeatureConfig
+    path = Path(path)
+    cfg = WhisperEncoderConfig.from_json(_cfg(path))
+    fcfg = WhisperFeatureConfig.from_json(
+        json.loads((path / "preprocessor_config.json").read_text()))
+    if fcfg.feature_size != cfg.num_mel_bins:
+        raise ValueError(f"{path}: {fcfg.feature_size} mel features for a "
+                         f"{cfg.num_mel_bins}-bin encoder")
+    sd = {k[len("model."):] if k.startswith("model.") else k: v
+          for k, v in load_hf_torch_state_dict(path).items()}
+    sd = {k[len("encoder."):] if k.startswith("encoder.") else k: v for k, v in sd.items()}
+    with torch.device("meta"):
+        model = WhisperEncoder(cfg)
+    return load_hf_module(model, sd, "whisper encoder", device,
+                          unused_prefixes=("decoder.", "proj_out.")), fcfg
+
+
+def load_encodec_encoder(path, device="cuda"):
+    """An EncodecModel snapshot's encoder (`encoder.*`; its convs'
+    weight norm over dim 0); the decoder and the quantizer's codebooks are
+    named and not loaded."""
+    from .encodec import EncodecConfig, EncodecEncoder
+    path = Path(path)
+    cfg = EncodecConfig.from_json(_cfg(path))
+    sd = fold_weight_norm(load_hf_torch_state_dict(path), lambda prefix: 0)
+    sd = {k[len("encoder."):] if k.startswith("encoder.") else k: v for k, v in sd.items()}
+    with torch.device("meta"):
+        model = EncodecEncoder(cfg)
+    return load_hf_module(model, sd, "encodec encoder", device,
+                          unused_prefixes=("decoder.", "quantizer."))
 
 
 # --------------------------------------------------------------------- configs
@@ -482,24 +616,16 @@ def _build(module, tree, cfg, device, weight_dtype):
 
 
 def _make_hf_tokenizer(tok_dir, max_length: Optional[int] = 512):
-    """The snapshot's tokenizer through `transformers`, as a callable texts ->
-    numpy (ids, mask), padded to the model's maximum length (capped at
-    `max_length`); None where the directory or the package is missing."""
+    """The snapshot's tokenizer, read by the port's own readers
+    (`tokenizers.load_tokenizer`: the ids and masks of the JAX package's
+    transformers tokenizer), as a callable texts -> numpy (ids, mask), padded
+    to the model's maximum length (capped at `max_length`); None where the
+    directory is missing. A directory of a kind the readers do not know
+    raises, naming its tokenizer class."""
     if not Path(tok_dir).exists():
         return None
-    try:
-        from transformers import AutoTokenizer
-        hf_tok = AutoTokenizer.from_pretrained(str(tok_dir))
-    except Exception:
-        return None
-    length = hf_tok.model_max_length if max_length is None else min(
-        hf_tok.model_max_length, max_length)
-
-    def tokenizer(texts):
-        out = hf_tok(list(texts), padding="max_length", max_length=length, truncation=True,
-                     return_tensors="np")
-        return out["input_ids"], out["attention_mask"]
-    return tokenizer
+    from .tokenizers import load_tokenizer
+    return load_tokenizer(tok_dir, max_length)
 
 
 def _core_models(d: Path, device, weight_dtype, gn_mode: str = "plain",

@@ -76,3 +76,12 @@ class ClapTextModelWithProjection(nn.Module):
             x = getattr(self, f"layer_{i}")(x, bias)
         pooled = torch.tanh(self.pooler(x[:, 0]))        # RoBERTa pooler over CLS
         return self.projection_linear2(F.relu(self.projection_linear1(pooled)))
+
+
+def get_text_features(model: ClapTextModelWithProjection, input_ids: torch.Tensor,
+                      attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """L2-normalised text embeds, as `ClapModel.get_text_features` returns them
+    (the JAX package's `models/clap.py::get_text_features`), in fp32 whatever
+    the tower's dtype."""
+    emb = model(input_ids, attention_mask).float()
+    return emb / emb.norm(dim=-1, keepdim=True)

@@ -37,7 +37,7 @@ import torch
 
 from ..inverse_problem.operator import (BaseOperator, IdentityOperator,
                                         PhaseRetrievalOperator)
-from ..models.clap import ClapTextModelWithProjection
+from ..models.clap import ClapTextModelWithProjection, get_text_features
 from ..models.clap_features import make_tiny_clap_audio_embeds
 from ..models.configs import (HiFiGANConfig, UNetConfig, VAEConfig, tiny_clap_text_config,
                               tiny_hifigan_config, tiny_unet_config, tiny_vae_config)
@@ -135,8 +135,7 @@ class MusicLDMPipeline:
 
     def _clap_text(self, text: str) -> torch.Tensor:
         """Normalised CLAP text embeds of one prompt, (1, projection_dim)."""
-        emb = self.text_encoder(*self._tokens([text])).float()
-        return emb / emb.norm(dim=-1, keepdim=True)
+        return get_text_features(self.text_encoder, *self._tokens([text]))
 
     def encode_prompt(self, prompt, negative_prompt=None, do_classifier_free_guidance=True):
         """CLAP pooled text features, normalised, CFG-stacked [uncond; cond]."""

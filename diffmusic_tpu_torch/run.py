@@ -139,16 +139,16 @@ def load_pipeline(args, config, operator):
     or a local checkpoint (`--checkpoint_dir`), on `--device`. StableAudio's
     EDM schedule is the pipeline's own (or the snapshot's): the DDIM block of
     stable_audio.yaml is not used."""
-    from .pipelines import AudioLDM2Pipeline, MusicLDMPipeline, StableAudioPipeline
+    from .pipelines import AudioLDM2Pipeline, get_pipeline
     from .samplers import DiffusionSchedule
+    cls = get_pipeline(config.model.name)
     if config.model.name == STABLE_AUDIO:
         if args.tiny:
-            return StableAudioPipeline.tiny(device=args.device)
+            return cls.tiny(device=args.device)
         if args.checkpoint_dir:
-            return StableAudioPipeline.from_pretrained(args.checkpoint_dir, device=args.device)
+            return cls.from_pretrained(args.checkpoint_dir, device=args.device)
         raise SystemExit("pass --checkpoint_dir with a local HF-snapshot directory, or --tiny "
                          "for the random-weights smoke mode")
-    cls = {MUSICLDM: MusicLDMPipeline, AUDIOLDM2: AudioLDM2Pipeline}[config.model.name]
     sched = config.model.scheduler
     schedule = DiffusionSchedule(
         num_train_timesteps=sched.num_train_timesteps, beta_start=sched.beta_start,

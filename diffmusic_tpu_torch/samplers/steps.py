@@ -222,3 +222,17 @@ def make_step_fn(schedule: DiffusionSchedule, cfg: SamplerConfig,
     def step(eps, t, sample, generator=None):
         return raw(schedule, cfg, eps, t, sample, generator, loss_fn)
     return step
+
+
+@dataclass
+class InverseProblemSchedulerOutput:
+    """The reference's output record of a guided step (its
+    schedulers/utils.py:8-16), for code that reads fields; the step
+    functions themselves return (prev, x0, loss) tuples."""
+    prev_sample: torch.Tensor
+    pred_original_sample: Optional[torch.Tensor] = None
+    loss: Optional[torch.Tensor] = None
+    sample: Optional[torch.Tensor] = None
+    encoder_hidden_states: Optional[torch.Tensor] = None
+    encoder_hidden_states_1: Optional[torch.Tensor] = None
+    init_latents: Optional[torch.Tensor] = None

@@ -138,12 +138,17 @@ def test_vggish_from_flax_is_the_torchvggish_layout():
     assert set(back) == set(tvggish.VGGish().state_dict())
 
 
-def test_model_registry_raises_for_what_is_not_ported():
-    for name in ("vggish", "mfcc-stack", "clap-laion-audio", "clap-laion-music"):
+def test_model_registry_raises_for_what_is_not_ported(tmp_path):
+    """Every name resolves; what is not ported is MERT's own remote-code
+    model type, which raises NotImplementedError at load (the JAX package's
+    AutoModel cannot load it either)."""
+    for name in ("vggish", "mfcc-stack", "clap-laion-audio", "clap-laion-music",
+                 "w2v2-base", "MERT-v1-95M", "encodec-emb"):
         assert get_model(name, device="cpu").name == name
-    for name in ("w2v2-base", "MERT-v1-95M", "encodec-emb"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_model(name, device="cpu")
+    (tmp_path / "MERT-v1-95M").mkdir()
+    (tmp_path / "MERT-v1-95M" / "config.json").write_text('{"model_type": "mert_model"}')
+    with pytest.raises(NotImplementedError, match="mert_model"):
+        get_model("MERT-v1-95M", tmp_path, device="cpu").load_model()
     with pytest.raises(ValueError):
         get_model("no-such-model", device="cpu")
     with pytest.raises(FileNotFoundError):

@@ -537,6 +537,174 @@ def write_snapshot(root, modules: dict, shards: int = 1) -> Path:
     return root
 
 
+# ------------------------------------------------------------- tokenizers
+# Small tokenizer directories of the kinds the snapshots carry, written with
+# the standard library only (no transformers / tokenizers): a RoBERTa
+# byte-level BPE, a T5 Unigram tokenizer.json whose normalizer holds a
+# sentencepiece charsmap built here.
+
+def double_array(keys: dict) -> list:
+    """darts-clone units of a trie over {key bytes: value}: each node's unit
+    holds its label (low byte), a leaf flag (bit 8) and the offset to its
+    children (bits 10+), a child with label l sitting at pos ^ offset ^ l and
+    the leaf's value unit (bit 31 set) at pos ^ offset; the array is whole
+    256-unit blocks, so that a lookup of any byte stays inside it."""
+    root: dict = {}
+    for key, value in keys.items():
+        node = root
+        for b in key:
+            node = node.setdefault(b, {})
+        node[None] = value
+    units, used = [0] * 256, {0}
+
+    def place(node, pos):
+        codes = sorted(0 if label is None else label for label in node)
+        offset = 1
+        while any(pos ^ offset ^ c in used for c in codes):
+            offset += 1
+        assert offset < 1 << 21
+        for c in codes:
+            used.add(pos ^ offset ^ c)
+        need = -(-(max(used) + 1) // 256) * 256
+        units.extend([0] * (need - len(units)))
+        units[pos] |= (offset << 10) | ((1 << 8) if None in node else 0)
+        for label, child in node.items():
+            if label is None:
+                units[pos ^ offset] = child | (1 << 31)
+            else:
+                units[pos ^ offset ^ label] |= label
+                place(child, pos ^ offset ^ label)
+    place(root, 0)
+    return units
+
+
+def charsmap(mapping: dict) -> bytes:
+    """sentencepiece's precompiled_charsmap of {source: replacement}."""
+    blob, keys = b"", {}
+    for src, dst in mapping.items():
+        keys[src.encode()] = len(blob)
+        blob += dst.encode() + b"\0"
+    units = double_array(keys)
+    return struct.pack("<I", 4 * len(units)) + struct.pack(f"<{len(units)}I", *units) + blob
+
+
+# what the tokenizer tests' charsmap normalises: fullwidth letters, a ligature,
+# controls and odd spaces to a space, a decomposed accent composed, an ellipsis
+NFKC_LIKE = {**{chr(0xFF21 + i): chr(0x41 + i) for i in range(26)},
+             **{chr(0xFF41 + i): chr(0x61 + i) for i in range(26)},
+             "\ufb01": "fi", "\t": " ", "\n": " ", "\r": " ", "\u00a0": " ", "\u3000": " ",
+             "e\u0301": "\u00e9", "\u2026": "...", "\u00bd": "1/2"}
+
+ROBERTA_WORDS = ("the", "piano", "calm", "music", "jazz", "drum", "beat", "soft", "guitar",
+                 "an", "ing", "er", "in", "slow", "'s")
+
+
+def roberta_vocab(words=ROBERTA_WORDS):
+    """(vocab, merges) of a byte-level BPE: <s> <pad> </s> <unk>, the 256
+    byte symbols, each word (and " word") merged left to right, <mask>."""
+    bs = list(range(ord("!"), ord("~") + 1)) + list(range(ord("\u00a1"), ord("\u00ac") + 1)) \
+        + list(range(ord("\u00ae"), ord("\u00ff") + 1))
+    cs, n = bs[:], 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    byte_map = dict(zip(bs, map(chr, cs)))
+    vocab = {t: i for i, t in enumerate(["<s>", "<pad>", "</s>", "<unk>"])}
+    for b in range(256):
+        vocab[byte_map[b]] = len(vocab)
+    merges = []
+    for w in words:
+        for word in (w, " " + w):
+            sym = "".join(byte_map[b] for b in word.encode())
+            cur = sym[0]
+            for ch in sym[1:]:
+                if (cur, ch) not in merges:
+                    merges.append((cur, ch))
+                vocab.setdefault(cur + ch, len(vocab))
+                cur = cur + ch
+    vocab["<mask>"] = len(vocab)
+    return vocab, merges
+
+
+def write_roberta_tokenizer(d, model_max_length: int = 77) -> Path:
+    """vocab.json, merges.txt and the tokenizer config of a RoBERTa
+    tokenizer (as RobertaTokenizer.save_pretrained writes them)."""
+    d = Path(d)
+    d.mkdir(parents=True, exist_ok=True)
+    vocab, merges = roberta_vocab()
+    (d / "vocab.json").write_text(json.dumps(vocab, ensure_ascii=False), encoding="utf-8")
+    (d / "merges.txt").write_text("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges),
+                                  encoding="utf-8")
+    flag = dict(single_word=False, normalized=False, special=True)
+    decoder = {str(vocab[t]): dict(content=t, lstrip=t == "<mask>", rstrip=False, **flag)
+               for t in ("<s>", "<pad>", "</s>", "<unk>", "<mask>")}
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "RobertaTokenizer", "model_max_length": model_max_length,
+        "add_prefix_space": False, "errors": "replace", "bos_token": "<s>",
+        "eos_token": "</s>", "sep_token": "</s>", "cls_token": "<s>", "unk_token": "<unk>",
+        "pad_token": "<pad>", "mask_token": "<mask>", "added_tokens_decoder": decoder}))
+    return d
+
+
+T5_PIECES = ("\u2581the", "\u2581a", "\u2581pi", "ano", "\u2581calm", "\u2581music",
+             "\u2581jazz", "ing", "\u2581slow", "er", "\u2581be", "at", "\u2581soft",
+             "\u2581guitar", "\u00e9", "fi", "...", "1/2")
+
+
+def t5_pieces(seed: int = 0, extra_ids: int = 4):
+    """Unigram pieces [(piece, score)]: <pad> </s> <unk>, "\u2581", the
+    printable ASCII characters, some longer pieces, then the extra ids."""
+    rng = np.random.default_rng(seed)
+    chars = [chr(c) for c in range(33, 127)]
+    body = ["\u2581"] + chars + list(T5_PIECES)
+    pieces = [("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0)]
+    pieces += [(p, float(-rng.uniform(2.0, 12.0))) for p in body]
+    return pieces + [(f"<extra_id_{i}>", 0.0) for i in range(extra_ids - 1, -1, -1)]
+
+
+def write_t5_tokenizer_json(d, model_max_length: int = 64, extra_ids: int = 4) -> Path:
+    """tokenizer.json (the Unigram, a normalizer of the NFKC_LIKE charsmap,
+    right strip and runs of spaces to "\u2581", Metaspace, "$A </s>") and the
+    config of a T5 tokenizer, in the layout transformers' converter writes."""
+    import base64
+    d = Path(d)
+    d.mkdir(parents=True, exist_ok=True)
+    pieces = t5_pieces(extra_ids=extra_ids)
+    special = [(i, p) for i, (p, _) in enumerate(pieces) if p.startswith("<")]
+    tok = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [dict(id=i, content=p, single_word=False, lstrip=False, rstrip=False,
+                              normalized=False, special=True) for i, p in special],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled", "precompiled_charsmap":
+                base64.b64encode(charsmap(NFKC_LIKE)).decode()},
+            {"type": "Strip", "strip_left": False, "strip_right": True},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": "\u2581"}]},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "\u2581",
+                          "prepend_scheme": "always", "split": True},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "pair": [{"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "special_tokens": {"</s>": {"id": "</s>", "ids": [1], "tokens": ["</s>"]}}},
+        "decoder": {"type": "Metaspace", "replacement": "\u2581", "prepend_scheme": "always",
+                    "split": True},
+        "model": {"type": "Unigram", "unk_id": 2, "vocab": [list(p) for p in pieces],
+                  "byte_fallback": False}}
+    (d / "tokenizer.json").write_text(json.dumps(tok, ensure_ascii=False), encoding="utf-8")
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "T5Tokenizer", "model_max_length": model_max_length,
+        "eos_token": "</s>", "unk_token": "<unk>", "pad_token": "<pad>", "extra_ids": extra_ids,
+        "additional_special_tokens": [f"<extra_id_{i}>" for i in range(extra_ids)]}))
+    return d
+
+
 def tiny_configs():
     """The JAX package's tiny configs, from the port's copy."""
     from diffmusic_tpu_torch.models import configs as c

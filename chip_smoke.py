@@ -166,7 +166,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      WavLM-large, Whisper-large's encoder and EnCodec 24 kHz at their
      published widths with seeded random fp32 weights, through the loaders'
      `get_embedding` on one 10-s clip: parameters, ms per clip, peak memory,
-     the embedding's shape, finite.
+     the embedding's shape, finite;
+  17. mesh: the device mesh (`diffmusic_tpu_torch/parallel`). The slice's
+     full-width MusicLDM with num_waveforms_per_prompt 2, STEPS DPS steps at
+     MESH_RATE with the waveform loss, in bf16 through `make_mesh(1)` (the
+     path of --mesh dp=1), and at batch 1: ms per step, peak memory, every run's
+     launches those of a batch-1 slice turn; each kernel of the route at
+     batch 2 against its rows alone; in fp32 (MESH_FP32_STEPS steps), each
+     clip of the batch against its own batch-1 run within MESH_CLIP_TOL,
+     which the planted joint norm must exceed (bf16's batch-dependent
+     rounding in the plain ops would hide it); the eval of EVAL_PAIRS pairs
+     with mfcc-stack per file and with --mesh dp=1 (each equal-length group
+     in one batched call): seconds, mel launches (`eval_mel_launches`),
+     caches within MESH_CACHE_TOL; the CLI's --tiny run with --mesh dp=1 on
+     the card; where two cards are visible, dp=2 across them over NCCL
+     (`parallel.launch`) against the one-card fp32 batch-2 run, else a line
+     saying it was not run.
 Then the command's total seconds, the card's nvidia-smi name and power limit,
 a JSON line with one entry
 per kernel (the masks' entries time g as h, and give the route's form, g
@@ -304,13 +319,16 @@ UPSAMPLERS = ((1024, 512, 16, 5, 1000), (512, 256, 16, 4, 5001), (256, 128, 8, 2
 EVAL_PAIRS = 64
 
 
-def eval_mel_launches(n_pairs: int) -> int:
+def eval_mel_launches(n_pairs: int, groups=None) -> int:
     """fused_mel_spectrogram launches of one such eval from cold caches, with
     mfcc-stack first: the mfcc-stack FAD caches embed each gt and recon clip
     once (2 n), KL re-embeds each with the first model (2 n); --fad_inf and
     --individual read the caches, and VGGish computes its own numpy log-mel.
-    (tests/test_torch_port_eval.py counts them on the CPU.)"""
-    return 4 * n_pairs
+    With --mesh, `groups` gives the number of equal-length groups of files
+    in gt and in recon: the caches then embed each group in one call.
+    (tests/test_torch_port_eval.py and test_torch_port_mesh.py count them on
+    the CPU.)"""
+    return (2 * n_pairs if groups is None else sum(groups)) + 2 * n_pairs
 
 
 LOG_FILE = None   # with --out, every line also goes to OUT_DIR/chip_smoke.log
@@ -3681,6 +3699,265 @@ def full_width_embedders() -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------- mesh
+MESH_LATENTS = (2,) + LATENTS[1:]   # num_waveforms_per_prompt 2
+# Each clip of the batch-2 run against its own batch-1 run, ||a - b|| / ||b||
+# of the audio, in fp32 with the waveform loss: a joint norm in place of the
+# per-clip norm (`joint_norm_loss`, planted) must exceed it. In bf16 the
+# plain ops' batch-dependent rounding (one bf16 ulp: the UNet 1.26e-2 of max
+# at batch 2 against batch 1, the vocoder 1.53e-2, while every kernel gives
+# batch 2 equal to the bit to its rows) carries to 1.6e-2 of the audio and
+# hides the joint norm (H100 80GB HBM3, 700 W); in fp32 batch 2 stood 8.8e-5
+# from batch 1 after 20 steps and the joint norm 1.75e-2.
+MESH_CLIP_TOL = 1e-3
+MESH_FP32_STEPS = 5    # the fp32 runs' steps: ~570 ms each at batch 2 on an H100
+# the guidance rate of the mesh phase: a joint norm rescales each clip's
+# unit guidance gradient by ||r_b|| / ||r_joint||, a change in proportion to
+# the rate (at the slice's 2.0 it moved a small model's audio by 1e-3 in 3
+# steps on the CPU)
+MESH_RATE = 20.0
+MESH_CACHE_TOL = 1e-5   # batched eval caches against per-file, max |err| / max
+# the kernels of the slice's default route, by the model module that calls
+# each, for the check of batch 2 against its rows run alone
+MESH_KERNELS = (("layers", "fused_transformer_block"), ("hifigan", "conv1d_fused_pair"),
+                ("hifigan", "conv1d_fused"), ("hifigan", "phase_convtranspose"))
+
+
+def joint_norm_loss(target, op, audio, supervised_space):
+    """The planted fault: one Frobenius norm over the batch for the per-clip sum."""
+    pred = op.forward(audio)
+    diff = target - (op.transform(pred) if supervised_space == "mel_spectrogram" else pred)
+    return torch.linalg.vector_norm(diff)
+
+
+def mesh_pipe(device, dtype=torch.float32):
+    """The slice's full-width MusicLDM (seeded random weights, DPS, the box
+    inpainting) on `device`: fp32 for the per-clip checks, the build of each
+    rank of the two-card check."""
+    from diffmusic_tpu_torch.models.configs import HiFiGANConfig, UNetConfig, VAEConfig
+    return build_pipe(UNetConfig(), VAEConfig(), HiFiGANConfig(), 10.0, device, dtype)[0]
+
+
+def mesh_rank_run(mesh, kw: dict) -> np.ndarray:
+    """A rank of the two-card check (`parallel.launch`): `mesh_pipe` in fp32
+    on the rank's card with TF32 off, as this script runs (a spawned rank
+    starts from PyTorch's defaults, under which cuDNN's convolutions take
+    TF32), called with `kw` on `mesh` and a generator seeded alike on every
+    rank; returns the whole batch's audio."""
+    from diffmusic_tpu_torch.parallel.mesh import seeded_generator
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pipe = dataclasses.replace(mesh_pipe(mesh.device), mesh=mesh)
+    return pipe(generator=seeded_generator(0, "cpu"), **kw).audios
+
+
+def mesh_call_kw(meas, lat, steps: int = STEPS) -> dict:
+    """The mesh phase's call: `steps` DPS steps of the slice from latents
+    `lat` (its batch the number of waveforms), eta 0, MESH_RATE, the
+    waveform loss."""
+    return dict(audio_length_in_s=10.0, num_inference_steps=steps, eta=0.0, measurement=meas,
+                ip_guidance_rate=MESH_RATE, latents=lat, prompt_embeds=torch.zeros(2, 512),
+                supervised_space="wav_form", num_waveforms_per_prompt=lat.shape[0])
+
+
+def mesh_run(label: str, pipe, kw: dict) -> tuple:
+    """One run through the pipeline's __call__ with its ms per step (host
+    clock between the steps' synchronised callbacks), peak memory and
+    launches (counts set to 0 just before, read just after); returns (audio,
+    launches)."""
+    from diffmusic_tpu_torch import kernels
+    stamps = []
+
+    def on_step(i, t, x):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    out, losses = pipe(return_losses=True, callback=on_step, **kw)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [1e3 * (b - a) for a, b in zip([start] + stamps[:-1], stamps)]
+    q1, med, q3 = statistics.quantiles(step_ms[1:], n=4)
+    log(f"mesh {label}: latents {tuple(kw['latents'].shape)}, {len(step_ms)} DPS steps, waveform "
+        f"loss; ms/step after the first: median {med:.2f}, quartiles {q1:.2f}/{q3:.2f} "
+        f"(first {step_ms[0]:.1f}); peak memory {peak / 2**30:.2f} GiB; loss first "
+        f"{losses[0]:.4f} last {losses[-1]:.4f}; launches "
+        f"{ {n: k for n, k in counts.items() if k} }")
+    if not np.isfinite(out.audios).all() or not np.isfinite(losses).all():
+        raise AssertionError(f"mesh {label}: non-finite audio or losses")
+    if out.audios.shape != (kw["latents"].shape[0], 160000):
+        raise AssertionError(f"mesh {label}: audio {out.audios.shape}")
+    return out.audios, counts
+
+
+def kernel_rows(pipe, meas, lat) -> None:
+    """Each kernel of the slice's default route, at the first call of each
+    shape in 2 steps of the batch-2 run, against the same call on each row
+    alone: equal to the bit, or within the kernel's bf16 tolerance."""
+    from diffmusic_tpu_torch.models import hifigan, layers
+    owners = {"layers": layers, "hifigan": hifigan}
+    found = {}
+
+    def rows_of(fn, name):
+        def checked(x, *a, **k):
+            y = fn(x, *a, **k)
+            if x.shape[0] == 2 and (name, tuple(x.shape)) not in found:
+                def row(v, i):
+                    return v[i:i + 1] if torch.is_tensor(v) and v.ndim and v.shape[0] == 2 else v
+                with torch.no_grad():
+                    r = torch.cat([fn(x[i:i + 1].detach(), *[row(v, i) for v in a],
+                                      **{n: row(v, i) for n, v in k.items()}) for i in range(2)])
+                found[(name, tuple(x.shape))] = (torch.equal(r, y.detach()),
+                                                 rel_err(y.detach(), r)[1])
+            return y
+        return checked
+
+    with contextlib.ExitStack() as stack:
+        for owner, name in MESH_KERNELS:
+            stack.enter_context(planted(owners[owner], name,
+                                        rows_of(getattr(owners[owner], name), name)))
+        pipe(**dict(mesh_call_kw(meas, lat), num_inference_steps=2))
+    log(f"mesh: each kernel at batch 2 against its rows alone (equal to the bit, max|err| / "
+        f"max): {({f'{n} {s}': (eq, f'{e:.1e}') for (n, s), (eq, e) in found.items()})}")
+    tol = {"fused_transformer_block": TOL_BLOCK_BF16}
+    if {n for n, _ in found} != {n for _, n in MESH_KERNELS} or any(
+            e > tol.get(n, TOL_CONV_BF16) for (n, _), (_, e) in found.items()):
+        raise AssertionError("mesh: a kernel's batch-2 result differs from its rows alone")
+
+
+def clip_errors(audio, refs) -> list:
+    """||audio[i] - refs[i]|| / ||refs[i]|| per clip."""
+    return [norm_rel(torch.from_numpy(audio[i]), torch.from_numpy(np.asarray(refs[i])))
+            for i in range(len(refs))]
+
+
+def mesh_eval(restored: np.ndarray) -> None:
+    """The eval of EVAL_PAIRS pairs with mfcc-stack on the card per file and
+    with --mesh dp=1 (each equal-length group of a directory in one batched
+    call): seconds and the mel launches of each, the caches within
+    MESH_CACHE_TOL."""
+    from diffmusic_tpu_torch import eval as E
+    from diffmusic_tpu_torch import kernels
+    from diffmusic_tpu_torch.fadtk.engine import _load_16k
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_eval_dirs(root / "plain", restored)
+        shutil.copytree(root / "plain", root / "mesh")
+        groups = tuple(len({len(_load_16k(f)) for f in (root / "plain" / d).glob("*.wav")})
+                       for d in ("gt", "recon"))
+        counts, secs = {}, {}
+        for side, extra in (("plain", []), ("mesh", ["--mesh", "dp=1"])):
+            split = Counter()
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with eval_split(split), contextlib.redirect_stdout(io.StringIO()):
+                E.main(["-gt", str(root / side / "gt"), "-r", str(root / side / "recon"),
+                        "--embedding", "mfcc-stack", "--device", "cuda", *extra])
+            torch.cuda.synchronize()
+            secs[side] = (time.perf_counter() - t0, split["embedding mfcc-stack"])
+            counts[side] = kernels.launch_counts()["fused_mel_spectrogram"]
+        errs = [rel_err(torch.from_numpy(np.load(f)), torch.from_numpy(
+                    np.load(root / "plain" / f.relative_to(root / "mesh"))))[1]
+                for d in ("gt", "recon")
+                for f in sorted((root / "mesh" / d / "embeddings" / "mfcc-stack").glob("*.npy"))]
+        want = {"plain": eval_mel_launches(EVAL_PAIRS),
+                "mesh": eval_mel_launches(EVAL_PAIRS, groups)}
+        log(f"mesh eval: {EVAL_PAIRS} pairs, mfcc-stack, cold caches: per file "
+            f"{secs['plain'][0]:.2f} s wall ({secs['plain'][1]:.2f} s embedding the caches), "
+            f"--mesh dp=1 {secs['mesh'][0]:.2f} s wall ({secs['mesh'][1]:.2f} s embedding {groups} "
+            f"equal-length groups); mel launches {counts} (expected {want}); {len(errs)} caches "
+            f"max|err| / max {max(errs):.2e} (tol {MESH_CACHE_TOL:.0e})")
+        if len(errs) != 2 * EVAL_PAIRS or max(errs) > MESH_CACHE_TOL:
+            raise AssertionError("mesh eval: the batched caches differ from the per-file ones")
+        if counts != want:
+            raise AssertionError(f"mesh eval: mel launches {counts}, expected {want}")
+
+
+def phase_mesh(restored: np.ndarray) -> None:
+    """17. mesh: the slice's full-width MusicLDM at num_waveforms_per_prompt
+    2, bf16, through `make_mesh(1)` (the path of --mesh dp=1), and at batch
+    1 with no mesh, with their ms per step, peak memory and launches; each
+    kernel at batch 2 against its rows alone;
+    in fp32 each clip against its own batch-1 run within MESH_CLIP_TOL (the
+    planted joint norm must exceed it); the eval through --mesh dp=1 against
+    per file; the CLI's --mesh dp=1 tiny run; where two cards are visible,
+    dp=2 across them over NCCL against the one-card fp32 batch-2 run."""
+    from diffmusic_tpu_torch.parallel import make_mesh
+    from diffmusic_tpu_torch.pipelines import musicldm
+    t_phase = t0 = time.perf_counter()
+    pipe = mesh_pipe("cuda", torch.bfloat16)
+    _, meas = inpainting(10.0, "cuda")
+    lat = torch.randn(MESH_LATENTS, generator=torch.Generator().manual_seed(0))
+    log(f"mesh: full-width MusicLDM, seeded random bf16 weights, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    want = expected_launches("fused_transformer_block")
+    counts = mesh_run("bf16 batch 2, make_mesh(1)", dataclasses.replace(pipe, mesh=make_mesh(1)),
+                      mesh_call_kw(meas, lat))[1]
+    check_launches("mesh batch 2", counts, want)
+    counts = mesh_run("bf16 batch 1, clip 0", pipe, mesh_call_kw(meas, lat[:1]))[1]
+    check_launches("mesh batch 1", counts, want)
+    kernel_rows(pipe, meas, lat)
+    del pipe
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pipe = mesh_pipe("cuda")
+    log(f"mesh: the same model in fp32 (TF32 off), built in {time.perf_counter() - t0:.1f} s")
+    kw = mesh_call_kw(meas, lat, MESH_FP32_STEPS)
+    alone = mesh_run("fp32 batch 2", pipe, kw)[0]
+    singles = [mesh_run(f"fp32 batch 1, clip {i}", pipe,
+                        mesh_call_kw(meas, lat[i:i + 1], MESH_FP32_STEPS))[0][0]
+               for i in range(MESH_LATENTS[0])]
+    with planted(musicldm, "per_clip_loss", joint_norm_loss):
+        joint = mesh_run("fp32 batch 2, planted joint norm", pipe, kw)[0]
+    del pipe
+    torch.cuda.empty_cache()
+    errs, faults = clip_errors(alone, singles), clip_errors(joint, singles)
+    log(f"mesh: each clip of fp32 batch 2 against its batch-1 run, ||err|| / ||batch 1||: "
+        f"{[f'{e:.2e}' for e in errs]} (tol {MESH_CLIP_TOL:.0e}); with the joint norm planted "
+        f"{[f'{e:.2e}' for e in faults]}")
+    if max(errs) > MESH_CLIP_TOL or min(faults) <= MESH_CLIP_TOL:
+        raise AssertionError("mesh: batch 2 disagrees with batch 1, or the bound let the "
+                             "joint norm pass")
+    mesh_eval(restored)
+    with tempfile.TemporaryDirectory() as tmp:
+        from diffmusic_tpu_torch.data import write_wav
+        root = Path(tmp)
+        (root / "clips").mkdir()
+        write_wav(root / "clips" / "track.wav", harmonic_stack(16000 * 16, 16000), 16000)
+        cli_run(root, root / "clips", "cuda", "musicldm", "dps", ["--mesh", "dp=1"])
+    if torch.cuda.device_count() < 2:
+        log(f"mesh: {torch.cuda.device_count()} card visible: the dp=2 check across two cards "
+            f"over NCCL was not run")
+    else:
+        mesh_across_cards(meas, lat, alone)
+    log(f"mesh: the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def mesh_across_cards(meas, lat, alone: np.ndarray) -> None:
+    """dp=2 over two cards with NCCL (`parallel.launch`, each rank building
+    the fp32 model on its card, `mesh_rank_run`): the ranks hold the same
+    audio, each clip within MESH_CLIP_TOL of `alone`, the one-card fp32
+    batch-2 run of `lat`."""
+    from diffmusic_tpu_torch.parallel import launch, make_mesh
+    t0 = time.perf_counter()
+    ranks = launch(make_mesh(2, dp=2), mesh_rank_run,
+                   mesh_call_kw(meas.cpu(), lat, MESH_FP32_STEPS), timeout=900)
+    secs = time.perf_counter() - t0
+    audio = ranks[0]
+    agree = all(np.array_equal(r, audio) for r in ranks)
+    errs = clip_errors(audio, alone)
+    log(f"mesh: dp=2 over 2 cards (NCCL), {secs:.1f} s with the ranks' start and build: the "
+        f"ranks hold the same audio: {agree}; each clip against the one-card batch-2 run "
+        f"{[f'{e:.2e}' for e in errs]} (tol {MESH_CLIP_TOL:.0e})")
+    if not agree or max(errs) > MESH_CLIP_TOL:
+        raise AssertionError("mesh: dp=2 across two cards disagrees with one card")
+
+
 def ptxas_summary(build_log: str, kernel: str) -> str:
     """Registers, shared memory and spills that `nvcc -Xptxas -v` reported
     for the kernel whose mangled name contains `kernel`."""
@@ -3776,6 +4053,7 @@ def main() -> int:
     phase_checkpoint_cli()
     eval_counts = phase_eval(restored)
     phase_eval_embedders()
+    phase_mesh(restored)
     # each kernel's launches from the path that runs it: MusicLDM's default
     # route for its four, its routes for the route kernels (the fused
     # GroupNorm from gn_mode "fused", the others from "stats"; the canvas

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..kernels.mel import fused_mel_spectrogram
+from ..parallel.mesh import data_parallel_map
 
 
 def _dct_matrix(n_filters: int, n_coeffs: int) -> np.ndarray:
@@ -58,11 +59,15 @@ class MFCCStackEmbedding:
         return torch.cat([w.mean(-1), w.std(-1, correction=0),
                           d.mean(-1), d.std(-1, correction=0)], dim=-1)
 
-    def batch_embed(self, wavs: np.ndarray) -> np.ndarray:
-        """A (B, L) batch of equal-length waveforms -> (B, windows, dim) numpy."""
+    def batch_embed(self, wavs: np.ndarray, mesh=None) -> np.ndarray:
+        """A (B, L) batch of equal-length waveforms -> (B, windows, dim) numpy,
+        in one call; with a mesh, each rank embeds its dp rows and every rank
+        returns the whole batch's (`parallel.mesh.data_parallel_map`; B must
+        divide by dp)."""
         x = torch.as_tensor(np.asarray(wavs, np.float32), device=self.device)
+        fn = self.embed if mesh is None else data_parallel_map(self.embed, mesh)
         with torch.no_grad():
-            return self.embed(x).cpu().numpy()
+            return fn(x).cpu().numpy()
 
     def __call__(self, wav: np.ndarray) -> np.ndarray:
         wav = np.asarray(wav, np.float32).reshape(-1)

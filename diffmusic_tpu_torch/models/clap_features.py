@@ -8,7 +8,8 @@ style-guidance gram loss backpropagates through it: 16 -> 48 kHz, "repeatpad"
 to 10 s, |STFT|^2 (Hann, centre, reflect), the Slaney filterbank, 10 log10
 and the top-dB clamp at 80 dB below the maximum. That maximum is taken over
 the whole batch, as the JAX package takes it: the N candidates of
-`score_waveforms` share one clamp.
+`score_waveforms` share one clamp, and under a mesh's sharded batch the
+ranks' clips share one too (`parallel.mesh.batch_max`).
 """
 
 import functools
@@ -20,6 +21,7 @@ import torch
 from ..ops.mel import mel_filterbank
 from ..ops.resample import resample
 from ..ops.stft import spectrogram
+from ..parallel.mesh import batch_max
 from .htsat import ClapAudioModelWithProjection, tiny_clap_audio_config
 
 
@@ -56,7 +58,7 @@ def clap_mel_features(wav: torch.Tensor,
     mel = torch.einsum("bft,fm->bmt", spec,
                        _slaney_filterbank(cfg, spec.device, spec.dtype))
     db = 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
-    db = torch.maximum(db, db.max() - 80.0)
+    db = torch.maximum(db, batch_max(db) - 80.0)
     return db.transpose(1, 2)[:, None]
 
 

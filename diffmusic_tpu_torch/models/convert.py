@@ -66,27 +66,43 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), np.asarray(v, dtype=np.float32)
 
 
+def _layout(path, ndim: int, hifigan: bool, oobleck: bool = False):
+    """(port key, axes) of one flax leaf: the port's array is the flax one
+    transposed by `axes` (port axis i is flax axis axes[i])."""
+    *mods, name = path
+    same = tuple(range(ndim))
+    if oobleck and name in ("alpha", "beta"):
+        return ".".join(path), (0, 2, 1)   # Snake: (1, 1, C) -> (1, C, 1)
+    if name == "bias":
+        return ".".join(mods) + ".bias", same
+    if name in ("scale", "embedding") and mods:
+        return ".".join(mods) + ".weight", same
+    if name != "kernel":
+        return ".".join(path), same
+    key = ".".join(mods) + ".weight"
+    if hifigan:
+        return key, (0, 2, 1) if mods[-1].startswith("upsampler_") else same
+    if ndim in (2, 3, 4):
+        return key, {2: same, 3: (2, 1, 0), 4: (3, 2, 0, 1)}[ndim]
+    raise ValueError(f"unexpected kernel rank {ndim} at {'/'.join(path)}")
+
+
 def _leaf(path, arr, hifigan: bool, oobleck: bool = False):
     """(port key, array in the port's layout) for one flax leaf."""
-    *mods, name = path
-    key = ".".join(mods)
-    if oobleck and name in ("alpha", "beta"):
-        return ".".join(path), arr.swapaxes(1, 2)   # Snake: (1, 1, C) -> (1, C, 1)
-    if name == "bias":
-        return key + ".bias", arr
-    if name in ("scale", "embedding") and mods:
-        return key + ".weight", arr
-    if name != "kernel":
-        return ".".join(path), arr
-    if hifigan:
-        return key + ".weight", arr.swapaxes(1, 2) if mods[-1].startswith("upsampler_") else arr
-    if arr.ndim == 2:
-        return key + ".weight", arr
-    if arr.ndim == 3:
-        return key + ".weight", arr.transpose(2, 1, 0)
-    if arr.ndim == 4:
-        return key + ".weight", arr.transpose(3, 2, 0, 1)
-    raise ValueError(f"unexpected kernel rank {arr.ndim} at {'/'.join(path)}")
+    key, axes = _layout(path, arr.ndim, hifigan, oobleck)
+    return key, arr.transpose(axes)
+
+
+def flax_axes(key: str, ndim: int, cfg) -> tuple:
+    """The converter's axes for the port's state-dict entry `key` of rank
+    `ndim` of the model of `cfg`: its axis i is axis axes[i] of the flax
+    leaf. A `weight` of rank 1 is a norm's scale, of rank 2 a Dense kernel
+    or an Embed table (both kept as they are), of higher rank a conv kernel."""
+    *mods, name = key.split(".")
+    if name == "weight":
+        name = "kernel" if ndim > 1 else "scale"
+    return _layout((*mods, name), ndim, isinstance(cfg, HiFiGANConfig),
+                   isinstance(cfg, OobleckConfig))[1]
 
 
 def from_flax(params, cfg) -> dict:

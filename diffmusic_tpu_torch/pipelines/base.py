@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from ..inverse_problem.noise import randn
 from ..ops.mel import InverseMelScale
 from ..ops.stft import istft
+from ..parallel import mesh as pmesh
 from ..tracing import annotate
 
 
@@ -125,14 +126,17 @@ def denoise_with_nan_retry(run_fn, init_latents: torch.Tensor,
                            generator: Optional[torch.Generator] = None,
                            max_retries: int = 10):
     """Rerun from fresh latents while the result holds NaNs, at most
-    `max_retries` times (reference pipeline_musicldm.py:742-756)."""
+    `max_retries` times (reference pipeline_musicldm.py:742-756). Under a
+    mesh's sharded batch the whole batch decides, as in JAX: a NaN in one
+    rank's clip redraws every rank's (`parallel.mesh.batch_any`,
+    `batch_randn`)."""
     latents = init_latents
     for _ in range(max_retries + 1):
         final, losses = run_fn(latents)
-        if not bool(torch.isnan(losses[-1])) and not bool(torch.isnan(final).any()):
+        if not pmesh.batch_any(torch.isnan(losses[-1]) | torch.isnan(final).any()):
             return final, losses
-        latents = randn(init_latents.shape, generator, init_latents.dtype,
-                        init_latents.device)
+        latents = pmesh.batch_randn(init_latents.shape, generator, init_latents.dtype,
+                                    init_latents.device)
     return final, losses
 
 

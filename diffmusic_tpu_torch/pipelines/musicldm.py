@@ -15,7 +15,9 @@ the NaN retry, phase retrieval's phase-aware output (`phase_aware`),
 `from_pretrained` (a local checkpoint, `models/checkpoint.py`), `tiny`, and
 with a CLAP audio tower (`clap_audio_embed`, `clap_frame_embed`:
 `models/clap_features.py`) the style-guidance operator's frame features and
-`score_waveforms`, the CLAP text-audio re-ranking of candidates.
+`score_waveforms`, the CLAP text-audio re-ranking of candidates, and a
+dp x tp `mesh` (`parallel/mesh.py`): the batch of waveforms dp-sharded over
+ranks, as the JAX package shards it over devices.
 
 DITTO and `optim_prompt` are the two paths that differentiate through the
 UNet. DITTO runs the DDIM chain with eta noise from the initial latents, one
@@ -46,6 +48,7 @@ from ..models.hifigan import SpeechT5HifiGan
 from ..models.unet import UNet2DConditionModel
 from ..models.vae import AutoencoderKL
 from ..ops.stft import magphase_spectrogram
+from ..parallel.mesh import Mesh, shard_batch_dp, sharded_batch
 from ..samplers import DiffusionSchedule, SamplerConfig, ditto_draws, make_step_fn
 from .base import (AudioPipelineOutput, byte_tokenizer, compute_geometry,
                    denoise_with_nan_retry, mel_spectrogram_to_waveform_with_phase,
@@ -78,6 +81,8 @@ class MusicLDMPipeline:
     clap_audio_embed: Optional[Callable] = None   # waveform -> pooled (B, D), normalised
     # waveform -> per-frame CLAP features (B, T', D), StyleGuidanceOperator's input
     clap_frame_embed: Optional[Callable] = None
+    # a dp x tp mesh (parallel/mesh.py): each rank denoises its dp rows of the batch
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
         for m in self._models():
@@ -330,7 +335,12 @@ class MusicLDMPipeline:
         output from the measured |STFT| with the phase of the decoded audio,
         by 4 alternating projections; None turns it on when the noiser's
         `sigma` is at most 1e-6 (off under Poisson noise), as the JAX package
-        does by default."""
+        does by default.
+
+        With a `mesh`, each rank denoises its dp rows of the batch (the
+        `latents` passed in, or drawn, are the whole batch; `generator` must
+        be seeded alike on every rank) and returns what one process returns
+        for the whole batch; `callback` sees this rank's rows."""
         device = self.device
         sr = self.vocoder_cfg.sampling_rate
         height, owl = compute_geometry(
@@ -345,12 +355,15 @@ class MusicLDMPipeline:
             prompt_embeds = self._map_embeds(lambda a: a[a.shape[0] // 2:], prompt_embeds)
             guidance_scale = 1.0
 
+        mesh = self.mesh
         if latents is None:
             latents = prepare_latents(generator, num_waveforms_per_prompt,
                                       self.unet_cfg.in_channels, height,
                                       self.vocoder_cfg.model_in_dim,
                                       self.vae_scale_factor, self.dtype, device)
         latents = torch.as_tensor(latents, dtype=self.dtype, device=device)
+        if mesh is not None:   # the whole batch's latents, drawn alike on every rank
+            latents = shard_batch_dp(mesh, latents)
         batch = latents.shape[0]
         if batch > 1:
             # [uncond*B, cond*B] under CFG, matching the cat([x, x]) in _eps
@@ -370,29 +383,32 @@ class MusicLDMPipeline:
                 loss_fn = self.make_loss_fn(measurement, owl, supervised_space)
         timesteps = self.schedule.timesteps(num_inference_steps)
 
-        if self.scheduler_name == "ditto":
-            # one draw per step, once a call; every outer iteration reuses it
-            draws = ditto_draws(cfg, latents.shape, len(timesteps), generator, self.dtype,
-                                device)
-            objective = self.ditto_objective(prompt_embeds, guidance_scale, loss_fn, cfg,
-                                             timesteps, draws)
-            final, losses = run_ditto(objective, latents, optim_outer_loop, ip_guidance_rate)
-        else:
-            step_fn = make_step_fn(self.schedule, cfg, loss_fn)
+        with sharded_batch(mesh):
+            if self.scheduler_name == "ditto":
+                # one draw per step, once a call; every outer iteration reuses it
+                draws = ditto_draws(cfg, latents.shape, len(timesteps), generator, self.dtype,
+                                    device)
+                objective = self.ditto_objective(prompt_embeds, guidance_scale, loss_fn, cfg,
+                                                 timesteps, draws)
+                final, losses = run_ditto(objective, latents, optim_outer_loop,
+                                          ip_guidance_rate)
+            else:
+                step_fn = make_step_fn(self.schedule, cfg, loss_fn)
 
-            def run(lat):
-                if needs_guidance and optim_prompt:   # embeddings fresh each run
-                    model_fn = self._optim_prompt_model_fn(
-                        loss_fn, prompt_embeds, guidance_scale, float(optim_prompt_learning_rate))
-                else:
-                    def model_fn(x, t):
-                        return self._eps(prompt_embeds, x, t, guidance_scale)
-                return run_denoise_loop(step_fn, model_fn, lat, timesteps, generator,
-                                        callback, callback_steps, show_progress)
-            final, losses = denoise_with_nan_retry(run, latents, generator)
+                def run(lat):
+                    if needs_guidance and optim_prompt:   # embeddings fresh each run
+                        model_fn = self._optim_prompt_model_fn(
+                            loss_fn, prompt_embeds, guidance_scale,
+                            float(optim_prompt_learning_rate))
+                    else:
+                        def model_fn(x, t):
+                            return self._eps(prompt_embeds, x, t, guidance_scale)
+                    return run_denoise_loop(step_fn, model_fn, lat, timesteps, generator,
+                                            callback, callback_steps, show_progress)
+                final, losses = denoise_with_nan_retry(run, latents, generator)
 
         if output_type == "latent":
-            out = AudioPipelineOutput(audios=final.cpu().numpy())
+            out = final
         else:
             audio = self.mel_to_waveform(self.decode_mel(final))[:, :owl].float()
             if phase_aware is None:
@@ -401,7 +417,14 @@ class MusicLDMPipeline:
             if (phase_aware and measurement is not None
                     and isinstance(self.operator, PhaseRetrievalOperator)):
                 audio = self.phase_aware_output(audio, measurement, owl)
-            out = AudioPipelineOutput(audios=audio.cpu().numpy())
+            out = audio
+        if mesh is not None:
+            # every rank ends with the whole batch, and the losses (sums over
+            # the clips; DDIM's slot holds the timestep) of the whole batch
+            out = mesh.gather(out)
+            if self.scheduler_name != "ddim":
+                losses = mesh.reduce(losses)
+        out = AudioPipelineOutput(audios=out.cpu().numpy())
         if return_losses:
             return out, losses.cpu().numpy()
         return out

@@ -33,6 +33,7 @@ from ..models.convert import init_flax_style
 from ..models.oobleck import AutoencoderOobleck
 from ..models.stable_audio_dit import StableAudioDiTModel, StableAudioProjectionModel
 from ..models.t5 import T5EncoderModel
+from ..parallel.mesh import Mesh
 from ..samplers.edm import EDMDPMSolverMultistepSchedule, make_edm_sampler
 from .base import AudioPipelineOutput
 from .musicldm import _dtype
@@ -67,6 +68,9 @@ class StableAudioPipeline:
         default_factory=EDMDPMSolverMultistepSchedule)
     tokenizer: Optional[Callable] = None   # texts -> numpy (ids, attention_mask)
     dtype: torch.dtype = torch.float32     # latents and solver
+    # a dp x tp mesh: every rank runs the whole batch (the JAX pipeline
+    # shards nothing of its own either)
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
         for m in (self.dit, self.vae, self.text_encoder, self.projection):

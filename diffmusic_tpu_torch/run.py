@@ -5,12 +5,20 @@
     python -m diffmusic_tpu_torch.run --device cpu --tiny --num_inference_steps 2
     python -m diffmusic_tpu_torch.run -m stable_audio -t music_generation --tiny
 
-The same flags as `run.py`, less `--mesh`, plus `--device` (default cuda);
-the same config composition over `configs/` (read from the working directory
+The same flags as `run.py`, plus `--device` (default cuda); the same config
+composition over `configs/` (read from the working directory
 when it holds the scheduler's YAML file, else from beside the repo); the same
 output tree outputs/{model}/{data}/{scheduler}/{task}/{wav,mel}_{input,recon,label},
 with files that exist skipped. Draws come from one seeded `torch.Generator`
 on the device, in place of `jax.random.key(0)`.
+
+`--mesh dp=2,tp=4` (JAX's spec) runs dp x tp ranks, one device each
+(`parallel/mesh.py`): this command spawns them (`parallel.launch`; with
+`--device cpu` gloo processes, on the card one GPU a rank under NCCL; a
+mesh of one rank runs in this process), each denoises its dp rows of the
+`num_waveforms_per_prompt` candidates, the ranks of a tp group the same
+rows, and rank 0 alone prints and writes the output tree. A rank that
+fails makes the command fail.
 
 `-t style_guidance` binds the pipeline's CLAP frame features to the style
 operator (`bind_style_guidance`); `-nw` above 1 samples that many
@@ -35,6 +43,7 @@ from .constants import (AUDIOLDM2, CLAP, CONFIG_PATH, DDIM, DIFFMUSIC, DITTO, DP
                         MUSIC_GENERATION, MUSIC_INPAINTING, MUSICCAPS, MUSICLDM, NULL_TEXT,
                         PHASE_RETRIEVAL, STABLE_AUDIO, STYLE_GUIDANCE, SUPER_RESOLUTION, TAG,
                         WAV_FORM)
+from .parallel.mesh import launch, leads, parse_mesh, seeded_generator
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -69,6 +78,10 @@ def parse_arguments(argv=None) -> Namespace:
                         help="override config num_inference_steps")
     parser.add_argument("-nw", "--num_waveforms_per_prompt", type=int, default=1,
                         help="candidates per prompt, re-ranked by CLAP when above 1")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="device mesh spec, e.g. 'dp=4' or 'dp=2,tp=4': one rank a "
+                             "device, the candidate batch sharded over dp (tp ranks "
+                             "replicate it)")
     parser.add_argument("-o", "--override", action="append", default=[],
                         help="dotted config override, repeatable: "
                              "-o model.pipe.audio_length_in_s=5 -o data.root=...")
@@ -180,6 +193,23 @@ def config_root(config_name: str) -> str:
 def main(argv=None) -> None:
     args = parse_arguments(argv)
     check_supported(args)
+    mesh = parse_mesh(args.mesh, args.device)
+    if mesh is None:
+        generate(args)
+    else:
+        launch(mesh, run_rank, args)
+
+
+def run_rank(mesh, args) -> None:
+    """One rank of a `--mesh` run (`parallel.launch`), on the rank's device."""
+    args.device = str(mesh.device)
+    generate(args, mesh)
+
+
+def generate(args, mesh=None) -> None:
+    """The run of `parse_arguments`' namespace, as this rank of `mesh` (or
+    alone): every rank samples, rank 0 alone prints and writes."""
+    lead = leads(mesh)
     from .config import compose
     from .data import get_dataloader, get_dataset, write_wav
     from .inverse_problem import get_noiser
@@ -197,8 +227,10 @@ def main(argv=None) -> None:
 
     output_dir = Path("outputs", config.model.name, config.data.name, args.config_name,
                       args.task)
-    for d in ["wav_input", "wav_recon", "wav_label", "mel_input", "mel_recon", "mel_label"]:
-        os.makedirs(Path(output_dir, d), exist_ok=True)
+    if lead:
+        for d in ["wav_input", "wav_recon", "wav_label", "mel_input", "mel_recon",
+                  "mel_label"]:
+            os.makedirs(Path(output_dir, d), exist_ok=True)
 
     device = torch.device(args.device)
     noiser = get_noiser(**config.inverse_problem.noise)
@@ -206,6 +238,7 @@ def main(argv=None) -> None:
     pipe = load_pipeline(args, config, operator)
     if args.task == STYLE_GUIDANCE:
         operator = bind_style_guidance(pipe, operator)
+    pipe.mesh = mesh
 
     # stable_audio.yaml keys the clip length as audio_end_in_s
     audio_length_in_s = config.model.pipe.get("audio_length_in_s",
@@ -225,20 +258,24 @@ def main(argv=None) -> None:
         start_s=config.data.start_s, end_s=config.data.end_s, transforms=None)
     loader = get_dataloader(dataset, batch_size=1, num_workers=0, train=False)
 
-    print("=" * 50)
-    print(f"| Model             : {config.model.name}")
-    print(f"| Data              : {config.data.name}")
-    print(f"| Task              : {args.task}")
-    print(f"| Scheduler         : {args.config_name}")
-    print(f"| Supervised Space  : {args.supervised_space}")
-    print(f"| Prompt Type       : {args.prompt_type}")
-    print(f"| Prompt            : '{args.prompt}'")
-    print(f"| Show Progress     : {args.show_progress}")
-    print(f"| Device            : {device}")
-    print(f"| Number of Samples : {len(loader)}")
-    print("=" * 50)
+    if lead:
+        print("=" * 50)
+        print(f"| Model             : {config.model.name}")
+        print(f"| Data              : {config.data.name}")
+        print(f"| Task              : {args.task}")
+        print(f"| Scheduler         : {args.config_name}")
+        print(f"| Supervised Space  : {args.supervised_space}")
+        print(f"| Prompt Type       : {args.prompt_type}")
+        print(f"| Prompt            : '{args.prompt}'")
+        print(f"| Show Progress     : {args.show_progress}")
+        print(f"| Device            : {device}")
+        if mesh is not None:
+            print(f"| Mesh              : {mesh.shape}")
+        print(f"| Number of Samples : {len(loader)}")
+        print("=" * 50)
 
-    generator = torch.Generator(device).manual_seed(0)
+    # seeded alike on every rank of a mesh: each draws the whole batch's values
+    generator = seeded_generator(0, device)
     mel_frames = int(audio_length_in_s * 100)
 
     def mel_of(wave):
@@ -246,20 +283,28 @@ def main(argv=None) -> None:
             return wav2mel(wave).cpu().numpy()[:, :, :mel_frames]
 
     for i, (data, file_name) in enumerate(loader, start=1):
-        print(f"=====> Inference for audio {i}")
         recon_path = Path(output_dir, "wav_recon", file_name)
-        if recon_path.exists():
-            print(f"File {file_name} already exists. Skipping.")
+        done = recon_path.exists()
+        if mesh is not None:
+            # rank 0's answer on every rank: a rank behind it could see the
+            # file it has written and skip the collectives of the others
+            done = mesh.agree(done)
+        if lead:
+            print(f"=====> Inference for audio {i}")
+            if done:
+                print(f"File {file_name} already exists. Skipping.")
+        if done:
             continue
 
         gt_wave = torch.as_tensor(data, device=device)
-        gt_mel = mel_of(gt_wave)
-        save_mel_spectrogram(gt_mel.transpose(0, 2, 1),
-                             Path(output_dir, "mel_label", file_name).with_suffix(".png"), sr)
         measurement = operator.forward(gt_wave, generator)
-        ref_wave = None
-        if args.task != PHASE_RETRIEVAL:
-            ref_wave = measurement
+        ref_wave = None if args.task == PHASE_RETRIEVAL else measurement
+        if lead:
+            gt_mel = mel_of(gt_wave)
+            save_mel_spectrogram(gt_mel.transpose(0, 2, 1),
+                                 Path(output_dir, "mel_label", file_name).with_suffix(".png"),
+                                 sr)
+        if lead and ref_wave is not None:
             # the ground truth's mel clamps the frequency axis, so that a
             # downsampled input renders on the ground truth's scale
             save_mel_spectrogram(mel_of(ref_wave).transpose(0, 2, 1),
@@ -285,6 +330,8 @@ def main(argv=None) -> None:
             supervised_space=args.supervised_space,
             **config.model.pipe,
         )
+        if not lead:
+            continue
         audio = np.asarray(out.audios)
         if config.model.pipe.num_waveforms_per_prompt > 1:
             # CLAP re-ranking: the best text match is written first

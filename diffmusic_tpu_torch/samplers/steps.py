@@ -15,6 +15,11 @@ respect to the initial latents). It takes its noise already drawn
 `torch.utils.checkpoint`, which restores the global RNG in the recompute but
 not a generator passed in, so a draw inside the step would differ between
 the forward and the recompute.
+
+Under a mesh's sharded batch (`parallel.mesh.sharded_batch`) a step holds
+this rank's rows of the batch: its draws are its rows of the whole batch's
+draw, and the norms and the slerp's sums of DSG and DiffMusic, which run
+over the whole batch tensor, are reduced over the dp ranks.
 """
 
 from dataclasses import dataclass
@@ -23,10 +28,16 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..inverse_problem.noise import randn
+from ..parallel import mesh as pmesh
 from .schedule import DiffusionSchedule
 
 LossFn = Callable[[torch.Tensor], torch.Tensor]  # pred_x0 latent -> scalar
+
+
+def randn(shape, generator: Optional[torch.Generator], dtype, device) -> torch.Tensor:
+    """A step's normal draw of the sample's shape (`parallel.mesh.batch_randn`:
+    this rank's rows of the whole batch's draw under a sharded batch)."""
+    return pmesh.batch_randn(shape, generator, dtype, device)
 
 
 @dataclass(frozen=True)
@@ -100,9 +111,9 @@ def slerp(x0: torch.Tensor, x1: torch.Tensor, gamma: float,
     lerp where the directions are near-(anti)parallel, chosen with
     `torch.where` over both results as the JAX package does, so that no value
     goes back to the host."""
-    n0 = torch.linalg.vector_norm(x0)
-    n1 = torch.linalg.vector_norm(x1)
-    cos_theta = ((x0 / n0) * (x1 / n1)).sum()
+    n0 = pmesh.batch_norm(x0)
+    n1 = pmesh.batch_norm(x1)
+    cos_theta = pmesh.batch_sum(((x0 / n0) * (x1 / n1)).sum())
     theta = torch.arccos(torch.clamp(cos_theta, -threshold, threshold))
     sin_theta = torch.sin(theta)
     w0 = torch.sin((1.0 - gamma) * theta) / sin_theta
@@ -142,12 +153,12 @@ def dsg_step(schedule: DiffusionSchedule, cfg: SamplerConfig,
     std = np.float32(cfg.eta) * var ** np.float32(0.5)
     scaled, grad, x0 = _loss_and_grad_of_sample(schedule, eps, t, sample, loss_fn, 1000.0)
     mean = _ddim_mean(a_prev, std, x0, eps.detach())
-    numel = sample.numel() / sample.shape[0] if sample.ndim > 3 else sample.numel()
+    numel = sample.numel() / sample.shape[0] if sample.ndim > 3 else pmesh.batch_numel(sample)
     r = float(np.sqrt(np.float32(numel)) * std)
-    d_star = -r * grad / (torch.linalg.vector_norm(grad) + cfg.eps)
+    d_star = -r * grad / (pmesh.batch_norm(grad) + cfg.eps)
     d_sample = float(std) * randn(sample.shape, generator, sample.dtype, sample.device)
     mix = d_sample + cfg.ip_guidance_rate * (d_star - d_sample)
-    prev = mean + r * mix / (torch.linalg.vector_norm(mix) + cfg.eps)
+    prev = mean + r * mix / (pmesh.batch_norm(mix) + cfg.eps)
     return prev, x0, scaled * 1000.0
 
 
@@ -162,8 +173,8 @@ def diffmusic_step(schedule: DiffusionSchedule, cfg: SamplerConfig,
     scaled, grad, x0 = _loss_and_grad_of_sample(schedule, eps, t, sample, loss_fn, 1000.0)
     mean = _ddim_mean(a_prev, std, x0, eps.detach())
     z = randn(sample.shape, generator, sample.dtype, sample.device)
-    normalized_grad = (grad / (torch.linalg.vector_norm(grad) + cfg.eps)
-                       * torch.linalg.vector_norm(z))
+    normalized_grad = (grad / (pmesh.batch_norm(grad) + cfg.eps)
+                       * pmesh.batch_norm(z))
     prev = mean + float(std) * slerp(z, -normalized_grad, cfg.ip_guidance_rate)
     return prev, x0, scaled * 1000.0
 

@@ -291,6 +291,7 @@ def test_eval_launches_the_mel_kernel_four_times_per_pair(tmp_path, monkeypatch,
 def test_eval_flags():
     args = teval.parse_arguments(["-gt", "a", "-r", "b"])
     assert (args.embedding, args.device, args.checkpoint_dir, args.fad_inf,
-            args.individual) == (["mfcc-stack"], "cuda", None, False, None)
+            args.individual, args.mesh) == (["mfcc-stack"], "cuda", None, False, None, None)
+    assert teval.parse_arguments(["-gt", "a", "-r", "b", "--mesh", "dp=8"]).mesh == "dp=8"
     with pytest.raises(SystemExit):
-        teval.parse_arguments(["-gt", "a", "-r", "b", "--mesh", "dp=8"])
+        teval.parse_arguments(["-gt", "a", "-r", "b", "--no-such-flag"])

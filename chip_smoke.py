@@ -13,7 +13,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      VAE decoder and vocoder; the vocoder's canvas conv, forward and adjoint,
      at every resblock conv of stages 0-2, the canvas pair at every pair,
      the stage backward at stage 2, the bounded-softmax block in both
-     modes), plus small fp32 cases with TF32 off, and the block in each mode
+     modes; flash attention also at the VAE mid-block's (1, 4000, 1, 512)
+     with its gradient; the adjoint routes: the conv2d kernel on the
+     cotangent at each routed VAE conv, the conv1d kernel's adjoint mode at
+     the vocoder's 6 single convs), plus small fp32 cases with TF32 off (among
+     them flash attention at (1, 1024, 1, 512) and (1, 512, 1, 32) and each
+     adjoint route), and the block in each mode
      at the tiny configs' 16 and 32 channels (padded to one 64-channel
      slice) in fp32 and bf16; the fused mel spectrogram
      in fp32 at the eval's MFCC geometry, the default geometry, an odd
@@ -42,19 +47,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      small fp32 MusicLDM with the guided step's routes on (`gn_mode`
      "stats", then "fused"; conv2d and mask kernels) and under each newer
      route (the vocoder's canvas "xbwd" and "kernel", its stage route, the
-     bounded softmax), through the whole DPS pipeline on the card (kernels)
-     and on the CPU (plain versions), which must agree;
+     bounded softmax, the VAE mid-block's flash attention, the vocoder's
+     adjoint kernel, the conv2d kernel in the backward), through the whole
+     DPS pipeline on the card (kernels) and on the CPU (plain versions),
+     which must agree;
   5. slice: full-width MusicLDM with seeded random bf16 weights, 20 DPS
      steps inpainting a 10-s clip (box mask at 4-6 s) through
      `MusicLDMPipeline.__call__`, with the launch counts of every kernel, on
      the default route and on each route setting (TURN_ROUTES), each once
      in each direction of TURNS (one card, one host: the turns keep the
-     host's drift out of the comparison); then `tracing.trace` around two
-     default-route steps, whose Chrome trace must hold each step's
-     "unet_forward" and "guided_step" ranges;
+     host's drift out of the comparison), the VAE mid-block's flash route
+     (`vae_mid_attn="flash"`) and the two adjoint routes (`conv2d_bwd=
+     "kernel"`, the vocoder's `adjoint_kernel`) once; then `tracing.trace`
+     around two default-route steps, whose Chrome trace must hold each
+     step's "unet_forward" and "guided_step" ranges;
   6. breakdown: each stage of one guided step timed alone at the slice's
      shapes, for the default route and each route setting (the vocoder
-     alone for its routes, the UNet alone for bsoft); with --profile also a
+     alone for its routes, the UNet alone for bsoft, the VAE alone for its
+     flash and conv2d adjoint routes); with --profile also a
      torch.profiler table of two guided steps and the device busy share,
      written to --out;
   7. audioldm2: full-width AudioLDM2 (cvssp/audioldm2-music widths) with
@@ -251,7 +261,16 @@ REPLACES = {
     "conv1d_pair_canvas": "diffmusic_tpu/pallas/conv1d_kernel.py:870",
     "stage_resblocks_canvas": "diffmusic_tpu/pallas/stage_bwd_kernel.py:261",
     "fused_mel_spectrogram": "diffmusic_tpu/pallas/mel_kernel.py:152",
+    # the same flash function at the VAE mid-block's head width (D = 512)
+    "flash_attention_d512": "diffmusic_tpu/pallas/attention_kernel.py:74",
+    # the conv2d kernel on the cotangent (DIFFMUSIC_TPU_CONV2D_BWD=pallas)
+    "conv2d_same_adjoint": "diffmusic_tpu/pallas/conv2d_kernel.py:190",
+    # the single conv on the cotangent with with_adjoint_weights' w_adj
+    "conv1d_fused_adjoint": "diffmusic_tpu/pallas/conv1d_kernel.py:224",
 }
+# the launch counters: every entry of the kernels line but the flash kernel's
+# head_dim-512 form, whose launches count under "flash_attention"
+COUNTERS = tuple(n for n in REPLACES if n != "flash_attention_d512")
 SOURCES = {
     "fused_transformer_block": "diffmusic_tpu_torch/kernels/csrc/transformer_block.cu",
     "conv1d_fused_pair": "diffmusic_tpu_torch/kernels/csrc/conv1d.cu",
@@ -269,6 +288,9 @@ SOURCES = {
     "conv1d_pair_canvas": "diffmusic_tpu_torch/kernels/csrc/conv1d.cu",
     "stage_resblocks_canvas": "diffmusic_tpu_torch/kernels/csrc/stage_bwd.cu",
     "fused_mel_spectrogram": "diffmusic_tpu_torch/kernels/csrc/mel.cu",
+    "flash_attention_d512": "diffmusic_tpu_torch/kernels/csrc/flash_attention.cu",
+    "conv2d_same_adjoint": "diffmusic_tpu_torch/kernels/csrc/conv2d.cu",
+    "conv1d_fused_adjoint": "diffmusic_tpu_torch/kernels/csrc/conv1d.cu",
 }
 # launches per guided step of the 10-s slices (UNet levels 0/1: 2 down + 3 up
 # blocks each; vocoder: 24 pairs, the 6 ch512 k=11 convs, upsamplers 0-2).
@@ -278,10 +300,12 @@ SOURCES = {
 # per vocoder forward and per backward (stages 0-2 on the canvas: "xbwd" runs
 # the 24 pairs and the 6 ch512 k=11 convs there with plain backwards,
 # "kernel" all 54 convs both ways, "stage" stage 2's 9 pairs inside the stage
-# route and its backward as one launch).
+# route and its backward as one launch; "adjoint", the default forward with
+# the 6 ch512 k=11 convs' adjoints on the kernel's adjoint mode).
 # (tests/test_torch_port_canvas.py derives these from the models on the CPU.)
 VOCODER_ROUTES = {"default": {}, "xbwd": {"canvas": "xbwd"}, "kernel": {"canvas": "kernel"},
-                  "stage": {"canvas": "xbwd", "stage_bwd": True}}
+                  "stage": {"canvas": "xbwd", "stage_bwd": True},
+                  "adjoint": {"adjoint_kernel": True}}
 VOCODER_LAUNCHES = {
     "default": ({"conv1d_fused_pair": 24, "conv1d_fused": 6, "phase_convtranspose": 3}, {}),
     "xbwd": ({"conv1d_pair_canvas": 24, "conv1d_fused_canvas": 6, "phase_convtranspose": 3}, {}),
@@ -289,6 +313,8 @@ VOCODER_LAUNCHES = {
                {"conv1d_fused_canvas": 54}),
     "stage": ({"conv1d_pair_canvas": 24, "conv1d_fused_canvas": 6, "phase_convtranspose": 3},
               {"stage_resblocks_canvas": 1}),
+    "adjoint": ({"conv1d_fused_pair": 24, "conv1d_fused": 6, "phase_convtranspose": 3},
+                {"conv1d_fused_adjoint": 6}),
 }
 VOCODER_PER_STEP = VOCODER_LAUNCHES["default"][0]
 # The guided step's routes (`gn_mode`, `conv2d_kernel`, `mask_kernel`):
@@ -306,6 +332,12 @@ ROUTE_LAUNCHES = {
     "vae": {"stats": {"channel_moments": 24, "conv2d_same": 24},
             "fused": {"fused_group_norm": 0, "conv2d_same": 24}},
 }
+# With `conv2d_bwd="kernel"` the VAE's backward launches the conv2d kernel's
+# adjoint once for each of its 24 routed convs, every guided step (the UNet
+# runs under no-grad); with `vae_mid_attn="flash"` each VAE decode launches
+# the flash kernel once, at (1, 4000, 1, 512).
+# (tests/test_torch_port_vae_mid_attn.py derives both from the model on the CPU.)
+VAE_ADJOINTS_PER_STEP = ROUTE_LAUNCHES["vae"]["stats"]["conv2d_same"]
 # mask launches per guided step (the vocoder backward): stages 0-2 meet
 # mask_ok; each of the 24 pairs masks dh and dx, each of the 6 single convs x
 MASKS_PER_STEP = {"leaky_mask": 30, "leaky_mask_add": 24}
@@ -539,6 +571,40 @@ def check_conv(name, shape, k, d, residual, dtype, gen, tol):
     return res
 
 
+def check_conv1d_adjoint(shape, k, d, dtype, gen, tol):
+    """The vocoder's adjoint_kernel route: conv1d_fused's input gradient with
+    the adjoint on the kernel's adjoint mode against the plain version's (by
+    norm: the leaky mask), and the adjoint launch alone against the plain
+    adjoint (`_adjoint`) on the same cotangent, whose error the result
+    carries, timed beside it and F.conv_transpose1d, the one library call."""
+    from diffmusic_tpu_torch.kernels import conv1d as K
+    dev = "cuda"
+    c = shape[-1]
+    x = randn(shape, gen, dev, dtype)
+    w = randn((k, c, c), gen, dev, dtype, 1.0 / math.sqrt(k * c))
+    b = randn((c,), gen, dev, dtype, 0.1)
+    g = randn(shape, gen, dev, dtype)
+    fwd, bwd = compare_with_grad(
+        lambda xx: K.conv1d_fused(xx, w, b, None, d, SLOPE, adjoint_kernel=True),
+        lambda xx: K.conv1d_plain(xx, w, b, d, SLOPE), x, g)
+    pad = (k - 1) * d // 2
+    w_ct = w.permute(2, 1, 0).contiguous()                  # (Cout, Cin, k)
+    kern = lambda gg: K._launch_fused(gg, w, None, None, d, None, adjoint=True)
+    plain = lambda gg: K._adjoint(gg, w, d)
+    library = lambda gg: F.conv_transpose1d(gg.transpose(1, 2), w_ct, padding=pad, dilation=d)
+    with torch.no_grad():
+        err = rel_err(kern(g), plain(g))
+        torch.cuda.synchronize()
+    size, rows = x.element_size(), shape[0] * shape[1]
+    res = result(err[0], timings(kern, plain, g, dtype, library),
+                 bound(size * (2 * rows * c + k * c * c), 2 * rows * k * c * c))
+    log(f"  conv1d_fused_adjoint     g{shape} k{k} d{d} {str(dtype)[6:]}: adjoint max|err| "
+        f"{err[0]:.3e} rel {err[1]:.2e}; {describe(fwd, bwd, tol)}; {describe_times(res)}")
+    if err[1] > tol or bwd[2] > tol:
+        raise AssertionError("conv1d_fused_adjoint disagrees with the plain adjoint")
+    return res
+
+
 def check_upsampler(cin, cout, k, s, t_in, dtype, gen, tol):
     """The upsampler with its leaky ReLU against the plain version (forward,
     gradient); times of the kernel alone (the wrapper applies the leaky ReLU
@@ -664,23 +730,32 @@ def sm_clock_mhz() -> tuple:
     return cur, top
 
 
-def check_flash(t, heads, dtype, gen, tol):
-    """Flash attention over (1, t, heads, 8) q, k, v of unit variance, beside
-    F.scaled_dot_product_attention on the same tensors (as (B, H, T, 8) views).
-    bf16 also prints the exponentials' floor: t^2 * heads exp2 at
-    EXP2_PER_CLOCK per clock per SM, at the SM clock nvidia-smi reads right
-    after the timing (and at the card's maximum); the bound is unchanged."""
+def check_flash(t, heads, dtype, gen, tol, d=8, grad=False):
+    """Flash attention over (1, t, heads, d) q, k, v of unit variance, beside
+    F.scaled_dot_product_attention on the same tensors (as (B, H, T, d)
+    views). With `grad` also the gradient with respect to q through the
+    kernel's backward (a plain recompute) against the plain attention's. bf16
+    also prints the exponentials' floor: t^2 * heads exp2 at EXP2_PER_CLOCK per
+    clock per SM, at the SM clock nvidia-smi reads right after the timing (and
+    at the card's maximum); the bound is unchanged."""
     from diffmusic_tpu_torch.kernels import attention as A
-    q, k, v = (randn((1, t, heads, 8), gen, "cuda", dtype) for _ in range(3))
+    q, k, v = (randn((1, t, heads, d), gen, "cuda", dtype) for _ in range(3))
     with torch.no_grad():
         out, ref = A.flash_attention(q, k, v), A.attention_plain(q, k, v)
         torch.cuda.synchronize()
         err = rel_err(out, ref)
+    gtxt = ""
+    if grad:
+        fwd, bwd = compare_with_grad(lambda qq: A.flash_attention(qq, k, v),
+                                     lambda qq: A.attention_plain(qq, k, v), q,
+                                     randn(q.shape, gen, "cuda", dtype))
+        err = max(err, fwd, key=lambda e: e[1])
+        gtxt = (f"; grad max|err| {bwd[0]:.3e} rel {bwd[1]:.2e} norm-rel {bwd[2]:.2e}")
     sdpa = lambda _: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                                     v.transpose(1, 2))
     times = timings(lambda _: A.flash_attention(q, k, v), lambda _: A.attention_plain(q, k, v),
                     None, dtype, sdpa)
-    res = result(err[0], times, bound(2 * 4 * t * heads * 8, 4 * t * t * heads * 8))
+    res = result(err[0], times, bound(2 * 4 * t * heads * d, 4 * t * t * heads * d))
     floor = ""
     if dtype == torch.bfloat16:
         exps = t * t * heads / (EXP2_PER_CLOCK * SMS)
@@ -688,9 +763,10 @@ def check_flash(t, heads, dtype, gen, tol):
         res["exp2_floor_ms"] = exps / (cur * 1e3)
         floor = (f"; exp2 floor {res['exp2_floor_ms']:.4f} ms at {cur:.0f} MHz "
                  f"({exps / (top * 1e3):.4f} at {top:.0f})")
-    log(f"  flash_attention          (1, {t}, {heads}, 8) {str(dtype)[6:]}: "
-        f"max|err| {err[0]:.3e} rel {err[1]:.2e} (tol {tol:.0e}); {describe_times(res)}{floor}")
-    if err[1] > tol:
+    log(f"  flash_attention          (1, {t}, {heads}, {d}) {str(dtype)[6:]}: "
+        f"max|err| {err[0]:.3e} rel {err[1]:.2e} (tol {tol:.0e}){gtxt}; "
+        f"{describe_times(res)}{floor}")
+    if err[1] > tol or (grad and bwd[2] > tol):
         raise AssertionError("flash_attention disagrees with its plain version")
     return res
 
@@ -783,6 +859,31 @@ def route_calls() -> dict:
     return calls
 
 
+def vae_conv2d_calls() -> Counter:
+    """(x shape, weight shape) -> calls per VAE decode of the 3x3 convs that
+    meet the conv2d rule: each one's adjoint runs once per guided step under
+    conv2d_bwd="kernel"."""
+    from diffmusic_tpu_torch.kernels.conv2d import conv2d_ok
+    return Counter((xs, ws) for xs, ws in slice_geometries()["vae"]["conv"]
+                   if conv2d_ok(torch.empty(xs, device="meta"), torch.empty(ws, device="meta")))
+
+
+def single_conv_calls() -> Counter:
+    """(T, C, k, dilation) -> calls per vocoder forward of `conv1d_fused` at
+    the slice (the resblock convs of 128-aligned stages whose pair misses
+    pair_ok in bf16: ch512 k=11), each one's adjoint once per guided step
+    under adjoint_kernel."""
+    from diffmusic_tpu_torch.kernels.conv1d import pair_ok
+    calls = Counter()
+    for (_, t, c), _, _ in mask_geometries():
+        for k, dils in zip(*RESBLOCKS):
+            if c % 128 == 0 and not pair_ok(k, c, c, torch.bfloat16):
+                for d in dils:
+                    calls[(t, c, k, d)] += 1     # convs1, dilated
+                    calls[(t, c, k, 1)] += 1     # convs2
+    return calls
+
+
 def check_group_norm(name, shape, eps, silu, dtype, gen, tol):
     """fused_group_norm (with its recompute backward) or channel_moments
     (with its VJP; and the whole stats GroupNorm around it) on an NCHW x of
@@ -865,6 +966,42 @@ def check_conv2d(xshape, wshape, dtype, gen, tol):
         f"{describe(fwd, bwd, tol)}; {describe_times(res)}")
     if fwd[1] > tol or bwd[2] > tol:
         raise AssertionError("conv2d_same disagrees with its plain version")
+    return res
+
+
+def check_conv2d_adjoint(xshape, wshape, dtype, gen, tol):
+    """The conv2d_bwd="kernel" route: the input gradient through the kernel on
+    the cotangent against the plain adjoint's, and the adjoint launch alone
+    (the cached flipped, channel-swapped weight) against the plain adjoint on
+    the same cotangent, whose error the result carries, timed beside it and
+    F.conv2d of the cached weight, the one library call."""
+    from diffmusic_tpu_torch.kernels import conv2d as C2
+    from diffmusic_tpu_torch.kernels import repack
+    dev = "cuda"
+    b, cin, h, w = xshape
+    cout, _, kh, kw = wshape
+    x = randn(xshape, gen, dev, dtype)
+    wt = randn(wshape, gen, dev, dtype, 1.0 / math.sqrt(kh * kw * cin))
+    bias = randn((cout,), gen, dev, dtype, 0.1)
+    g = randn((b, cout, h, w), gen, dev, dtype)
+    fwd, bwd = compare_with_grad(lambda xx: C2.conv2d_same(xx, wt, bias, "kernel"),
+                                 lambda xx: C2.conv2d_plain(xx, wt, bias), x, g)
+    wa, taps, zero = repack.cached(C2.ADJOINT, wt, C2.adjoint_operands)
+    kern = lambda gg: C2._launch(gg, wa, zero, taps, "conv2d_same_adjoint")
+    plain = lambda gg: F.conv2d(gg, C2.adjoint_weight(wt), padding=(kh // 2, kw // 2))
+    library = lambda gg: F.conv2d(gg, wa, padding=(kh // 2, kw // 2))
+    with torch.no_grad():
+        err = rel_err(kern(g), plain(g))
+        torch.cuda.synchronize()
+    size, m = x.element_size(), b * h * w
+    res = result(err[0], timings(kern, plain, g, dtype, library),
+                 bound(size * (m * cout + m * cin + cout * cin * kh * kw),
+                       2 * m * cout * cin * kh * kw))
+    log(f"  conv2d_same_adjoint      g({b}, {cout}, {h}, {w}) w{wshape} {str(dtype)[6:]}: "
+        f"adjoint max|err| {err[0]:.3e} rel {err[1]:.2e}; {describe(fwd, bwd, tol)}; "
+        f"{describe_times(res)}")
+    if err[1] > tol or bwd[2] > tol:
+        raise AssertionError("conv2d_same_adjoint disagrees with the plain adjoint")
     return res
 
 
@@ -1217,6 +1354,8 @@ def phase_kernels(gen) -> dict:
         floor += 5 * res["exp2_floor_ms"]
     log(f"  flash_attention per guided step (10 calls): {stats['flash_attention']['ms']:.3f} ms "
         f"vs SDPA {stats['flash_attention']['library_ms']:.3f}; exp2 floor {floor:.4f} ms")
+    # the VAE mid-block under vae_mid_attn="flash": one call per guided step
+    add("flash_attention_d512", check_flash(4000, 1, bf, gen, TOL_FLASH_BF16, d=512, grad=True))
     for name, shape, k, d, res in conv_cases(bf):
         add(name, check_conv(name, shape, k, d, res, bf, gen, TOL_CONV_BF16))
     for cin, cout, k, s, t_in in UPSAMPLERS:
@@ -1247,6 +1386,14 @@ def phase_kernels(gen) -> dict:
             f"leaky_relu_backward on the same g): {'; '.join(parts)}")
     for shape in sorted(calls["leaky_mask"]):
         adjoint_layout(shape, gen)
+    log("the adjoint routes, bf16 (the line sums each over one guided step of its route: "
+        "conv2d_bwd=\"kernel\" at the VAE's routed convs, adjoint_kernel at the vocoder's "
+        "single convs):")
+    for (xs, ws), n in sorted(vae_conv2d_calls().items()):
+        add("conv2d_same_adjoint", check_conv2d_adjoint(xs, ws, bf, gen, TOL_ROUTE_BF16), n)
+    for (t, c, k, d), n in sorted(single_conv_calls().items()):
+        add("conv1d_fused_adjoint", check_conv1d_adjoint((1, t, c), k, d, bf, gen,
+                                                         TOL_CONV_BF16), n)
 
     log("the vocoder's canvas routes and the bounded softmax, bf16 (the line sums each "
         "kernel over one guided step of its route: canvas=\"kernel\", \"xbwd\", stage_bwd, "
@@ -1275,6 +1422,11 @@ def phase_kernels(gen) -> dict:
     add("fused_transformer_block", check_block(600, 128, f32, gen, TOL_FP32))
     add("fused_transformer_block_cross", check_block(600, 128, f32, gen, TOL_FP32, cross=True))
     add("flash_attention", check_flash(600, 16, f32, gen, TOL_FP32))
+    for t, d in ((1024, 512), (512, 32)):
+        add("flash_attention_d512", check_flash(t, 1, f32, gen, TOL_FP32, d=d))
+    add("conv2d_same_adjoint", check_conv2d_adjoint((1, 128, 16, 32), (256, 128, 3, 3), f32,
+                                                    gen, TOL_FP32))
+    add("conv1d_fused_adjoint", check_conv1d_adjoint((2, 300, 128), 11, 5, f32, gen, TOL_FP32))
     add("conv1d_fused_pair", check_conv("conv1d_fused_pair", (2, 300, 128), 7, 3, False,
                                         f32, gen, TOL_FP32))
     add("conv1d_fused", check_conv("conv1d_fused", (2, 300, 128), 11, 5, True, f32, gen,
@@ -1367,29 +1519,35 @@ def build_audioldm2(unet_cfg, vae_cfg, voc_cfg, audio_s, device, weight_dtype, f
 
 
 # each turn's route flags: the guided step's GroupNorm routes ("stats",
-# "fused", with the conv2d and mask kernels), the vocoder's routes and the
-# bounded softmax
+# "fused", with the conv2d and mask kernels; "conv2d_bwd", "stats" with the
+# conv2d kernel in the backward too), the vocoder's routes, the bounded
+# softmax and the VAE mid-block's flash attention
 TURN_ROUTES = {"default": {},
                "stats": dict(gn_mode="stats", conv2d_kernel=True, mask_kernel=True),
                "fused": dict(gn_mode="fused", conv2d_kernel=True, mask_kernel=True),
                **{name: r for name, r in VOCODER_ROUTES.items() if name != "default"},
-               "bsoft": dict(bsoft=True)}
+               "bsoft": dict(bsoft=True),
+               "vae_flash": dict(vae_mid_attn="flash"),
+               "conv2d_bwd": dict(gn_mode="stats", conv2d_kernel=True, mask_kernel=True,
+                                  conv2d_bwd="kernel")}
 
 
 def with_routes(pipe, gn_mode="plain", conv2d_kernel=False, mask_kernel=False, bsoft=False,
-                canvas="off", stage_bwd=False, fuse_cross=False):
+                canvas="off", stage_bwd=False, fuse_cross=False, conv2d_bwd="plain",
+                vae_mid_attn="plain", adjoint_kernel=False):
     """The pipeline with its UNet, VAE and vocoder rebuilt with the given
     route flags, sharing the pipeline's weight tensors (no copy)."""
     from diffmusic_tpu_torch.models.hifigan import SpeechT5HifiGan
     from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
     from diffmusic_tpu_torch.models.vae import AutoencoderKL
-    routes = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel)
+    routes = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel, conv2d_bwd=conv2d_bwd)
     with torch.device("meta"):
         models = dict(unet=UNet2DConditionModel(pipe.unet_cfg, fuse_cross=fuse_cross,
                                                 bsoft=bsoft, **routes),
-                      vae=AutoencoderKL(pipe.vae_cfg, **routes),
+                      vae=AutoencoderKL(pipe.vae_cfg, vae_mid_attn=vae_mid_attn, **routes),
                       vocoder=SpeechT5HifiGan(pipe.vocoder_cfg, mask_kernel=mask_kernel,
-                                              canvas=canvas, stage_bwd=stage_bwd))
+                                              canvas=canvas, stage_bwd=stage_bwd,
+                                              adjoint_kernel=adjoint_kernel))
     for name, model in models.items():
         model.load_state_dict(getattr(pipe, name).state_dict(), assign=True)
     return dataclasses.replace(pipe, **models)
@@ -1411,7 +1569,7 @@ def expected_launches(blocks: str, gn_mode: str = "plain", vocoder: str = "defau
     step take, `gn_mode` "stats" or "fused" means the guided step's routes
     are on (conv2d and mask kernels too) and `vocoder` names the vocoder's
     route. Every other kernel must not launch."""
-    want = dict.fromkeys(REPLACES, 0)
+    want = dict.fromkeys(COUNTERS, 0)
     want[blocks] = 10 * STEPS
     # the vocoder's forward runs once more in the final decode, its backward not
     fwd, bwd = VOCODER_LAUNCHES[vocoder]
@@ -1550,16 +1708,22 @@ def phase_reference_routes():
 NEW_ROUTE_KERNELS = {"xbwd": ("conv1d_pair_canvas", "conv1d_fused_canvas"),
                      "kernel": ("conv1d_fused_canvas",),
                      "stage": ("stage_resblocks_canvas", "conv1d_pair_canvas"),
-                     "bsoft": ("fused_transformer_block_bsoft",)}
+                     "bsoft": ("fused_transformer_block_bsoft",),
+                     "vae_flash": ("flash_attention",),
+                     "adjoint": ("conv1d_fused_adjoint",)}
 
 
 def phase_reference_new_routes():
     """The small fp32 MusicLDM of `phase_reference` (HiFi-GAN at full width
     with resblocks (3, 7): stage 2 is ch128 at T 2560 on a canvas of 7
-    blocks, and meets the stage rule in fp32), 2 DPS steps with the waveform
-    loss, card against CPU, under each new route: the vocoder's canvas
-    "xbwd", "kernel", the stage route, and the bounded softmax."""
-    from diffmusic_tpu_torch.models.configs import UNetConfig
+    blocks, and meets the stage rule in fp32; its ch512 k=7 convs take
+    conv1d_fused in fp32), 2 DPS steps with the waveform loss, card against
+    CPU, under each new route: the vocoder's canvas "xbwd", "kernel", the
+    stage route, the bounded softmax, the VAE mid-block's flash attention
+    (the VAE's 64 channels at T 1024: head_dim 64) and the vocoder's adjoint
+    kernel; then the conv2d adjoint route on `phase_reference_routes`'
+    models, whose VAE has 128-channel levels."""
+    from diffmusic_tpu_torch.models.configs import UNetConfig, VAEConfig
     unet, vae_cfg, voc_cfg = reference_configs()
     lat = torch.randn((1, 8, 32, 32), generator=torch.Generator().manual_seed(8))
     for name, card_kernels in NEW_ROUTE_KERNELS.items():
@@ -1568,6 +1732,13 @@ def phase_reference_new_routes():
         compare_reference(f"MusicLDM, route {name} {TURN_ROUTES[name]}, fp32, small model, 2 "
                           f"DPS steps, wav_form loss", out, REF_LATENT_TOL["wav_form"],
                           card_kernels)
+    vae_cfg = VAEConfig(block_out_channels=(32, 128), layers_per_block=1, norm_num_groups=32)
+    lat = torch.randn((1, 8, 64, 32), generator=torch.Generator().manual_seed(7))
+    out = reference_runs((UNetConfig(**unet), vae_cfg, voc_cfg), ROUTES_REF_AUDIO_S, lat,
+                         **TURN_ROUTES["conv2d_bwd"])
+    compare_reference(f"MusicLDM, route conv2d_bwd {TURN_ROUTES['conv2d_bwd']}, fp32, small "
+                      f"model, 2 DPS steps, wav_form loss", out, REF_LATENT_TOL["wav_form"],
+                      ("conv2d_same", "conv2d_same_adjoint", "channel_moments"))
 
 
 def phase_reference_audioldm2():
@@ -1691,18 +1862,26 @@ def trace_two_steps(pipe, meas) -> None:
 
 
 # the slice's turns: each route once each way, so that the host's drift over
-# the call falls on every route alike
+# the call falls on every route alike; the VAE flash and the two adjoint
+# routes once, in the middle
 TURNS = ("default", "stats", "fused", "xbwd", "kernel", "stage", "bsoft",
+         "vae_flash", "conv2d_bwd", "adjoint",
          "bsoft", "stage", "kernel", "xbwd", "fused", "stats", "default")
 
 
 def turn_launches(name: str) -> dict:
     """The launches a turn of the slice must give."""
     flags = TURN_ROUTES[name]
-    return expected_launches("fused_transformer_block_bsoft" if flags.get("bsoft")
+    want = expected_launches("fused_transformer_block_bsoft" if flags.get("bsoft")
                              else "fused_transformer_block",
                              flags.get("gn_mode", "plain"),
                              name if name in VOCODER_ROUTES else "default")
+    if flags.get("vae_mid_attn") == "flash":
+        # the VAE mid-block: each guided step's decode and the final one
+        want["flash_attention"] += STEPS + 1
+    if flags.get("conv2d_bwd") == "kernel":
+        want["conv2d_same_adjoint"] += VAE_ADJOINTS_PER_STEP * STEPS
+    return want
 
 
 def phase_slice(profile_dir=None) -> tuple:
@@ -1732,20 +1911,28 @@ def phase_slice(profile_dir=None) -> tuple:
     first_kernel = TURNS.index("kernel")
     conv2d_weights = sum(ROUTE_LAUNCHES[m]["stats"]["conv2d_same"] for m in ROUTE_LAUNCHES)
     first_conv2d = next(i for i, n in enumerate(TURNS) if TURN_ROUTES[n].get("conv2d_kernel"))
+    # the conv2d adjoint route copies the VAE's 24 routed weights, flipped and
+    # channel-swapped, once; the vocoder's adjoint route reads maps of its 6
+    # single convs' weights that the first "kernel" turn made
+    first_conv2d_bwd = TURNS.index("conv2d_bwd")
     for turn, name in enumerate(TURNS):
         label = "slice" if name == "default" else f"slice route {name}"
         c, a, _ = drive(f"{label} (turn {turn + 1})", pipes[name], meas, turn_launches(name),
                      repacks={"conv2d_same": conv2d_weights if turn == first_conv2d else 0,
                               "phase_convtranspose": upsampler_weights if turn == 0 else 0,
                               "conv1d_pair": pair_weights if turn == 0 else 0,
-                              "conv1d_adjoint": adjoint_maps if turn == first_kernel else 0},
+                              "conv1d_adjoint": adjoint_maps if turn == first_kernel else 0,
+                              "conv2d_adjoint": (VAE_ADJOINTS_PER_STEP
+                                                 if turn == first_conv2d_bwd else 0)},
                      prompt_embeds=torch.zeros(2, 512))
         counts.setdefault(name, c)
         audio.setdefault(name, a)
     trace_two_steps(pipe, meas)
     for name, p in pipes.items():
         parts = (None if name in ("default", "stats", "fused") else
-                 ("unet fwd (no grad)",) if name == "bsoft" else ("vocoder fwd+bwd",))
+                 ("unet fwd (no grad)",) if name == "bsoft" else
+                 ("vae decode fwd+bwd",) if name in ("vae_flash", "conv2d_bwd") else
+                 ("vocoder fwd+bwd",))
         phase_breakdown(p, meas, LATENTS, torch.zeros(2, 512),
                         "slice" if name == "default" else f"slice_route_{name}",
                         profile_dir if name in ("default", "stats") else None, parts)
@@ -2086,7 +2273,7 @@ def ditto_launches(steps: int, outer: int, blocks: str = "fused_transformer_bloc
     kernels recompute with the plain versions and launch nothing), the loss
     head once per outer iteration (the vocoder's forward; its default
     backward launches nothing), and the final decode's vocoder once more."""
-    want = dict.fromkeys(REPLACES, 0)
+    want = dict.fromkeys(COUNTERS, 0)
     want[blocks] = 10 * 2 * steps * outer
     for n, k in VOCODER_PER_STEP.items():
         want[n] = k * (outer + 1)
@@ -2098,7 +2285,7 @@ def optim_prompt_launches(steps: int, blocks: str) -> dict:
     forward a step, one more (with autograd) and one more loss head at each
     embedding step, the final decode."""
     fires = prompt_fires(steps)
-    want = dict.fromkeys(REPLACES, 0)
+    want = dict.fromkeys(COUNTERS, 0)
     want[blocks] = 10 * (steps + fires)
     for n, k in VOCODER_PER_STEP.items():
         want[n] = k * (steps + fires + 1)
@@ -3558,7 +3745,7 @@ def phase_eval(restored: np.ndarray) -> dict:
             raise AssertionError(f"eval scores {scores}")
         if len(rows) != EVAL_PAIRS:
             raise AssertionError(f"the per-song CSV has {len(rows)} rows, expected {EVAL_PAIRS}")
-        want = dict.fromkeys(REPLACES, 0)
+        want = dict.fromkeys(COUNTERS, 0)
         want["fused_mel_spectrogram"] = eval_mel_launches(EVAL_PAIRS)
         check_launches("eval", counts, want)
         card_scores = compare_eval_card_cpu(root, ckpt)
@@ -4018,6 +4205,8 @@ def main() -> int:
         for name, dyn in (("conv2d_wgmma_kernel", lib.dm_conv2d_same_smem(1)),
                           ("nchw_to_nhwc_kernel", None),
                           ("flash_mma_kernel", lib.dm_flash_attention_smem(1, 16)),
+                          ("flash_wide_kernel", lib.dm_flash_attention_wide_smem(1, 512)),
+                          ("flash_wide_f32_kernel", lib.dm_flash_attention_wide_smem(0, 512)),
                           ("phase_ct_wgmma_kernel", lib.dm_phase_convtranspose_smem(1, -2, 1)),
                           ("conv1d_wgmma_kernelILb1E", lib.dm_conv1d_pair_smem(1, 512, 3, 1)),
                           ("conv1d_wgmma_kernelILb0E", lib.dm_conv1d_fused_smem(1, 11, 1)),
@@ -4066,8 +4255,12 @@ def main() -> int:
     counts["fused_group_norm"] = slice_counts["fused"]["fused_group_norm"]
     for name, route in (("conv1d_fused_canvas", "kernel"), ("conv1d_pair_canvas", "xbwd"),
                         ("stage_resblocks_canvas", "stage"),
-                        ("fused_transformer_block_bsoft", "bsoft")):
+                        ("fused_transformer_block_bsoft", "bsoft"),
+                        ("conv2d_same_adjoint", "conv2d_bwd"),
+                        ("conv1d_fused_adjoint", "adjoint")):
         counts[name] = slice_counts[route][name]
+    # the VAE mid-block's flash attention: MusicLDM's blocks take the block kernel
+    counts["flash_attention_d512"] = slice_counts["vae_flash"]["flash_attention"]
     counts["flash_attention"] = a2[False]["flash_attention"]
     counts["fused_transformer_block_cross"] = a2[True]["fused_transformer_block_cross"]
     counts["fused_mel_spectrogram"] = eval_counts["fused_mel_spectrogram"]

@@ -42,11 +42,18 @@ Layout as in the JAX package: activations (B, T, C), weights (k, Cin, Cout),
 versions beside them; on a CUDA tensor they launch the kernel or raise.
 Weights are frozen: the backward returns the activation cotangent only, as
 plain adjoint convolutions in the weight dtype followed by the leaky-ReLU
-masks (`_conv1d_bwd` and `_pair_bwd` of the JAX module). With `mask_kernel`
-(the JAX package's `DIFFMUSIC_TPU_MASK=pallas`) the masks of tensors that
-`mask.mask_ok` admits take the mask kernels of `kernels/mask.py`, which read
-each adjoint's output as the conv leaves it (the transposed view of a
-contiguous (B, C, T) tensor), with no copy to (B, T, C) first.
+masks (`_conv1d_bwd` and `_pair_bwd` of the JAX module). With
+`adjoint_kernel` (the JAX package's vocoder variables carrying
+`with_adjoint_weights`' kernels) `conv1d_fused`'s backward launches the
+kernel's adjoint mode on the cotangent instead, where JAX's condition holds
+(Cout and Cin multiples of 128), reading the weight through the adjoint's
+cached tensor map; those launches count under "conv1d_fused_adjoint". The
+pair's backward keeps its plain adjoints, as `_pair_bwd` does. With
+`mask_kernel` (the JAX package's `DIFFMUSIC_TPU_MASK=pallas`) the masks of
+tensors that `mask.mask_ok` admits take the mask kernels of
+`kernels/mask.py`, which read each adjoint's output as the conv leaves it
+(the transposed view of a contiguous (B, C, T) tensor), with no copy to (B,
+T, C) first.
 
 The canvas forms (`kernels/canvas.py`) take and return canvas tensors and
 leave exact zeros outside the signal. Their backwards copy the JAX ones:
@@ -71,9 +78,9 @@ from .upsampler import tap_major
 
 # launches of each kernel since the last reset (see kernels.launch_counts);
 # the canvas forms count apart, the adjoint launches of the canvas backward
-# with the forward ones
+# with the forward ones, those of `conv1d_fused`'s backward apart again
 LAUNCHES = {"conv1d_fused": 0, "conv1d_fused_pair": 0, "conv1d_fused_canvas": 0,
-            "conv1d_pair_canvas": 0}
+            "conv1d_pair_canvas": 0, "conv1d_fused_adjoint": 0}
 CANVAS_BWD = ("kernel", "plain")
 
 # the bf16 kernel's tile (csrc/conv1d.cu, namespace tc)
@@ -238,7 +245,8 @@ def fused_plan(name: str, shapes: tuple, strides: tuple, dtypes: tuple, devices:
 def _launch_fused(x, w, b, residual, dilation, slope, t=None, adjoint=False):
     """The conv kernel; `t` puts it on the canvas of a t-row signal, and
     `adjoint` reads w (k, Cout, Cin) as the flipped transposed kernel."""
-    name = "conv1d_fused" if t is None else "conv1d_fused_canvas"
+    name = ("conv1d_fused_canvas" if t is not None else
+            "conv1d_fused_adjoint" if adjoint else "conv1d_fused")
     ops = [x, w] + [a for a in (b, residual) if a is not None]
     code, k, cin, cout, sig0, sig1 = fused_plan(
         name, tuple(a.shape for a in ops), tuple(a.stride() for a in ops),
@@ -320,9 +328,10 @@ def pair_canvas_forward(xc, w1, b1, w2, b2, t: int, dilation: int, slope):
 
 class _Conv1dFused(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b, residual, dilation, slope, mask_kernel):
+    def forward(ctx, x, w, b, residual, dilation, slope, mask_kernel, adjoint_kernel):
         ctx.save_for_backward(x, w)
         ctx.dilation, ctx.slope, ctx.mask_kernel = dilation, slope, mask_kernel
+        ctx.adjoint_kernel = adjoint_kernel
         ctx.has_residual = residual is not None
         if use_plain(x, "conv1d_fused"):
             return conv1d_plain(x, w, b, dilation, slope, residual)
@@ -332,12 +341,18 @@ class _Conv1dFused(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         use_kernel = ctx.slope is not None and ctx.mask_kernel and mask_ok(x)
-        # the mask kernel reads the adjoint's output as the conv leaves it
-        dx = _adjoint(g, w, ctx.dilation, copy=not use_kernel)
+        if (ctx.adjoint_kernel and g.shape[-1] % 128 == 0 and w.shape[1] % 128 == 0
+                and not use_plain(g, "conv1d_fused")):
+            # `_conv1d_bwd` with w_adj: the forward kernel on the cotangent
+            dx = _launch_fused(g.to(w.dtype).contiguous(), w, None, None, ctx.dilation, None,
+                               adjoint=True)
+        else:
+            # the mask kernel reads the adjoint's output as the conv leaves it
+            dx = _adjoint(g, w, ctx.dilation, copy=not use_kernel)
         if ctx.slope is not None:
             dx = _leaky_mask(x, dx, ctx.slope, use_kernel)
         dres = g if ctx.has_residual else None
-        return dx.to(x.dtype), None, None, dres, None, None, None
+        return dx.to(x.dtype), None, None, dres, None, None, None, None
 
 
 class _Conv1dPair(torch.autograd.Function):
@@ -422,10 +437,11 @@ class _PairCanvas(torch.autograd.Function):
 
 
 def conv1d_fused(x, w, b, residual=None, dilation: int = 1, slope=None,
-                 mask_kernel: bool = False):
+                 mask_kernel: bool = False, adjoint_kernel: bool = False):
     """y = conv1d(leaky(x), w, dilation) + b [+ residual]; 'same', odd k.
-    `mask_kernel` routes the backward's leaky-ReLU mask to the mask kernel."""
-    return _Conv1dFused.apply(x, w, b, residual, dilation, slope, mask_kernel)
+    `mask_kernel` routes the backward's leaky-ReLU mask to the mask kernel,
+    `adjoint_kernel` its adjoint conv to the kernel's adjoint mode."""
+    return _Conv1dFused.apply(x, w, b, residual, dilation, slope, mask_kernel, adjoint_kernel)
 
 
 def conv1d_fused_pair(x, w1, b1, w2, b2, dilation: int, slope: float,

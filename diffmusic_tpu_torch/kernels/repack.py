@@ -5,11 +5,13 @@ The bf16 tensor-core kernels read their weights as a tap-major, K-major copy
 'same' conv2d (`conv2d.py`), the upsampler (`upsampler.py`) and the conv1d
 kernel's forward passes, single and pair (`conv1d.py`, which keeps each
 copy's TMA tensor map beside it). The conv1d adjoint reads the weight tensor
-as it lies and keeps only a tensor map over it ("conv1d_adjoint"). The
-modules keep their parameters in their own layouts; `cached(name, w, make)`
-makes `make(w)` once per (kernel, weight tensor) and keeps it until the
-tensor is written in place (its `_version` moves) or has died. `REPACKS`
-counts what was made per name (copies, or the adjoint's maps; not launches).
+as it lies and keeps only a tensor map over it ("conv1d_adjoint"); the
+conv2d adjoint keeps its flipped, channel-swapped weight with that weight's
+tap-major copy ("conv2d_adjoint"). The modules keep their parameters in
+their own layouts; `cached(name, w, make)` makes `make(w)` once per (kernel,
+weight tensor) and keeps it until the tensor is written in place (its
+`_version` moves) or has died. `REPACKS` counts what was made per name
+(copies, or the adjoint's maps; not launches).
 """
 
 import weakref
@@ -18,7 +20,7 @@ import torch
 
 # copies made since the last reset, per kernel
 REPACKS = {"conv2d_same": 0, "phase_convtranspose": 0, "conv1d_pair": 0,
-           "conv1d_adjoint": 0}
+           "conv1d_adjoint": 0, "conv2d_adjoint": 0}
 
 # (kernel, data_ptr, shape, stride, dtype, device) -> (weakref to the tensor,
 # _version, copy). The weakref keeps the entry honest: while the tensor lives,

@@ -630,7 +630,7 @@ def _make_hf_tokenizer(tok_dir, max_length: Optional[int] = 512):
 
 def _core_models(d: Path, device, weight_dtype, gn_mode: str = "plain",
                  conv2d_kernel: bool = False, bsoft: bool = False, fuse_cross: bool = False,
-                 **vocoder_routes):
+                 conv2d_bwd: str = "plain", vae_mid_attn: str = "plain", **vocoder_routes):
     """UNet, VAE and vocoder of a snapshot, with the route flags of
     `MusicLDMPipeline.random`."""
     from .hifigan import SpeechT5HifiGan
@@ -639,10 +639,10 @@ def _core_models(d: Path, device, weight_dtype, gn_mode: str = "plain",
     unet_cfg = unet_config_from_json(_cfg(d / "unet"))
     vae_cfg = vae_config_from_json(_cfg(d / "vae"))
     voc_cfg = hifigan_config_from_json(_cfg(d / "vocoder"))
-    gn = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel)
+    gn = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel, conv2d_bwd=conv2d_bwd)
     with torch.device("meta"):
         unet = UNet2DConditionModel(unet_cfg, bsoft=bsoft, fuse_cross=fuse_cross, **gn)
-        vae = AutoencoderKL(vae_cfg, **gn)
+        vae = AutoencoderKL(vae_cfg, vae_mid_attn=vae_mid_attn, **gn)
         vocoder = SpeechT5HifiGan(voc_cfg, **vocoder_routes)
     return (_build(unet, convert_unet(_load_module_sd(d / "unet"), unet_cfg), unet_cfg,
                    device, weight_dtype),

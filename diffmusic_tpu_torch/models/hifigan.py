@@ -17,7 +17,11 @@ a TPU:
 `mask_kernel` (the JAX package's `DIFFMUSIC_TPU_MASK=pallas`, off by default
 there too) routes the leaky-ReLU masks in the resblock kernels' backward to
 the mask kernels where `mask_ok` holds (ch >= 128 with a long enough T: the
-10-s slice's stages 0-2).
+10-s slice's stages 0-2). `adjoint_kernel` (the JAX package's
+`with_adjoint_weights`, off by default there too) runs the backward's adjoint
+conv of each `conv1d_fused` call with 128-aligned channels (in bf16 the
+ch512 k=11 convs) as the kernel's adjoint mode; the pairs keep their plain
+adjoints.
 
 Two more routes, off by default as in the JAX package, put whole resblock
 stages on the canvas (`kernels/canvas.py`: pad once, slice once), checked in
@@ -70,11 +74,11 @@ class ResidualBlock(nn.Module):
     """HifiGanResidualBlock: (lrelu -> dilated conv -> lrelu -> conv) + skip, xN."""
 
     def __init__(self, channels: int, kernel_size: int, dilations, slope: float,
-                 mask_kernel: bool = False):
+                 mask_kernel: bool = False, adjoint_kernel: bool = False):
         super().__init__()
         self.channels, self.kernel_size = channels, kernel_size
         self.dilations, self.slope = tuple(dilations), slope
-        self.mask_kernel = mask_kernel
+        self.mask_kernel, self.adjoint_kernel = mask_kernel, adjoint_kernel
         for i in range(len(self.dilations)):
             setattr(self, f"convs1_{i}", Conv1dParams(kernel_size, channels, channels))
             setattr(self, f"convs2_{i}", Conv1dParams(kernel_size, channels, channels))
@@ -102,8 +106,9 @@ class ResidualBlock(nn.Module):
             elif pair_ok(k, c, c, x.dtype):
                 x = conv1d_fused_pair(x, c1.weight, c1.bias, c2.weight, c2.bias, d, s, mk)
             elif c % 128 == 0:
-                h = conv1d_fused(x, c1.weight, c1.bias, None, d, s, mk)
-                x = conv1d_fused(h, c2.weight, c2.bias, x, 1, s, mk)
+                ak = self.adjoint_kernel
+                h = conv1d_fused(x, c1.weight, c1.bias, None, d, s, mk, ak)
+                x = conv1d_fused(h, c2.weight, c2.bias, x, 1, s, mk, ak)
             else:
                 h = conv1d_plain(x, c1.weight, c1.bias, d, s)
                 x = conv1d_plain(h, c2.weight, c2.bias, 1, s, residual=x)
@@ -112,7 +117,7 @@ class ResidualBlock(nn.Module):
 
 class SpeechT5HifiGan(nn.Module):
     def __init__(self, cfg: HiFiGANConfig, mask_kernel: bool = False, canvas: str = "off",
-                 stage_bwd: bool = False):
+                 stage_bwd: bool = False, adjoint_kernel: bool = False):
         super().__init__()
         if canvas not in CANVAS_MODES:
             raise ValueError(f"canvas must be one of {CANVAS_MODES}, not {canvas!r}")
@@ -127,7 +132,8 @@ class SpeechT5HifiGan(nn.Module):
             for j, (rk, dil) in enumerate(zip(cfg.resblock_kernel_sizes,
                                               cfg.resblock_dilation_sizes)):
                 setattr(self, f"resblocks_{i * len(cfg.resblock_kernel_sizes) + j}",
-                        ResidualBlock(ch, rk, dil, cfg.leaky_relu_slope, mask_kernel))
+                        ResidualBlock(ch, rk, dil, cfg.leaky_relu_slope, mask_kernel,
+                                      adjoint_kernel))
         self.conv_post = Conv1dParams(7, uic // 2 ** len(cfg.upsample_rates), 1)
         if cfg.normalize_before:
             # the input mel's per-bin statistics, applied as (x - mean) / scale

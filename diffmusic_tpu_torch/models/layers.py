@@ -15,7 +15,9 @@ gates (read from the constructor, never from the environment):
     normalise in plain PyTorch;
   - `conv2d_kernel` (`DIFFMUSIC_TPU_CONV2D=pallas`): `Conv2dSame` runs
     `conv2d_ok` geometries (odd k > 1, W <= 64, 512 % W == 0, H*W >= 512,
-    128-aligned channels) as the conv2d kernel.
+    128-aligned channels) as the conv2d kernel; with it, `conv2d_bwd`
+    ("plain" | "kernel", `DIFFMUSIC_TPU_CONV2D_BWD=xla|pallas`) runs the
+    backward's adjoint conv as the kernel too where `conv2d_ok` holds for it.
 The port never swaps the VAE's spatial axes (`spatial_swap` is not ported),
 so its routes are the JAX package's under `DIFFMUSIC_TPU_VAE_SWAP=0`: the VAE
 decoder's convs at W = 16/32/64 are eligible, and the conv2d kernel runs
@@ -27,7 +29,8 @@ routes:
   - `bsoft` (`DIFFMUSIC_TPU_BSOFT=1`) runs both fused modes with the bounded
     softmax (`kernels/transformer_block.py`); flash attention is untouched;
   - otherwise plain, where `attn1` with T == Tk >= 512 and no mask takes the
-    flash attention kernel (`kernels/attention.py`).
+    flash attention kernel (`kernels/attention.py`), whose backward's form
+    `Attention`'s `flash_bwd` picks ("f32" | "bf16").
 """
 
 import math
@@ -38,7 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.attention import flash_attention
-from ..kernels.conv2d import conv2d_ok, conv2d_same
+from ..kernels.conv2d import CONV2D_BWD, conv2d_ok, conv2d_same
 from ..kernels.group_norm import (GN_MODES, fused_gn_ok, fused_group_norm, group_norm_plain,
                                   stats_group_norm)
 from ..kernels.transformer_block import fused_transformer_block
@@ -87,20 +90,25 @@ class GroupNorm(nn.Module):
 class Conv2dSame(nn.Conv2d):
     """`nn.Conv2d(cin, cout, k, padding=k // 2)` (the JAX package's
     `Conv2DSame`, same parameter names), with the conv2d kernel's route when
-    `conv2d_kernel` is on and `conv2d_ok` holds."""
+    `conv2d_kernel` is on and `conv2d_ok` holds; `conv2d_bwd` is that
+    route's backward ("plain" or "kernel", `kernels/conv2d.py`)."""
 
-    def __init__(self, cin: int, cout: int, k: int = 3, conv2d_kernel: bool = False):
+    def __init__(self, cin: int, cout: int, k: int = 3, conv2d_kernel: bool = False,
+                 conv2d_bwd: str = "plain"):
         super().__init__(cin, cout, k, padding=k // 2)
-        self.conv2d_kernel = conv2d_kernel
+        if conv2d_bwd not in CONV2D_BWD:
+            raise ValueError(f"conv2d_bwd must be one of {CONV2D_BWD}, not {conv2d_bwd!r}")
+        self.conv2d_kernel, self.conv2d_bwd = conv2d_kernel, conv2d_bwd
 
     def forward(self, x):
         if self.conv2d_kernel and conv2d_ok(x, self.weight):
-            return conv2d_same(x, self.weight, self.bias)
+            return conv2d_same(x, self.weight, self.bias, self.conv2d_bwd)
         return super().forward(x)
 
 
-def conv3x3(cin: int, cout: int, conv2d_kernel: bool = False) -> Conv2dSame:
-    return Conv2dSame(cin, cout, 3, conv2d_kernel)
+def conv3x3(cin: int, cout: int, conv2d_kernel: bool = False,
+            conv2d_bwd: str = "plain") -> Conv2dSame:
+    return Conv2dSame(cin, cout, 3, conv2d_kernel, conv2d_bwd)
 
 
 class Dense(nn.Module):
@@ -136,13 +144,13 @@ class ResnetBlock2D(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, groups: int = 32,
                  eps: float = 1e-5, temb_dim: Optional[int] = None, gn_mode: str = "plain",
-                 conv2d_kernel: bool = False):
+                 conv2d_kernel: bool = False, conv2d_bwd: str = "plain"):
         super().__init__()
         self.norm1 = GroupNorm(groups, in_channels, eps, use_silu=True, gn_mode=gn_mode)
-        self.conv1 = conv3x3(in_channels, out_channels, conv2d_kernel)
+        self.conv1 = conv3x3(in_channels, out_channels, conv2d_kernel, conv2d_bwd)
         self.time_emb_proj = Dense(temb_dim, out_channels) if temb_dim else None
         self.norm2 = GroupNorm(groups, out_channels, eps, use_silu=True, gn_mode=gn_mode)
-        self.conv2 = conv3x3(out_channels, out_channels, conv2d_kernel)
+        self.conv2 = conv3x3(out_channels, out_channels, conv2d_kernel, conv2d_bwd)
         self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
@@ -178,13 +186,16 @@ class Attention(nn.Module):
 
     kernel "auto" routes long unmasked self-attention (T == Tk >= 512) to the
     flash kernel, as the JAX package does; "plain" keeps it plain PyTorch (the
-    VAE mid-block, which the JAX package pins to plain XLA)."""
+    VAE mid-block by default, as the JAX package's default routes it to plain
+    XLA). `flash_bwd` is the flash kernel's backward form ("f32" or "bf16")."""
 
     def __init__(self, dim: int, heads: int, head_dim: int,
-                 context_dim: Optional[int] = None, kernel: str = "auto"):
+                 context_dim: Optional[int] = None, kernel: str = "auto",
+                 flash_bwd: str = "f32"):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.head_dim, self.kernel = heads, head_dim, kernel
+        self.flash_bwd = flash_bwd
         self.to_q = Dense(dim, inner, bias=False)
         self.to_k = Dense(context_dim or dim, inner, bias=False)
         self.to_v = Dense(context_dim or dim, inner, bias=False)
@@ -198,7 +209,7 @@ class Attention(nn.Module):
         k = self.to_k(context).reshape(b, tk, self.heads, self.head_dim)
         v = self.to_v(context).reshape(b, tk, self.heads, self.head_dim)
         if self.kernel == "auto" and mask is None and tq == tk and tq >= 512:
-            o = flash_attention(q, k, v)
+            o = flash_attention(q, k, v, self.flash_bwd)
         else:
             o = dot_product_attention(q, k, v, None if mask is None else mask_bias(mask))
         return self.to_out(o.reshape(b, tq, -1))
@@ -320,9 +331,9 @@ def _nearest_index(size: int, target: int, device) -> torch.Tensor:
 class Upsample2D(nn.Module):
     """Nearest upsampling to `out_hw` (default 2x), then a 3x3 conv."""
 
-    def __init__(self, channels: int, conv2d_kernel: bool = False):
+    def __init__(self, channels: int, conv2d_kernel: bool = False, conv2d_bwd: str = "plain"):
         super().__init__()
-        self.conv = conv3x3(channels, channels, conv2d_kernel)
+        self.conv = conv3x3(channels, channels, conv2d_kernel, conv2d_bwd)
 
     def forward(self, x, out_hw: Optional[Tuple[int, int]] = None):
         h, w = x.shape[2:]

@@ -6,8 +6,9 @@ API boundary. Both model families:
     cross-attention streams, the GPT-2 generated states and the T5 sequence
     (with its attention mask). `fuse_cross` routes the long dual-cross blocks
     to the fused block kernel (the JAX package's DIFFMUSIC_TPU_FUSED_CROSS).
-`gn_mode` and `conv2d_kernel` route the GroupNorms and the 3x3 'same' convs,
-and `bsoft` bounds the fused blocks' softmax (`models/layers.py`), off by
+`gn_mode` and `conv2d_kernel` route the GroupNorms and the 3x3 'same' convs
+(`conv2d_bwd` the convs' backward, which DITTO and optim_prompt run), and
+`bsoft` bounds the fused blocks' softmax (`models/layers.py`), off by
 default as in the JAX package.
 """
 
@@ -70,8 +71,8 @@ class UpBlock(nn.Module):
                 setattr(self, f"attn_{i}",
                         _transformer(cfg, out_ch, attn, routes["gn_mode"]))
         self.attention = attention
-        self.upsample = (Upsample2D(out_ch, routes["conv2d_kernel"]) if add_upsample
-                         else None)
+        self.upsample = (Upsample2D(out_ch, routes["conv2d_kernel"], routes["conv2d_bwd"])
+                         if add_upsample else None)
 
     def forward(self, x, skips, temb, contexts, context_masks):
         for i in range(self.layers):
@@ -105,9 +106,9 @@ class UNet2DConditionModel(nn.Module):
     `encoder_attention_mask_1` (B, L) its mask."""
 
     def __init__(self, cfg: UNetConfig, fuse_cross: bool = False, gn_mode: str = "plain",
-                 conv2d_kernel: bool = False, bsoft: bool = False):
+                 conv2d_kernel: bool = False, bsoft: bool = False, conv2d_bwd: str = "plain"):
         super().__init__()
-        routes = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel)
+        routes = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel, conv2d_bwd=conv2d_bwd)
         attn = dict(fuse_cross=fuse_cross, bsoft=bsoft)
         if len(cfg.cross_attention_dims) > 2:
             raise ValueError("the UNet takes at most two cross-attention streams")
@@ -123,7 +124,7 @@ class UNet2DConditionModel(nn.Module):
             self.class_embedding = Dense(cfg.projection_class_embeddings_input_dim, ted)
             if cfg.class_embeddings_concat:
                 temb_dim = 2 * ted
-        self.conv_in = conv3x3(cfg.in_channels, boc[0], conv2d_kernel)
+        self.conv_in = conv3x3(cfg.in_channels, boc[0], conv2d_kernel, conv2d_bwd)
 
         skip_chs = [boc[0]]
         ch = boc[0]
@@ -145,7 +146,7 @@ class UNet2DConditionModel(nn.Module):
             ch = out_ch
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch, 1e-5, use_silu=True,
                                        gn_mode=gn_mode)
-        self.conv_out = conv3x3(ch, cfg.out_channels, conv2d_kernel)
+        self.conv_out = conv3x3(ch, cfg.out_channels, conv2d_kernel, conv2d_bwd)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None,

@@ -69,22 +69,24 @@ class AudioLDM2Pipeline(MusicLDMPipeline):
                proj_cfg: ProjectionConfig = ProjectionConfig(), fuse_cross: bool = False,
                gn_mode: str = "plain", conv2d_kernel: bool = False, mask_kernel: bool = False,
                bsoft: bool = False, canvas: str = "off", stage_bwd: bool = False,
-               vits_cfg: Optional[VitsConfig] = None, **kwargs):
+               conv2d_bwd: str = "plain", vae_mid_attn: str = "plain",
+               adjoint_kernel: bool = False, vits_cfg: Optional[VitsConfig] = None, **kwargs):
         """Seeded flax-style random weights for all seven models, cast to
         `weight_dtype` on `device` (the card unless the caller asks for the
         CPU), with the byte tokenizer for both text encoders unless
         `tokenizer` / `t5_tokenizer` are given. With `vits_cfg` the second
         text encoder is the TTS variant's VITS in T5's place. `fuse_cross`
         routes the UNet's long dual-cross blocks to the fused block kernel;
-        `gn_mode`, `conv2d_kernel`, `mask_kernel`, `bsoft`, `canvas` and
-        `stage_bwd` are `MusicLDMPipeline.random`'s route flags."""
-        routes = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel)
+        `gn_mode`, `conv2d_kernel`, `conv2d_bwd`, `mask_kernel`, `bsoft`,
+        `canvas`, `stage_bwd`, `vae_mid_attn` and `adjoint_kernel` are
+        `MusicLDMPipeline.random`'s route flags."""
+        routes = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel, conv2d_bwd=conv2d_bwd)
         second = VitsTextEncoder(vits_cfg) if vits_cfg is not None else T5EncoderModel(t5_cfg)
         models = cls._random_models(
             [UNet2DConditionModel(unet_cfg, fuse_cross=fuse_cross, bsoft=bsoft, **routes),
-             AutoencoderKL(vae_cfg, **routes),
+             AutoencoderKL(vae_cfg, vae_mid_attn=vae_mid_attn, **routes),
              SpeechT5HifiGan(vocoder_cfg, mask_kernel=mask_kernel, canvas=canvas,
-                             stage_bwd=stage_bwd),
+                             stage_bwd=stage_bwd, adjoint_kernel=adjoint_kernel),
              ClapTextModelWithProjection(text_cfg),
              second, GPT2Model(gpt2_cfg), AudioLDM2ProjectionModel(proj_cfg)],
             seed, device, weight_dtype)

@@ -115,20 +115,24 @@ class MusicLDMPipeline:
                seed: int = 0, device="cuda", weight_dtype=torch.float32,
                gn_mode: str = "plain", conv2d_kernel: bool = False,
                mask_kernel: bool = False, bsoft: bool = False, canvas: str = "off",
-               stage_bwd: bool = False, **kwargs):
+               stage_bwd: bool = False, conv2d_bwd: str = "plain", vae_mid_attn: str = "plain",
+               adjoint_kernel: bool = False, **kwargs):
         """Seeded flax-style random weights (no checkpoint needed), cast to
         `weight_dtype` on `device` (the card unless the caller asks for the
         CPU). The route flags pick the guided step's kernel routes, all off
         by default: `gn_mode` ("plain", "fused" or "stats") for the UNet and
-        VAE GroupNorms, `conv2d_kernel` for their 3x3 convs, `bsoft` for the
-        UNet's fused blocks, and for the vocoder `mask_kernel` (the backward's
-        leaky-ReLU masks), `canvas` ("off", "xbwd" or "kernel") and
-        `stage_bwd` (`models/hifigan.py`)."""
-        routes = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel)
+        VAE GroupNorms, `conv2d_kernel` for their 3x3 convs and `conv2d_bwd`
+        ("plain" or "kernel") for those convs' backward, `bsoft` for the
+        UNet's fused blocks, `vae_mid_attn` ("plain" or "flash") for the VAE's
+        mid-block attention, and for the vocoder `mask_kernel` (the backward's
+        leaky-ReLU masks), `canvas` ("off", "xbwd" or "kernel"), `stage_bwd`
+        and `adjoint_kernel` (the single convs' adjoint, `models/hifigan.py`)."""
+        routes = dict(gn_mode=gn_mode, conv2d_kernel=conv2d_kernel, conv2d_bwd=conv2d_bwd)
         vocoder = SpeechT5HifiGan(vocoder_cfg, mask_kernel=mask_kernel, canvas=canvas,
-                                  stage_bwd=stage_bwd)
+                                  stage_bwd=stage_bwd, adjoint_kernel=adjoint_kernel)
         return cls(*cls._random_models([UNet2DConditionModel(unet_cfg, bsoft=bsoft, **routes),
-                                        AutoencoderKL(vae_cfg, **routes), vocoder],
+                                        AutoencoderKL(vae_cfg, vae_mid_attn=vae_mid_attn,
+                                                      **routes), vocoder],
                                        seed, device, weight_dtype), **kwargs)
 
     # ------------------------------------------------------------------ text

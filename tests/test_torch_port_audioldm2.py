@@ -45,6 +45,7 @@ from diffmusic_tpu_torch.models.t5 import T5EncoderModel
 from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
 from diffmusic_tpu_torch.models.vae import AutoencoderKL
 from diffmusic_tpu_torch.pipelines import AudioLDM2Pipeline, MusicLDMPipeline
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 AUDIO_S = 0.32
 STEPS = 3
@@ -131,7 +132,7 @@ def test_audioldm2_dps_matches_jax(rng, pipelines, monkeypatch, prompt):
                       callback=lambda i, t_, x: jlat.__setitem__(i, np.asarray(x)), **kw)
     flash = tlayers.flash_attention
     monkeypatch.setattr(tlayers, "flash_attention",
-                        lambda q, k, v: rows.append(q.shape[0]) or flash(q, k, v))
+                        lambda q, k, v, *bwd: rows.append(q.shape[0]) or flash(q, k, v, *bwd))
     kernels.reset_launch_counts()
     tout, tlosses = t(measurement=torch.from_numpy(measurement),
                       latents=torch.from_numpy(latents),

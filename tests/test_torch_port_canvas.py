@@ -41,6 +41,7 @@ from diffmusic_tpu_torch.kernels import upsampler as tup
 from diffmusic_tpu_torch.models import configs as tcfg
 from diffmusic_tpu_torch.models import hifigan as thifigan
 from diffmusic_tpu_torch.models.convert import from_flax
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 SLOPE = 0.1
 C = 128

@@ -48,20 +48,10 @@ from diffmusic_tpu_torch.data import dataloader as tdata
 from diffmusic_tpu_torch.data import write_wav
 from diffmusic_tpu_torch.inverse_problem import get_noiser
 from diffmusic_tpu_torch.pipelines import base
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIGS = sorted((REPO / "configs").rglob("*.yaml"))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for the in-process tiny CLI runs: under the test
-    run's parallel workers torch's default thread pool oversubscribes the
-    cores (a run took ~45 s there against ~1 s alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: str(p.relative_to(REPO / "configs")))

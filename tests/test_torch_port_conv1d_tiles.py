@@ -58,6 +58,7 @@ from diffmusic_tpu_torch.kernels import conv1d as tconv
 from diffmusic_tpu_torch.models import configs as tcfg
 from diffmusic_tpu_torch.models import hifigan as thifigan
 from test_torch_port_conv2d_tiles import box   # a TMA tile load, zeros outside
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 SLOPE = 0.1
 TOL = 2e-2   # chip_smoke.TOL_CONV_BF16

@@ -33,6 +33,7 @@ from diffmusic_tpu_torch.models import layers as tlayers
 from diffmusic_tpu_torch.models.convert import from_flax
 from diffmusic_tpu_torch.models.layers import BasicTransformerBlock
 from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 HEADS, T, CROSS = 2, 520, (24, 40)
 

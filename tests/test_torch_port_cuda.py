@@ -8,8 +8,9 @@ that has none; `tests/conftest.py` imports jax, so run it there with
 
 TF32 is off for the fp32 cases. Tolerances, as a fraction of max |plain|:
 fp32 1e-4 (another summation order than cuDNN/cuBLAS); bf16 2e-2 for the
-convs, the flash attention and the guided step's route kernels (GroupNorm,
-moments, conv2d, masks, the canvas convs and the stage backward) and 3e-2
+convs and their adjoint routes, the flash attention (at head_dim 8 and
+32-512) and the guided step's route kernels (GroupNorm, moments, conv2d,
+masks, the canvas convs and the stage backward) and 3e-2
 for the transformer block (one bf16 rounding of an intermediate moves a
 product by about 2^-8 relative). bf16 gradients of the vocoder kernels are
 held by norm (a leaky-ReLU mask flips where an activation rounds across
@@ -140,7 +141,8 @@ def test_conv_kernels_on_card(cuda, gen, dtype, tol):
                                        "leaky_mask": 0, "leaky_mask_add": 0,
                                        "conv1d_fused_canvas": 0, "conv1d_pair_canvas": 0,
                                        "stage_resblocks_canvas": 0,
-                                       "fused_mel_spectrogram": 0}
+                                       "fused_mel_spectrogram": 0, "conv2d_same_adjoint": 0,
+                                       "conv1d_fused_adjoint": 0}
 
 
 def block_params(gen, c, dtype, cross_dims=()):
@@ -231,9 +233,33 @@ def test_flash_attention_kernel_on_card(cuda, gen, dtype, tol, t, heads):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(1, 4000, 1, 512), (2, 333, 1, 128), (1, 512, 1, 32),
+                                   (1, 300, 2, 96)], ids=str)
+def test_flash_attention_wide_kernel_on_card(cuda, gen, dtype, tol, shape):
+    """Head_dim 32-512: bf16 runs the tensor-core kernel (128-row tiles, a
+    block per 128-column slice; 333 and 300 end in a ragged tile and key
+    chunk, D 96 in a 96-column slice), fp32 the scalar kernel; the input
+    gradients of both backward forms against the plain attention's."""
+    q, k, v, g = (arr(gen, *shape, dtype=dtype) for _ in range(4))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = tattn.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    assert rel(out, tattn.attention_plain(q, k, v)) <= tol
+    qq = q.clone().requires_grad_(True)
+    (dq0,) = torch.autograd.grad(tattn.attention_plain(qq, k, v), qq, g)
+    for bwd in tattn.FLASH_BWD:
+        (dq,) = torch.autograd.grad(tattn.flash_attention(qq, k, v, bwd), qq, g)
+        assert norm_rel(dq, dq0) <= tol, bwd
+
+
+@pytest.mark.cuda
 def test_new_wrappers_raise_for_head_dim_16(cuda, gen):
-    """The kernels take head_dim 8 only; a CUDA tensor of another head_dim
-    raises rather than falling back to the plain version."""
+    """The block takes head_dim 8 only, the flash kernel 8 or 32-512 in steps
+    of 32; a CUDA tensor of another head_dim raises rather than falling back
+    to the plain version."""
     q = arr(gen, 1, 600, 4, 16)
     with pytest.raises(ValueError, match="head_dim 8"):
         tattn.flash_attention(q, q, q)
@@ -373,6 +399,54 @@ def test_conv2d_kernel_on_card(cuda, gen, dtype, tol):
     assert tconv2d.REPACKS["conv2d_same"] == repacks + (dtype == torch.bfloat16)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["conv2d_same"] == len(geoms) + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_conv2d_adjoint_route_on_card(cuda, gen, dtype, tol):
+    """conv2d_bwd="kernel": the input gradient through the conv2d kernel on
+    the cotangent (the VAE's 512 -> 512 at (250, 16), a channel-raising and a
+    channel-lowering geometry) against the plain adjoint's, the adjoint
+    operands made once per weight; below the route's rule (H*W < 512) the
+    plain adjoint."""
+    kernels.reset_launch_counts()
+    repack.REPACKS["conv2d_adjoint"] = 0
+    geoms = (((1, 512, 250, 16), (512, 512, 3, 3)), ((1, 128, 32, 16), (256, 128, 3, 3)),
+             ((1, 256, 1000, 64), (128, 256, 3, 3)), ((2, 128, 9, 20), (128, 128, 3, 3)))
+    for xs, ws in geoms:
+        x = arr(gen, *xs, dtype=dtype)
+        w = arr(gen, *ws, scale=1.0 / math.sqrt(ws[1] * ws[2] * ws[3]), dtype=dtype)
+        b = arr(gen, ws[0], scale=0.1, dtype=dtype)
+        g = arr(gen, xs[0], ws[0], xs[2], xs[3], dtype=dtype)
+        for _ in range(2):
+            y, dx = grads(lambda xx: tconv2d.conv2d_same(xx, w, b, "kernel"), x, g)
+        y0, dx0 = grads(lambda xx: tconv2d.conv2d_plain(xx, w, b), x, g)
+        assert rel(y, y0) <= tol and rel(dx, dx0) <= tol, (xs, ws)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["conv2d_same_adjoint"] == 2 * (len(geoms) - 1)
+    assert repack.REPACKS["conv2d_adjoint"] == len(geoms) - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_conv1d_adjoint_route_on_card(cuda, gen, dtype, tol):
+    """adjoint_kernel: conv1d_fused's input gradient through the kernel's
+    adjoint mode (bf16: the slice's ch512 k11 convs at each dilation; fp32 a
+    ragged T) against the plain version's, held by norm (the leaky mask)."""
+    cases = ([((1, 5001, 512), 11, d) for d in (1, 3, 5)] if dtype == torch.bfloat16
+             else [((2, 333, 128), 11, 5), ((1, 300, 256), 3, 1)])
+    kernels.reset_launch_counts()
+    for shape, k, d in cases:
+        c = shape[-1]
+        x, g = arr(gen, *shape, dtype=dtype), arr(gen, *shape, dtype=dtype)
+        w = arr(gen, k, c, c, scale=1.0 / math.sqrt(k * c), dtype=dtype)
+        b = arr(gen, c, scale=0.1, dtype=dtype)
+        y, dx = grads(lambda xx: tconv.conv1d_fused(xx, w, b, None, d, SLOPE,
+                                                    adjoint_kernel=True), x, g)
+        y0, dx0 = grads(lambda xx: tconv.conv1d_plain(xx, w, b, d, SLOPE), x, g)
+        assert rel(y, y0) <= tol and norm_rel(dx, dx0) <= tol, (shape, k, d)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["conv1d_fused_adjoint"] == len(cases)
 
 
 @pytest.mark.cuda

@@ -40,24 +40,13 @@ import test_torch_port_slice as slice_test
 from diffmusic_tpu_torch import kernels
 from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
 from diffmusic_tpu_torch.samplers import SamplerConfig
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 rel = slice_test.rel
 AUDIO_S = slice_test.AUDIO_S
 OWL = int(AUDIO_S * 16000)
 STEPS, OUTER, RATE = 3, 3, 0.01
 
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for this module's tiny tensors: under the test
-    run's parallel workers, torch's default thread pool oversubscribes the
-    cores and its small ops slow down ~50x (the module takes ~30-45 s alone
-    either way)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def norm_rel(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)

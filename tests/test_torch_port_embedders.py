@@ -33,6 +33,7 @@ from diffmusic_tpu.fadtk import model_loader as jml
 from diffmusic_tpu_torch.fadtk import model_loader as ml
 from diffmusic_tpu_torch.models.checkpoint import read_safetensors
 from diffmusic_tpu_torch.models.whisper import WhisperFeatureConfig, log_mel_features
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5   # fp32, relative to max
 

@@ -44,6 +44,7 @@ from diffmusic_tpu_torch.metrics import lsd as tlsd
 from diffmusic_tpu_torch.metrics import mse as tmse
 from diffmusic_tpu_torch.metrics import vggish as tvggish
 from diffmusic_tpu_torch.ops.resample import resample as tresample
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 SR = 16000

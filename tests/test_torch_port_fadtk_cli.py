@@ -34,6 +34,7 @@ from diffmusic_tpu_torch.fadtk import embeds as tembeds
 from diffmusic_tpu_torch.fadtk import fad_batch
 from diffmusic_tpu_torch.fadtk import package as tpackage
 from diffmusic_tpu_torch.fadtk.test import __main__ as tgate
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = 1e-3

@@ -29,6 +29,7 @@ from diffmusic_tpu_torch.models import convert
 from diffmusic_tpu_torch.models import htsat
 from diffmusic_tpu_torch.ops.mel import mel_filterbank
 from diffmusic_tpu_torch.pipelines.musicldm import per_clip_loss
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 TINY = jhtsat.tiny_clap_audio_config()
 # a 12 x 12 patch grid under an 8-wide window: stage 0 pads to 16 x 16 and

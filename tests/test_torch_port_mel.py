@@ -24,6 +24,7 @@ from diffmusic_tpu_torch import kernels
 from diffmusic_tpu_torch.kernels import mel as tmel
 from diffmusic_tpu_torch.ops import mel as topsmel
 from diffmusic_tpu_torch.ops import stft as tstft
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 jstft = importlib.import_module("diffmusic_tpu.ops.stft")
 

@@ -25,6 +25,7 @@ from diffmusic_tpu_torch import kernels
 from diffmusic_tpu_torch.kernels import build
 from diffmusic_tpu_torch.kernels import mel as tmel
 from diffmusic_tpu_torch.ops.mel import mel_filterbank
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 CUDA = torch.device("cuda", 0)
 DEFAULTS = dict(n_fft=1024, hop_length=160, win_length=1024, n_mels=64, sample_rate=16000,

@@ -36,6 +36,7 @@ from diffmusic_tpu_torch.models.convert import from_flax, init_flax_style
 from diffmusic_tpu_torch.models.hifigan import SpeechT5HifiGan
 from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
 from diffmusic_tpu_torch.models.vae import AutoencoderKL
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 UNET = jcfg.tiny_unet_config()
 VAE = jcfg.tiny_vae_config()

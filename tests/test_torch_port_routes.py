@@ -53,6 +53,7 @@ from diffmusic_tpu_torch.models.hifigan import SpeechT5HifiGan
 from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
 from diffmusic_tpu_torch.models.vae import AutoencoderKL
 from diffmusic_tpu_torch.pipelines import MusicLDMPipeline
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 SLOPE = 0.1
 

@@ -39,6 +39,7 @@ from diffmusic_tpu_torch.pipelines import MusicLDMPipeline
 from diffmusic_tpu_torch.samplers import (DiffusionSchedule, SamplerConfig, make_step_fn,
                                           slerp)
 from diffmusic_tpu_torch.samplers import steps as tsteps
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 rel = slice_test.rel
 AUDIO_S = slice_test.AUDIO_S

@@ -34,6 +34,7 @@ from diffmusic_tpu_torch.models.unet import UNet2DConditionModel
 from diffmusic_tpu_torch.models.vae import AutoencoderKL
 from diffmusic_tpu_torch.pipelines import MusicLDMPipeline
 from diffmusic_tpu_torch.pipelines.audioldm2 import byte_tokenizer
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 AUDIO_S = 0.32
 UNET = jcfg.tiny_unet_config()

@@ -56,6 +56,7 @@ from diffmusic_tpu_torch.models.t5 import T5EncoderModel
 from diffmusic_tpu_torch.pipelines import StableAudioPipeline
 from diffmusic_tpu_torch.pipelines import stable_audio as tsa
 from diffmusic_tpu_torch.samplers import edm
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 MODULE_TOL = 1e-5

@@ -47,6 +47,7 @@ from diffmusic_tpu_torch.kernels import conv1d as tconv
 from diffmusic_tpu_torch.kernels import stage_bwd as tstage
 from test_torch_port_canvas import _stage_grad_numpy_f64
 from test_torch_port_conv1d_tiles import BF, emulate_pass
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 SLOPE = 0.1
 TOL = 2e-2   # chip_smoke.TOL_CONV_BF16

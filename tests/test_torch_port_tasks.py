@@ -43,6 +43,7 @@ from diffmusic_tpu_torch.ops.mel import InverseMelScale, MelScale
 from diffmusic_tpu_torch.ops.stft import istft, magphase_spectrogram, spectrogram, stft
 from diffmusic_tpu_torch.pipelines.base import mel_spectrogram_to_waveform_with_phase
 from diffmusic_tpu_torch.pipelines.musicldm import per_clip_loss
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 # the JAX ops package re-exports functions named `stft` and `mel` over its modules
 jstft = importlib.import_module("diffmusic_tpu.ops.stft")

@@ -29,6 +29,7 @@ from diffmusic_tpu_torch.models.convert import from_flax
 from diffmusic_tpu_torch.ops.stft import spectrogram
 from test_torch_port_htsat import jax_tower
 from test_torch_port_tasks import OWL, fp32, operator_pairs, rel
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 
 # -------------------------------------------------------------- pipelines

@@ -149,12 +149,12 @@ def test_repack_cache_keeps_one_copy_per_kernel_and_weight():
     assert repack.cached("phase_convtranspose", w, tup.tap_major) is t1
     assert repack.cached("phase_convtranspose", w.detach(), tup.tap_major) is t1
     assert repack.REPACKS == {"conv2d_same": 0, "phase_convtranspose": 1, "conv1d_pair": 0,
-                              "conv1d_adjoint": 0}
+                              "conv1d_adjoint": 0, "conv2d_adjoint": 0}
     w4 = w.reshape(16, 128, 8, 8)
     c1 = tconv2d.cached_tap_major(w4)
     assert torch.equal(c1, tconv2d.tap_major(w4))
     assert repack.REPACKS == {"conv2d_same": 1, "phase_convtranspose": 1, "conv1d_pair": 0,
-                              "conv1d_adjoint": 0}
+                              "conv1d_adjoint": 0, "conv2d_adjoint": 0}
     assert tconv2d.REPACKS is repack.REPACKS
     with torch.no_grad():
         w.mul_(-2.0)
@@ -162,7 +162,7 @@ def test_repack_cache_keeps_one_copy_per_kernel_and_weight():
     assert repack.REPACKS["phase_convtranspose"] == 2 and torch.equal(t2, tup.tap_major(w))
     assert torch.equal(tconv2d.cached_tap_major(w4), tconv2d.tap_major(w4))   # shares _version
     assert repack.REPACKS == {"conv2d_same": 2, "phase_convtranspose": 2, "conv1d_pair": 0,
-                              "conv1d_adjoint": 0}
+                              "conv1d_adjoint": 0, "conv2d_adjoint": 0}
 
 
 # ---------------------------------------------------------------------- masks

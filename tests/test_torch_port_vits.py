@@ -18,6 +18,7 @@ import torch
 from diffmusic_tpu.models import convert as jconvert
 from diffmusic_tpu.models import vits as jvits
 from diffmusic_tpu_torch.models import convert, vits
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 TINY = jvits.tiny_vits_config()
 

@@ -6,7 +6,10 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device: a CUDA device must be present; prints its nvidia-smi name and
      power limit;
   2. build: compiles the kernels from `diffmusic_tpu_torch/kernels/csrc` with
-     nvcc (sm_90a), one process per source, and prints the seconds taken;
+     nvcc (sm_90a), one process per source, and prints the seconds taken,
+     each kernel's registers, spills and shared memory from ptxas and any
+     warning that ptxas serialised a kernel's wgmma (C75xx); fails if the
+     head_dim 32-512 flash kernel spills or draws such a warning;
   3. kernels: each kernel's wrapper against its plain PyTorch version, on the
      card, at every shape the 10-s MusicLDM and AudioLDM2 slices give it
      (bf16; the guided step's route kernels at the geometries of its UNet,
@@ -14,7 +17,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      at every resblock conv of stages 0-2, the canvas pair at every pair,
      the stage backward at stage 2, the bounded-softmax block in both
      modes; flash attention also at the VAE mid-block's (1, 4000, 1, 512)
-     with its gradient; the adjoint routes: the conv2d kernel on the
+     with its gradient, the times of its backward in both forms, the
+     TFLOP/s the kernel issues and does useful work at, its key splits and
+     grid as the library plans the launch (held against the Python rule the
+     CPU emulation follows); the adjoint routes: the conv2d kernel on the
      cotangent at each routed VAE conv, the conv1d kernel's adjoint mode at
      the vocoder's 6 single convs), plus small fp32 cases with TF32 off (among
      them flash attention at (1, 1024, 1, 512) and (1, 512, 1, 32) and each
@@ -208,6 +214,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -730,14 +737,39 @@ def sm_clock_mhz() -> tuple:
     return cur, top
 
 
+def wide_flash_work(b, t, heads, d) -> dict:
+    """The bf16 head_dim 32-512 kernel's launch at (b, t, heads, d) on this
+    card as the library plans it (`attention.wide_launch_plan`, the plan the
+    launch takes): its key splits and grid, and the FLOPs that grid issues
+    (QK^T and PV over its query tiles, whole key chunks and the channels D is
+    rounded up to, S once) beside the 4 t^2 heads d the function needs. Fails
+    if the plan differs from the Python rule the CPU emulation follows
+    (`attention.wide_splits` and the WIDE_* constants)."""
+    from diffmusic_tpu_torch.kernels import attention as A
+    plan = A.wide_launch_plan(b, t, heads, d)
+    tiles, bh, splits = plan["grid"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = {"grid": (-(-t // A.WIDE_ROWS), b * heads, A.wide_splits(b, t, heads, sms)),
+            "rows": A.WIDE_ROWS, "keys": A.WIDE_KEY_CHUNK, "channels": -(-d // 128) * 128}
+    if plan != want:
+        raise AssertionError(f"flash_attention: the library plans {plan}, the Python rule {want}")
+    return {"splits": splits, "grid": plan["grid"],
+            "useful_flops": 4 * b * heads * t * t * d,
+            "issued_flops": 4 * bh * tiles * plan["rows"] * -(-t // plan["keys"]) * plan["keys"]
+            * plan["channels"]}
+
+
 def check_flash(t, heads, dtype, gen, tol, d=8, grad=False):
     """Flash attention over (1, t, heads, d) q, k, v of unit variance, beside
     F.scaled_dot_product_attention on the same tensors (as (B, H, T, d)
     views). With `grad` also the gradient with respect to q through the
-    kernel's backward (a plain recompute) against the plain attention's. bf16
-    also prints the exponentials' floor: t^2 * heads exp2 at EXP2_PER_CLOCK per
-    clock per SM, at the SM clock nvidia-smi reads right after the timing (and
-    at the card's maximum); the bound is unchanged."""
+    kernel's backward (a plain recompute) against the plain attention's, and
+    the times of the backward in both forms (`bwd="f32"` and `"bf16"`, the
+    gradients of q, k and v as the VAE route takes them). bf16 also prints
+    the exponentials' floor: t^2 * heads exp2 at EXP2_PER_CLOCK per clock per
+    SM, at the SM clock nvidia-smi reads right after the timing (and at the
+    card's maximum); the bound is unchanged. At d > 8 in bf16 also the TFLOP/s
+    the kernel issues and does useful work at, its key splits and its grid."""
     from diffmusic_tpu_torch.kernels import attention as A
     q, k, v = (randn((1, t, heads, d), gen, "cuda", dtype) for _ in range(3))
     with torch.no_grad():
@@ -746,9 +778,9 @@ def check_flash(t, heads, dtype, gen, tol, d=8, grad=False):
         err = rel_err(out, ref)
     gtxt = ""
     if grad:
+        g = randn(q.shape, gen, "cuda", dtype)
         fwd, bwd = compare_with_grad(lambda qq: A.flash_attention(qq, k, v),
-                                     lambda qq: A.attention_plain(qq, k, v), q,
-                                     randn(q.shape, gen, "cuda", dtype))
+                                     lambda qq: A.attention_plain(qq, k, v), q, g)
         err = max(err, fwd, key=lambda e: e[1])
         gtxt = (f"; grad max|err| {bwd[0]:.3e} rel {bwd[1]:.2e} norm-rel {bwd[2]:.2e}")
     sdpa = lambda _: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -763,6 +795,25 @@ def check_flash(t, heads, dtype, gen, tol, d=8, grad=False):
         res["exp2_floor_ms"] = exps / (cur * 1e3)
         floor = (f"; exp2 floor {res['exp2_floor_ms']:.4f} ms at {cur:.0f} MHz "
                  f"({exps / (top * 1e3):.4f} at {top:.0f})")
+        if d > 8:
+            work = wide_flash_work(1, t, heads, d)
+            res["useful_tflops"] = work["useful_flops"] / res["ms"] / 1e9
+            res["issued_tflops"] = work["issued_flops"] / res["ms"] / 1e9
+            res["splits"], res["grid"] = work["splits"], work["grid"]
+            floor += (f"; {res['useful_tflops']:.1f} TFLOP/s useful, "
+                      f"{res['issued_tflops']:.1f} issued ({work['issued_flops'] / 1e9:.2f} "
+                      f"GFLOP for {work['useful_flops'] / 1e9:.2f}); {work['splits']} key "
+                      f"splits, grid {work['grid']}")
+    if grad and dtype == torch.bfloat16:
+        qkv = [a.clone().requires_grad_(True) for a in (q, k, v)]
+        res["backward_ms"] = {}
+        for form in A.FLASH_BWD:
+            y = A.flash_attention(*qkv, form)
+            res["backward_ms"][form] = time_ms(
+                lambda: torch.autograd.grad(y, qkv, g, retain_graph=True))
+            del y
+        floor += "; backward (q, k, v) " + ", ".join(
+            f"bwd={form} {ms:.3f} ms" for form, ms in res["backward_ms"].items())
     log(f"  flash_attention          (1, {t}, {heads}, {d}) {str(dtype)[6:]}: "
         f"max|err| {err[0]:.3e} rel {err[1]:.2e} (tol {tol:.0e}){gtxt}; "
         f"{describe_times(res)}{floor}")
@@ -1355,7 +1406,11 @@ def phase_kernels(gen) -> dict:
     log(f"  flash_attention per guided step (10 calls): {stats['flash_attention']['ms']:.3f} ms "
         f"vs SDPA {stats['flash_attention']['library_ms']:.3f}; exp2 floor {floor:.4f} ms")
     # the VAE mid-block under vae_mid_attn="flash": one call per guided step
-    add("flash_attention_d512", check_flash(4000, 1, bf, gen, TOL_FLASH_BF16, d=512, grad=True))
+    res = check_flash(4000, 1, bf, gen, TOL_FLASH_BF16, d=512, grad=True)
+    add("flash_attention_d512", res)
+    stats["flash_attention_d512"]["wide"] = {
+        key: res[key] for key in ("useful_tflops", "issued_tflops", "splits", "grid",
+                                  "backward_ms")}
     for name, shape, k, d, res in conv_cases(bf):
         add(name, check_conv(name, shape, k, d, res, bf, gen, TOL_CONV_BF16))
     for cin, cout, k, s, t_in in UPSAMPLERS:
@@ -4157,6 +4212,21 @@ def ptxas_summary(build_log: str, kernel: str) -> str:
     return "not found in the build log"
 
 
+def ptxas_faults(build_log: str, kernel: str) -> list:
+    """The ptxas lines that fault every instantiation of `kernel`: a warning
+    that its wgmma are serialised (C75xx: C7514, C7515, C7520, ...) or spill
+    stores or loads."""
+    lines = build_log.splitlines()
+    faults = [ln.strip() for ln in lines if "(C75" in ln and kernel in ln]
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            for ln in lines[i + 1:i + 4]:
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+                if spill and (int(spill.group(1)) or int(spill.group(2))):
+                    faults.append(f"{line.strip()}: {ln.strip()}")
+    return faults
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -4199,13 +4269,13 @@ def main() -> int:
         text = build_log.read_text()
         for line in text.splitlines():
             if ("entry function" in line or "registers" in line or "spill" in line
-                    or "C7515" in line):   # C7515: ptxas serialized a kernel's wgmma
+                    or "(C75" in line):   # C75xx: ptxas serialized a kernel's wgmma
                 log(f"  ptxas: {line.strip()}")
         lib = build.library()
         for name, dyn in (("conv2d_wgmma_kernel", lib.dm_conv2d_same_smem(1)),
                           ("nchw_to_nhwc_kernel", None),
                           ("flash_mma_kernel", lib.dm_flash_attention_smem(1, 16)),
-                          ("flash_wide_kernel", lib.dm_flash_attention_wide_smem(1, 512)),
+                          ("flash_hopper_kernelILi4E", lib.dm_flash_attention_wide_smem(1, 512)),
                           ("flash_wide_f32_kernel", lib.dm_flash_attention_wide_smem(0, 512)),
                           ("phase_ct_wgmma_kernel", lib.dm_phase_convtranspose_smem(1, -2, 1)),
                           ("conv1d_wgmma_kernelILb1E", lib.dm_conv1d_pair_smem(1, 512, 3, 1)),
@@ -4223,6 +4293,10 @@ def main() -> int:
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
             shutil.copy(build_log, args.out / "build.log")
+        faults = ptxas_faults(text, "flash_hopper_kernel")
+        if faults:
+            raise AssertionError("ptxas: flash_hopper_kernel spills or serialises its wgmma:\n"
+                                 + "\n".join(faults))
 
     profile_dir = args.out if args.profile else None
     gen = torch.Generator().manual_seed(0)
@@ -4274,6 +4348,8 @@ def main() -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "operations" if s["ops_ms"] > s["bytes_ms"] else "bytes",
             "library_ms": s["library_ms"]})
+        if "wide" in s:   # the D 512 kernel's rates, launch and backward times
+            kernels_line[-1].update(s["wide"])
         if "g_transposed" in s:
             kernels_line[-1]["g_transposed"] = {
                 k: s["g_transposed"][k] for k in ("ms", "plain_ms", "library_ms")}

@@ -21,12 +21,19 @@ fp32 runs the exact scalar core it shares with the fused transformer block
 (`csrc/common.cuh`).
 
 Head_dim 32-512, bound on the H100: the tensor cores (4 * T^2 * D FLOPs, 0.033
-ms at (1, 4000, 1, 512)). In bf16 a block owns `WIDE_ROWS` query rows and one
-`WIDE_COLS`-column slice of the output and recomputes S for its slice: QK^T on
-m16n8k16 over D / 16 steps with Q resident in shared memory and K, V streamed
-in chunks of `WIDE_KEY_CHUNK` keys through a double-buffered `cp.async` ring,
-the same online softmax with P rounded to bf16. fp32 runs exact scalar FMAs.
-Either way the (T, T) logits never reach device memory.
+ms at (1, 4000, 1, 512)). In bf16 (`flash_hopper_kernel`) a block owns
+`WIDE_ROWS` query rows of one (batch, head), all D output columns and one of
+`wide_splits` key splits; the splits of a query tile are one thread-block
+cluster. A producer warpgroup brings Q once and K, V in chunks of
+`WIDE_KEY_CHUNK` keys, each into a slot of its own, by TMA; two consumer
+warpgroups each own half of the channels (D rounded up to 128), contract QK^T
+over them on wgmma, sum the two partial S tiles through shared memory, run the
+same online softmax on the whole S (keys past T at -inf), round P to bf16 and
+multiply it by their half of V on wgmma with P in registers. S is computed
+once. The splits' fp32 partial outputs meet in distributed shared memory and
+are combined by log-sum-exp in the same launch. fp32 runs exact scalar FMAs.
+Either way the (T, T) logits never reach device memory. Every D the wrapper
+admits runs these two kernels.
 
 On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA tensor
 it launches the kernel or raises. The backward is plain PyTorch, as the JAX
@@ -51,14 +58,44 @@ FLASH_BWD = ("f32", "bf16")
 _LOG2E = 1.4426950408889634
 KEY_CHUNK = 64      # keys per online-softmax step of the bf16 kernel (csrc, tc::KC)
 # the bf16 head_dim 32-512 kernel's tile (csrc, namespace wide)
-WIDE_ROWS = 128     # query rows per block
-WIDE_COLS = 128     # output columns per block
-WIDE_KEY_CHUNK = 32  # keys per online-softmax step
+WIDE_ROWS = 64          # query rows per block
+WIDE_KEY_CHUNK = 64     # keys per online-softmax step
+WIDE_MIN_CHUNKS = 2     # chunks a key split keeps at least
+WIDE_MAX_SPLITS = 8     # key splits of a query tile: the portable cluster size
 
 
 def wide_ok(d: int) -> bool:
     """The head widths the head_dim 32-512 kernels take."""
     return 32 <= d <= 512 and d % 32 == 0
+
+
+def wide_splits(batch: int, t: int, heads: int, sms: int) -> int:
+    """The key splits of the bf16 head_dim 32-512 kernel on a card of `sms`
+    SMs (csrc, `wide::splits_for`): doubled while the grid of query tiles
+    times splits stays within the SMs and each split keeps `WIDE_MIN_CHUNKS`
+    chunks."""
+    blocks = -(-t // WIDE_ROWS) * batch * heads
+    chunks = -(-t // WIDE_KEY_CHUNK)
+    n = 1
+    while n < WIDE_MAX_SPLITS and blocks * n * 2 <= sms and chunks >= WIDE_MIN_CHUNKS * n * 2:
+        n *= 2
+    return n
+
+
+def wide_launch_plan(batch: int, t: int, heads: int, d: int) -> dict:
+    """The bf16 head_dim 32-512 kernel's launch at (batch, t, heads, d) on the
+    current CUDA device, as the library makes it (csrc,
+    `dm_flash_attention_wide_plan`, the function the launch itself calls):
+    `grid` (query tiles, batch x heads, key splits), `rows` of a tile, `keys`
+    of a chunk and the `channels` d is rounded up to."""
+    import ctypes
+
+    from . import build
+    plan = (ctypes.c_int * 6)()
+    build.check(build.library().dm_flash_attention_wide_plan(batch, t, heads, d,
+                                                             ctypes.addressof(plan)),
+                "flash_attention")
+    return {"grid": tuple(plan[:3]), "rows": plan[3], "keys": plan[4], "channels": plan[5]}
 
 
 def attention_plain(q, k, v, bias=None):

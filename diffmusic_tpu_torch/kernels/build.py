@@ -47,6 +47,7 @@ SIGNATURES = {
     "dm_flash_attention_smem": ([_I, _I], _S),
     "dm_flash_attention_wide": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P], _I),
     "dm_flash_attention_wide_smem": ([_I, _I], _S),
+    "dm_flash_attention_wide_plan": ([_I, _I, _I, _I, _P], _I),
     "dm_group_norm": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P], _I),
     "dm_group_norm_smem": ([_I], _S),
     "dm_channel_moments": ([_I, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),

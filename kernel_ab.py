@@ -1,6 +1,6 @@
-"""Timings of the port's fused GroupNorm (#10) and fused mel spectrogram (#15)
-on one NVIDIA GPU, to compare two checkouts in turns and to choose the
-GroupNorm's cluster size.
+"""Timings of the port's fused GroupNorm (#10), fused mel spectrogram (#15)
+and head_dim 32-512 flash attention (#9) on one NVIDIA GPU, to compare two
+checkouts in turns and to choose the GroupNorm's cluster size.
 
     python3 kernel_ab.py calls [--tree DIR]
         Through the public wrappers of the package in DIR (default: this
@@ -20,6 +20,15 @@ GroupNorm's cluster size.
         through its C entry point, under every cluster size k in 1, 2, 4, 8
         and a thread's target of 1, 2 or 4 loads: device us a call, in turns.
         One JSON line.
+    python3 kernel_ab.py flash-wide [--parent DIR]
+        The bf16 head_dim 32-512 flash kernel (#9 at the VAE mid-block's
+        (1, 4000, 1, 512)) of this checkout and, with --parent, of DIR's
+        source (each csrc/flash_attention.cu built with nvcc into a library
+        of its own and called through its C entry point); beside them SDPA,
+        the plain attention and the route's two backward forms: CUDA-event
+        ms a call, median of the rounds, all taking turns in each round
+        (forward order, then reversed), each kernel checked against the
+        plain attention. One JSON line.
 
 Every line names the card (nvidia-smi name and power limit). No fallback:
 without a CUDA device the script exits non-zero.
@@ -170,6 +179,104 @@ def gn_plans() -> dict:
     return {"card": card(), "gn_plans": rows}
 
 
+FLASH_SHAPE = (1, 4000, 1, 512)
+
+
+def build_flash(csrc: Path, out_dir: Path):
+    """Start nvcc on `csrc`/flash_attention.cu: one shared library holding
+    that file's entry points. Returns (Popen, lib)."""
+    from diffmusic_tpu_torch.kernels import build
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / "libflash.so"
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(lib),
+           str(csrc / "flash_attention.cu")]
+    log = open(out_dir / "build.log", "w")
+    return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), lib
+
+
+def flash_wide(parent) -> dict:
+    import ctypes
+    import math
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from diffmusic_tpu_torch.kernels import attention as A
+    from diffmusic_tpu_torch.kernels import build
+    root = HERE / "diffmusic_tpu_torch" / "kernels" / "_build" / "flash_ab"
+    trees = {"new": HERE / "diffmusic_tpu_torch" / "kernels" / "csrc"}
+    if parent is not None:
+        trees["parent"] = parent / "diffmusic_tpu_torch" / "kernels" / "csrc"
+    t0 = time.time()
+    jobs = {name: build_flash(csrc, root / name) for name, csrc in trees.items()}
+    libs = {}
+    for name, (proc, path) in jobs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"{name}: nvcc failed:\n"
+                               + (root / name / "build.log").read_text()[-3000:])
+        lib = ctypes.CDLL(str(path))
+        lib.dm_flash_attention_wide.argtypes, lib.dm_flash_attention_wide.restype = \
+            build.SIGNATURES["dm_flash_attention_wide"]
+        libs[name] = lib
+    out = {"card": card(), "shape": FLASH_SHAPE, "build_s": time.time() - t0, "ptxas": {}}
+    for name in libs:
+        text = (root / name / "build.log").read_text()
+        out["ptxas"][name] = [ln.strip() for ln in text.splitlines()
+                              if "C75" in ln or "spill" in ln or "registers" in ln]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    b, t, h, d = FLASH_SHAPE
+    q, k, v, g = (cs.randn(FLASH_SHAPE, gen, "cuda", torch.bfloat16) for _ in range(4))
+    o = torch.empty_like(q)
+    stream = build.stream_ptr(q.device)
+    scale = 1.4426950408889634 / math.sqrt(d)
+    with torch.no_grad():
+        ref = A.attention_plain(q, k, v).float()
+
+    def kernel(lib):
+        def fn():
+            build.check(lib.dm_flash_attention_wide(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                                   o.data_ptr(), b, t, h, d, scale, stream),
+                        "flash_attention")
+        return fn
+
+    qkv = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    graphs = {form: A.flash_attention(*qkv, form) for form in A.FLASH_BWD}
+    fns = {name: kernel(lib) for name, lib in libs.items()}
+    fns["sdpa"] = lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                         v.transpose(1, 2))
+    fns["plain"] = lambda: A.attention_plain(q, k, v)
+    for form, y in graphs.items():
+        fns[f"backward_{form}"] = (lambda y=y: torch.autograd.grad(y, qkv, g,
+                                                                   retain_graph=True))
+    out["err"] = {}
+    for name in libs:
+        fns[name]()
+        torch.cuda.synchronize()
+        out["err"][name] = float((o.float() - ref).abs().max() / ref.abs().max())
+        if not out["err"][name] <= cs.TOL_FLASH_BF16:
+            raise AssertionError(f"{name}: rel err {out['err'][name]:.2e}")
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for rnd in range(4):
+        for name in (order if rnd % 2 == 0 else order[::-1]):
+            with torch.no_grad() if not name.startswith("backward") else torch.enable_grad():
+                times[name].append(cs.time_ms(fns[name], reps=3, inner=10))
+    import statistics
+    out["ms"] = {name: statistics.median(ts) for name, ts in times.items()}
+    out["ms_rounds"] = times
+    useful = 4 * t * t * h * d
+    out["useful_tflops"] = {name: useful / ms / 1e9 for name, ms in out["ms"].items()
+                            if name in libs}
+    plan = (ctypes.c_int * 6)()
+    fn = libs["new"].dm_flash_attention_wide_plan
+    fn.argtypes, fn.restype = build.SIGNATURES["dm_flash_attention_wide_plan"]
+    build.check(fn(b, t, h, d, ctypes.addressof(plan)), "flash_attention")
+    out["grid"] = list(plan[:3])   # (query tiles, batch x heads, key splits) of this checkout
+    for name, ms in out["ms"].items():
+        print(f"  {name:26s} {ms:.4f} ms", file=sys.stderr, flush=True)
+    return out
+
+
 def summary(tag: str, r: dict) -> str:
     gn = r["gn_per_step"]
     parts = [f"{tag}: gn per step events {gn['events']:.3f} device {gn['device']:.3f} "
@@ -201,7 +308,7 @@ def turns(parent: Path) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("mode", choices=("calls", "turns", "gn-plans"))
+    ap.add_argument("mode", choices=("calls", "turns", "gn-plans", "flash-wide"))
     ap.add_argument("--tree", type=Path, default=HERE)
     ap.add_argument("--parent", type=Path)
     args = ap.parse_args()
@@ -214,6 +321,10 @@ def main() -> int:
     elif args.mode == "gn-plans":
         sys.path.insert(0, str(HERE))
         print(json.dumps(gn_plans()), flush=True)
+    elif args.mode == "flash-wide":
+        sys.path.insert(0, str(HERE))
+        print(json.dumps(flash_wide(None if args.parent is None else args.parent.resolve())),
+              flush=True)
     else:
         if args.parent is None:
             ap.error("turns needs --parent")

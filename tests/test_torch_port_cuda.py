@@ -232,15 +232,36 @@ def test_flash_attention_kernel_on_card(cuda, gen, dtype, tol, t, heads):
     assert rel(out, tattn.attention_plain(q, k, v)) <= tol
 
 
+# shape -> (key splits on a 132-SM H100, 64-channel atoms a consumer warpgroup owns)
+WIDE_SHAPES = {(1, 4000, 1, 512): (2, 4), (2, 333, 1, 128): (2, 1), (1, 512, 1, 32): (4, 1),
+               (1, 300, 2, 96): (2, 1), (1, 40, 1, 512): (1, 4), (3, 1000, 1, 256): (2, 2),
+               (1, 4001, 1, 64): (2, 1), (1, 300, 1, 320): (2, 3), (1, 333, 2, 384): (2, 3),
+               (1, 1000, 1, 512): (8, 4)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("shape", [(1, 4000, 1, 512), (2, 333, 1, 128), (1, 512, 1, 32),
-                                   (1, 300, 2, 96)], ids=str)
+@pytest.mark.parametrize("shape", list(WIDE_SHAPES), ids=str)
 def test_flash_attention_wide_kernel_on_card(cuda, gen, dtype, tol, shape):
-    """Head_dim 32-512: bf16 runs the tensor-core kernel (128-row tiles, a
-    block per 128-column slice; 333 and 300 end in a ragged tile and key
-    chunk, D 96 in a 96-column slice), fp32 the scalar kernel; the input
-    gradients of both backward forms against the plain attention's."""
+    """Head_dim 32-512: bf16 runs the Hopper kernel (64-row tiles, 64-key
+    chunks, key splits in a cluster, `WIDE_SHAPES`: 2 at T 4000, 4001, 3 x
+    1000, 333 and 300, 4 at 512, 8 at 1000 (8 rows of each tile combined per
+    block), 1 at 40; each consumer warpgroup's atoms 1 at D 32-128 (PV on
+    m64n64k16), 2 at 256 (n128), 3 at 320 and 384 (n192), 4 at 512 (n256);
+    333, 300, 4001 and 40 end in a ragged tile and key chunk, T 40 is one
+    chunk of 40 keys; D 32, 96, 64 and 320 are zero-padded to a multiple of
+    128 channels, a warpgroup's atoms past D unread; in 3 batches of 1000 the
+    ragged last tile of a batch must read zeros, not the next batch's rows),
+    the split count asserted through `wide_splits` and the library's launch
+    plan; fp32 the scalar kernel; the input gradients of both backward forms
+    against the plain attention's."""
+    if dtype == torch.bfloat16:
+        splits, atoms = WIDE_SHAPES[shape]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert tattn.wide_splits(*shape[:3], sms) == splits
+        plan = tattn.wide_launch_plan(*shape)
+        assert plan["grid"] == (-(-shape[1] // 64), shape[0] * shape[2], splits)
+        assert plan["channels"] == 2 * 64 * atoms
     q, k, v, g = (arr(gen, *shape, dtype=dtype) for _ in range(4))
     kernels.reset_launch_counts()
     with torch.no_grad():
@@ -253,6 +274,26 @@ def test_flash_attention_wide_kernel_on_card(cuda, gen, dtype, tol, shape):
     for bwd in tattn.FLASH_BWD:
         (dq,) = torch.autograd.grad(tattn.flash_attention(qq, k, v, bwd), qq, g)
         assert norm_rel(dq, dq0) <= tol, bwd
+
+
+@pytest.mark.cuda
+def test_flash_attention_wide_kernel_matches_its_emulation(cuda, gen):
+    """bf16 at (1, 300, 1, 512) (2 key splits of 2 and 3 chunks, a ragged
+    tile and chunk) against `emulate_wide`'s bf16-P result on the same inputs:
+    within 4e-3 of max |emulation|, two roundings of the bf16 output (2^-9
+    relative each) for the rest (the sums' order, ex2.approx, a P value that
+    rounds across a bf16 boundary in one version only)."""
+    from flash_wide_emulation import emulate_wide
+    shape = (1, 300, 1, 512)
+    q, k, v = (arr(gen, *shape, dtype=torch.bfloat16) for _ in range(3))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert tattn.wide_splits(1, 300, 1, sms) == 2
+    with torch.no_grad():
+        out = tattn.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = emulate_wide(q.cpu().float(), k.cpu().float(), v.cpu().float(), p_bf16=True)
+    assert torch.isfinite(out).all()
+    assert rel(out.float(), want) <= 4e-3
 
 
 @pytest.mark.cuda

@@ -4,8 +4,10 @@ adjoint routes against the JAX package.
 - `flash_attention` at the head widths 32-512 (its plain version on the CPU)
   against the JAX Pallas kernel in interpret mode (`_INTERPRET`), forward and
   gradient; T = 300 exercises JAX's padding to its 256-row query blocks.
-  `emulate_wide`, a torch replica of the bf16 kernel's tiling, against the
-  plain attention and JAX's kernel. The
+  `emulate_wide` (`flash_wide_emulation.py`), a torch replica of the bf16
+  kernel's key splits, chunks and log-sum-exp combine, against the plain
+  attention and JAX's kernel, with short and empty splits; `wide_splits`
+  against the host's rule. The
   `bwd="bf16"` backward (`attention_bwd_bf16`) against JAX's
   `_bwd_attention_bf16` on bf16 inputs.
 - The tiny VAE (mid-block 32 channels) decoding latents (1, 8, 32, 16), so
@@ -37,7 +39,9 @@ output and gradient (a chain of fp32 convs and GroupNorms in another order),
 import contextlib
 import dataclasses
 import math
+import re
 from collections import Counter
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -64,6 +68,7 @@ from diffmusic_tpu_torch.models.convert import from_flax
 from diffmusic_tpu_torch.models.hifigan import SpeechT5HifiGan
 from diffmusic_tpu_torch.models.vae import AutoencoderKL
 from diffmusic_tpu_torch.pipelines import MusicLDMPipeline
+from flash_wide_emulation import H100_SMS, emulate_wide
 from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 SLOPE = 0.1
@@ -100,42 +105,13 @@ def test_flash_wide_matches_jax_kernel(monkeypatch, rng, shape):
         assert rel(ours, theirs) <= 1e-5
 
 
-def emulate_wide(q, k, v, p_bf16: bool):
-    """torch replica of the bf16 head_dim 32-512 kernel on (B, T, H, D) q, k,
-    v: per `WIDE_COLS`-column output slice, the logits over all of D in fp32
-    (the m16n8k16 products of bf16 operands are exact in fp32), then per
-    chunk of `WIDE_KEY_CHUNK` keys the running max, the rescale by
-    exp2((m_old - m_new) c), p = exp2(s c - m c), the fp32 sum of p, and P
-    rounded to bf16 before PV (or kept in fp32); fp32 result."""
-    d = q.shape[-1]
-    c = 1.4426950408889634 / math.sqrt(d)
-    s_all = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    vh = v.float().permute(0, 2, 1, 3)                                  # (B, H, T, D)
-    cols = []
-    for c0 in range(0, d, tattn.WIDE_COLS):
-        m = torch.full(s_all.shape[:-1] + (1,), -math.inf)
-        l = torch.zeros_like(m)
-        o = torch.zeros(s_all.shape[:-1] + (min(tattn.WIDE_COLS, d - c0),))
-        for k0 in range(0, s_all.shape[-1], tattn.WIDE_KEY_CHUNK):
-            s = s_all[..., k0:k0 + tattn.WIDE_KEY_CHUNK]
-            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-            corr = torch.exp2((m - m_new) * c)                          # 0 on the first chunk
-            p = torch.exp2(s * c - m_new * c)
-            l = l * corr + p.sum(-1, keepdim=True)
-            if p_bf16:
-                p = p.bfloat16().float()
-            o = o * corr + p @ vh[:, :, k0:k0 + tattn.WIDE_KEY_CHUNK, c0:c0 + o.shape[-1]]
-            m = m_new
-        cols.append(o / l)
-    return torch.cat(cols, -1).permute(0, 2, 1, 3)
-
-
 @pytest.mark.parametrize("shape", [(1, 300, 1, 512), (2, 77, 2, 96)], ids=str)
 def test_emulated_wide_kernel_matches_plain_and_jax(monkeypatch, rng, shape):
-    """The kernel's tiling (128-column slices, 32-key chunks, ragged last
-    chunk and slice) with P in fp32 against the plain attention (1e-5), and
-    with P rounded to bf16 on bf16-rounded inputs against JAX's kernel in
-    bf16 in interpret mode (2e-2: JAX rounds P against the full row's max)."""
+    """The kernel's tiling (key splits by `wide_splits`, 64-key chunks,
+    ragged last chunk, the splits' log-sum-exp combine) with P in fp32
+    against the plain attention (1e-5), and with P rounded to bf16 on
+    bf16-rounded inputs against JAX's kernel in bf16 in interpret mode (2e-2:
+    JAX rounds P against the full row's max)."""
     monkeypatch.setattr(jak, "_INTERPRET", True)
     q, k, v = (t32(arr(rng, *shape)).bfloat16().float() for _ in range(3))
     out = emulate_wide(q, k, v, p_bf16=False)
@@ -143,6 +119,42 @@ def test_emulated_wide_kernel_matches_plain_and_jax(monkeypatch, rng, shape):
     jq, jk, jv = (jnp.asarray(a.numpy(), jnp.bfloat16) for a in (q, k, v))
     ref = np.asarray(jak.flash_attention(jq, jk, jv).astype(jnp.float32))
     assert rel(emulate_wide(q, k, v, p_bf16=True).bfloat16().float(), ref) <= 2e-2
+
+
+@pytest.mark.parametrize("t,splits", [(40, 4), (20, 2), (65, 2), (40, 8)], ids=str)
+def test_emulated_wide_kernel_short_and_empty_splits(rng, t, splits):
+    """Splits that hold fewer keys than one chunk or none (m = -inf, l = 0):
+    they weigh nothing and give no NaN; P in fp32 against the plain attention
+    (1e-5), and P in bf16 finite."""
+    chunks = -(-t // tattn.WIDE_KEY_CHUNK)
+    sizes = [min(t, chunks * (s + 1) // splits * tattn.WIDE_KEY_CHUNK)
+             - min(t, chunks * s // splits * tattn.WIDE_KEY_CHUNK) for s in range(splits)]
+    assert min(sizes) < tattn.WIDE_KEY_CHUNK and sum(sizes) == t
+    q, k, v = (t32(arr(rng, 1, t, 1, 64)).bfloat16().float() for _ in range(3))
+    out = emulate_wide(q, k, v, p_bf16=False, splits=splits)
+    assert torch.isfinite(out).all()
+    assert rel(out, tattn.attention_plain(q, k, v)) <= 1e-5
+    assert torch.isfinite(emulate_wide(q, k, v, p_bf16=True, splits=splits)).all()
+
+
+def test_wide_splits_follow_the_host_rule():
+    """`wide_splits` takes the SM count and gives what `wide::splits_for`
+    gives on the host: at 132 SMs, T 4000 -> 63 tiles x 2 splits (126
+    blocks; 4 would make 252), T 333 -> 6 tiles x 2 (6 chunks: 4 splits would
+    keep fewer than two each), T 40 -> 1 (one chunk); fewer SMs split less,
+    more split more. The constants are the C++ source's."""
+    assert [tattn.wide_splits(1, t, 1, H100_SMS) for t in (4000, 333, 40)] == [2, 2, 1]
+    assert tattn.wide_splits(1, 512, 1, H100_SMS) == 4
+    assert tattn.wide_splits(1, 4000, 1, 64) == 1
+    assert tattn.wide_splits(1, 4000, 1, 264) == 4
+    src = (Path(tattn.__file__).parent / "csrc" / "flash_attention.cu").read_text()
+    wide = src[src.index("namespace wide {"):]
+    for name, value in (("ROWS", tattn.WIDE_ROWS), ("WKC", tattn.WIDE_KEY_CHUNK),
+                        ("MIN_CHUNKS", tattn.WIDE_MIN_CHUNKS),
+                        ("MAX_SPLITS", tattn.WIDE_MAX_SPLITS)):
+        assert re.search(rf"constexpr int {name} = {value};", wide), name
+    assert ("while (n < MAX_SPLITS && blocks * n * 2 <= sms && chunks >= MIN_CHUNKS * n * 2)"
+            in wide)
 
 
 def test_bf16_backward_form_matches_jax(rng):

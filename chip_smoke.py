@@ -64,9 +64,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      in each direction of TURNS (one card, one host: the turns keep the
      host's drift out of the comparison), the VAE mid-block's flash route
      (`vae_mid_attn="flash"`) and the two adjoint routes (`conv2d_bwd=
-     "kernel"`, the vocoder's `adjoint_kernel`) once; then `tracing.trace`
-     around two default-route steps, whose Chrome trace must hold each
-     step's "unet_forward" and "guided_step" ranges;
+     "kernel"`, the vocoder's `adjoint_kernel`) once;
   6. breakdown: each stage of one guided step timed alone at the slice's
      shapes, for the default route and each route setting (the vocoder
      alone for its routes, the UNet alone for bsoft, the VAE alone for its
@@ -1886,36 +1884,6 @@ def drive(label: str, pipe, meas, want: dict, repacks=None, eta: float = 0.0,
     return counts, audio, last[0]
 
 
-def trace_two_steps(pipe, meas) -> None:
-    """`tracing.trace` around two DPS steps of the slice's default route: the
-    Chrome trace must hold each step's "unet_forward" and "guided_step"
-    ranges (the host's, and the card's where the profiler records them)."""
-    from diffmusic_tpu_torch import tracing
-    lat = torch.randn(LATENTS, generator=torch.Generator().manual_seed(0))
-    with tempfile.TemporaryDirectory() as tmp:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with tracing.trace(tmp):
-            pipe(audio_length_in_s=10.0, num_inference_steps=2, measurement=meas,
-                 ip_guidance_rate=2.0, latents=lat, prompt_embeds=torch.zeros(2, 512))
-        secs = time.perf_counter() - t0
-        (path,) = Path(tmp).glob("trace_*.json")
-        events = json.loads(path.read_text())["traceEvents"]
-        size = path.stat().st_size
-    ranges = {n: Counter(e.get("cat") for e in events if e.get("name") == n)
-              for n in ("unet_forward", "guided_step")}
-    host_ms = {n: [round(e["dur"] / 1e3, 2) for e in events
-                   if e.get("name") == n and e.get("cat") == "user_annotation"]
-               for n in ranges}
-    log(f"trace: tracing.trace around 2 DPS steps of the slice's default route: {secs:.2f} s "
-        f"with the trace written ({size / 1e6:.1f} MB, {len(events)} events); ranges by "
-        f"category {({n: dict(c) for n, c in ranges.items()})}; host ms {host_ms}; "
-        f"device_memory_stats {tracing.device_memory_stats()}")
-    if any(c["user_annotation"] != 2 for c in ranges.values()):
-        raise AssertionError(f"trace: expected 2 unet_forward and 2 guided_step ranges, got "
-                             f"{ranges}")
-
-
 # the slice's turns: each route once each way, so that the host's drift over
 # the call falls on every route alike; the VAE flash and the two adjoint
 # routes once, in the middle
@@ -1982,7 +1950,6 @@ def phase_slice(profile_dir=None) -> tuple:
                      prompt_embeds=torch.zeros(2, 512))
         counts.setdefault(name, c)
         audio.setdefault(name, a)
-    trace_two_steps(pipe, meas)
     for name, p in pipes.items():
         parts = (None if name in ("default", "stats", "fused") else
                  ("unet fwd (no grad)",) if name == "bsoft" else

@@ -70,6 +70,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..tracing import count
 from . import build, repack
 from .canvas import TIME_BLOCK, canvas_row_mask, canvas_rows, from_canvas, to_canvas
 from .device import use_plain
@@ -221,6 +222,7 @@ def fused_plan(name: str, shapes: tuple, strides: tuple, dtypes: tuple, devices:
     (Cout,), the residual the output's shape, channels the tiles do not
     divide (bf16: Cin and Cout multiples of 64; fp32: Cin of 32, Cout of 64),
     a canvas of another length."""
+    count("kernels.cache_miss", "conv1d.fused_plan")
     code = _operand_code(name, shapes, strides, dtypes, devices)
     xs, ws = tuple(shapes[0]), tuple(shapes[1])
     bs = tuple(shapes[2]) if has_bias else None
@@ -279,6 +281,7 @@ def pair_plan(name: str, shapes: tuple, strides: tuple, dtypes: tuple, devices: 
     tensors not on one CUDA device, mixed or other dtypes, a tensor not
     contiguous, shapes other than x (B, T, C), w (k, C, C) with odd k <= 17,
     b (C,), C not a multiple of 64, a canvas of another length."""
+    count("kernels.cache_miss", "conv1d.pair_plan")
     code = _operand_code(name, shapes, strides, dtypes, devices)
     xs, w1s, b1s, w2s, b2s = (tuple(sh) for sh in shapes)
     if len(xs) != 3 or len(w1s) != 3:

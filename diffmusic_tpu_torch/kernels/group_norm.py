@@ -40,6 +40,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..tracing import count
 from .device import use_plain
 from .mask import _dense
 
@@ -132,6 +133,7 @@ def fused_plan(shape: tuple, stride: tuple, dtype, device, groups: int, params: 
     tensor of x's dtype on x's device, a group of more loads than a cluster
     holds, or more shared memory than a block may use."""
     from . import build
+    count("kernels.cache_miss", "group_norm.fused_plan")
     if device.type != "cuda":
         raise ValueError(f"fused_group_norm: x must be on a CUDA device, not {device}")
     code = build.dtype_code(dtype)
@@ -199,6 +201,7 @@ def moments_plan(shape: tuple, stride: tuple, dtype, device) -> tuple:
     not a contiguous (B, C, N) tensor. fp32 takes the scalar kernel (vec,
     team and threads 1)."""
     from . import build
+    count("kernels.cache_miss", "group_norm.moments_plan")
     if device.type != "cuda":
         raise ValueError(f"channel_moments: x must be on a CUDA device, not {device}")
     code = build.dtype_code(dtype)

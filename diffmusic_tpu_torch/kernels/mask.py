@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from ..tracing import count
 from . import build
 from .device import use_plain
 
@@ -69,6 +70,7 @@ def launch_plan(name: str, shapes: tuple, strides: tuple, dtypes: tuple, devices
     device, mixed or other dtypes, h or r not contiguous, g in neither
     layout (as h, or for (B, T, C) with C % 8 == 0 the transposed view of a
     contiguous (B, C, T) tensor)."""
+    count("kernels.cache_miss", "mask.launch_plan")
     shape = shapes[0]
     if any(s != shape for s in shapes):
         raise ValueError(f"{name}: shapes differ: {[tuple(s) for s in shapes]}")

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from ..ops.mel import _filterbank_tensor, mel_filterbank
 from ..ops.stft import _dft_basis, frame_signal, overlap_add, spectrogram
+from ..tracing import count
 from .device import use_plain
 
 # launches of the kernel since the last reset (see kernels.launch_counts)
@@ -208,6 +209,7 @@ def mel_plan(n_fft: int, hop: int, win_length: int, n_mels: int, sample_rate: in
     hop < 1, win_length > n_fft, more than 128 mels, more shared memory
     than a block may use."""
     from . import build
+    count("kernels.cache_miss", "mel.mel_plan")
     if device.type != "cuda":
         raise ValueError(f"fused_mel_spectrogram: x must be on a CUDA device, not {device}")
     if hop < 1 or win_length > n_fft:

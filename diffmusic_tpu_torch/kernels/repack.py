@@ -11,12 +11,15 @@ tap-major copy ("conv2d_adjoint"). The modules keep their parameters in
 their own layouts; `cached(name, w, make)` makes `make(w)` once per (kernel,
 weight tensor) and keeps it until the tensor is written in place (its
 `_version` moves) or has died. `REPACKS` counts what was made per name
-(copies, or the adjoint's maps; not launches).
+(copies, or the adjoint's maps; not launches), and each make is a
+"kernels.cache_miss" count in the tracing recorder (`tracing.count`).
 """
 
 import weakref
 
 import torch
+
+from ..tracing import count
 
 # copies made since the last reset, per kernel
 REPACKS = {"conv2d_same": 0, "phase_convtranspose": 0, "conv1d_pair": 0,
@@ -37,6 +40,7 @@ def cached(name: str, w, make):
     hit = _CACHE.get(key)
     if hit is not None and hit[0]() is not None and hit[1] == w._version:
         return hit[2]
+    count("kernels.cache_miss", f"repack.{name}")
     with torch.no_grad():
         copy = make(w)
     for k in [k for k, (ref, _, _) in _CACHE.items() if ref() is None]:

@@ -85,7 +85,8 @@ def run_denoise_loop(step_fn, model_fn, latents: torch.Tensor, timesteps,
     generator's place.
 
     Each step's model call is a "unet_forward" range and its step a
-    "guided_step" range (`tracing.annotate`), as in the JAX package.
+    "guided_step" range (`tracing.annotate`), as in the JAX package; each
+    carries the step's (index, timestep) to the spans recorded inside it.
 
     `progress` prints each step's timestep and loss (a host read a step);
     callback(step_index, timestep, latents), if given, runs after every
@@ -100,19 +101,19 @@ def run_denoise_loop(step_fn, model_fn, latents: torch.Tensor, timesteps,
         t = int(t)
         arg = draws[i] if draws is not None else generator
         if grad:
-            def body(x_in, arg_in, t=t):
-                with annotate("unet_forward"):
+            def body(x_in, arg_in, t=t, i=i):
+                with annotate("unet_forward", (i, t)):
                     eps = model_fn(x_in, t)
-                with annotate("guided_step"):
+                with annotate("guided_step", (i, t)):
                     prev, _x0, loss = step_fn(eps, t, x_in, arg_in)
                 return prev, loss
             with torch.enable_grad():
                 x, loss = (checkpoint(body, x, arg, use_reentrant=False) if remat
                            else body(x, arg))
         else:
-            with torch.no_grad(), annotate("unet_forward"):
+            with torch.no_grad(), annotate("unet_forward", (i, t)):
                 eps = model_fn(x, t)
-            with annotate("guided_step"):
+            with annotate("guided_step", (i, t)):
                 x, _x0, loss = step_fn(eps, t, x, arg)
         losses.append(loss.detach().float())
         if progress:

@@ -50,6 +50,7 @@ from ..models.vae import AutoencoderKL
 from ..ops.stft import magphase_spectrogram
 from ..parallel.mesh import Mesh, shard_batch_dp, sharded_batch
 from ..samplers import DiffusionSchedule, SamplerConfig, ditto_draws, make_step_fn
+from ..tracing import annotate, mark_backward
 from .base import (AudioPipelineOutput, byte_tokenizer, compute_geometry,
                    denoise_with_nan_retry, mel_spectrogram_to_waveform_with_phase,
                    prepare_latents, run_denoise_loop, run_ditto)
@@ -185,7 +186,14 @@ class MusicLDMPipeline:
 
     def make_loss_fn(self, measurement: torch.Tensor, original_waveform_length: int,
                      supervised_space: str = "mel_spectrogram"):
-        """rec_loss(pred_x0_latent) = sum over clips of || y - A(decode(x0)) ||_F."""
+        """rec_loss(pred_x0_latent) = sum over clips of || y - A(decode(x0)) ||_F.
+
+        Its stages are the ranges "guided.vae" (the decode), "guided.vocoder"
+        (the operator's inverse transform through HiFi-GAN) and
+        "guided.loss_head" (the slice, the fp32 cast, the operator, its
+        transform and the norm); while a profiler records, each stage's
+        output also cuts the backward into "<stage>.backward" spans
+        (`tracing.mark_backward`)."""
         op = self.operator
         if supervised_space == "mel_spectrogram":
             target = op.transform(measurement)
@@ -196,11 +204,16 @@ class MusicLDMPipeline:
                 "supervised_space should be either 'wav_form' or 'mel_spectrogram'")
 
         def loss_fn(x0_latent):
-            mel = self.decode_mel(x0_latent)
-            audio = op.inverse_transform(mel, self.mel_to_waveform)
-            # fp32 loss head whatever the weights' dtype
-            audio = audio[:, :original_waveform_length].float()
-            return per_clip_loss(target, op, audio, supervised_space)
+            with annotate("guided.vae"):
+                mel = mark_backward(self.decode_mel(x0_latent), "guided.vae")
+            with annotate("guided.vocoder"):
+                audio = mark_backward(op.inverse_transform(mel, self.mel_to_waveform),
+                                      "guided.vocoder")
+            with annotate("guided.loss_head"):
+                # fp32 loss head whatever the weights' dtype
+                audio = audio[:, :original_waveform_length].float()
+                return mark_backward(per_clip_loss(target, op, audio, supervised_space),
+                                     "guided.loss_head")
 
         return loss_fn
 

@@ -5,8 +5,9 @@ Each returns (prev_sample, pred_original_sample, rec_loss). `loss_fn` maps the
 pred-x0 latent to a scalar; each guided gradient is `torch.autograd.grad` of it
 on a detached leaf (x_t, or x0-hat for MPGD), taken under
 `torch.enable_grad()` so that callers may run the UNet under
-`torch.no_grad()`. Norms and the slerp's weights stay device tensors: no step
-reads a value back to the host.
+`torch.no_grad()`, inside a "guided.backward" range (`tracing.annotate`).
+Norms and the slerp's weights stay device tensors: no step reads a value
+back to the host.
 
 DITTO's inner step is plain DDIM with eta noise, differentiable with respect
 to the sample (the pipeline's outer loop differentiates the whole chain with
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from ..parallel import mesh as pmesh
+from ..tracing import annotate
 from .schedule import DiffusionSchedule
 
 LossFn = Callable[[torch.Tensor], torch.Tensor]  # pred_x0 latent -> scalar
@@ -67,7 +69,8 @@ def _loss_and_grad_of_sample(schedule, eps, t, sample, loss_fn, scale=1.0):
         s = sample.detach().requires_grad_(True)
         x0 = schedule.pred_original(eps.detach(), t, s)
         loss = loss_fn(x0) / scale
-        (grad,) = torch.autograd.grad(loss, s)
+        with annotate("guided.backward"):
+            (grad,) = torch.autograd.grad(loss, s)
     return loss.detach(), grad, x0.detach()
 
 
@@ -133,7 +136,8 @@ def mpgd_step(schedule: DiffusionSchedule, cfg: SamplerConfig,
     with torch.enable_grad():
         leaf = x0.requires_grad_(True)
         loss = loss_fn(leaf)
-        (grad,) = torch.autograd.grad(loss, leaf)
+        with annotate("guided.backward"):
+            (grad,) = torch.autograd.grad(loss, leaf)
     x0 = x0.detach() - cfg.ip_guidance_rate * grad
     prev = _ddim_mean(a_prev, std, x0, _recomposed_eps(schedule, t, sample, x0))
     if cfg.eta > 0:

@@ -4,16 +4,34 @@
   Chrome trace (`chrome://tracing`, Perfetto) under `logdir`. The denoise
   loop marks each step's "unet_forward" and "guided_step"
   (`pipelines/base.py::run_denoise_loop`), as the JAX package does.
-- `annotate(name)`: a named range, `record_function` in the profiler's trace
-  and an NVTX range on the card.
+- `annotate(name, step)`: a named range, an NVTX range on the card and,
+  while a `torch.profiler` session records (a `trace`, or any other
+  profiler), a `record_function` range in the profiler's trace and a span in
+  the recorder.
+- The recorder: a bounded in-memory buffer that `spans()` returns, filled
+  only while a profiler records (the flag the profiler itself sets). A span
+  holds its name, start and end (`time.time_ns()`, the clock the profiler
+  stamps its events with), thread, id, the id of the enclosing span and the
+  denoise step it belongs to: (clip-local index, timestep), which the
+  denoise loop passes to its ranges and the ranges inside them inherit.
+  `count(name, what)` adds a point event; `mark_backward(tensor, name)`
+  cuts the backward span open when autograd reaches `tensor` into one span
+  a stage (`<name>.backward`). With no profiler recording a range costs
+  that one check and its NVTX push and pop, and no hook is registered.
 - `debug_nans(enable)`: raise `FloatingPointError` at the first op whose
   floating output holds a NaN, as `jax_debug_nans` does (debug only).
 - `device_memory_stats()`: the caching allocator's live and peak bytes per
   card.
 - The per-step loss on the host: `show_progress=True` on a pipeline call.
+
+No span name starts with "cu": a reader of the profiler's host events may
+take such names for CUDA runtime calls.
 """
 
+import collections
 import contextlib
+import itertools
+import threading
 import time
 from pathlib import Path
 
@@ -39,19 +57,150 @@ def trace(logdir):
     prof.export_chrome_trace(str(logdir / f"trace_{time.time_ns()}.json"))
 
 
+# the recorder's buffer (spans and counts, oldest first; the oldest fall out
+# when it is full), the spans open on any thread in the order they opened,
+# and each thread's own stack of open spans
+_RECORDS = collections.deque(maxlen=1 << 16)
+_OPEN = []
+_LOCK = threading.Lock()
+_IDS = itertools.count(1)
+_LOCAL = threading.local()
+
+
+def _recording() -> bool:
+    """Whether a profiler session records: the flag `torch.profiler` sets."""
+    return torch.autograd._profiler_enabled()
+
+
+class _Span:
+    __slots__ = ("id", "name", "start", "end", "thread", "parent", "step", "marks")
+
+    def __init__(self, name, thread, parent, step):
+        self.id, self.name, self.thread = next(_IDS), name, thread
+        self.start = self.end = time.time_ns()
+        self.parent, self.step, self.marks = parent, step, []
+
+
+def _stack() -> list:
+    stack = getattr(_LOCAL, "stack", None)
+    if stack is None:
+        stack = _LOCAL.stack = []
+    return stack
+
+
+def _enclosing():
+    """The innermost span open on this thread, else the latest opened on
+    any thread (autograd's device thread opens none of its own)."""
+    stack = _stack()
+    if stack:
+        return stack[-1]
+    with _LOCK:
+        return _OPEN[-1] if _OPEN else None
+
+
+def _record(kind, name, start, end, thread, parent, step, span_id=None, what=None) -> None:
+    rec = {"kind": kind, "name": name, "start": start, "end": end, "thread": thread,
+           "id": span_id, "parent": parent, "step": step, "what": what}
+    with _LOCK:
+        _RECORDS.append(rec)
+
+
+def _open(name: str, step) -> _Span:
+    parent = _enclosing()
+    if step is None and parent is not None:
+        step = parent.step
+    span = _Span(name, threading.get_ident(), parent.id if parent is not None else None, step)
+    _stack().append(span)
+    with _LOCK:
+        _OPEN.append(span)
+    return span
+
+
+def _close(span: _Span) -> None:
+    _stack().pop()
+    with _LOCK:
+        _OPEN.remove(span)
+        marks = list(span.marks)
+    _record("span", span.name, span.start, span.end, span.thread, span.parent, span.step,
+            span.id)
+    for k, (name, t, thread) in enumerate(marks):
+        stop = marks[k + 1][1] if k + 1 < len(marks) else span.end
+        _record("span", f"{name}.backward", t, stop, thread, span.id, span.step, next(_IDS))
+
+
 @contextlib.contextmanager
-def annotate(name: str):
-    """A named range: `with annotate("vae_decode"): ...`. It shows in a
-    `trace` and, on the card, as an NVTX range."""
+def annotate(name: str, step=None):
+    """A named range: `with annotate("vae_decode"): ...`. It shows on the
+    card as an NVTX range and, while a profiler records, in its trace as a
+    `record_function` range and in `spans()` as a span; `step` (clip-local
+    index, timestep) names the denoise step, which ranges opened inside it
+    inherit."""
     nvtx = torch.cuda.is_available()
     if nvtx:
         torch.cuda.nvtx.range_push(name)
     try:
-        with torch.profiler.record_function(name):
+        if not _recording():
             yield
+            return
+        # the bookkeeping lies outside the profiler's range and the stamps
+        # just inside it, so that the span matches the range on its clock
+        span = _open(name, step)
+        try:
+            with torch.profiler.record_function(name):
+                span.start = time.time_ns()
+                try:
+                    yield
+                finally:
+                    span.end = time.time_ns()
+        finally:
+            _close(span)
     finally:
         if nvtx:
             torch.cuda.nvtx.range_pop()
+
+
+def _mark(name: str) -> None:
+    if _recording():
+        t = time.time_ns()
+        with _LOCK:
+            if _OPEN:
+                _OPEN[-1].marks.append((name, t, threading.get_ident()))
+
+
+def mark_backward(tensor: torch.Tensor, name: str) -> torch.Tensor:
+    """While a profiler records, a hook on `tensor`, the output of the
+    forward stage `name`: when autograd's backward reaches it (on the thread
+    that runs the backward, autograd's device thread on the card), the span
+    latest opened and still open, on any thread, enters `name`'s backward,
+    recorded when that span closes as the span `<name>.backward`, from the
+    hook to the next such hook or the span's end (not a `record_function`
+    range: it is cut after the fact). Registers nothing otherwise, or when
+    `tensor` needs no gradient. Returns `tensor`."""
+    if tensor.requires_grad and _recording():
+        tensor.register_hook(lambda grad: _mark(name))
+    return tensor
+
+
+def count(name: str, what=None) -> None:
+    """While a profiler records, a point event `name` in `spans()`, with
+    `what` it counts (which cache missed, say), the enclosing span and its
+    step."""
+    if _recording():
+        t = time.time_ns()
+        parent = _enclosing()
+        _record("count", name, t, t, threading.get_ident(),
+                parent.id if parent is not None else None,
+                parent.step if parent is not None else None, what=what)
+
+
+def spans() -> list:
+    """The recorder's buffer, oldest first: dicts with `kind` ("span" or
+    "count"), `name`, `start` and `end` (ns, the profiler's clock; a count's
+    are equal), `thread`, `id` (spans), `parent` (the enclosing span's id or
+    None), `step` ((clip-local index, timestep) or None) and `what`
+    (counts)."""
+    with _LOCK:
+        return list(_RECORDS)
 
 
 class _NaNCheck(TorchDispatchMode):

@@ -158,7 +158,9 @@ class MusicDereverberationOperator(BaseOperator):
     """A(x) = x correlated with a random cumsum impulse response, drawn once
     from `ir_generator` at construction (the JAX package's divergence from
     the reference, which redraws it on every call); the transform is the
-    clamped dB mel."""
+    clamped dB mel. The response is copied to a device once per (device,
+    dtype) and kept there (`response`): a step's loss makes no copy from host
+    memory, and so no stream synchronise."""
     ir_length: int = 800
     decay_factor: float = 0.85
     noiser: BaseNoise = field(default_factory=GaussianNoise)
@@ -169,13 +171,23 @@ class MusicDereverberationOperator(BaseOperator):
         ir = generate_impulse_response(_seeded(self.ir_generator), self.ir_length,
                                        self.decay_factor)
         object.__setattr__(self, "ir", ir.cpu().numpy())
+        object.__setattr__(self, "_on_device", {})
+
+    def response(self, device, dtype):
+        """`ir` on `device` in `dtype`, made on the first call and reused
+        while `ir` is the same array."""
+        held = self._on_device.get((device, dtype))
+        if held is None or held[0] is not self.ir:
+            held = self._on_device[(device, dtype)] = (
+                self.ir, torch.as_tensor(self.ir, dtype=dtype, device=device))
+        return held[1]
 
     def transform(self, audio):
         return _clamped_db_mel(audio)
 
     def forward(self, data, generator=None):
-        ir = torch.as_tensor(self.ir, dtype=data.dtype, device=data.device)
-        return self.noiser(convolve1d(data, ir), generator)
+        return self.noiser(convolve1d(data, self.response(data.device, data.dtype)),
+                           generator)
 
 
 @dataclass(frozen=True)

@@ -29,7 +29,10 @@ configs' 16 and 32 channels, padded to one 64-channel slice. The fused GroupNorm
 blocks a group, on its plan) runs at each of the fused route's 20 calls in
 bf16 and fp32, and a full-width UNet forward counts its 60 launches. The
 fused mel spectrogram is fp32 only, on both of its paths: 1e-4 of max
-|plain| forward, gradients too.
+|plain| forward, gradients too. The dereverberation filter's input gradient
+(no kernel of the port's: a correlation with the reversed response) runs at
+the dereverberation cell's shapes against a float64 oracle, within 1e-5 by
+relative L2, under cuDNN's default flags (TF32 allowed) and with TF32 off.
 """
 
 import math
@@ -1048,3 +1051,40 @@ def test_bf16_block_at_the_slice_shapes(cuda, gen, t, c, mode):
     ref = ttb.transformer_block_plain(x, p, c // 8, 8, ctx, biases, bsoft)
     assert torch.isfinite(out).all()
     assert rel(out, ref) <= 3e-2
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("allow_tf32", [True, False])
+def test_filter_adjoint_at_the_dereverberation_cell(cuda, allow_tf32):
+    """x (3, 160000), 5000 taps, decay 0.99: the input gradient, one
+    correlation of g with the reversed response, and the old route, cuDNN's
+    data gradient through the plain `F.conv1d`, each within relative L2 1e-5
+    of the library's float64 data gradient on the CPU and of each other.
+    TF32's 10-bit operands read about 3e-4 there, so the bound fails a TF32
+    engine; PyTorch's default allows one for cuDNN, as the benchmark runs."""
+    from diffmusic_tpu_torch.ops.filters import convolve1d, generate_impulse_response
+    gen = torch.Generator().manual_seed(23)
+    ir = generate_impulse_response(gen, 5000, 0.99)
+    x = torch.randn(3, 160000, generator=gen)
+    g = torch.randn(3, 160001, generator=gen)
+    oracle = torch.nn.grad.conv1d_input((3, 1, 160000), ir.double().reshape(1, 1, -1),
+                                        g.double().reshape(3, 1, -1), padding=2500)
+    xc, irc, gc = x.to(cuda).requires_grad_(True), ir.to(cuda), g.to(cuda)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = allow_tf32
+    try:
+        (new,) = torch.autograd.grad(convolve1d(xc, irc), xc, gc)
+        y = torch.nn.functional.conv1d(xc.reshape(3, 1, -1), irc.reshape(1, 1, -1),
+                                       padding=2500)
+        (old,) = torch.autograd.grad(y.reshape(3, -1), xc, gc)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    oracle = oracle.reshape(3, -1)
+    assert rel_l2(new, oracle) <= 1e-5, rel_l2(new, oracle)
+    assert rel_l2(old, oracle) <= 1e-5, rel_l2(old, oracle)
+    assert rel_l2(new, old) <= 1e-5

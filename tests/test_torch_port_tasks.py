@@ -9,7 +9,9 @@ the gradient of its guided loss within 1e-4 (dB of near-silent bins and
 long fp32 reductions); the phase-aware waveform within 1e-4. The STFT's
 phase is held against a float64 oracle (`phase_within`). Where an operator
 draws (the random mask, the reverb impulse response), the port's operator is
-given the JAX operator's array.
+given the JAX operator's array. The filter's gradients (the input's as a
+correlation with the reversed response) are held against autograd through
+the plain `F.conv1d` within 1e-5.
 """
 
 import dataclasses
@@ -170,6 +172,84 @@ def test_convolve1d_matches_jax(rng, taps):
     out = convolve1d(torch.from_numpy(x), torch.from_numpy(ir))
     assert out.shape == ref.shape == (2, 3000 + 2 * (taps // 2) - taps + 1)
     assert rel(out, ref) <= 1e-5
+
+
+def plain_convolve1d(x, ir):
+    """The filter as one `F.conv1d`, differentiated by autograd (cuDNN's
+    data gradient on a card)."""
+    taps = ir.shape[-1]
+    y = torch.nn.functional.conv1d(x.reshape(-1, 1, x.shape[-1]), ir.reshape(1, 1, taps),
+                                   padding=taps // 2)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+@pytest.mark.parametrize("shape", [(1200,), (3, 1200), (2, 3, 1200)])
+@pytest.mark.parametrize("taps", [1, 2, 7, 800, 801])
+def test_convolve1d_gradients_match_autograd(rng, taps, shape):
+    """The input gradient as the output gradient correlated with the
+    reversed response, and the response's gradient, against autograd through
+    the plain call, for odd and even lengths; the forward is the same call."""
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    ir = torch.from_numpy(rng.standard_normal(taps).astype(np.float32))
+    grads = []
+    for fn in (convolve1d, plain_convolve1d):
+        xx, kk = x.clone().requires_grad_(True), ir.clone().requires_grad_(True)
+        y = fn(xx, kk)
+        g = torch.from_numpy(np.random.default_rng(1).standard_normal(y.shape).astype(np.float32))
+        grads.append((y.detach(), *torch.autograd.grad(y, (xx, kk), g)))
+    (y, dx, dk), (y0, dx0, dk0) = grads
+    assert y.shape == y0.shape == (*shape[:-1], 1200 + 2 * (taps // 2) - taps + 1)
+    assert torch.equal(y, y0)
+    assert dx.shape == x.shape and rel(dx, dx0) <= 1e-5
+    assert dk.shape == ir.shape and rel(dk, dk0) <= 1e-5
+
+
+@pytest.mark.parametrize("response_grad", [False, True])
+@pytest.mark.parametrize("taps", [7, 5000])
+def test_convolve1d_backward_runs_forward_correlations(taps, response_grad):
+    """The backward runs one forward convolution per gradient asked for and
+    never the library's convolution backward (cuDNN's data gradient on a
+    card)."""
+    gen = torch.Generator().manual_seed(taps)
+    x = torch.randn(3, 6000, generator=gen, requires_grad=True)
+    ir = torch.randn(taps, generator=gen, requires_grad=response_grad)
+    y = convolve1d(x, ir)
+    wrt = (x, ir) if response_grad else (x,)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        torch.autograd.grad(y, wrt, torch.ones_like(y))
+    ops = {e.key: e.count for e in prof.key_averages()}
+    assert not [k for k in ops if "convolution_backward" in k]
+    assert ops.get("aten::convolution") == len(wrt)
+
+
+@pytest.mark.parametrize("allow_tf32", [True, False])
+def test_convolve1d_backward_turns_tf32_off(monkeypatch, allow_tf32):
+    """Each correlation of the backward runs with cuDNN's TF32 off, and the
+    caller's setting comes back after it."""
+    from diffmusic_tpu_torch.ops import filters
+    seen = []
+    conv1d = filters.F.conv1d
+
+    def recording(*args, **kwargs):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return conv1d(*args, **kwargs)
+
+    x = torch.randn(2, 500, requires_grad=True)
+    ir = torch.randn(64, requires_grad=True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", allow_tf32)
+    y = convolve1d(x, ir)
+    monkeypatch.setattr(filters.F, "conv1d", recording)
+    torch.autograd.grad(y, (x, ir), torch.ones_like(y))
+    assert seen == [False, False]
+    assert torch.backends.cudnn.allow_tf32 is allow_tf32
+
+
+@pytest.mark.parametrize("taps", [6, 9])
+def test_convolve1d_gradcheck(taps):
+    gen = torch.Generator().manual_seed(taps)
+    x = torch.randn(2, 40, dtype=torch.float64, generator=gen, requires_grad=True)
+    ir = torch.randn(taps, dtype=torch.float64, generator=gen, requires_grad=True)
+    assert torch.autograd.gradcheck(convolve1d, (x, ir))
 
 
 def test_impulse_response_rule():
@@ -348,6 +428,26 @@ def test_operator_fields_match_jax():
     op = MusicDereverberationOperator(ir_length=64)
     x = torch.randn(1, 1000, generator=torch.Generator().manual_seed(0))
     assert torch.equal(op.forward(x), op.forward(x)) and op.forward(x).shape == (1, 1001)
+
+
+def test_dereverberation_keeps_one_response_per_device(monkeypatch):
+    """Two forwards on one device apply one response tensor, made once: no
+    copy from host memory a call. A response set after construction (as
+    `operator_pairs` sets the JAX one) is picked up."""
+    op = MusicDereverberationOperator(ir_length=64)
+    x = torch.randn(2, 1000, generator=torch.Generator().manual_seed(0))
+    made = []
+    as_tensor = torch.as_tensor
+    monkeypatch.setattr(torch, "as_tensor", lambda a, **kw: made.append(a) or as_tensor(a, **kw))
+    y1, held1 = op.forward(x), op.response(x.device, x.dtype)
+    y2, held2 = op.forward(x), op.response(x.device, x.dtype)
+    assert len(made) == 1 and made[0] is op.ir
+    assert held1 is held2 and torch.equal(held1, torch.from_numpy(op.ir))
+    assert torch.equal(y1, y2) and torch.equal(y1, convolve1d(x, torch.from_numpy(op.ir)))
+    ir = np.ascontiguousarray(op.ir[::-1])
+    object.__setattr__(op, "ir", ir)
+    assert torch.equal(op.forward(x), convolve1d(x, torch.from_numpy(ir)))
+    assert len(made) == 2 and made[1] is ir
 
 
 @pytest.mark.parametrize("given", [True, False])

@@ -45,6 +45,7 @@ from ..kernels.conv2d import CONV2D_BWD, conv2d_ok, conv2d_same
 from ..kernels.group_norm import (GN_MODES, fused_gn_ok, fused_group_norm, group_norm_plain,
                                   stats_group_norm)
 from ..kernels.transformer_block import fused_transformer_block
+from ..tracing import region
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
@@ -236,7 +237,9 @@ class BasicTransformerBlock(nn.Module):
     Long sequences (T >= 512 with inner == C) run as one fused kernel launch
     when the block is self-attention only, or when `fuse_cross` is on (the
     JAX package's `DIFFMUSIC_TPU_FUSED_CROSS`, off by default there too).
-    `bsoft` bounds the fused launches' self-attention softmax."""
+    `bsoft` bounds the fused launches' self-attention softmax. Each sub-layer,
+    or the fused launch, is a `tracing.region` (read by the benchmark's
+    per-layer metrics of the UNet)."""
 
     def __init__(self, dim: int, heads: int, head_dim: int,
                  cross_dims: Tuple[int, ...] = (), fuse_cross: bool = False,
@@ -276,16 +279,21 @@ class BasicTransformerBlock(nn.Module):
         fuse_cross = (self.cross_dims and fusable and self.fuse_cross
                       and len(contexts) == len(self.cross_dims))
         if (not self.cross_dims and fusable) or fuse_cross:
-            biases = tuple(
-                torch.zeros(x.shape[0], 1, ctx.shape[1], device=x.device) if m is None
-                else mask_bias(m)[:, 0] for ctx, m in zip(contexts, masks))
-            return fused_transformer_block(x, self.fused_params(), self.heads,
-                                           self.head_dim, tuple(contexts), biases, self.bsoft)
-        x = x + self.attn1(self.norm1(x))
+            with region("unet.fused_block"):
+                biases = tuple(
+                    torch.zeros(x.shape[0], 1, ctx.shape[1], device=x.device) if m is None
+                    else mask_bias(m)[:, 0] for ctx, m in zip(contexts, masks))
+                return fused_transformer_block(x, self.fused_params(), self.heads,
+                                               self.head_dim, tuple(contexts), biases,
+                                               self.bsoft)
+        with region("unet.self_attn"):
+            x = x + self.attn1(self.norm1(x))
         for i, m in enumerate(masks):
-            h = getattr(self, f"norm2_{i}")(x)
-            x = x + getattr(self, f"attn2_{i}")(h, contexts[i], m)
-        return x + self.ff(self.norm3(x))
+            with region("unet.cross_attn", i):
+                h = getattr(self, f"norm2_{i}")(x)
+                x = x + getattr(self, f"attn2_{i}")(h, contexts[i], m)
+        with region("unet.ff"):
+            return x + self.ff(self.norm3(x))
 
 
 class Transformer2DModel(nn.Module):

@@ -38,6 +38,7 @@ from ..models.t5 import T5EncoderModel
 from ..models.unet import UNet2DConditionModel
 from ..models.vae import AutoencoderKL
 from ..models.vits import VitsConfig, VitsTextEncoder
+from ..tracing import annotate
 from .base import byte_tokenizer
 from .musicldm import MusicLDMPipeline, _dtype
 
@@ -103,29 +104,36 @@ class AudioLDM2Pipeline(MusicLDMPipeline):
         (1, L, width), its mask (1, L)). The first stream is the prompt's
         normalised CLAP text embedding, or with prompt_type "clap" the
         measurement's CLAP audio embedding; the second is T5's encoding of
-        the prompt, or VITS's of the transcription in the TTS variant."""
-        if prompt_type == "clap":
-            if self.clap_audio_embed is None:
-                raise ValueError("prompt_type='clap' requires a CLAP audio tower "
-                                 "(clap_audio_embed); load one via from_pretrained")
-            clap = self.clap_audio_embed(measurement).float()
-        else:
-            clap = self._clap_text(text)
-        proj_dt = _dtype(self.projection)
-        clap = clap[:, None].to(proj_dt)                                 # (1, 1, 512)
-        clap_mask = torch.ones(clap.shape[:2], dtype=torch.long, device=clap.device)
+        the prompt, or VITS's of the transcription in the TTS variant. Each
+        stage is a span: "text.clap", "text.t5" (VITS in the TTS variant),
+        "text.projection", "text.gpt2"."""
+        if prompt_type == "clap" and self.clap_audio_embed is None:
+            raise ValueError("prompt_type='clap' requires a CLAP audio tower "
+                             "(clap_audio_embed); load one via from_pretrained")
         if transcription and self.vits is None:
             raise ValueError("transcription (TTS) requires the AudioLDM2-TTS variant with a "
                              "VITS text encoder; load one via from_pretrained")
-        if self.vits is not None:
-            ids, mask = self._tokens([transcription], self.vits_tokenizer or self.t5_tokenizer)
-            seq = self.vits(ids, mask)
-        else:
-            ids, mask = self._tokens([text], self.t5_tokenizer)
-            seq = self.t5(ids, mask)
-        projected, proj_mask = self.projection(clap, seq.to(proj_dt), clap_mask, mask)
-        generated = generate_hidden_states(self.gpt2, projected.to(_dtype(self.gpt2)),
-                                           proj_mask, self.max_new_tokens)
+        with annotate("text.clap"):
+            if prompt_type == "clap":
+                clap = self.clap_audio_embed(measurement).float()
+            else:
+                clap = self._clap_text(text)
+        proj_dt = _dtype(self.projection)
+        clap = clap[:, None].to(proj_dt)                                 # (1, 1, 512)
+        clap_mask = torch.ones(clap.shape[:2], dtype=torch.long, device=clap.device)
+        with annotate("text.t5"):
+            if self.vits is not None:
+                ids, mask = self._tokens([transcription],
+                                         self.vits_tokenizer or self.t5_tokenizer)
+                seq = self.vits(ids, mask)
+            else:
+                ids, mask = self._tokens([text], self.t5_tokenizer)
+                seq = self.t5(ids, mask)
+        with annotate("text.projection"):
+            projected, proj_mask = self.projection(clap, seq.to(proj_dt), clap_mask, mask)
+        with annotate("text.gpt2"):
+            generated = generate_hidden_states(self.gpt2, projected.to(_dtype(self.gpt2)),
+                                               proj_mask, self.max_new_tokens)
         return generated, seq, mask
 
     def encode_prompt(self, prompt, negative_prompt=None, do_classifier_free_guidance=True,

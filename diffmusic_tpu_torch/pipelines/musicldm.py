@@ -427,7 +427,8 @@ class MusicLDMPipeline:
         if output_type == "latent":
             out = final
         else:
-            audio = self.mel_to_waveform(self.decode_mel(final))[:, :owl].float()
+            with annotate("decode"):
+                audio = self.mel_to_waveform(self.decode_mel(final))[:, :owl].float()
             if phase_aware is None:
                 noiser = getattr(self.operator, "noiser", None)
                 phase_aware = getattr(noiser, "sigma", 1.0) <= 1e-6

@@ -7,7 +7,21 @@
 - `annotate(name, step)`: a named range, an NVTX range on the card and,
   while a `torch.profiler` session records (a `trace`, or any other
   profiler), a `record_function` range in the profiler's trace and a span in
-  the recorder.
+  the recorder. The spans: the denoise loop's "unet_forward" and
+  "guided_step"; the guided loss's "guided.vae", "guided.vocoder",
+  "guided.loss_head" and "guided.backward"; AudioLDM2's text stack,
+  "text.clap", "text.t5", "text.projection", "text.gpt2", once a prompt
+  (`pipelines/audioldm2.py::_encode_one`); a call's final "decode" (the
+  VAE decoder and the vocoder, `pipelines/musicldm.py::__call__`).
+- `region(name, what)`: a sub-stage marked inside a span, recorded in
+  `spans()` as kind "region" while a profiler records, and nothing else: no
+  NVTX range, no `record_function` range, no place on the span stack, so
+  that it relabels nothing a reader of spans labels. With no profiler
+  recording it costs one check of the flag and returns a shared no-op
+  context. The UNet's transformer blocks mark "unet.self_attn",
+  "unet.cross_attn" (`what` the stream's index), "unet.ff" and, where the
+  block runs as one fused launch, "unet.fused_block"
+  (`models/layers.py::BasicTransformerBlock`).
 - The recorder: a bounded in-memory buffer that `spans()` returns, filled
   only while a profiler records (the flag the profiler itself sets). A span
   holds its name, start and end (`time.time_ns()`, the clock the profiler
@@ -193,12 +207,46 @@ def count(name: str, what=None) -> None:
                 parent.step if parent is not None else None, what=what)
 
 
+class _Region:
+    __slots__ = ("name", "what", "start")
+
+    def __init__(self, name, what):
+        self.name, self.what = name, what
+
+    def __enter__(self):
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        parent = _enclosing()
+        _record("region", self.name, self.start, end, threading.get_ident(),
+                parent.id if parent is not None else None,
+                parent.step if parent is not None else None, what=self.what)
+        return False
+
+
+_NO_REGION = contextlib.nullcontext()
+
+
+def region(name: str, what=None):
+    """A sub-stage inside a span: `with region("unet.ff"): ...`. While a
+    profiler records, a record of kind "region" in `spans()` with `what`
+    (a stream's index, say), the enclosing span and its step; it opens no
+    span, NVTX or `record_function` range, so that readers of the spans see
+    what they saw without it. Otherwise one check of the flag and a shared
+    no-op context."""
+    if not _recording():
+        return _NO_REGION
+    return _Region(name, what)
+
+
 def spans() -> list:
-    """The recorder's buffer, oldest first: dicts with `kind` ("span" or
-    "count"), `name`, `start` and `end` (ns, the profiler's clock; a count's
-    are equal), `thread`, `id` (spans), `parent` (the enclosing span's id or
-    None), `step` ((clip-local index, timestep) or None) and `what`
-    (counts)."""
+    """The recorder's buffer, oldest first: dicts with `kind` ("span",
+    "count" or "region"), `name`, `start` and `end` (ns, the profiler's
+    clock; a count's are equal), `thread`, `id` (spans), `parent` (the
+    enclosing span's id or None), `step` ((clip-local index, timestep) or
+    None) and `what` (counts and regions)."""
     with _LOCK:
         return list(_RECORDS)
 

@@ -10,8 +10,9 @@
 - the recorder: under `torch.profiler` one guided step of a tiny MusicLDM
   records "unet_forward", "guided_step", the loss's three stages and
   "guided.backward" inside it, and the backward's three stages in the order
-  loss head, vocoder, VAE, each on the profiler's clock; with no profiler it
-  records nothing and registers no hook; a plan cache or weight copy missed
+  loss head, vocoder, VAE, each on the profiler's clock, and the call's
+  final "decode" after it, inside no span; with no profiler it records
+  nothing and registers no hook; a plan cache or weight copy missed
   twice counts two "kernels.cache_miss" events.
 """
 
@@ -139,10 +140,16 @@ def test_guided_step_records_its_stages(sampler, dps_step):
     by = {}
     for r in spans:
         by.setdefault(r["name"], []).append(r)
-    assert set(by) == {"unet_forward", "guided_step", "guided.backward", *STAGES, *BACKWARD}
+    assert set(by) == {"unet_forward", "guided_step", "guided.backward", *STAGES, *BACKWARD,
+                       "decode"}
     assert all(len(v) == 1 for v in by.values()), {k: len(v) for k, v in by.items()}
     step = by["guided_step"][0]
     assert step["step"] == by["unet_forward"][0]["step"] and step["step"][0] == 0
+    # the call's final decode follows the denoise loop, inside no span
+    decode = by.pop("decode")[0]
+    assert decode["parent"] is None and decode["step"] is None
+    assert decode["start"] >= step["end"]
+    spans = [r for r in spans if r is not decode]
     assert all(r["step"] == step["step"] for r in spans)
     inside = [by[n][0] for n in (*STAGES, "guided.backward")]
     assert [r["name"] for r in inside] == [*STAGES, "guided.backward"]
@@ -160,7 +167,7 @@ def test_spans_lie_on_the_profilers_clock(dps_step):
     recs, events = dps_step
     timed = [r for r in recs if r["kind"] == "span" and r["name"] in events]
     assert {r["name"] for r in timed} == {"unet_forward", "guided_step", "guided.backward",
-                                          *STAGES}
+                                          *STAGES, "decode"}
     for r in timed:
         start, end = min(events[r["name"]], key=lambda e: abs(e[0] - r["start"]))
         assert abs(start - r["start"]) < 1e6 and abs(end - r["end"]) < 1e6, (r, start, end)
